@@ -1,0 +1,607 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
+GPU: the quickest proof that the port builds and runs on the card.
+
+    python3 chip_smoke.py
+
+What it does, in order, printing the seconds of each phase:
+
+1. environment: the card's name and power limit (``nvidia-smi``), the torch
+   and CUDA versions, and the build of every CUDA kernel from
+   ``src/repro_torch/csrc`` (one ``nvcc`` per source, all in parallel);
+2. the main path, with every kernel's launch count set to 0 just before and
+   read just after: SmolLM-360M at full width and depth from random weights
+   (seed 0), eager fp64 calibration on 16 synthetic samples of 256 tokens,
+   D-Rank compression at 20%, then ``Engine.generate`` on 8 prompts of 64
+   tokens with 32 new tokens each. Every kernel must have launched;
+3. every kernel against its plain PyTorch version on the card, at the main
+   path's shapes (the plan's ranks) and ragged ones, in bfloat16 and
+   float32: max-relative error within 2e-5 (float32) and 2e-2 (bfloat16);
+4. each kernel's device time for the work it does in one prefill or one
+   decode step of the main path, beside its plain version's time, one
+   PyTorch library call's time and the bound the card's peak rates set;
+5. decode throughput of the dense and the D-Rank model at batch 8 and 64,
+   and a ``torch.profiler`` view of one D-Rank decode step: host time,
+   device-busy time, launches per step;
+6. the whole slice in float32 on the card (kernels) against the CPU (plain
+   versions): identical greedy tokens, prefill logits within atol 2e-3.
+
+The line before the last is one JSON object ``{"kernels": [...]}``; the last
+is ``{"ok": true, "device": {...}}``. Any failure raises, so the script
+exits non-zero and prints no result; so it does with no CUDA device, or
+without the repository's ``src/repro_torch`` beside it.
+"""
+from __future__ import annotations
+
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# NVIDIA H100 SXM data sheet, dense: HBM bytes/s and peak operations/s
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}     # tests/test_kernels.py:15
+LOGITS_ATOL = 2e-3                            # tests/test_kernels.py:141
+
+ARCH = "smollm-360m"
+CALIB_SAMPLES, CALIB_SEQ, CALIB_BATCH = 16, 256, 4
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 8, 64, 32
+PARITY_BATCH, PARITY_PROMPT, PARITY_STEPS = 4, 32, 16
+
+KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
+    "lowrank_gemv": ("src/repro_torch/csrc/lowrank_matmul.cu",
+                     "src/repro/kernels/lowrank_matmul.py:73"),
+    "lowrank_matmul_2d": ("src/repro_torch/csrc/lowrank_matmul.cu",
+                          "src/repro/kernels/lowrank_matmul.py:115"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:74"),
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:94"),
+}
+
+
+def log(msg: str = "") -> None:
+    print(msg, flush=True)
+
+
+class Phase:
+    """Prints a phase's name and, when it ends without error, its
+    seconds. Exceptions pass through: a failed phase fails the run."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        log(f"== {self.name}")
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, *_):
+        if exc_type is None:
+            log(f"-- {self.name}: {time.perf_counter() - self.t0:.1f} s")
+        return False
+
+
+def card_line() -> str:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60, check=True)
+    return r.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# Helpers over the port
+# ---------------------------------------------------------------------------
+class Port:
+    """The port's modules, imported once ``src`` is on the path."""
+
+    def __init__(self):
+        import torch
+
+        from repro_torch.configs import get_config
+        from repro_torch.core import capture, compress
+        from repro_torch.data import synthetic
+        from repro_torch.kernels import _build, ops, ref
+        from repro_torch.kernels import decode_attention as da
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import lowrank_matmul as lm
+        from repro_torch.models import transformer
+        from repro_torch.serve import engine
+        self.torch = torch
+        self.get_config = get_config
+        self.capture, self.compress = capture, compress
+        self.synthetic = synthetic
+        self.build, self.ops, self.ref = _build, ops, ref
+        self.T, self.engine = transformer, engine
+        self.wrappers = {"lowrank_gemv": lm.lowrank_gemv,
+                         "lowrank_matmul_2d": lm.lowrank_matmul_2d,
+                         "flash_attention": fa.flash_attention_bshd,
+                         "decode_attention": da.decode_attention_bkgh}
+
+    def reset_counts(self) -> None:
+        for w in self.wrappers.values():
+            w.launches = 0
+
+    def counts(self):
+        return {n: w.launches for n, w in self.wrappers.items()}
+
+
+def linears(params):
+    """Every factorized linear {B, C} of a list-form params tree, in model
+    order."""
+    out = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            if "B" in node and "C" in node:
+                out.append(node)
+                return
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, list):
+            for v in node:
+                walk(v)
+    walk(params["decoder"])
+    return out
+
+
+def rel_err(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / (b.abs().max() + 1e-6))
+
+
+def abs_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def device_ms(torch, fn, reps: int = 5) -> float:
+    """Device time of ``fn`` in ms, median of ``reps`` runs. A sleep kernel
+    holds the stream while the host enqueues ``fn``'s launches, so the
+    events time the device's work and not the host's launch rate."""
+    fn()                                               # warm up
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000_000)                 # ~0.1 s of cycles
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def bound_ms(nbytes: float, ops: float, dtype: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# Phases
+# ---------------------------------------------------------------------------
+def build_kernels(port) -> None:
+    t0 = time.perf_counter()
+    secs = port.build.build_all()
+    log(f"kernel build: {time.perf_counter() - t0:.1f} s wall "
+        f"({', '.join(f'{n} {s:.1f} s' for n, s in secs.items())})")
+    for name in secs:
+        text = port.build.build_log(name)
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores",
+                                             text)]
+        log(f"  {name}: {len(regs)} entry points, max {max(regs or [0])} "
+            f"registers, {sum(spills)} bytes of spill stores")
+
+
+def main_path(port, dev):
+    """Calibrate, compress and serve SmolLM-360M. Returns (cfg, dense
+    params, compressed params, plan, launch counts)."""
+    torch, T, CC = port.torch, port.T, port.compress
+    cfg = port.get_config(ARCH)
+    port.reset_counts()
+    t0 = time.perf_counter()
+    params, _ = T.init_model(cfg, seed=0, device=dev)
+    log(f"init_model: {T.param_count(params) / 1e6:.1f} M params, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    dcfg = port.synthetic.DataConfig(vocab_size=cfg.vocab_size,
+                                     seq_len=CALIB_SEQ,
+                                     global_batch=CALIB_BATCH)
+    calib = [{"tokens": torch.as_tensor(b["tokens"], device=dev)}
+             for b in port.synthetic.calibration_batches(
+                 dcfg, CALIB_SAMPLES, CALIB_BATCH)]
+    col = CC.calibrate(port.capture.to_list_params(params, cfg), cfg, calib,
+                       streaming=False)
+    torch.cuda.synchronize()
+    log(f"calibration: {len(col.gram)} Grams (fp64) from {CALIB_SAMPLES} x "
+        f"{CALIB_SEQ} tokens, {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    comp, plan = CC.build_plan_and_params(
+        params, cfg, CC.CompressionConfig(method="drank", ratio=0.2), calib,
+        collector=col, streaming=False)
+    ks = [g.k for g in plan.groups]
+    log(f"D-Rank: achieved ratio {plan.summary['achieved_ratio']:.4f} over "
+        f"{len(ks)} groups, ranks {min(ks)}..{max(ks)}, SVDs in "
+        f"{CC.LINALG}, {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    eng = port.engine.Engine(comp, cfg, port.engine.ServeConfig(
+        batch=GEN_BATCH, max_len=GEN_PROMPT + GEN_NEW + 1), device=dev)
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT), dtype=np.int32)
+    toks = eng.generate(prompts, GEN_NEW)
+    torch.cuda.synchronize()
+    counts = port.counts()
+    log(f"generate: {GEN_BATCH} x {GEN_PROMPT} prompt tokens, {GEN_NEW} new "
+        f"each, {time.perf_counter() - t0:.1f} s")
+    log(f"launches on the main path: {counts}")
+    missing = [n for n, c in counts.items() if c <= 0]
+    assert not missing, f"kernels not launched on the main path: {missing}"
+    assert toks.shape == (GEN_BATCH, GEN_NEW), toks.shape
+    assert ((toks >= 0) & (toks < cfg.vocab_size)).all(), "token out of range"
+    logits, _ = T.prefill(eng.params, cfg, {"tokens": torch.as_tensor(
+        prompts, device=dev)}, max_len=GEN_PROMPT + 1)
+    assert torch.isfinite(logits).all(), "non-finite logits"
+    log(f"first tokens of row 0: {toks[0, :8].tolist()}")
+    return cfg, params, comp, plan, counts
+
+
+def check_kernels(port, dev, comp):
+    """Each kernel against its plain version on the card. Returns {name:
+    max abs error}."""
+    torch, ref = port.torch, port.ref
+    w = port.wrappers
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def rnd(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(dtype)
+
+    # the plan's (K, R, N) at the first layer, the largest rank, and a
+    # ragged shape with nothing a multiple of anything
+    lins = linears(comp)
+    shapes = {(int(p["B"].shape[0]), int(p["B"].shape[1]),
+               int(p["C"].shape[1])) for p in lins[:7]}
+    big = max(lins, key=lambda p: p["B"].shape[1])
+    shapes.add((int(big["B"].shape[0]), int(big["B"].shape[1]),
+                int(big["C"].shape[1])))
+    shapes.add((100, 13, 77))
+    errs = {n: 0.0 for n in w}
+    for dtype, dname in ((torch.bfloat16, "bfloat16"),
+                         (torch.float32, "float32")):
+        worst = {n: 0.0 for n in w}
+        for K, R, N in sorted(shapes):
+            B = rnd((K, R), dtype, K ** -0.5)
+            C = rnd((R, N), dtype, R ** -0.5)
+            for M in (1, 8, 64, 100, GEN_BATCH * GEN_PROMPT):
+                x = rnd((M, K), dtype)
+                name = ("lowrank_gemv" if M <= port.ops.GEMV_MAX_ROWS
+                        else "lowrank_matmul_2d")
+                y = w[name](x, B, C)
+                yr = ref.lowrank_matmul(x, B, C)
+                torch.cuda.synchronize()
+                worst[name] = max(worst[name], rel_err(y, yr))
+                errs[name] = max(errs[name], abs_err(y, yr))
+        # flash: G = 3 at SmolLM's heads; causal, window, softcap, ragged
+        for Bb, S, causal, window, cap in ((2, 64, True, 0, 0.0),
+                                           (2, 128, True, 48, 0.0),
+                                           (2, 64, True, 0, 30.0),
+                                           (3, 50, False, 0, 0.0),
+                                           (1, 77, True, 16, 20.0)):
+            q = rnd((Bb, S, 15, 64), dtype)
+            k = rnd((Bb, S, 5, 64), dtype)
+            v = rnd((Bb, S, 5, 64), dtype)
+            o = w["flash_attention"](q, k, v, causal=causal, window=window,
+                                     softcap=cap)
+            orf = ref.flash_attention(q, k, v, causal=causal, window=window,
+                                      softcap=cap)
+            torch.cuda.synchronize()
+            worst["flash_attention"] = max(worst["flash_attention"],
+                                           rel_err(o, orf))
+            errs["flash_attention"] = max(errs["flash_attention"],
+                                          abs_err(o, orf))
+        # decode: full layout with a dead slot and mixed lengths; ring
+        for L, window, lens in ((97, 0, [0, 1, 17, 64, 80, 96, 97, 33]),
+                                (32, 32, [0, 5, 31, 32, 33, 77, 96, 1])):
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            q = rnd((8, 5, 3, 64), dtype)
+            k = rnd((8, L, 5, 64), dtype)
+            v = rnd((8, L, 5, 64), dtype)
+            o = w["decode_attention"](q, k, v, lengths, window=window)
+            orf = ref.decode_attention(q.reshape(8, 15, 64), k, v, lengths,
+                                       window=window).reshape(8, 5, 3, 64)
+            torch.cuda.synchronize()
+            assert (o[0] == 0).all(), "dead slot must give exact zeros"
+            worst["decode_attention"] = max(worst["decode_attention"],
+                                            rel_err(o, orf))
+            errs["decode_attention"] = max(errs["decode_attention"],
+                                           abs_err(o, orf))
+        for n, e in worst.items():
+            log(f"  {n} {dname}: max-relative error {e:.2e} "
+                f"(tolerance {TOL[dname]:.0e})")
+            assert e <= TOL[dname], f"{n} disagrees with its plain version"
+    return errs
+
+
+def time_kernels(port, dev, cfg, comp):
+    """Per kernel: the device time of the work it does in one prefill or
+    one decode step of the main path, its plain version's, one library
+    call's, and the bound."""
+    torch, ref = port.torch, port.ref
+    F = torch.nn.functional
+    w = port.wrappers
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    lins = [(p["B"].to(bf), p["C"].to(bf)) for p in linears(comp)]
+    H, KV, hd, nl = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+    rows = {"lowrank_gemv": GEN_BATCH,
+            "lowrank_matmul_2d": GEN_BATCH * GEN_PROMPT}
+    out = {}
+    for name, M in rows.items():
+        xs = [torch.randn((M, B.shape[0]), generator=gen, device=dev
+                          ).to(bf) for B, _ in lins]
+        nbytes = sum(2 * (M * B.shape[0] + B.numel() + C.numel()
+                          + M * C.shape[1]) for B, C in lins)
+        ops = sum(2 * M * B.shape[1] * (B.shape[0] + C.shape[1])
+                  for B, C in lins)
+        out[name] = dict(
+            work=f"{len(lins)} compressed linears at {M} rows (one "
+                 f"{'decode step' if M == GEN_BATCH else 'prefill'})",
+            ms=device_ms(torch, lambda: [w[name](x, B, C) for x, (B, C)
+                                         in zip(xs, lins)]),
+            plain_ms=device_ms(torch, lambda: [ref.lowrank_matmul(x, B, C)
+                                               for x, (B, C)
+                                               in zip(xs, lins)]),
+            library_ms=device_ms(torch, lambda: [
+                torch.linalg.multi_dot([x, B, C])
+                for x, (B, C) in zip(xs, lins)]),
+            bound=bound_ms(nbytes, ops, "bfloat16"))
+
+    # flash: one prefill's attention, nl layers of (8, 64, 15, 64)
+    Bb, S = GEN_BATCH, GEN_PROMPT
+    qs = [torch.randn((Bb, S, H, hd), generator=gen, device=dev).to(bf)
+          for _ in range(nl)]
+    kvs = [(torch.randn((Bb, S, KV, hd), generator=gen, device=dev).to(bf),
+            torch.randn((Bb, S, KV, hd), generator=gen, device=dev).to(bf))
+           for _ in range(nl)]
+    qt = [q.transpose(1, 2).contiguous() for q in qs]
+    kvt = [(k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous())
+           for k, v in kvs]
+    pairs = S * (S + 1) // 2                      # causal (query, key) pairs
+    out["flash_attention"] = dict(
+        work=f"{nl} layers of causal attention at B={Bb} S={S} H={H} "
+             f"KV={KV} hd={hd} (one prefill)",
+        ms=device_ms(torch, lambda: [w["flash_attention"](q, k, v)
+                                     for q, (k, v) in zip(qs, kvs)]),
+        plain_ms=device_ms(torch, lambda: [ref.flash_attention(q, k, v)
+                                           for q, (k, v) in zip(qs, kvs)]),
+        library_ms=device_ms(torch, lambda: [
+            F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                           enable_gqa=True)
+            for q, (k, v) in zip(qt, kvt)]),
+        bound=bound_ms(nl * 2 * Bb * (2 * S * H * hd + 2 * S * KV * hd),
+                       nl * 4 * Bb * H * hd * pairs, "bfloat16"))
+
+    # decode: one decode step's attention, nl layers, every slot mid-way
+    L = GEN_PROMPT + GEN_NEW + 1
+    ln = GEN_PROMPT + GEN_NEW // 2
+    lengths = torch.full((Bb,), ln, dtype=torch.int32, device=dev)
+    qd = [torch.randn((Bb, KV, H // KV, hd), generator=gen, device=dev
+                      ).to(bf) for _ in range(nl)]
+    cache = [(torch.randn((Bb, L, KV, hd), generator=gen, device=dev).to(bf),
+              torch.randn((Bb, L, KV, hd), generator=gen, device=dev).to(bf))
+             for _ in range(nl)]
+    qdt = [q.reshape(Bb, H, 1, hd) for q in qd]
+    cdt = [(k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous())
+           for k, v in cache]
+    mask = (torch.arange(L, device=dev)[None, :] < lengths[:, None]
+            )[:, None, None, :]
+    out["decode_attention"] = dict(
+        work=f"{nl} layers of decode attention at B={Bb} H={H} KV={KV} "
+             f"hd={hd}, {ln} live cache rows per slot (one decode step)",
+        ms=device_ms(torch, lambda: [w["decode_attention"](q, k, v, lengths)
+                                     for q, (k, v) in zip(qd, cache)]),
+        plain_ms=device_ms(torch, lambda: [
+            ref.decode_attention(q.reshape(Bb, H, hd), k, v, lengths)
+            for q, (k, v) in zip(qd, cache)]),
+        library_ms=device_ms(torch, lambda: [
+            F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                           enable_gqa=True)
+            for q, (k, v) in zip(qdt, cdt)]),
+        bound=bound_ms(nl * 2 * (2 * Bb * H * hd + 2 * Bb * ln * KV * hd),
+                       nl * 4 * Bb * H * hd * ln, "bfloat16"))
+    for name, r in out.items():
+        log(f"  {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]}) -- {r['work']}")
+    return out
+
+
+def throughput(port, dev, cfg, params, comp):
+    """Decode tokens/s of the dense and the D-Rank model, in turns."""
+    E = port.engine
+    res = {}
+    engines = {"dense": E.Engine(params, cfg, E.ServeConfig(), device=dev),
+               "drank-20%": E.Engine(comp, cfg, E.ServeConfig(), device=dev)}
+    for batch in (8, 64):
+        for name in ("dense", "drank-20%", "drank-20%", "dense"):
+            m = engines[name].measure_decode_throughput(
+                batch=batch, prompt_len=128, n_new=64)
+            res.setdefault((name, batch), []).append(m)
+            log(f"  {name:9s} batch {batch:2d}: {m['tokens_per_s']:9.1f} "
+                f"tokens/s, {m['ms_per_step']:.3f} ms/step")
+    return res
+
+
+def profile_decode(port, dev, cfg, comp, steps: int = 4):
+    """Where a D-Rank decode step's time goes at batch 8: host ms/step
+    (timed without the profiler), device-busy ms/step and launches per
+    step (``torch.profiler`` over ``steps`` more steps), and the device
+    time of the port's kernels against all of it."""
+    torch, T = port.torch, port.T
+    from torch.profiler import ProfilerActivity, profile
+    eng = port.engine.Engine(comp, cfg, port.engine.ServeConfig(),
+                             device=dev)
+    prompts = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (GEN_BATCH, 128), dtype=np.int32), device=dev)
+
+    def step(cache, tok):
+        logits, cache = T.decode_step(eng.params, cfg, cache, tok)
+        return cache, torch.argmax(logits[:, -1:], -1).to(torch.int32)
+
+    with torch.inference_mode():
+        logits, cache = T.prefill(eng.params, cfg, {"tokens": prompts},
+                                  max_len=128 + 3 * steps + 1)
+        tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
+        cache, tok = step(cache, tok)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            cache, tok = step(cache, tok)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / steps * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                cache, tok = step(cache, tok)
+            torch.cuda.synchronize()
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+    busy = sum(dev_us(e) for e in events) / steps / 1e3
+    ours = sum(dev_us(e) for e in events if "drt::" in e.key) / steps / 1e3
+    launches = sum(e.count for e in events if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
+        "cudaLaunchKernelExC")) / steps
+    log(f"  {host_ms:.3f} ms/step on the host clock; device busy "
+        f"{busy:.3f} ms/step (idle {1 - busy / host_ms:.1%}); "
+        f"{launches:.0f} kernel launches/step; the port's kernels "
+        f"{ours:.3f} ms/step of device time")
+    if busy == 0:
+        log("  device time: not measured (the profiler saw no device "
+            "activity)")
+    for e in sorted(events, key=dev_us, reverse=True)[:8]:
+        log(f"    {dev_us(e) / steps / 1e3:8.3f} ms/step  "
+            f"{e.count // steps:5d}/step  {e.key[:70]}")
+
+
+def parity(port, dev, cfg, comp):
+    """The compressed model in float32 on the card (kernels) and on the
+    CPU (plain versions): identical greedy tokens, prefill logits within
+    atol 2e-3."""
+    torch, T = port.torch, port.T
+    cfg32 = cfg.replace(dtype="float32")
+    prompts = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (PARITY_BATCH, PARITY_PROMPT), dtype=np.int32)
+
+    def greedy(device):
+        p = port.engine.place_params(comp, torch.float32, device)
+        with torch.inference_mode():
+            logits, cache = T.prefill(
+                p, cfg32, {"tokens": torch.as_tensor(prompts, device=device)},
+                max_len=PARITY_PROMPT + PARITY_STEPS + 1)
+            steps = [logits.float().cpu()]
+            for _ in range(PARITY_STEPS):
+                tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
+                logits, cache = T.decode_step(p, cfg32, cache, tok)
+                steps.append(logits.float().cpu())
+        return steps
+
+    gpu = greedy(dev)
+    cpu = greedy(torch.device("cpu"))
+    diffs = [abs_err(a, b) for a, b in zip(gpu, cpu)]
+    toks_g = [s[:, -1].argmax(-1) for s in gpu]
+    toks_c = [s[:, -1].argmax(-1) for s in cpu]
+    same = all(torch.equal(a, b) for a, b in zip(toks_g, toks_c))
+    log(f"  prefill logits max |card - cpu| = {diffs[0]:.3e} (atol "
+        f"{LOGITS_ATOL:.0e}); over all {len(diffs)} steps "
+        f"{max(diffs):.3e}; tokens identical: {same}")
+    if not same:
+        for i, (a, b) in enumerate(zip(toks_g, toks_c)):
+            for r in torch.nonzero(a != b).flatten().tolist():
+                top = torch.topk(cpu[i][r, -1], 2).values
+                log(f"  step {i} row {r}: card {int(a[r])} cpu {int(b[r])}, "
+                    f"cpu argmax margin {float(top[0] - top[1]):.3e}")
+    assert diffs[0] < LOGITS_ATOL, "prefill logits differ from the CPU's"
+    assert same, "greedy tokens differ between the card and the CPU"
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available; this smoke runs the "
+              "port on the card", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke: the port's package is not at {SRC}/repro_torch; "
+              f"run this script from the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    with Phase("environment"):
+        card = card_line()
+        log(card)
+        log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+            f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+        port = Port()
+        build_kernels(port)
+    with Phase("main path: SmolLM-360M, calibrate, D-Rank 20%, generate"):
+        cfg, params, comp, plan, counts = main_path(port, dev)
+    with Phase("kernels against their plain versions on the card"):
+        errs = check_kernels(port, dev, comp)
+    with Phase("kernel times (bfloat16, main-path shapes)"):
+        times = time_kernels(port, dev, cfg, comp)
+    with Phase("decode throughput, prompt 128, 64 new tokens"):
+        tput = throughput(port, dev, cfg, params, comp)
+    step_ms = np.median([m["ms_per_step"] for m in tput[("drank-20%", 8)]])
+    kern_ms = times["lowrank_gemv"]["ms"] + times["decode_attention"]["ms"]
+    log(f"D-Rank decode step at batch 8: {step_ms:.3f} ms/step against "
+        f"{kern_ms:.3f} ms of gemv + decode-attention kernel time "
+        f"(kernel share {kern_ms / step_ms:.1%})")
+    with Phase("decode step profile, D-Rank 20%, batch 8"):
+        profile_decode(port, dev, cfg, comp)
+    with Phase("parity: float32, card kernels against CPU plain versions"):
+        parity(port, dev, cfg, comp)
+
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        t = times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": counts[name],
+            "max_abs_err": errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+            "work": t["work"]})
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

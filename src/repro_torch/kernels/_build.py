@@ -1,0 +1,147 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` process into a shared
+library with a plain C interface (``extern "C"`` functions that take device
+pointers, sizes and a stream, and return ``cudaGetLastError()``), and loaded
+with ``ctypes``. All sources build in parallel at first use, for ``sm_90a``
+(Hopper), into ``build/torch_kernels/`` at the root of the checkout; a
+library is named after a hash of its sources and flags, so an unchanged
+source is never rebuilt. Nothing here runs at import time: this module is
+imported on machines without a CUDA toolkit, where only the plain PyTorch
+versions run.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+SOURCES = ("lowrank_matmul", "flash_attention", "decode_attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+# seconds each library took to build in this process (0.0: already built)
+build_seconds: Dict[str, float] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME); the "
+                           "CUDA kernels cannot be built")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> Dict[str, float]:
+    """Compile every source that is not built yet, one ``nvcc`` each, all
+    started together. Returns {name: build seconds}. Raises with the
+    compiler's output if any build fails."""
+    with _lock:
+        todo = {n: _target(n) for n in SOURCES
+                if n not in build_seconds and not _target(n).exists()}
+        for n in SOURCES:
+            if n not in todo:
+                build_seconds.setdefault(n, 0.0)
+        if not todo:
+            return dict(build_seconds)
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = {}
+        t0 = time.perf_counter()
+        for n, out in todo.items():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT,
+                                         text=True), tmp, out)
+        failed = []
+        for n, (p, tmp, out) in procs.items():
+            log, _ = p.communicate()
+            build_seconds[n] = time.perf_counter() - t0
+            out.with_suffix(".log").write_text(log)
+            if p.returncode != 0:
+                failed.append(f"--- {n} (exit {p.returncode}) ---\n{log}")
+                build_seconds.pop(n)
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        return dict(build_seconds)
+
+
+def build_log(name: str) -> str:
+    """The compiler's output (``-Xptxas -v``: registers, shared memory,
+    spills) of the last build of ``name`` in this checkout."""
+    p = _target(name).with_suffix(".log")
+    return p.read_text() if p.exists() else ""
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    so = _libs.get(name)
+    if so is None:
+        build_all()
+        with _lock:
+            so = _libs.get(name)
+            if so is None:
+                so = ctypes.CDLL(str(_target(name)))
+                _libs[name] = so
+    return so
+
+
+# ---------------------------------------------------------------------------
+# Launch helpers shared by the wrappers
+# ---------------------------------------------------------------------------
+P = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_operands(what: str, *tensors: torch.Tensor) -> int:
+    """Validate the operands a kernel takes (one CUDA device, one dtype of
+    float32/bfloat16 for the float operands, contiguous) and return the
+    dtype code the C interface expects."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: kernel operands must be CUDA tensors, "
+                         f"got {dev}")
+    dtype = tensors[0].dtype
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what}: dtype {dtype} not supported "
+                        f"(float32 or bfloat16)")
+    for t in tensors:
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{what}: operands disagree in device/dtype: "
+                             f"{t.device}/{t.dtype} vs {dev}/{dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: operand of shape {tuple(t.shape)} is "
+                             f"not contiguous")
+    return _DTYPE_CODES[dtype]
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_rc(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")

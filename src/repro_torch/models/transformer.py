@@ -1,0 +1,320 @@
+"""Model assembly: embeddings, kind-run layer stacks, final norm, LM head;
+full-sequence forward, cached decode step and prefill (counterpart of
+``repro/models/transformer.py``).
+
+A model is a sequence of layer *runs* — consecutive layers of the same kind
+(see ``ModelConfig.layer_kinds``). A run's parameters are either stacked
+along a leading axis (the form ``init_model`` builds) or a *list* of
+per-layer trees — the deploy form of a D-Rank-compressed model whose
+per-layer ranks differ. PyTorch runs eagerly, so both forms execute as a
+Python loop over layers; a stacked run is indexed layer by layer (views, no
+copies).
+
+This slice serves the ``attn`` and ``swa`` kinds of decoder-only models.
+The recurrent kinds, MoE, encoder-decoder wiring, M-RoPE and the paged
+cache come with their model families (ROADMAP Queue 1, items 7 and 10).
+
+Batch dictionary convention: ``tokens`` (B, S) int, optional ``positions``
+(B, S) int and, for prefill, ``lengths`` (B,) int.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import rotary
+from repro_torch.models.attention import (attend_decode, attend_full,
+                                          attend_prefill, init_attention,
+                                          init_kv_cache)
+from repro_torch.models.mlp import apply_mlp, init_mlp
+from repro_torch.models.params import (Builder, Params, apply_linear,
+                                       rms_norm, softcap)
+
+KINDS = ("attn", "swa")
+
+
+def dtype_of(name: str) -> torch.dtype:
+    """torch dtype for a config dtype name ("bfloat16", "float32", ...)."""
+    return getattr(torch, name)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    kinds = set(cfg.layer_kinds())
+    if (not kinds <= set(KINDS) or cfg.moe.num_experts
+            or cfg.is_encoder_decoder or cfg.rope_kind == "mrope"
+            or cfg.frontend):
+        raise NotImplementedError(
+            f"{cfg.name}: only decoder-only attn/swa models with dense FFNs "
+            f"are ported so far (ROADMAP Queue 1, item 10)")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+def _init_block(b: Builder, cfg: ModelConfig, n: int) -> None:
+    """One run of `n` layers (stacked along leading dim)."""
+    stack = (n,)
+    b.rmsnorm("ln1", cfg.d_model, stack)
+    init_attention(b.sub("attn"), cfg, stack)
+    b.rmsnorm("ln2", cfg.d_model, stack)
+    if cfg.d_ff:
+        init_mlp(b.sub("mlp"), cfg, cfg.d_ff, stack)
+
+
+def init_model(cfg: ModelConfig, seed: int = 0,
+               device: DeviceLike = None) -> Tuple[Params, Params]:
+    """Random weights from ``seed`` on ``device`` (the card by default).
+    Returns (params, specs) — parallel trees in the JAX package's layout."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    b = Builder(gen, dev, param_dtype=dtype_of(cfg.param_dtype))
+    b.normal("embed", (cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+             scale=1.0 / cfg.d_model ** 0.5)
+    dec = b.sub("decoder")
+    for r, (_kind, n) in enumerate(cfg.layer_runs()):
+        _init_block(dec.sub(f"run{r}"), cfg, n)
+    b.rmsnorm("final_norm", cfg.d_model)
+    if not cfg.tie_embeddings:
+        b.linear("lm_head", cfg.d_model, cfg.vocab_size, ("embed", "vocab"))
+    return b.params, b.specs
+
+
+def param_count(params: Params) -> int:
+    return sum(t.numel() for t in tree_leaves(params))
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tree_leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def tree_index(tree, i: int):
+    """Layer i of a stacked run: every tensor leaf indexed on its leading
+    axis (a view); other leaves (capture tags) pass through."""
+    if isinstance(tree, dict):
+        return {k: tree_index(v, i) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    return tree
+
+
+def _layers(run_p: Any, n: int):
+    """Per-layer trees of a run, in either form."""
+    if isinstance(run_p, list):
+        return run_p
+    return [tree_index(run_p, i) for i in range(n)]
+
+
+def _params_device(params: Params) -> torch.device:
+    return params["embed"].device
+
+
+# ---------------------------------------------------------------------------
+# Rope angles per kind
+# ---------------------------------------------------------------------------
+def _angles_for(cfg: ModelConfig, kind: str,
+                positions: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    if cfg.rope_kind == "none" or positions is None:
+        return None
+    local = kind in ("swa", "hymba") and cfg.rope_theta_local > 0
+    theta = cfg.rope_theta_local if local else cfg.rope_theta
+    return rotary.rope_angles(positions, cfg.head_dim, theta)
+
+
+def _kind_window(cfg: ModelConfig, kind: str) -> int:
+    if kind in ("swa", "hymba"):
+        return cfg.sliding_window
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence block application (train / eval)
+# ---------------------------------------------------------------------------
+def _block_fwd(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
+               angles: Optional[torch.Tensor], causal: bool) -> torch.Tensor:
+    h = rms_norm(p["ln1"], x, cfg.norm_eps)
+    x = x + attend_full(p["attn"], cfg, h, angles, causal=causal,
+                        window=_kind_window(cfg, kind))
+    if "mlp" in p:
+        h = rms_norm(p["ln2"], x, cfg.norm_eps)
+        x = x + apply_mlp(p["mlp"], cfg, h)
+    return x
+
+
+def _run_layers(run_p: Any, n: int, x: torch.Tensor, body) -> torch.Tensor:
+    """Apply a run, list (compressed deploy) or stacked form.
+    `body(p_layer, x) -> x`."""
+    for pl in _layers(run_p, n):
+        x = body(pl, x)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+def embed_tokens(params: Params, cfg: ModelConfig,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    emb = params["embed"].to(dtype_of(cfg.dtype))
+    x = emb[tokens.to(device=emb.device, dtype=torch.long)]
+    if cfg.scale_embed:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def lm_logits(params: Params, cfg: ModelConfig,
+              x: torch.Tensor) -> torch.Tensor:
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"].to(x.dtype).T
+    else:
+        logits = apply_linear(params["lm_head"], x)
+    return softcap(logits, cfg.logit_softcap)
+
+
+def _default_positions(cfg: ModelConfig, batch: Dict,
+                       device: torch.device) -> Optional[torch.Tensor]:
+    if cfg.rope_kind == "none":
+        return None
+    if "positions" in batch:
+        return torch.as_tensor(batch["positions"], device=device)
+    B, S = batch["tokens"].shape[0], batch["tokens"].shape[1]
+    return rotary.make_positions(B, S, device)
+
+
+def _tokens(batch: Dict, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(batch["tokens"], device=device)
+
+
+# ---------------------------------------------------------------------------
+# Forward (train / eval, full sequence)
+# ---------------------------------------------------------------------------
+def forward(params: Params, cfg: ModelConfig,
+            batch: Dict) -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence forward. Returns (logits (B,S,V), aux)."""
+    check_supported(cfg)
+    dev = _params_device(params)
+    x = embed_tokens(params, cfg, _tokens(batch, dev))
+    positions = _default_positions(cfg, batch, dev)
+    for r, (kind, n) in enumerate(cfg.layer_runs()):
+        angles = _angles_for(cfg, kind, positions)
+        x = _run_layers(
+            params["decoder"][f"run{r}"], n, x,
+            lambda pl, xx, kind=kind, angles=angles: _block_fwd(
+                kind, cfg, pl, xx, angles, causal=True))
+    logits = lm_logits(params, cfg, x)
+    return logits, {"moe_aux": torch.zeros((), device=dev)}
+
+
+# ---------------------------------------------------------------------------
+# Decode (single step with caches)
+# ---------------------------------------------------------------------------
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: DeviceLike = None) -> Dict:
+    """Cache tree: per-run stacked caches + per-sequence positions. Every
+    slot starts dead (pos = -1)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = dtype_of(cfg.dtype)
+    runs: Dict[str, Any] = {}
+    for r, (kind, n) in enumerate(cfg.layer_runs()):
+        win = _kind_window(cfg, kind)
+        kv = init_kv_cache(cfg, batch, max_len, win, dtype, dev)
+        runs[f"run{r}"] = {"kv": {k: t[None].repeat(n, 1, 1, 1, 1)
+                                  for k, t in kv.items()}}
+    return {"runs": runs,
+            "pos": torch.full((batch,), -1, dtype=torch.int32, device=dev)}
+
+
+def _block_decode(kind: str, cfg: ModelConfig, p: Params, kv: Dict,
+                  x: torch.Tensor, pos: torch.Tensor,
+                  angles: Optional[torch.Tensor]) -> torch.Tensor:
+    h = rms_norm(p["ln1"], x, cfg.norm_eps)
+    out, _ = attend_decode(p["attn"], cfg, h, pos, kv, angles,
+                           window=_kind_window(cfg, kind))
+    x = x + out
+    if "mlp" in p:
+        h = rms_norm(p["ln2"], x, cfg.norm_eps)
+        x = x + apply_mlp(p["mlp"], cfg, h)
+    return x
+
+
+def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
+                tokens: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                ) -> Tuple[torch.Tensor, Dict]:
+    """One new token per sequence. tokens (B,1) int. The KV cache is
+    updated in place; ``cache["pos"]`` is replaced: dead slots (pos = -1)
+    stay dead, live slots advance. Returns (logits (B,1,V), cache)."""
+    dev = _params_device(params)
+    pos = cache["pos"]
+    x = embed_tokens(params, cfg, tokens)
+    rp = positions if positions is not None else pos[:, None]
+    for r, (kind, n) in enumerate(cfg.layer_runs()):
+        angles = _angles_for(cfg, kind, rp)
+        kv = cache["runs"][f"run{r}"]["kv"]
+        for i, pl in enumerate(_layers(params["decoder"][f"run{r}"], n)):
+            x = _block_decode(kind, cfg, pl,
+                              {"k": kv["k"][i], "v": kv["v"][i]}, x, pos,
+                              angles)
+    logits = lm_logits(params, cfg, x)
+    cache["pos"] = torch.where(pos >= 0, pos + 1, pos).to(device=dev)
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Prefill (full sequence -> cache)
+# ---------------------------------------------------------------------------
+def prefill(params: Params, cfg: ModelConfig, batch: Dict,
+            max_len: int) -> Tuple[torch.Tensor, Dict]:
+    """Process the prompt, build the decode cache. Returns (logits of the
+    last live position (B, 1, V), cache).
+
+    ``batch["lengths"]`` (B,) int, optional: per-row live prompt lengths
+    when prompts are right-padded to a common length; cache slots past a
+    row's length are zeroed, the logits are each row's last LIVE position,
+    and cache ``pos`` starts at the per-row length."""
+    check_supported(cfg)
+    dev = _params_device(params)
+    lengths = batch.get("lengths")
+    if lengths is not None:
+        lengths = torch.as_tensor(lengths, device=dev).to(torch.int32)
+    x = embed_tokens(params, cfg, _tokens(batch, dev))
+    B, S, _ = x.shape
+    positions = _default_positions(cfg, batch, dev)
+    runs: Dict[str, Any] = {}
+    for r, (kind, n) in enumerate(cfg.layer_runs()):
+        angles = _angles_for(cfg, kind, positions)
+        win = _kind_window(cfg, kind)
+        ks, vs = [], []
+        for pl in _layers(params["decoder"][f"run{r}"], n):
+            h = rms_norm(pl["ln1"], x, cfg.norm_eps)
+            out, kv = attend_prefill(pl["attn"], cfg, h, angles, causal=True,
+                                     window=win, max_len=max_len,
+                                     lengths=lengths)
+            x = x + out
+            if "mlp" in pl:
+                h = rms_norm(pl["ln2"], x, cfg.norm_eps)
+                x = x + apply_mlp(pl["mlp"], cfg, h)
+            ks.append(kv["k"])
+            vs.append(kv["v"])
+        runs[f"run{r}"] = {"kv": {"k": torch.stack(ks),
+                                  "v": torch.stack(vs)}}
+    if lengths is None:
+        x_last = x[:, -1:]
+        pos0 = torch.full((B,), S, dtype=torch.int32, device=dev)
+    else:
+        x_last = x[torch.arange(B, device=dev), (lengths - 1).long()][:, None]
+        pos0 = lengths
+    logits = lm_logits(params, cfg, x_last)
+    return logits, {"runs": runs, "pos": pos0}

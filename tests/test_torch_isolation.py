@@ -1,0 +1,50 @@
+"""The port stands alone: ``import repro_torch`` loads no JAX, and no file
+of the port (nor ``chip_smoke.py``) imports JAX or any module of the JAX
+package ``repro``."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+# `import jax`, `from jax...`, `import repro` / `import repro.x`,
+# `from repro import` / `from repro.x import` — never `repro_torch`
+_JAX = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
+_REPRO = re.compile(r"^\s*(import\s+repro(\s|\.|,|$)|from\s+repro(\s|\.))",
+                    re.M)
+
+
+def test_import_loads_no_jax():
+    code = ("import sys, repro_torch, repro_torch.serve.engine, "
+            "repro_torch.core.compress, repro_torch.bridge; "
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
+            "m.startswith('repro.')); print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_sources_import_no_jax_and_nothing_of_repro():
+    assert (ROOT / "chip_smoke.py").exists()
+    assert len(SOURCES) > 20
+    for path in SOURCES:
+        text = path.read_text()
+        assert not _JAX.search(text), f"{path} imports jax"
+        assert not _REPRO.search(text), f"{path} imports the JAX package"
+        assert "importlib.import_module(\"repro." not in text, path
+
+
+def test_scan_patterns():
+    assert _REPRO.search("from repro.models import params")
+    assert _REPRO.search("import repro.core.compress as C")
+    assert _REPRO.search("from repro import bridge")
+    assert not _REPRO.search("from repro_torch.models import params")
+    assert not _REPRO.search("import repro_torch")
+    assert _JAX.search("import jax.numpy as jnp")
+    assert not _JAX.search("import jaxtyping_free_module")
