@@ -9,21 +9,36 @@ What it does, in order, printing the seconds of each phase:
 1. environment: the card's name and power limit (``nvidia-smi``), the torch
    and CUDA versions, and the build of every CUDA kernel from
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, all in parallel);
-2. the main path, with every kernel's launch count set to 0 just before and
-   read just after: SmolLM-360M at full width and depth from random weights
-   (seed 0), eager fp64 calibration on 16 synthetic samples of 256 tokens,
-   D-Rank compression at 20%, then ``Engine.generate`` on 8 prompts of 64
-   tokens with 32 new tokens each. Every kernel must have launched;
-3. every kernel against its plain PyTorch version on the card, at the main
-   path's shapes (the plan's ranks) and ragged ones, in bfloat16 and
-   float32: max-relative error within 2e-5 (float32) and 2e-2 (bfloat16);
-4. each kernel's device time for the work it does in one prefill or one
-   decode step of the main path, beside its plain version's time, one
-   PyTorch library call's time and the bound the card's peak rates set;
-5. decode throughput of the dense and the D-Rank model at batch 8 and 64,
+2. the main path, compress on the card and serve, with every kernel's
+   launch count set to 0 just before and read just after: SmolLM-360M at
+   full width and depth from random weights (seed 0); streaming calibration
+   (``CC.calibrate``, its default) on 16 synthetic samples of 256 tokens in
+   4 batches, Grams through the ``gram_blocked`` kernel, folded into fp64
+   on the host every 2 batches; D-Rank at 20% with the decomposition on the
+   card (``device=True``, float64 ``torch.linalg``); ``save_plan`` into a
+   ``pytree_v1`` artifact; ``Engine.from_compressed(verify=True)``;
+   ``generate`` on 8 prompts of 64
+   tokens with 32 new tokens each, which must equal the tokens of an
+   ``Engine`` on the in-memory compressed params. Every kernel must have
+   launched. The seconds of each ingest and of the device decomposition
+   are taken inside this one run;
+3. the streaming Grams against the eager fp64 ``Collector`` on the card,
+   every tag: Gram and mean |x| within 1e-4 relative, equal row counts;
+4. the device decomposition against the host fp64 oracle at full width and
+   4 layers, model in float32: identical integer ranks, σ heads within 1e-5
+   relative, every group's B·C within 1e-4 relative;
+5. every kernel against its plain PyTorch version on the card, at the main
+   path's shapes (the plan's ranks, the calibration's activations) and
+   ragged ones, in bfloat16 and float32: max-relative error within 2e-5
+   (float32; and the Gram in both dtypes) and 2e-2 (bfloat16);
+6. each kernel's device time for the work it does in one prefill, one
+   decode step or one calibration batch of the main path, beside its plain
+   version's time, one PyTorch library call's time and the bound the
+   card's peak rates set;
+7. decode throughput of the dense and the D-Rank model at batch 8 and 64,
    and a ``torch.profiler`` view of one D-Rank decode step: host time,
    device-busy time, launches per step;
-6. the whole slice in float32 on the card (kernels) against the CPU (plain
+8. the whole slice in float32 on the card (kernels) against the CPU (plain
    versions): identical greedy tokens, prefill logits within atol 2e-3.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the last
@@ -33,8 +48,10 @@ without the repository's ``src/repro_torch`` beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -49,10 +66,16 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}     # tests/test_kernels.py:15
+GRAM_TOL = 2e-5          # fp32 sums of exactly widened inputs, both dtypes
 LOGITS_ATOL = 2e-3                            # tests/test_kernels.py:141
+CALIB_RTOL = 1e-4                          # tests/test_calib_capture.py:26
+SIG_TOL, FACTOR_TOL = 1e-5, 1e-4       # tests/test_compress_device.py:35-36
 
 ARCH = "smollm-360m"
 CALIB_SAMPLES, CALIB_SEQ, CALIB_BATCH = 16, 256, 4
+FLUSH_EVERY = 2                  # the fp64 host fold runs mid-stream
+ORACLE_LAYERS = 4                # depth of the host-vs-device phase
+ARTIFACT_DIR = ROOT / "build" / "chip_smoke_artifact"
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 8, 64, 32
 PARITY_BATCH, PARITY_PROMPT, PARITY_STEPS = 4, 32, 16
 
@@ -65,6 +88,8 @@ KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
                         "src/repro/kernels/flash_attention.py:74"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:94"),
+    "gram_blocked": ("src/repro_torch/csrc/gram.cu",
+                     "src/repro/kernels/gram.py:38"),
 }
 
 
@@ -112,6 +137,7 @@ class Port:
         from repro_torch.kernels import _build, ops, ref
         from repro_torch.kernels import decode_attention as da
         from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import gram as gm
         from repro_torch.kernels import lowrank_matmul as lm
         from repro_torch.models import transformer
         from repro_torch.serve import engine
@@ -124,7 +150,8 @@ class Port:
         self.wrappers = {"lowrank_gemv": lm.lowrank_gemv,
                          "lowrank_matmul_2d": lm.lowrank_matmul_2d,
                          "flash_attention": fa.flash_attention_bshd,
-                         "decode_attention": da.decode_attention_bkgh}
+                         "decode_attention": da.decode_attention_bkgh,
+                         "gram_blocked": gm.gram_blocked}
 
     def reset_counts(self) -> None:
         for w in self.wrappers.values():
@@ -181,6 +208,26 @@ def device_ms(torch, fn, reps: int = 5) -> float:
     return float(np.median(times))
 
 
+@contextlib.contextmanager
+def timed(torch, owner, name: str, sink: list):
+    """Within the block, each call of ``owner.name`` appends its seconds,
+    its device work included, to ``sink``."""
+    fn = getattr(owner, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        sink.append(time.perf_counter() - t0)
+        return out
+
+    setattr(owner, name, wrapper)
+    try:
+        yield sink
+    finally:
+        setattr(owner, name, fn)
+
+
 def bound_ms(nbytes: float, ops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
@@ -204,59 +251,162 @@ def build_kernels(port) -> None:
             f"registers, {sum(spills)} bytes of spill stores")
 
 
+def calib_batches(port, cfg, dev):
+    dcfg = port.synthetic.DataConfig(vocab_size=cfg.vocab_size,
+                                     seq_len=CALIB_SEQ,
+                                     global_batch=CALIB_BATCH)
+    return [{"tokens": port.torch.as_tensor(b["tokens"], device=dev)}
+            for b in port.synthetic.calibration_batches(
+                dcfg, CALIB_SAMPLES, CALIB_BATCH)]
+
+
 def main_path(port, dev):
-    """Calibrate, compress and serve SmolLM-360M. Returns (cfg, dense
-    params, compressed params, plan, launch counts)."""
-    torch, T, CC = port.torch, port.T, port.compress
+    """Calibrate (streaming), compress on the card, save, boot from the
+    artifact and serve SmolLM-360M. Returns (cfg, dense params, compressed
+    params, plan, launch counts, streaming collector, calibration
+    batches)."""
+    torch, T, CC, E = port.torch, port.T, port.compress, port.engine
+    Cap = port.capture
     cfg = port.get_config(ARCH)
+    secs, ingest, dec = {}, [], []
     port.reset_counts()
     t0 = time.perf_counter()
     params, _ = T.init_model(cfg, seed=0, device=dev)
     log(f"init_model: {T.param_count(params) / 1e6:.1f} M params, "
         f"{time.perf_counter() - t0:.1f} s")
 
+    calib = calib_batches(port, cfg, dev)
     t0 = time.perf_counter()
-    dcfg = port.synthetic.DataConfig(vocab_size=cfg.vocab_size,
-                                     seq_len=CALIB_SEQ,
-                                     global_batch=CALIB_BATCH)
-    calib = [{"tokens": torch.as_tensor(b["tokens"], device=dev)}
-             for b in port.synthetic.calibration_batches(
-                 dcfg, CALIB_SAMPLES, CALIB_BATCH)]
-    col = CC.calibrate(port.capture.to_list_params(params, cfg), cfg, calib,
-                       streaming=False)
+    with timed(torch, Cap.StreamingCalibrator, "ingest", ingest):
+        col = CC.calibrate(Cap.to_list_params(params, cfg), cfg, calib,
+                           flush_every=FLUSH_EVERY)
     torch.cuda.synchronize()
-    log(f"calibration: {len(col.gram)} Grams (fp64) from {CALIB_SAMPLES} x "
-        f"{CALIB_SEQ} tokens, {time.perf_counter() - t0:.1f} s")
+    secs["calibration"] = time.perf_counter() - t0
+    log(f"streaming calibration: {len(col.gram)} Grams from {len(calib)} "
+        f"batches of {CALIB_BATCH} x {CALIB_SEQ} tokens, fp64 host fold "
+        f"every {FLUSH_EVERY} batches, {secs['calibration']:.2f} s (ingest "
+        f"per batch " + ", ".join(f"{t:.3f}" for t in ingest) + " s)")
 
     t0 = time.perf_counter()
-    comp, plan = CC.build_plan_and_params(
-        params, cfg, CC.CompressionConfig(method="drank", ratio=0.2), calib,
-        collector=col, streaming=False)
+    with timed(torch, CC, "_decompose_groups_device", dec):
+        comp, plan = CC.build_plan_and_params(
+            params, cfg, CC.CompressionConfig(method="drank", ratio=0.2),
+            calib, collector=col, device=True)
+    torch.cuda.synchronize()
+    secs["build_plan_and_params"] = time.perf_counter() - t0
     ks = [g.k for g in plan.groups]
     log(f"D-Rank: achieved ratio {plan.summary['achieved_ratio']:.4f} over "
-        f"{len(ks)} groups, ranks {min(ks)}..{max(ks)}, SVDs in "
-        f"{CC.LINALG}, {time.perf_counter() - t0:.1f} s")
+        f"{len(ks)} groups, ranks {min(ks)}..{max(ks)}, "
+        f"{secs['build_plan_and_params']:.2f} s: device decomposition "
+        f"{sum(dec):.2f} s, rank allocation and factor assembly "
+        f"{secs['build_plan_and_params'] - sum(dec):.2f} s")
+
+    shutil.rmtree(ARTIFACT_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    path = CC.save_plan(str(ARTIFACT_DIR), comp, plan, cfg)
+    secs["save"] = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+    scfg = E.ServeConfig(batch=GEN_BATCH, max_len=GEN_PROMPT + GEN_NEW + 1)
+    t0 = time.perf_counter()
+    booted = E.Engine.from_compressed(str(ARTIFACT_DIR), cfg, scfg,
+                                      verify=True)
+    torch.cuda.synchronize()
+    secs["boot"] = time.perf_counter() - t0
+    assert booted.plan.to_json() == plan.to_json(), "plan changed on disk"
+    log(f"save_plan: {nbytes / 1e6:.1f} MB, {secs['save']:.2f} s; "
+        f"from_compressed(verify=True): {secs['boot']:.2f} s")
 
     t0 = time.perf_counter()
-    eng = port.engine.Engine(comp, cfg, port.engine.ServeConfig(
-        batch=GEN_BATCH, max_len=GEN_PROMPT + GEN_NEW + 1), device=dev)
     prompts = np.random.default_rng(1).integers(
         0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT), dtype=np.int32)
-    toks = eng.generate(prompts, GEN_NEW)
+    toks = booted.generate(prompts, GEN_NEW)
+    torch.cuda.synchronize()
+    secs["generate"] = time.perf_counter() - t0
+    toks_mem = E.Engine(comp, cfg, scfg, device=dev).generate(prompts,
+                                                              GEN_NEW)
     torch.cuda.synchronize()
     counts = port.counts()
-    log(f"generate: {GEN_BATCH} x {GEN_PROMPT} prompt tokens, {GEN_NEW} new "
-        f"each, {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(ARTIFACT_DIR, ignore_errors=True)
+    log(f"generate from the artifact: {GEN_BATCH} x {GEN_PROMPT} prompt "
+        f"tokens, {GEN_NEW} new each, {secs['generate']:.2f} s")
     log(f"launches on the main path: {counts}")
+    log("compression seconds: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in secs.items()))
     missing = [n for n, c in counts.items() if c <= 0]
     assert not missing, f"kernels not launched on the main path: {missing}"
     assert toks.shape == (GEN_BATCH, GEN_NEW), toks.shape
     assert ((toks >= 0) & (toks < cfg.vocab_size)).all(), "token out of range"
-    logits, _ = T.prefill(eng.params, cfg, {"tokens": torch.as_tensor(
+    assert (toks == toks_mem).all(), \
+        "the artifact's engine and the in-memory engine disagree"
+    logits, _ = T.prefill(booted.params, cfg, {"tokens": torch.as_tensor(
         prompts, device=dev)}, max_len=GEN_PROMPT + 1)
     assert torch.isfinite(logits).all(), "non-finite logits"
     log(f"first tokens of row 0: {toks[0, :8].tolist()}")
-    return cfg, params, comp, plan, counts
+    return cfg, params, comp, plan, counts, col, calib
+
+
+def _rel64(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.abs(a - b).max() / (np.abs(b).max() + 1e-30))
+
+
+def streaming_vs_eager(port, cfg, params, col, calib):
+    """The main path's streaming Grams against the eager fp64 Collector on
+    the same batches, every tag."""
+    CC = port.compress
+    eager = CC.calibrate(port.capture.to_list_params(params, cfg), cfg, calib,
+                         streaming=False)
+    assert sorted(col.gram) == sorted(eager.gram), "tag sets differ"
+    worst_g = worst_a = 0.0
+    for tag, g in eager.gram.items():
+        worst_g = max(worst_g, _rel64(col.gram[tag], g))
+        worst_a = max(worst_a, _rel64(col.mean_abs(tag), eager.mean_abs(tag)))
+        assert col.count[tag] == eager.count[tag], tag
+    log(f"  {len(eager.gram)} tags: Gram max-relative {worst_g:.3e}, mean "
+        f"|x| {worst_a:.3e} (tolerance {CALIB_RTOL:.0e}); counts equal")
+    assert worst_g < CALIB_RTOL and worst_a < CALIB_RTOL, \
+        "streaming statistics disagree with the eager fp64 oracle"
+
+
+def device_vs_host(port, dev, calib):
+    """Host fp64 decomposition (the oracle) against the device one at full
+    width and ORACLE_LAYERS layers, model in float32. Returns {path:
+    seconds}."""
+    torch, T, CC = port.torch, port.T, port.compress
+    cfg = port.get_config(ARCH).replace(n_layers=ORACLE_LAYERS,
+                                        dtype="float32")
+    params, _ = T.init_model(cfg, seed=0, device=dev)
+    col = CC.calibrate(port.capture.to_list_params(params, cfg), cfg, calib)
+    ccfg = CC.CompressionConfig(method="drank", ratio=0.2)
+    out, secs = {}, {}
+    for device in (False, True):
+        t0 = time.perf_counter()
+        out[device] = CC.build_plan_and_params(params, cfg, ccfg, calib,
+                                               collector=col, device=device)
+        torch.cuda.synchronize()
+        secs["device" if device else "host"] = time.perf_counter() - t0
+    (lp_h, plan_h), (lp_d, plan_d) = out[False], out[True]
+    ks_h = {g.gid: g.k for g in plan_h.groups}
+    ks_d = {g.gid: g.k for g in plan_d.groups}
+    flips = {g: (ks_h[g], ks_d[g]) for g in ks_h if ks_h[g] != ks_d.get(g)}
+    sig = max(_rel64(np.asarray(d.sigma_head), np.asarray(h.sigma_head))
+              for d, h in zip(plan_d.groups, plan_h.groups))
+    reff = max(abs(d.reff - h.reff) / h.reff
+               for d, h in zip(plan_d.groups, plan_h.groups))
+    fac = 0.0
+    for ld, lh in zip(linears(lp_d), linears(lp_h)):
+        pd = ld["B"].double() @ ld["C"].double()
+        ph = lh["B"].double() @ lh["C"].double()
+        fac = max(fac, float((pd - ph).abs().max() / ph.abs().max()))
+    log(f"  {len(ks_h)} groups at {ORACLE_LAYERS} layers: host fp64 "
+        f"{secs['host']:.2f} s ({CC.LINALG}), device "
+        f"{secs['device']:.2f} s; rank flips {len(flips)}; σ head "
+        f"max-relative {sig:.3e} (tolerance {SIG_TOL:.0e}); reff "
+        f"{reff:.3e}; B·C max-relative {fac:.3e} (tolerance "
+        f"{FACTOR_TOL:.0e})")
+    assert not flips, f"device ranks differ from the host's: {flips}"
+    assert sig < SIG_TOL, "device σ disagrees with the host oracle"
+    assert fac < FACTOR_TOL, "device factors disagree with the host oracle"
+    return secs
 
 
 def check_kernels(port, dev, comp):
@@ -330,10 +480,27 @@ def check_kernels(port, dev, comp):
                                             rel_err(o, orf))
             errs["decode_attention"] = max(errs["decode_attention"],
                                            abs_err(o, orf))
+        # gram: one calibration batch's two widths, a ragged N at an
+        # aligned width (vector loads), a ragged N and D (scalar loads);
+        # overwrite and accumulate into an accumulator
+        N = CALIB_BATCH * CALIB_SEQ
+        for n_rows, d in ((N, 960), (N, 2560), (N - 24, 960), (N - 24, 97)):
+            x = rnd((n_rows, d), dtype)
+            acc = rnd((d, d), torch.float32, n_rows ** 0.5)
+            g = w["gram_blocked"](x)
+            ga = w["gram_blocked"](x, out=acc.clone())
+            gr = ref.gram(x)
+            torch.cuda.synchronize()
+            for got, want in ((g, gr), (ga, acc + gr)):
+                worst["gram_blocked"] = max(worst["gram_blocked"],
+                                            rel_err(got, want))
+                errs["gram_blocked"] = max(errs["gram_blocked"],
+                                           abs_err(got, want))
         for n, e in worst.items():
+            tol = GRAM_TOL if n == "gram_blocked" else TOL[dname]
             log(f"  {n} {dname}: max-relative error {e:.2e} "
-                f"(tolerance {TOL[dname]:.0e})")
-            assert e <= TOL[dname], f"{n} disagrees with its plain version"
+                f"(tolerance {tol:.0e})")
+            assert e <= tol, f"{n} disagrees with its plain version"
     return errs
 
 
@@ -425,6 +592,37 @@ def time_kernels(port, dev, cfg, comp):
             for q, (k, v) in zip(qdt, cdt)]),
         bound=bound_ms(nl * 2 * (2 * Bb * H * hd + 2 * Bb * ln * KV * hd),
                        nl * 4 * Bb * H * hd * ln, "bfloat16"))
+    # gram: one calibration batch of the main path, 7 tags a layer (the
+    # tape keeps one Gram per tag, so wq/wk/wv's shared input is reduced
+    # three times), bf16 activations added into float32 accumulators. A
+    # bf16 product is exact in float32, so the same function runs at the
+    # bf16 tensor-core rate: the bound takes that rate for the D(D+1)/2
+    # distinct entries of a symmetric G, and the bytes of the activations
+    # read once and the accumulators read and written once. The library
+    # call is cuBLAS's bf16 GEMM with float32 output, added to the
+    # accumulator; a float32 GEMM on a widened copy is logged beside it.
+    N = CALIB_BATCH * CALIB_SEQ
+    widths = [cfg.d_model] * 6 + [cfg.d_ff]
+    xg = [torch.randn((N, d), generator=gen, device=dev).to(bf)
+          for _ in range(nl) for d in widths]
+    accs = [torch.zeros((x.shape[1], x.shape[1]), device=dev) for x in xg]
+    out["gram_blocked"] = dict(
+        work=f"{len(xg)} Grams of one calibration batch ({N} rows; "
+             f"{nl * 6} at D={cfg.d_model}, {nl} at D={cfg.d_ff}; bf16 "
+             f"into float32 accumulators)",
+        ms=device_ms(torch, lambda: [w["gram_blocked"](x, out=a)
+                                     for x, a in zip(xg, accs)]),
+        plain_ms=device_ms(torch, lambda: [ref.gram(x) for x in xg]),
+        library_ms=device_ms(torch, lambda: [
+            torch.addmm(a, x.T, x, out_dtype=torch.float32)
+            for x, a in zip(xg, accs)]),
+        bound=bound_ms(sum(2 * x.numel() + 8 * x.shape[1] ** 2 for x in xg),
+                       sum(N * x.shape[1] * (x.shape[1] + 1) for x in xg),
+                       "bfloat16"))
+    xf = [x.float() for x in xg]
+    log(f"  gram_blocked: cuBLAS float32 x.T @ x on a widened copy, TF32 "
+        f"off: {device_ms(torch, lambda: [x.T @ x for x in xf]):.4f} ms")
+    del xf
     for name, r in out.items():
         log(f"  {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
@@ -566,8 +764,15 @@ def main() -> int:
             f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
         port = Port()
         build_kernels(port)
-    with Phase("main path: SmolLM-360M, calibrate, D-Rank 20%, generate"):
-        cfg, params, comp, plan, counts = main_path(port, dev)
+    with Phase("main path: SmolLM-360M, streaming calibration, D-Rank 20% "
+               "on the card, save, boot, generate"):
+        cfg, params, comp, plan, counts, col, calib = main_path(port, dev)
+    with Phase("streaming Grams against the eager fp64 oracle, every tag"):
+        streaming_vs_eager(port, cfg, params, col, calib)
+    del col
+    with Phase(f"device decomposition against the host fp64 oracle, "
+               f"{ORACLE_LAYERS} layers"):
+        device_vs_host(port, dev, calib)
     with Phase("kernels against their plain versions on the card"):
         errs = check_kernels(port, dev, comp)
     with Phase("kernel times (bfloat16, main-path shapes)"):

@@ -1,5 +1,5 @@
 """Calibration capture: per-linear input-activation statistics (counterpart
-of the eager half of ``repro/core/capture.py``).
+of ``repro/core/capture.py``).
 
 The compression pipeline needs, for every compressible weight matrix
 ``W (d_in, d_out)``, the Gram matrix of its calibration inputs
@@ -8,20 +8,40 @@ fp64) plus the mean-|X| vector (ASVD's scaling).
 
 Mechanism: model parameters are converted to *list form* (stacked layer runs
 → per-layer trees), every linear's param dict gets a ``"_tag"`` string key,
-and ``apply_linear`` reports ``(tag, x)`` to the active ``Collector``
-(``repro_torch.models.params.set_capture``). The Gram is a plain float64
-product on the activation's device, outside any kernel, exactly as the JAX
-package computes it outside Pallas. The streaming calibrator (fp32 device
-partials through the ``gram_blocked`` kernel) comes in a later slice.
+and ``apply_linear`` reports ``(tag, x)`` to the active capture target
+(``repro_torch.models.params.set_capture``). Two targets exist:
+
+  Collector        the eager fp64 oracle: a plain float64 product per call on
+                   the activation's device, outside any kernel, exactly as
+                   the JAX package computes it outside Pallas.
+  StreamingTape +  the streaming capture: every tagged activation is
+  StreamingCalibrator  reduced to float32 statistics on the card as the
+                   forward pass runs, the Gram through the ``gram_blocked``
+                   kernel (``kernels.ops.gram``), added in place into
+                   float32 accumulators; every ``flush_every`` batches the
+                   host folds them into float64 sums and zeroes them
+                   (DESIGN.md §7: float32 partials and an fp64 host sum keep
+                   the paper's fp64 S matrix). ``whiten_tags`` keeps an
+                   upper-triangular factor ``R`` (``RᵀR = G``) per tag by QR
+                   updates instead of a Gram.
+
+The JAX package traces the streaming step under ``jax.jit`` and threads
+donated accumulators through it; the port runs the same forward pass
+eagerly under ``torch.no_grad()`` and adds into the accumulators in place.
+Not ported yet: the mesh path (row-sharded Grams, per-shard factors; ROADMAP
+Queue 1, item 11), the routed-expert capture (MoE, item 10) and the
+``obs.trace`` spans around ingest, flush and finalize (``obs`` is not
+ported).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels import ops as kops
 from repro_torch.models.params import Params, set_capture
 from repro_torch.models.transformer import tree_index
 
@@ -30,12 +50,15 @@ class Collector:
     """Accumulates XᵀX (fp64) and Σ|x| per tag on the activations' device;
     leaving the ``with`` block moves the sums to the host as numpy float64
     (``gram``, ``absmean``, ``count``), the form the compression step
-    reads."""
+    reads. ``chol`` holds the streaming-whitening factors (upper-triangular
+    R with RᵀR ≈ G) of tags captured with
+    ``StreamingCalibrator(whiten_tags=...)``; those tags have no Gram."""
 
     def __init__(self):
         self.gram: Dict[str, np.ndarray] = {}
         self.absmean: Dict[str, np.ndarray] = {}
         self.count: Dict[str, int] = {}
+        self.chol: Dict[str, np.ndarray] = {}
         self._acc: Dict[str, Dict[str, torch.Tensor]] = {}
 
     def add(self, tag: str, x: torch.Tensor) -> None:
@@ -72,6 +95,260 @@ class Collector:
 
 
 # ---------------------------------------------------------------------------
+# Streaming (device) capture
+# ---------------------------------------------------------------------------
+class StreamingTape:
+    """Capture target of the streaming calibrator: reduces every tagged
+    activation to float32 statistics on its device while the forward pass
+    runs. ``partials`` maps tag -> {"gram", "absx", "count"}; pass the
+    calibrator's accumulators as ``partials`` and the statistics are added
+    into them in place (the fold of the JAX step), otherwise zeroed
+    partials are made per tag. Tags selected by ``whiten`` keep their raw
+    float32 row blocks in ``xblocks`` instead of a Gram: they feed the QR
+    update of the whitening factor.
+
+    Grams go through ``kernels.ops.gram``: the ``gram_blocked`` kernel on a
+    CUDA device, its plain version on a CPU or meta tensor."""
+
+    def __init__(self, whiten=None,
+                 partials: Optional[Dict[str, Dict]] = None):
+        self.whiten = whiten            # True (all tags) or a set of tags
+        self.partials: Dict[str, Dict] = ({} if partials is None
+                                          else partials)
+        self.xblocks: Dict[str, list] = {}
+
+    def add(self, tag: str, x: torch.Tensor) -> None:
+        x2 = x.detach().reshape(-1, x.shape[-1])
+        d = x2.shape[1]
+        part = self.partials.get(tag)
+        if part is None:
+            part = self.partials[tag] = _zero_entry(
+                d, _tag_whitened(self.whiten, tag), x2.device)
+        part["absx"] += x2.abs().sum(0, dtype=torch.float32)
+        part["count"] += x2.shape[0]
+        if _tag_whitened(self.whiten, tag):
+            self.xblocks.setdefault(tag, []).append(x2.float())
+        else:
+            kops.gram(x2, out=part["gram"])
+
+    def __enter__(self):
+        set_capture(self)
+        return self
+
+    def __exit__(self, *exc):
+        set_capture(None)
+        return False
+
+
+def _tag_whitened(whiten, tag: str) -> bool:
+    """Shared predicate: ``whiten`` is True (all tags), a collection of
+    tags, or None/falsy (off)."""
+    return whiten is True or (whiten is not None and tag in whiten)
+
+
+def _zero_entry(d: int, whitened: bool, device) -> Dict:
+    stat = "chol" if whitened else "gram"
+    return {stat: torch.zeros((d, d), dtype=torch.float32, device=device),
+            "absx": torch.zeros((d,), dtype=torch.float32, device=device),
+            "count": 0}
+
+
+def _zero_accs(dims: Dict[str, int], whiten=None, device=None
+               ) -> Dict[str, Dict]:
+    """Zeroed float32 accumulators per tag: a (D, D) Gram, or a (D, D)
+    whitening factor for whitened tags, plus Σ|x| and the row count (a
+    host integer: the rows of every batch are known without a sync)."""
+    return {tag: _zero_entry(d, _tag_whitened(whiten, tag), device)
+            for tag, d in dims.items()}
+
+
+class _ShapeProbe:
+    """Capture target for tag/dim discovery over a meta-device forward."""
+
+    def __init__(self):
+        self.dims: Dict[str, int] = {}
+
+    def add(self, tag: str, x) -> None:
+        self.dims[tag] = int(x.shape[-1])
+
+
+def _to_meta(tree):
+    if isinstance(tree, dict):
+        return {k: _to_meta(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_meta(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return torch.empty_like(tree, device="meta")
+    return tree
+
+
+def discover_capture_dims(tagged: Params, cfg: ModelConfig,
+                          batch: Dict) -> Dict[str, int]:
+    """Enumerate every capture tag and its feature dim without running the
+    model: one forward pass over meta tensors (shapes only), the port's
+    ``jax.eval_shape``."""
+    from repro_torch.models import transformer as T
+    probe = _ShapeProbe()
+    set_capture(probe)
+    try:
+        with torch.no_grad():
+            T.forward(_to_meta(tagged), cfg, _to_meta(
+                {k: torch.as_tensor(v) for k, v in batch.items()}))
+    finally:
+        set_capture(None)
+    return probe.dims
+
+
+class StreamingCalibrator:
+    """Device-side calibration capture, single device (DESIGN.md §1.3).
+
+    Each ``ingest`` runs the forward pass on the card and adds every tag's
+    float32 statistics into its accumulators in place (the Gram through the
+    ``gram_blocked`` kernel). Every ``flush_every`` batches the float32
+    accumulators are pulled to the host, added into float64 sums and
+    zeroed, bounding float32 accumulation error while keeping the
+    per-batch path free of host transfers.
+
+    ``whiten_tags`` (True = every tag, or a collection of tags) enables
+    STREAMING WHITENING for those tags: instead of a Gram, the calibrator
+    keeps the upper-triangular Cholesky factor of the running Gram,
+    ``R' = qr_r([R; X_batch])``, a QR update on the raw float32 rows. The
+    Gram of a whitened tag never exists; ``finalize`` exposes the factor as
+    ``Collector.chol[tag]``, which both the host whitener
+    (``numerics.whitener_from_factor``) and the device decomposition
+    (``numerics_device.decompose(factor=...)``) take as it is. Factors are
+    never flushed: orthogonal updates do not square the condition number.
+
+    ``mesh=`` (per-shard capture and reduction) is not ported yet.
+
+    Example (on the CPU; the card is the default device of the model)::
+
+        >>> from repro_torch.configs import get_config
+        >>> from repro_torch.core.capture import (StreamingCalibrator,
+        ...                                       to_list_params)
+        >>> from repro_torch.models import transformer as T
+        >>> import torch
+        >>> cfg = get_config("llama-mini").replace(
+        ...     n_layers=2, d_model=32, n_heads=2, n_kv_heads=2,
+        ...     head_dim=16, d_ff=64, vocab_size=128)
+        >>> params, _ = T.init_model(cfg, seed=0, device="cpu")
+        >>> cal = StreamingCalibrator(to_list_params(params, cfg), cfg)
+        >>> for i in range(2):
+        ...     cal.ingest({"tokens": torch.randint(0, 128, (2, 16))})
+        >>> col = cal.finalize()
+        >>> sorted(col.gram)[0], col.count[sorted(col.gram)[0]]
+        ('decoder/run0/0/attn/wk', 64)
+    """
+
+    def __init__(self, list_params: Params, cfg: ModelConfig, *,
+                 mesh=None, flush_every: int = 8, whiten_tags=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh calibration is not ported yet (ROADMAP Queue 1, item "
+                "11); the streaming capture runs on one device")
+        self.cfg = cfg
+        self.tagged = tag_linears(list_params)
+        self.flush_every = max(1, flush_every)
+        if whiten_tags is True:
+            self.whiten = True
+        elif whiten_tags:
+            self.whiten = frozenset(whiten_tags)
+        else:
+            self.whiten = None
+        self._dims: Optional[Dict[str, int]] = None
+        self._routes: Dict[str, str] = {}
+        self._accs: Optional[Dict[str, Dict]] = None
+        self._since_flush = 0
+        self._host: Dict[str, Dict] = {}
+
+    @property
+    def routes(self) -> Dict[str, str]:
+        """tag -> accumulator route ('whiten' | 'replicated'); populated
+        after the first ``ingest``."""
+        return dict(self._routes)
+
+    def ingest(self, batch: Dict) -> None:
+        """Fold one calibration batch into the device accumulators."""
+        if self._accs is None:
+            self._dims = discover_capture_dims(self.tagged, self.cfg, batch)
+            self._routes = {t: "whiten" if _tag_whitened(self.whiten, t)
+                            else "replicated" for t in self._dims}
+            self._accs = _zero_accs(self._dims, self.whiten,
+                                    self.tagged["embed"].device)
+        from repro_torch.models import transformer as T
+        tape = StreamingTape(whiten=self.whiten, partials=self._accs)
+        with torch.no_grad(), tape:
+            T.forward(self.tagged, self.cfg, batch)
+            for tag, blocks in tape.xblocks.items():
+                acc = self._accs[tag]
+                acc["chol"] = torch.linalg.qr(
+                    torch.cat([acc["chol"], *blocks], dim=0), mode="r")[1]
+        self._since_flush += 1
+        if self._since_flush >= self.flush_every:
+            self.flush()
+
+    def flush(self) -> None:
+        """Pull the float32 accumulators to the host, fold them into
+        float64, zero them. Whitening factors stay on the device."""
+        if self._accs is None or self._since_flush == 0:
+            return
+        for tag, acc in self._accs.items():
+            new = {"absx": acc["absx"].cpu().double().numpy(),
+                   "count": acc["count"]}
+            if "gram" in acc:
+                new["gram"] = acc["gram"].cpu().double().numpy()
+            host = self._host.get(tag)
+            if host is None:
+                self._host[tag] = new
+            else:
+                for k, v in new.items():
+                    host[k] += v
+            for k in ("absx", "gram"):
+                if k in acc:
+                    acc[k].zero_()
+            acc["count"] = 0
+        self._since_flush = 0
+
+    def sync(self) -> None:
+        """Block until the in-flight device work is done (benchmarking /
+        completion barrier)."""
+        if self._accs is not None:
+            dev = self.tagged["embed"].device
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+    def finalize(self) -> Collector:
+        """Return the fp64 host-side statistics as a Collector (drop-in for
+        the compression driver). Whitened tags expose their running
+        Cholesky factor as ``col.chol[tag]`` and have no Gram entry."""
+        self.flush()
+        col = Collector()
+        for tag, acc in self._host.items():
+            if "gram" in acc:
+                col.gram[tag] = acc["gram"]
+            col.absmean[tag] = acc["absx"]
+            col.count[tag] = acc["count"]
+        for tag, acc in (self._accs or {}).items():
+            if "chol" in acc:
+                col.chol[tag] = acc["chol"].cpu().double().numpy()
+        return col
+
+
+def streaming_calibrate(list_params: Params, cfg: ModelConfig,
+                        batches: Iterable[Dict], *, mesh=None,
+                        flush_every: int = 8,
+                        whiten_tags=None) -> Collector:
+    """Run the device-side streaming capture over ``batches`` and return the
+    finalized fp64 Collector (see ``StreamingCalibrator``)."""
+    cal = StreamingCalibrator(list_params, cfg, mesh=mesh,
+                              flush_every=flush_every,
+                              whiten_tags=whiten_tags)
+    for batch in batches:
+        cal.ingest(batch)
+    return cal.finalize()
+
+
+# ---------------------------------------------------------------------------
 # List-form params + tagging
 # ---------------------------------------------------------------------------
 def _is_linear(d) -> bool:
@@ -88,6 +365,28 @@ def to_list_params(params: Params, cfg: ModelConfig) -> Params:
         rp = stack[f"run{r}"]
         new[f"run{r}"] = rp if isinstance(rp, list) else [
             tree_index(rp, i) for i in range(n)]
+    out["decoder"] = new
+    return out
+
+
+def to_stacked_params(list_params: Params, cfg: ModelConfig) -> Params:
+    """Inverse of ``to_list_params`` (only valid if per-layer trees have
+    identical leaf shapes — i.e. uncompressed or rank-padded)."""
+
+    def stack(*trees):
+        t0 = trees[0]
+        if isinstance(t0, dict):
+            return {k: stack(*(t[k] for t in trees)) for k in t0}
+        if isinstance(t0, torch.Tensor):
+            return torch.stack(trees)
+        return t0
+
+    out = dict(list_params)
+    new = dict(list_params["decoder"])
+    for r, _ in enumerate(cfg.layer_runs()):
+        rp = new[f"run{r}"]
+        if isinstance(rp, list):
+            new[f"run{r}"] = stack(*rp)
     out["decoder"] = new
     return out
 

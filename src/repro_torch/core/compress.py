@@ -1,4 +1,4 @@
-"""D-Rank compression pipeline + the baselines whose host path needs no
+"""D-Rank compression pipeline + the baselines whose path needs no
 gradients (counterpart of ``repro/core/compress.py``).
 
 Methods (all post-training, calibration-data-driven):
@@ -10,12 +10,21 @@ Methods (all post-training, calibration-data-driven):
            allocation + β attention rebalance.
   dranke   beyond-paper energy water-filling allocation.
 
-Calibration is the eager fp64 capture (``streaming=False``). The
-decomposition is the host oracle of the JAX package: per-group whitening,
-SVD and truncation in numpy float64 on the host (``LINALG``), then the
-factors go back to the device the params live on. The deploy artifact is a
+Calibration streams by default: float32 Gram partials on the device through
+the ``gram_blocked`` kernel, folded into fp64 on the host
+(``capture.StreamingCalibrator``); ``streaming=False`` is the eager fp64
+oracle. The decomposition runs either on the host (``device=False``, the
+precision oracle: per-group whitening, SVD and truncation in numpy float64,
+``LINALG``) or batched on the params' device (``device=True``,
+``numerics_device``, float64 ``torch.linalg``, one call per shape
+bucket). The deploy artifact is a
 list-form params tree whose linears are factorized {B, C} with a shared
-basis per group, loadable straight into the model.
+basis per group, loadable straight into the model; ``save_plan`` writes it
+as a ``pytree_v1`` artifact that either package boots.
+
+Not ported yet: ``fwsvd`` (its Fisher pass needs ``lm_loss`` and the
+backward pass, ROADMAP Queue 1, item 9), the mesh paths (item 11) and the
+serve-time rank ladder (item 6).
 """
 from __future__ import annotations
 
@@ -30,28 +39,28 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.core import allocate as alloc
 from repro_torch.core import numerics as num
-from repro_torch.core.capture import Collector, tag_linears, to_list_params
+from repro_torch.core import numerics_device as numd
+from repro_torch.core.capture import (Collector, streaming_calibrate,
+                                      strip_tags, tag_linears,
+                                      to_list_params)
 from repro_torch.core.groups import (BETA_MAP, Group, MatrixRef,
                                      build_groups, enumerate_matrices)
+from repro_torch.device import DeviceLike
 from repro_torch.models import transformer as T
 from repro_torch.models.params import Params
 
 METHODS = ("svd", "fwsvd", "asvd", "svdllm", "basis", "drank", "dranke")
-# where the whitening, SVD and truncation run
+# where the host path's whitening, SVD and truncation run
 LINALG = "numpy float64 on the host"
 
 _NOT_YET = {
-    "streaming": "streaming calibration is not ported yet (ROADMAP Queue 1, "
-                 "item 4); pass streaming=False for the eager fp64 capture",
-    "fwsvd": "fwsvd needs the Fisher pass (fisher_rows), not ported yet "
-             "(ROADMAP Queue 1, item 4)",
-    "refine": "refine_coefficients is not ported yet (ROADMAP Queue 1, "
-              "item 4)",
-    "device": "the device compression math (numerics_jax) is not ported "
-              "yet (ROADMAP Queue 1, item 5)",
-    "mesh": "mesh calibration is not ported yet (ROADMAP Queue 1, item 11)",
-    "whiten_tags": "streaming whitening is not ported yet (ROADMAP Queue 1, "
-                   "item 4)",
+    "fwsvd": "fwsvd needs the Fisher pass (fisher_rows), which needs "
+             "lm_loss and the backward pass: not ported yet (ROADMAP Queue "
+             "1, item 9)",
+    "mesh": "mesh calibration is not ported yet (ROADMAP Queue 1, item "
+            "11)",
+    "mesh_device": "the mesh group batch of the device decomposition is "
+                   "not ported yet (ROADMAP Queue 1, item 11)",
 }
 
 
@@ -81,16 +90,30 @@ class CompressionConfig:
 # ---------------------------------------------------------------------------
 def calibrate(list_params: Params, cfg: ModelConfig,
               batches: Iterable[Dict], *, streaming: bool = True,
-              mesh=None, whiten_tags=None) -> Collector:
-    """Collect per-tag fp64 Gram statistics over the calibration batches
-    with the eager capture (``streaming=False``), running the forward pass
-    where the params live."""
+              mesh=None, whiten_tags=None, flush_every: int = 8
+              ) -> Collector:
+    """Collect per-tag Gram statistics over the calibration batches, with
+    the forward pass running where the params live.
+
+    ``streaming=True`` (default) runs the device-side capture (float32
+    partials through the ``gram_blocked`` kernel on the card, folded into
+    fp64 on the host every ``flush_every`` batches; see
+    ``capture.StreamingCalibrator``). The eager host path
+    (``streaming=False``) is the fp64 oracle it is validated against.
+    ``whiten_tags`` (streaming only) captures those tags as streaming
+    Cholesky factors instead of Grams.
+    """
     if streaming:
-        raise NotImplementedError(_NOT_YET["streaming"])
+        return streaming_calibrate(list_params, cfg, batches, mesh=mesh,
+                                   flush_every=flush_every,
+                                   whiten_tags=whiten_tags)
     if mesh is not None:
         raise NotImplementedError(_NOT_YET["mesh"])
     if whiten_tags:
-        raise NotImplementedError(_NOT_YET["whiten_tags"])
+        raise ValueError(
+            "whiten_tags requires streaming=True: the eager fp64 oracle "
+            "materializes every Gram by construction, so a non-streaming "
+            "whitened capture would silently void the memory guarantee")
     tagged = tag_linears(list_params)
     col = Collector()
     with torch.no_grad(), col:
@@ -167,7 +190,73 @@ def _copy_tree(node):
 
 
 # ---------------------------------------------------------------------------
-# Compression
+# Device decomposition (numerics_device): bucket same-shaped groups, one
+# batched call per bucket
+# ---------------------------------------------------------------------------
+def _member_tensor(lp: Params, ref: MatrixRef) -> torch.Tensor:
+    return _get_node(lp, ref.path)["w"].detach().float()
+
+
+def _decompose_groups_device(
+        lp: Params, groups: List[Group], ccfg: CompressionConfig,
+        col: Optional[Collector], dev: torch.device
+        ) -> Dict[str, Tuple[np.ndarray, torch.Tensor, torch.Tensor]]:
+    """Whitened decomposition of every group at its cost cap, batched by
+    shape bucket, on ``dev``. Returns gid -> (sig fp64, B
+    (d1, kmax), C (kmax, n·d2)) with B/C in the ORIGINAL space on ``dev``;
+    final ranks slice columns later."""
+    def put(a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, dtype=np.float64), device=dev)
+
+    buckets: Dict[Tuple, List[Group]] = {}
+    for g in groups:
+        buckets.setdefault((g.d_in, g.n * g.d_out, g.n, g.cost_cap),
+                           []).append(g)
+    out: Dict[str, Tuple] = {}
+    for (d1, nd2, n, kmax), gs in sorted(buckets.items()):
+        W = torch.stack([
+            torch.cat([_member_tensor(lp, m) for m in g.members], dim=1)
+            for g in gs]).to(dev)
+        kwargs: Dict = {}
+        if ccfg.method == "asvd":
+            kwargs["diag"] = put(np.stack([np.power(np.maximum(np.mean(
+                [col.mean_abs(m.tag) for m in g.members], axis=0), 1e-8),
+                ccfg.asvd_alpha) for g in gs]))
+        elif ccfg.method != "svd":                   # cholesky family
+            tags = [m.tag for g in gs for m in g.members]
+            if col.chol and all(t in col.chol for t in tags):
+                kwargs["factor"] = numd.combine_factors(put(np.stack(
+                    [np.stack([col.chol[m.tag] for m in g.members])
+                     for g in gs])))
+            else:
+                # buckets mixing whitened and plain tags fall back to
+                # Grams, substituting RᵀR for factor-only tags
+                kwargs["gram"] = put(np.stack(
+                    [np.sum([_gram_of(col, m.tag) for m in g.members],
+                            axis=0) for g in gs]))
+                kwargs["damp"] = ccfg.damp
+        rsvd = int(bool(ccfg.rsvd_threshold)
+                   and min(d1, nd2) >= ccfg.rsvd_threshold)
+        sig, B, C = numd.decompose(
+            W, k=kmax, rsvd=rsvd, rsvd_oversample=ccfg.rsvd_oversample,
+            rsvd_iters=ccfg.rsvd_iters, **kwargs)
+        sig = sig.double().cpu().numpy()
+        if not np.isfinite(sig).all():
+            # a member still failing Cholesky escalation comes out as NaNs;
+            # fail as loudly as the host oracle does on non-finite Grams
+            bad = [gs[i].gid for i in range(len(gs))
+                   if not np.isfinite(sig[i]).all()]
+            raise np.linalg.LinAlgError(
+                f"device decomposition produced non-finite spectra for "
+                f"groups {bad} (bucket d1={d1}, n·d2={nd2}) — non-finite "
+                f"calibration Grams or weights")
+        for i, g in enumerate(gs):
+            out[g.gid] = (sig[i], B[i], C[i])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The driver
 # ---------------------------------------------------------------------------
 def _whitener_for(group: Group, ccfg: CompressionConfig,
                   col: Collector) -> num.Whitener:
@@ -177,12 +266,28 @@ def _whitener_for(group: Group, ccfg: CompressionConfig,
         s = np.mean([col.mean_abs(m.tag) for m in group.members], axis=0)
         return num.diag_whitener(np.power(np.maximum(s, 1e-8),
                                           ccfg.asvd_alpha))
-    # cholesky family: aggregate the group's Grams (DESIGN.md §1.2)
+    # cholesky family. Streaming-whitened tags carry an upper-triangular
+    # factor RᵀR = G instead of a Gram: members merge by stacked QR, never
+    # forming G.
+    tags = [m.tag for m in group.members]
+    if col.chol and all(t in col.chol for t in tags):
+        R = np.vstack([col.chol[t] for t in tags])
+        return num.whitener_from_factor(np.linalg.qr(R, mode="r"))
+    # otherwise aggregate the group's Grams (DESIGN.md §1.2); a group can
+    # mix whitened and plain members — the factor's RᵀR stands in for the
+    # missing Gram
     G = None
     for m in group.members:
-        g = col.gram[m.tag]
+        g = _gram_of(col, m.tag)
         G = g if G is None else G + g
     return num.cholesky_whitener(G, ccfg.damp)
+
+
+def _gram_of(col: Collector, tag: str) -> np.ndarray:
+    if tag in col.gram:
+        return col.gram[tag]
+    R = col.chol[tag]
+    return R.T @ R
 
 
 def build_plan_and_params(
@@ -196,23 +301,26 @@ def build_plan_and_params(
 ) -> Tuple[Params, Plan]:
     """Compress. Returns (list-form compressed params, plan).
 
-    ``streaming=False`` selects the eager fp64 capture when no ``collector``
-    is supplied (the streaming capture is not ported yet). ``device`` keeps
-    the JAX package's meaning — the ``numerics_jax`` backend — and is not
-    ported yet; the factors are placed on the device the params live on.
+    ``streaming`` selects the capture path when no ``collector`` is
+    supplied (see ``calibrate``). ``device=True`` runs the decomposition
+    math (whitening, whitened eigh-based SVD, truncation, refine) batched on
+    the params' device (``numerics_device``): same-shaped groups
+    decompose in one call, factors are kept at the cost cap and sliced to
+    the final ranks; rank allocation is unchanged and works on the
+    device-computed spectra. The host fp64 path (``device=False``) is the
+    precision oracle it is validated against. The factors are placed on the
+    device the params live on.
     """
     assert ccfg.method in METHODS, ccfg.method
-    if device:
-        raise NotImplementedError(_NOT_YET["device"])
     if ccfg.method == "fwsvd":
         raise NotImplementedError(_NOT_YET["fwsvd"])
-    if ccfg.refine:
-        raise NotImplementedError(_NOT_YET["refine"])
+    if device and mesh is not None:
+        raise NotImplementedError(_NOT_YET["mesh_device"])
     lp = to_list_params(params, cfg)
     dev = params["embed"].device
 
     col = collector
-    if col is None and ccfg.method != "svd":
+    if col is None and (ccfg.method != "svd" or ccfg.refine):
         col = calibrate(lp, cfg, calib_batches, streaming=streaming,
                         mesh=mesh, whiten_tags=whiten_tags)
 
@@ -227,17 +335,24 @@ def build_plan_and_params(
     gqa_one = ccfg.gqa_group_one and ccfg.method in ("drank", "dranke")
     groups = build_groups(refs, cfg, group_size, gqa_group_one=gqa_one)
 
-    # ---- decompose every group on host in fp64, collect spectra ----------
+    # ---- decompose every group, collect spectra ---------------------------
+    # host: per-group fp64 whitening + SVD (the oracle); device: batched
+    # calls, one per shape bucket, factors kept at the cost cap
     svds: Dict[str, Tuple] = {}
+    dec: Dict[str, Tuple] = {}
     sig_of: Dict[str, np.ndarray] = {}
-    for g in groups:
-        W_cat = np.concatenate(
-            [_member_weight(lp, m) for m in g.members], axis=1)
-        wh = _whitener_for(g, ccfg, col) if col else \
-            num.identity_whitener()
-        U, sig, Vt = num.whitened_svd(W_cat, wh)
-        svds[g.gid] = (U, sig, Vt, wh)
-        sig_of[g.gid] = sig
+    if device:
+        dec = _decompose_groups_device(lp, groups, ccfg, col, dev)
+        sig_of = {gid: d[0] for gid, d in dec.items()}
+    else:
+        for g in groups:
+            W_cat = np.concatenate(
+                [_member_weight(lp, m) for m in g.members], axis=1)
+            wh = _whitener_for(g, ccfg, col) if col else \
+                num.identity_whitener()
+            U, sig, Vt = num.whitened_svd(W_cat, wh)
+            svds[g.gid] = (U, sig, Vt, wh)
+            sig_of[g.gid] = sig
     gspecs: List[alloc.GroupSpec] = []
     for g in groups:
         gspecs.append(alloc.GroupSpec(
@@ -268,13 +383,17 @@ def build_plan_and_params(
 
     for g, gs in zip(groups, gspecs):
         k = ks[g.gid]
-        U, sig, Vt, wh = svds[g.gid]
-        B, C = num.truncate_factors(U, sig, Vt, k, wh)
-        Bt = torch.as_tensor(B, dtype=pdt, device=dev)
+        if device:
+            sig, Bfull, Cfull = dec[g.gid]
+            B, C = Bfull[:, :k], Cfull[:k]
+        else:
+            U, sig, Vt, wh = svds[g.gid]
+            B, C = num.truncate_factors(U, sig, Vt, k, wh)
+            B, C = torch.as_tensor(B), torch.as_tensor(C)
+        Bt = B.to(device=dev, dtype=pdt).contiguous()
         for i, m in enumerate(g.members):
-            Ci = torch.as_tensor(
-                np.ascontiguousarray(C[:, i * g.d_out:(i + 1) * g.d_out]),
-                dtype=pdt, device=dev)
+            Ci = C[:, i * g.d_out:(i + 1) * g.d_out].to(
+                device=dev, dtype=pdt).contiguous()
             node = _get_node(new_lp, m.path)
             new_node = {"B": Bt, "C": Ci}
             if "b" in node:
@@ -290,5 +409,143 @@ def build_plan_and_params(
             sigma_head=[float(s) for s in sig[:8]]))
 
     summary = alloc.allocation_summary(gspecs, ks)
-    return new_lp, Plan(config=ccfg, groups=results, summary=summary)
+    plan = Plan(config=ccfg, groups=results, summary=summary)
+    if ccfg.refine:
+        # if calibration streamed whitening factors, the refine re-capture
+        # must too — otherwise it would re-materialize the very Grams
+        # whiten_tags exists to avoid
+        wt = (frozenset(col.chol) if col is not None and col.chol
+              and streaming else None)
+        new_lp = refine_coefficients(lp, new_lp, cfg, groups, calib_batches,
+                                     streaming=streaming, device=device,
+                                     mesh=mesh, whiten_tags=wt)
+    return new_lp, plan
 
+
+def refine_coefficients(orig_lp: Params, comp_lp: Params, cfg: ModelConfig,
+                        groups: List[Group],
+                        calib_batches: Sequence[Dict],
+                        streaming: bool = True, device: bool = False,
+                        mesh=None, whiten_tags=None) -> Params:
+    """Closed-form downstream update (the paper's ≥40% trick, after
+    SVD-LLM): re-collect Grams THROUGH the compressed model (inputs now
+    deviate from the originals) and re-solve each coefficient matrix
+
+        C_i* = argmin_C ‖X_new (W_i − B C)‖_F = (Bᵀ G B)⁻¹ Bᵀ G W_i .
+
+    ``device=True`` batches the solves: members are bucketed by
+    (d_in, k, d_out) and each bucket runs one
+    ``numerics_device.refine_solve`` on the params' device instead of a
+    host loop. ``whiten_tags`` re-captures those tags as streaming
+    Cholesky factors; the device solve then runs in factor form, so a
+    fully whiten-streamed refine never materializes a Gram.
+    """
+    col2 = calibrate(comp_lp, cfg, calib_batches, streaming=streaming,
+                     mesh=mesh, whiten_tags=whiten_tags)
+    members = [m for g in groups for m in g.members
+               if m.expert is None
+               and (m.tag in col2.gram or m.tag in col2.chol)]
+    if device:
+        buckets: Dict[Tuple, List[MatrixRef]] = {}
+        for m in members:
+            node = _get_node(comp_lp, m.path)
+            buckets.setdefault(
+                (m.d_in, int(node["B"].shape[1]), m.d_out), []).append(m)
+        for _key, ms in sorted(buckets.items()):
+            B = torch.stack([_get_node(comp_lp, m.path)["B"].float()
+                             for m in ms])
+            W = torch.stack([_member_tensor(orig_lp, m) for m in ms]
+                            ).to(B.device)
+            if all(m.tag in col2.chol for m in ms):
+                R = torch.as_tensor(np.stack(
+                    [col2.chol[m.tag] for m in ms]), device=B.device)
+                C = numd.refine_solve(B, None, W, factor=R)
+            else:
+                G = torch.as_tensor(np.stack(
+                    [_gram_of(col2, m.tag) for m in ms]), device=B.device)
+                C = numd.refine_solve(B, G, W)
+            for i, m in enumerate(ms):
+                node = _get_node(comp_lp, m.path)
+                node["C"] = C[i].to(node["C"].dtype).contiguous()
+        return comp_lp
+    for m in members:
+        node = _get_node(comp_lp, m.path)
+        B = node["B"].detach().double().cpu().numpy()
+        G = _gram_of(col2, m.tag)
+        W = _member_weight(orig_lp, m)
+        BtGB = B.T @ G @ B
+        BtGB += 1e-8 * np.trace(BtGB) / max(1, len(BtGB)) * np.eye(
+            B.shape[1])
+        C = np.linalg.solve(BtGB, B.T @ G @ W)
+        node["C"] = torch.as_tensor(C, dtype=node["C"].dtype,
+                                    device=node["C"].device)
+    return comp_lp
+
+
+# ---------------------------------------------------------------------------
+# Compressed-checkpoint round trip (deploy artifact)
+# ---------------------------------------------------------------------------
+ARTIFACT_NAME = "compressed"
+
+
+def _model_fingerprint(cfg: ModelConfig) -> Dict:
+    return {"name": cfg.name, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "vocab_size": cfg.vocab_size,
+            "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads}
+
+
+def save_plan(ckpt_dir: str, list_params: Params, plan: Plan,
+              cfg: Optional[ModelConfig] = None) -> str:
+    """Persist the factorized list-form params + allocation plan so serving
+    can boot WITHOUT re-running compression, as a ``pytree_v1`` artifact
+    that the JAX package's ``load_plan`` reads too. Shared group bases are
+    stored once (``store.save_pytree`` aliases identical tensors), and the
+    manifest records per-array content hashes for ``load_plan
+    (verify=True)``."""
+    from repro_torch.ckpt import store
+    meta: Dict = {"plan": json.loads(plan.to_json())}
+    if cfg is not None:
+        meta["model"] = _model_fingerprint(cfg)
+    return store.save_pytree(ckpt_dir, strip_tags(list_params), meta,
+                             name=ARTIFACT_NAME)
+
+
+def load_plan(ckpt_dir: str, cfg: Optional[ModelConfig] = None,
+              verify: bool = False, retries: int = 0,
+              quarantine: bool = False,
+              device: DeviceLike = None) -> Tuple[Params, Plan]:
+    """Load a compressed artifact saved by ``save_plan`` (of either package)
+    onto ``device`` (the card by default). If ``cfg`` is given, its
+    fingerprint must match the one recorded at save time. ``verify=True``
+    re-hashes every stored array against the manifest content hashes first
+    (see ``store.load_pytree``). ``retries > 0`` re-reads with exponential
+    backoff on transient/integrity failures and, with ``quarantine=True``,
+    moves a persistently failing artifact to ``<name>.quarantined`` before
+    raising ``store.IntegrityError``."""
+    from repro_torch.ckpt import store
+    if retries > 0 or quarantine:
+        params, meta = store.load_pytree_resilient(
+            ckpt_dir, name=ARTIFACT_NAME, verify=verify, retries=retries,
+            quarantine=quarantine, device=device)
+    else:
+        params, meta = store.load_pytree(ckpt_dir, name=ARTIFACT_NAME,
+                                         verify=verify, device=device)
+    plan = Plan.from_json(json.dumps(meta["plan"]))
+    if cfg is not None and "model" in meta:
+        want = _model_fingerprint(cfg)
+        if want != meta["model"]:
+            raise ValueError(
+                f"compressed checkpoint was built for {meta['model']}, "
+                f"got config {want}")
+    return params, plan
+
+
+def compressed_param_count(list_params: Params) -> int:
+    """Parameter count with shared bases deduped by tensor identity."""
+    seen = set()
+    total = 0
+    for leaf in T.tree_leaves(list_params):
+        if id(leaf) not in seen:
+            seen.add(id(leaf))
+            total += leaf.numel()
+    return total

@@ -13,17 +13,23 @@ read the model's layouts in place.
 ``lowrank_matmul`` and ``flash_attention`` are differentiable through
 ``torch.autograd.Function``s whose backward is the reference formulation of
 ``ops._lowrank_bwd`` / ``ops._flash_bwd`` in the JAX package; the kernels
-stay forward-only. ``decode_attention`` is inference-only. The kernel for
-``gram`` (``gram_blocked``) comes with the streaming calibrator; until then
-``kernels.ref.gram`` is its only version.
+stay forward-only. ``decode_attention`` and ``gram`` are inference-only;
+``gram`` runs the ``gram_blocked`` kernel for the streaming calibrator.
+
+A meta tensor (shapes only, no data) takes the plain version: that is how
+``core.capture.discover_capture_dims`` walks a forward pass without running
+it, as the JAX package does under ``jax.eval_shape``.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_bkgh
 from repro_torch.kernels.flash_attention import flash_attention_bshd
+from repro_torch.kernels.gram import gram_blocked
 from repro_torch.kernels.lowrank_matmul import lowrank_gemv, lowrank_matmul_2d
 
 # At or below this many flattened rows the low-rank matmul is decode-shaped:
@@ -33,10 +39,10 @@ GEMV_MAX_ROWS = 64
 
 def _route(t: torch.Tensor, what: str) -> bool:
     """True for the kernel (CUDA tensor), False for the plain version (CPU
-    tensor); any other device raises."""
+    or meta tensor); any other device raises."""
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"{what}: no kernel or plain version for {t.device}")
 
@@ -149,3 +155,18 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               lengths.to(torch.int32), window=window,
                               softcap=softcap)
     return o.reshape(B, H, hd)
+
+
+# ---------------------------------------------------------------------------
+# gram
+# ---------------------------------------------------------------------------
+def gram(x: torch.Tensor, out: Optional[torch.Tensor] = None
+         ) -> torch.Tensor:
+    """x: (..., D) -> (D, D) fp32 Gram accumulated over all leading dims.
+    With ``out`` ((D, D) float32), the Gram is added into it in place and
+    ``out`` is returned: the streaming calibrator's fold."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if _route(x2, "gram"):
+        return gram_blocked(x2.contiguous(), out)
+    g = ref.gram(x2)
+    return g if out is None else out.add_(g)

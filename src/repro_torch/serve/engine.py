@@ -4,9 +4,10 @@ fixed-batch ``Engine`` of ``repro/serve/engine.py``).
 ``Engine.generate`` prefills a batch of same-length prompts into a
 preallocated KV cache and runs the greedy (or sampled) decode loop; every
 compressed linear goes through the low-rank kernels and every attention
-through the flash and decode kernels on the card. The continuous batcher,
-compressed-checkpoint boot and the resilience layer come in later
-slices.
+through the flash and decode kernels on the card. ``Engine.from_compressed``
+boots from a ``compress.save_plan`` artifact of either package. The
+continuous batcher and the resilience layer come in later slices (ROADMAP
+Queue 1, item 6).
 
 Two departures from the JAX engine, both deterministic:
 
@@ -22,8 +23,9 @@ Two departures from the JAX engine, both deterministic:
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -70,6 +72,54 @@ def place_params(params: Params, dtype: torch.dtype,
     return walk(params)
 
 
+def _normalize_load_retries(retries, load_retries: int) -> int:
+    """Fold the older ``retries=`` spelling into ``load_retries=`` with a
+    deprecation warning."""
+    if retries is not None:
+        warnings.warn(
+            "from_compressed(retries=...) is deprecated; use "
+            "load_retries=...", DeprecationWarning, stacklevel=3)
+        return int(retries)
+    return load_retries
+
+
+def from_compressed(ckpt_dir: str, cfg: ModelConfig,
+                    scfg: Optional[ServeConfig] = None, *,
+                    batcher: bool = True, verify: bool = False,
+                    load_retries: int = 0,
+                    quarantine: Optional[bool] = None,
+                    device: DeviceLike = None):
+    """THE loading path for booting a serve engine from a
+    ``compress.save_plan`` artifact (``Engine.from_compressed`` delegates
+    here).
+
+    ``verify=True`` re-hashes the stored arrays against the manifest
+    content hashes before booting; ``load_retries > 0`` retries a
+    transiently failing load with backoff and (with ``quarantine``,
+    default: on whenever retries are) moves a persistently failing
+    artifact aside before raising a typed ``store.IntegrityError``.
+    ``batcher=False`` returns the fixed-batch :class:`Engine`; the
+    continuous batcher (the JAX default) is not ported yet. The params are
+    loaded onto ``device`` (the card by default) and the engine runs
+    there; ``engine.plan`` holds the artifact's allocation plan.
+    """
+    if batcher:
+        raise NotImplementedError(
+            "the ContinuousBatcher is not ported yet (ROADMAP Queue 1, item "
+            "6); pass batcher=False for the fixed-batch Engine")
+    from repro_torch.core import compress as CC
+    if quarantine is None:
+        quarantine = load_retries > 0
+    dev = resolve_device(device)
+    params, plan = CC.load_plan(ckpt_dir, cfg=cfg, verify=verify,
+                                retries=load_retries, quarantine=quarantine,
+                                device=dev)
+    eng = Engine(params, cfg, scfg if scfg is not None else ServeConfig(),
+                 device=dev)
+    eng.plan = plan
+    return eng
+
+
 class Engine:
     def __init__(self, params: Params, cfg: ModelConfig, scfg: ServeConfig,
                  device: DeviceLike = None):
@@ -77,9 +127,30 @@ class Engine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.scfg = scfg
+        self.plan = None              # set when booted from a compressed ckpt
         self.params = place_params(params, T.dtype_of(cfg.dtype), self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(scfg.seed)
+
+    @classmethod
+    def from_compressed(cls, ckpt_dir: str, cfg: ModelConfig,
+                        scfg: ServeConfig, verify: bool = False,
+                        retries: Optional[int] = None,
+                        load_retries: int = 0,
+                        quarantine: Optional[bool] = None,
+                        device: DeviceLike = None) -> "Engine":
+        """Boot directly from a ``compress.save_plan`` artifact of either
+        package — no calibration or SVD at serve time; the factorized
+        list-form params drop straight into the model code. Delegates to
+        the module-level :func:`from_compressed`. ``verify=True`` re-hashes
+        the stored arrays first; ``load_retries``/``quarantine`` retry a
+        transiently failing load and move a persistently failing artifact
+        aside; ``retries=`` is the older spelling of ``load_retries=``.
+        """
+        return from_compressed(
+            ckpt_dir, cfg, scfg, batcher=False, verify=verify,
+            load_retries=_normalize_load_retries(retries, load_retries),
+            quarantine=quarantine, device=device)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

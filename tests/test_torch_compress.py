@@ -146,11 +146,11 @@ def test_compressed_params_run_on_the_port():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(streaming=True), "streaming"),
-    (dict(streaming=False, device=True), "item 5"),
+    (dict(streaming=True, mesh=object()), "streaming"),
+    (dict(streaming=False, device=True, mesh=object()), "item 11"),
     (dict(streaming=False, mesh=object()), "mesh"),
     (dict(streaming=False, ccfg=dict(method="fwsvd")), "fwsvd"),
-    (dict(streaming=False, ccfg=dict(refine=True)), "refine"),
+    (dict(ccfg=dict(method="fwsvd", refine=True)), "item 9"),
 ])
 def test_unported_options_raise(kw, match):
     cfg = get_config("llama-mini").replace(**dict(_KW, n_kv_heads=4))
