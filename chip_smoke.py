@@ -22,6 +22,21 @@ What it does, in order, printing the seconds of each phase:
    ``Engine`` on the in-memory compressed params. Every kernel must have
    launched. The seconds of each ingest and of the device decomposition
    are taken inside this one run;
+2b. the continuous batcher's path on the same artifact, with the counts
+   set to 0 again just before it and read just after:
+   ``ContinuousBatcher.from_compressed(verify=True)``, batch 8, max_len
+   256, 24 seeded requests of 17-160 prompt tokens (12 of them over one
+   shared 64-token prefix) and 32 new tokens each, submitted 8 at a time
+   with a ``step()`` between, then ``run_until_drained``. bfloat16: the
+   contiguous pool and the paged pool (``kv_block=16``) give identical
+   tokens, and so does the paged pool under two NaN fault plans (one row,
+   every row with bisection), draining with every block returned; a
+   paged run with the elastic rank ladder must step down under the
+   stagger's queue pressure and drain; float32: contiguous, paged and
+   paged with prefix reuse give identical tokens. At most ⌈log2 256⌉
+   prefill signatures and one decode signature per rank level in each
+   run; every kernel of the path must have launched, the paged decode
+   kernel included. The batcher's tokens/s and ms/step are printed;
 3. the streaming Grams against the eager fp64 ``Collector`` on the card,
    every tag: Gram and mean |x| within 1e-4 relative, equal row counts;
 4. the device decomposition against the host fp64 oracle at full width and
@@ -30,14 +45,18 @@ What it does, in order, printing the seconds of each phase:
 5. every kernel against its plain PyTorch version on the card, at the main
    path's shapes (the plan's ranks, the calibration's activations) and
    ragged ones, in bfloat16 and float32: max-relative error within 2e-5
-   (float32; and the Gram in both dtypes) and 2e-2 (bfloat16);
+   (float32; and the Gram in both dtypes) and 2e-2 (bfloat16); the paged
+   decode kernel also bit for bit against the contiguous one on the
+   gathered layout;
 6. each kernel's device time for the work it does in one prefill, one
-   decode step or one calibration batch of the main path, beside its plain
-   version's time, one PyTorch library call's time and the bound the
-   card's peak rates set;
+   decode step or one calibration batch of the main path (the paged decode
+   kernel: one decode step of the batcher's path, at its live lengths),
+   beside its plain version's time, one PyTorch library call's time and
+   the bound the card's peak rates set;
 7. decode throughput of the dense and the D-Rank model at batch 8 and 64,
-   and a ``torch.profiler`` view of one D-Rank decode step: host time,
-   device-busy time, launches per step;
+   and a ``torch.profiler`` view of one D-Rank decode step of the
+   ``Engine`` and of the batcher on each pool: host time, device-busy
+   time, launches per step;
 8. the whole slice in float32 on the card (kernels) against the CPU (plain
    versions): identical greedy tokens, prefill logits within atol 2e-3.
 
@@ -78,6 +97,12 @@ ORACLE_LAYERS = 4                # depth of the host-vs-device phase
 ARTIFACT_DIR = ROOT / "build" / "chip_smoke_artifact"
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 8, 64, 32
 PARITY_BATCH, PARITY_PROMPT, PARITY_STEPS = 4, 32, 16
+# the batcher's path: 24 requests of 17-160 prompt tokens, half of them
+# over one shared 64-token prefix (4 blocks of 16), submitted 8 at a time
+CB_BATCH, CB_MAX_LEN, CB_BLOCK = 8, 256, 16
+CB_REQUESTS, CB_NEW, CB_STAGGER, CB_PREFIX = 24, 32, 8, 64
+CB_CHAOS = (dict(nan_decode_step=3, nan_rows=(1,)),
+            dict(nan_decode_step=5, nan_rows="all"))
 
 KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
     "lowrank_gemv": ("src/repro_torch/csrc/lowrank_matmul.cu",
@@ -90,7 +115,12 @@ KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
                          "src/repro/kernels/decode_attention.py:94"),
     "gram_blocked": ("src/repro_torch/csrc/gram.cu",
                      "src/repro/kernels/gram.py:38"),
+    "decode_attention_paged": ("src/repro_torch/csrc/decode_attention.cu",
+                               "src/repro/kernels/decode_attention.py:192"),
 }
+# kernels the batcher's path runs (it calibrates nothing)
+CB_KERNELS = ("lowrank_gemv", "lowrank_matmul_2d", "flash_attention",
+              "decode_attention", "decode_attention_paged")
 
 
 def log(msg: str = "") -> None:
@@ -134,24 +164,28 @@ class Port:
         from repro_torch.configs import get_config
         from repro_torch.core import capture, compress
         from repro_torch.data import synthetic
+        from repro_torch.dist import faultinject
         from repro_torch.kernels import _build, ops, ref
         from repro_torch.kernels import decode_attention as da
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import gram as gm
         from repro_torch.kernels import lowrank_matmul as lm
         from repro_torch.models import transformer
-        from repro_torch.serve import engine
+        from repro_torch.serve import admission, engine
         self.torch = torch
         self.get_config = get_config
         self.capture, self.compress = capture, compress
         self.synthetic = synthetic
         self.build, self.ops, self.ref = _build, ops, ref
         self.T, self.engine = transformer, engine
+        self.faultinject, self.admission = faultinject, admission
         self.wrappers = {"lowrank_gemv": lm.lowrank_gemv,
                          "lowrank_matmul_2d": lm.lowrank_matmul_2d,
                          "flash_attention": fa.flash_attention_bshd,
                          "decode_attention": da.decode_attention_bkgh,
-                         "gram_blocked": gm.gram_blocked}
+                         "gram_blocked": gm.gram_blocked,
+                         "decode_attention_paged":
+                             da.decode_attention_paged_bkgh}
 
     def reset_counts(self) -> None:
         for w in self.wrappers.values():
@@ -326,13 +360,13 @@ def main_path(port, dev):
                                                               GEN_NEW)
     torch.cuda.synchronize()
     counts = port.counts()
-    shutil.rmtree(ARTIFACT_DIR, ignore_errors=True)
     log(f"generate from the artifact: {GEN_BATCH} x {GEN_PROMPT} prompt "
         f"tokens, {GEN_NEW} new each, {secs['generate']:.2f} s")
     log(f"launches on the main path: {counts}")
     log("compression seconds: " + ", ".join(
         f"{k} {v:.2f}" for k, v in secs.items()))
-    missing = [n for n, c in counts.items() if c <= 0]
+    missing = [n for n, c in counts.items()
+               if c <= 0 and n != "decode_attention_paged"]
     assert not missing, f"kernels not launched on the main path: {missing}"
     assert toks.shape == (GEN_BATCH, GEN_NEW), toks.shape
     assert ((toks >= 0) & (toks < cfg.vocab_size)).all(), "token out of range"
@@ -343,6 +377,161 @@ def main_path(port, dev):
     assert torch.isfinite(logits).all(), "non-finite logits"
     log(f"first tokens of row 0: {toks[0, :8].tolist()}")
     return cfg, params, comp, plan, counts, col, calib
+
+
+def cb_requests(vocab: int):
+    """The batcher path's workload, from seed 4: (rid, prompt) pairs of
+    17-160 tokens; the even rids start with one shared 64-token prefix."""
+    rng = np.random.default_rng(4)
+    prefix = rng.integers(0, vocab, CB_PREFIX, dtype=np.int32)
+    reqs = []
+    for rid in range(CB_REQUESTS):
+        if rid % 2 == 0:
+            tail = rng.integers(0, vocab, int(rng.integers(1, 97)),
+                                dtype=np.int32)
+            reqs.append((rid, np.concatenate([prefix, tail])))
+        else:
+            reqs.append((rid, rng.integers(0, vocab,
+                                           int(rng.integers(17, 161)),
+                                           dtype=np.int32)))
+    return reqs
+
+
+def drive_batcher(port, cb, reqs, snapshot=None):
+    """Submit ``reqs`` CB_STAGGER at a time with a ``step()`` between, then
+    ``run_until_drained``. Returns (result, seconds, steps); the host clock
+    runs from a synchronize before the first submit to one after the
+    drain. ``snapshot`` (a dict) receives each slot's live length (pos +
+    1) and the block table right after the staggered steps."""
+    torch, E = port.torch, port.engine
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, (rid, toks) in enumerate(reqs):
+        cb.submit(E.Request(rid=rid, tokens=toks.copy(), n_new=CB_NEW))
+        if i % CB_STAGGER == CB_STAGGER - 1:
+            cb.step()
+    if snapshot is not None:
+        snapshot["lengths"] = (cb.cache["pos"] + 1).clamp_min(0).to(
+            torch.int32).clone()
+        snapshot["table"] = torch.as_tensor(cb.table.copy(),
+                                            device=cb.device)
+    res = cb.run_until_drained(watchdog_s=120.0)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, cb._step_idx
+
+
+def batcher_path(port, dev, cfg, comp):
+    """The continuous batcher's path at full width on the main path's
+    artifact, driven with every launch count set to 0 just before and read
+    just after. Returns (launch counts, the paged decode step snapshot,
+    {run: tokens/s, ms/step})."""
+    torch, E, FI = port.torch, port.engine, port.faultinject
+    cfg32 = cfg.replace(dtype="float32")
+    reqs = cb_requests(cfg.vocab_size)
+    contig = E.ServeConfig(batch=CB_BATCH, max_len=CB_MAX_LEN)
+    paged = E.ServeConfig(batch=CB_BATCH, max_len=CB_MAX_LEN,
+                          kv_block=CB_BLOCK)
+    shared = E.ServeConfig(batch=CB_BATCH, max_len=CB_MAX_LEN,
+                           kv_block=CB_BLOCK, prefix_cache=True)
+    bound = int(np.ceil(np.log2(CB_MAX_LEN)))
+    elastic_cfg = port.admission.AdmissionConfig(
+        elastic=True, elastic_levels=2, degrade_above=4, restore_below=1)
+    snap, rates, outs = {}, {}, {}
+    port.reset_counts()
+    t0 = time.perf_counter()
+    first = E.ContinuousBatcher.from_compressed(str(ARTIFACT_DIR), cfg,
+                                                contig, verify=True)
+    torch.cuda.synchronize()
+    log(f"  ContinuousBatcher.from_compressed(verify=True): "
+        f"{time.perf_counter() - t0:.2f} s")
+    runs = [("bf16 contiguous", cfg, contig, None),
+            ("bf16 paged", cfg, paged, None),
+            ("bf16 paged, NaN one row", cfg, paged, CB_CHAOS[0]),
+            ("bf16 paged, NaN all rows", cfg, paged, CB_CHAOS[1]),
+            ("bf16 contiguous again", cfg, contig, None),
+            ("bf16 paged, elastic", cfg, paged, None),
+            ("fp32 contiguous", cfg32, contig, None),
+            ("fp32 paged", cfg32, paged, None),
+            ("fp32 paged + prefix", cfg32, shared, None)]
+    for name, c, scfg, plan in runs:
+        # the elastic run drops rank under the stagger's queue pressure,
+        # so its tokens are not the full-rank ones
+        elastic = name.endswith("elastic")
+        cb = first if first is not None else E.ContinuousBatcher(
+            comp, c, scfg, device=dev,
+            faults=FI.FaultPlan(**plan) if plan else None,
+            admission=elastic_cfg if elastic else None)
+        first = None
+        res, secs, steps = drive_batcher(
+            port, cb, reqs,
+            snap if name == "bf16 paged" and not snap else None)
+        outs[name] = {r.rid: list(r.out) for r in res}
+        ntok = sum(len(o) for o in outs[name].values())
+        rates[name] = {"tokens_per_s": ntok / secs,
+                       "ms_per_step": secs / steps * 1e3}
+        sigs = {}
+        for role, *_ in cb.exec.signatures:
+            sigs[role] = sigs.get(role, 0) + 1
+        m = cb.metrics()
+        extra = ""
+        if cb.paged:
+            extra = (f", blocks peak {cb.pool.peak_in_use} of "
+                     f"{cb.n_blocks - 1}, in use after {cb.pool.in_use}")
+        prefix = getattr(cb, "prefix", None)
+        if prefix is not None:
+            extra += (f", prefix hits {m['prefix_hits']}, misses "
+                      f"{m['prefix_misses']}, forks {m['cow_forks']}")
+        if elastic:
+            extra += f", steps per rank level {m['rank_residency']}"
+        log(f"  {name}: {res.status}, {len(res)} done, {ntok} tokens in "
+            f"{steps} steps, {secs:.2f} s: {rates[name]['tokens_per_s']:.1f}"
+            f" tokens/s, {rates[name]['ms_per_step']:.2f} ms/step; "
+            f"signatures {sigs}; poison events {m['poison_events']}, "
+            f"probes {m.get('poison_probes', 0)}{extra}")
+        assert res.status == "drained" and len(res) == CB_REQUESTS, name
+        assert not res.failed and not res.shed and not res.rejected, name
+        assert all(len(o) == CB_NEW for o in outs[name].values()), name
+        rungs = len(m["rank_residency"])
+        assert cb.stats["decode_retraces"] == rungs, (name, cb.stats)
+        assert cb.stats["prefill_retraces"] <= bound * rungs, \
+            (name, cb.stats)
+        assert sigs.get("prefill_ext", 0) <= bound, (name, sigs)
+        if elastic:
+            assert rungs > 1, "the elastic run never left rank level 0"
+        if cb.paged:
+            if prefix is None:
+                assert cb.pool.in_use == 0, (name, cb.pool.in_use)
+            else:
+                assert cb.pool.in_use == len(prefix), name
+                assert m["prefix_hits"] > 0, "the prefix cache never hit"
+            assert (cb.table == 0).all() and not cb._req_blocks, name
+        if plan is not None:
+            assert cb.faults.fired and m["poison_events"] == 1, name
+        del cb
+    counts = port.counts()
+    log(f"  launches on the batcher's path: {counts}")
+    missing = [n for n in CB_KERNELS if counts[n] <= 0]
+    assert not missing, f"kernels not launched on the batcher path: {missing}"
+
+    def same(a, b):
+        bad = [r for r in outs[a] if outs[a][r] != outs[b][r]]
+        if bad:
+            r = bad[0]
+            i = next(j for j, (x, y) in enumerate(zip(outs[a][r],
+                                                      outs[b][r])) if x != y)
+            log(f"  {a} and {b} differ on rids {bad}; rid {r} first at "
+                f"token {i}: {outs[a][r][i]} against {outs[b][r][i]}")
+        return not bad
+    for a, b in (("bf16 contiguous", "bf16 paged"),
+                 ("bf16 contiguous", "bf16 contiguous again"),
+                 ("bf16 paged", "bf16 paged, NaN one row"),
+                 ("bf16 paged", "bf16 paged, NaN all rows"),
+                 ("fp32 contiguous", "fp32 paged"),
+                 ("fp32 contiguous", "fp32 paged + prefix")):
+        assert same(a, b), f"{a} and {b} give different tokens"
+    log(f"  tokens identical: bf16 contiguous = paged = paged under both "
+        f"fault plans; fp32 contiguous = paged = paged + prefix")
+    return counts, snap, rates
 
 
 def _rel64(a: np.ndarray, b: np.ndarray) -> float:
@@ -480,6 +669,48 @@ def check_kernels(port, dev, comp):
                                             rel_err(o, orf))
             errs["decode_attention"] = max(errs["decode_attention"],
                                            abs_err(o, orf))
+        # paged decode: a shuffled, non-monotonic table in which slots 0
+        # and 1 share their first block; a dead slot; lengths that are no
+        # multiple of bk; at bk 6, length 7's last 4-row group (rows 4-6)
+        # straddles the block boundary at 6. SmolLM's shapes and G 8 at
+        # hd 128. Bit for bit against the contiguous kernel on the
+        # gathered layout, then against the plain version.
+        for KVh, G, hd, bk, lens in (
+                (5, 3, 64, 16, [40, 23, 0, 1, 16, 17, 255, 100]),
+                (5, 3, 64, 6, [7, 13, 0, 6, 5, 12, 61, 30]),
+                (2, 8, 128, 16, [33, 70, 0, 15, 64, 2, 128, 49])):
+            nb = -(-max(lens) // bk)
+            P = 8 * nb + 2
+            perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
+            table = torch.zeros((8, nb), dtype=torch.int32, device=dev)
+            used = 0
+            for b, ln in enumerate(lens):
+                n = -(-ln // bk)
+                table[b, :n] = perm[used:used + n].to(torch.int32)
+                used += n
+            table[1, 0] = table[0, 0]                  # a shared block
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            q = rnd((8, KVh, G, hd), dtype)
+            ka = rnd((P, bk, KVh, hd), dtype)
+            va = rnd((P, bk, KVh, hd), dtype)
+            ka[0] = 0
+            va[0] = 0
+            o = w["decode_attention_paged"](q, ka, va, lengths, table)
+            idx = table.long()
+            kc = ka[idx].reshape(8, nb * bk, KVh, hd).contiguous()
+            vc = va[idx].reshape(8, nb * bk, KVh, hd).contiguous()
+            oc = w["decode_attention"](q, kc, vc, lengths)
+            orf = ref.decode_attention_paged(
+                q.reshape(8, KVh * G, hd), ka, va, lengths,
+                table).reshape(8, KVh, G, hd)
+            torch.cuda.synchronize()
+            assert torch.equal(o, oc), \
+                "the paged kernel differs from the contiguous one"
+            assert (o[2] == 0).all(), "dead slot must give exact zeros"
+            worst["decode_attention_paged"] = max(
+                worst["decode_attention_paged"], rel_err(o, orf))
+            errs["decode_attention_paged"] = max(
+                errs["decode_attention_paged"], abs_err(o, orf))
         # gram: one calibration batch's two widths, a ragged N at an
         # aligned width (vector loads), a ragged N and D (scalar loads);
         # overwrite and accumulate into an accumulator
@@ -504,9 +735,10 @@ def check_kernels(port, dev, comp):
     return errs
 
 
-def time_kernels(port, dev, cfg, comp):
+def time_kernels(port, dev, cfg, comp, snap):
     """Per kernel: the device time of the work it does in one prefill or
-    one decode step of the main path, its plain version's, one library
+    one decode step of the main path (the paged kernel: one decode step
+    of the batcher's path, ``snap``), its plain version's, one library
     call's, and the bound."""
     torch, ref = port.torch, port.ref
     F = torch.nn.functional
@@ -592,6 +824,42 @@ def time_kernels(port, dev, cfg, comp):
             for q, (k, v) in zip(qdt, cdt)]),
         bound=bound_ms(nl * 2 * (2 * Bb * H * hd + 2 * Bb * ln * KV * hd),
                        nl * 4 * Bb * H * hd * ln, "bfloat16"))
+    # paged decode: one decode step of the batcher's path (its live
+    # lengths and block table right after the staggered admissions) over
+    # nl layers of an arena of the batcher's size. The library call is
+    # masked SDPA on a contiguous copy gathered beforehand; the gather is
+    # not timed.
+    lp, tp = snap["lengths"], snap["table"]
+    P = CB_BATCH * (CB_MAX_LEN // CB_BLOCK) + 1
+    arenas = [(torch.randn((P, CB_BLOCK, KV, hd), generator=gen,
+                           device=dev).to(bf),
+               torch.randn((P, CB_BLOCK, KV, hd), generator=gen,
+                           device=dev).to(bf)) for _ in range(nl)]
+    Lc = tp.shape[1] * CB_BLOCK
+    gathered = [(k[tp.long()].reshape(Bb, Lc, KV, hd).transpose(1, 2)
+                 .contiguous(),
+                 v[tp.long()].reshape(Bb, Lc, KV, hd).transpose(1, 2)
+                 .contiguous()) for k, v in arenas]
+    pmask = (torch.arange(Lc, device=dev)[None, :] < lp[:, None]
+             )[:, None, None, :]
+    live = int(lp.sum())
+    out["decode_attention_paged"] = dict(
+        work=f"{nl} layers of paged decode attention at B={Bb} H={H} "
+             f"KV={KV} hd={hd}, block {CB_BLOCK}, live lengths "
+             f"{lp.tolist()} (one decode step of the batcher's path)",
+        ms=device_ms(torch, lambda: [
+            w["decode_attention_paged"](q, k, v, lp, tp)
+            for q, (k, v) in zip(qd, arenas)]),
+        plain_ms=device_ms(torch, lambda: [
+            ref.decode_attention_paged(q.reshape(Bb, H, hd), k, v, lp, tp)
+            for q, (k, v) in zip(qd, arenas)]),
+        library_ms=device_ms(torch, lambda: [
+            F.scaled_dot_product_attention(q, k, v, attn_mask=pmask,
+                                           enable_gqa=True)
+            for q, (k, v) in zip(qdt, gathered)]),
+        bound=bound_ms(nl * (2 * 2 * Bb * H * hd + 2 * 2 * live * KV * hd
+                             + 4 * tp.numel()),
+                       nl * 4 * H * hd * live, "bfloat16"))
     # gram: one calibration batch of the main path, 7 tags a layer (the
     # tape keeps one Gram per tag, so wq/wk/wv's shared input is reduced
     # three times), bf16 activations added into float32 accumulators. A
@@ -646,6 +914,73 @@ def throughput(port, dev, cfg, params, comp):
     return res
 
 
+def dev_us(e) -> float:
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0))
+
+
+def device_summary(events, steps: int):
+    """(device-busy ms, the port's kernels' ms, kernel launches) per step
+    from a profiler's ``key_averages()`` over ``steps`` steps."""
+    busy = sum(dev_us(e) for e in events) / steps / 1e3
+    ours = sum(dev_us(e) for e in events if "drt::" in e.key) / steps / 1e3
+    launches = sum(e.count for e in events if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
+        "cudaLaunchKernelExC")) / steps
+    return busy, ours, launches
+
+
+def profile_batcher(port, dev, cfg, comp, steps: int = 4):
+    """Where a batcher decode step's time goes at batch 8, bf16, on the
+    contiguous and the paged pool: the batch-path workload's first 8
+    requests are admitted, two steps warm up, then ``steps`` steps are
+    timed on the host clock, ``steps`` more profiled and ``steps`` more
+    timed again (no admission or retirement falls in any window)."""
+    torch, E = port.torch, port.engine
+    from torch.profiler import ProfilerActivity, profile
+    reqs = cb_requests(cfg.vocab_size)[:CB_BATCH]
+    pools = {"contiguous": E.ServeConfig(batch=CB_BATCH,
+                                         max_len=CB_MAX_LEN),
+             "paged": E.ServeConfig(batch=CB_BATCH, max_len=CB_MAX_LEN,
+                                    kv_block=CB_BLOCK)}
+    for name, scfg in pools.items():
+        cb = E.ContinuousBatcher(comp, cfg, scfg, device=dev)
+        for rid, toks in reqs:
+            cb.submit(E.Request(rid=rid, tokens=toks.copy(), n_new=CB_NEW))
+        cb.step()
+        cb.step()
+
+        def timed_ms():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                cb.step()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / steps * 1e3
+        host_ms = timed_ms()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                cb.step()
+            torch.cuda.synchronize()
+        again_ms = timed_ms()
+        assert all(r is not None for r in cb.slots), "a slot retired"
+        events = prof.key_averages()
+        busy, ours, launches = device_summary(events, steps)
+        syncs = sum(e.count for e in events if e.key in (
+            "cudaStreamSynchronize", "cudaDeviceSynchronize")) / steps
+        log(f"  {name}: {host_ms:.3f} ms/step on the host clock before the "
+            f"profiled window, {again_ms:.3f} after; device busy "
+            f"{busy:.3f} ms/step (idle {1 - busy / again_ms:.1%}); "
+            f"{launches:.0f} kernel launches/step, {syncs:.0f} "
+            f"synchronizations/step; the port's kernels {ours:.3f} ms/step")
+        for e in sorted(events, key=lambda e: e.self_cpu_time_total,
+                        reverse=True)[:5]:
+            log(f"    host {e.self_cpu_time_total / steps / 1e3:7.3f} "
+                f"ms/step  {e.count // steps:5d}/step  {e.key[:60]}")
+        del cb
+
+
 def profile_decode(port, dev, cfg, comp, steps: int = 4):
     """Where a D-Rank decode step's time goes at batch 8: host ms/step
     (timed without the profiler), device-busy ms/step and launches per
@@ -679,15 +1014,7 @@ def profile_decode(port, dev, cfg, comp, steps: int = 4):
                 cache, tok = step(cache, tok)
             torch.cuda.synchronize()
     events = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-    busy = sum(dev_us(e) for e in events) / steps / 1e3
-    ours = sum(dev_us(e) for e in events if "drt::" in e.key) / steps / 1e3
-    launches = sum(e.count for e in events if e.key in (
-        "cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
-        "cudaLaunchKernelExC")) / steps
+    busy, ours, launches = device_summary(events, steps)
     log(f"  {host_ms:.3f} ms/step on the host clock; device busy "
         f"{busy:.3f} ms/step (idle {1 - busy / host_ms:.1%}); "
         f"{launches:.0f} kernel launches/step; the port's kernels "
@@ -764,9 +1091,18 @@ def main() -> int:
             f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
         port = Port()
         build_kernels(port)
-    with Phase("main path: SmolLM-360M, streaming calibration, D-Rank 20% "
-               "on the card, save, boot, generate"):
-        cfg, params, comp, plan, counts, col, calib = main_path(port, dev)
+    try:
+        with Phase("main path: SmolLM-360M, streaming calibration, D-Rank "
+                   "20% on the card, save, boot, generate"):
+            cfg, params, comp, plan, counts, col, calib = main_path(port,
+                                                                    dev)
+        with Phase("batcher path: ContinuousBatcher from the artifact, "
+                   "contiguous, paged and prefix pools, fault plans"):
+            cb_counts, snap, rates = batcher_path(port, dev, cfg, comp)
+    finally:
+        shutil.rmtree(ARTIFACT_DIR, ignore_errors=True)
+    with Phase("batcher step profile, bf16, batch 8"):
+        profile_batcher(port, dev, cfg, comp)
     with Phase("streaming Grams against the eager fp64 oracle, every tag"):
         streaming_vs_eager(port, cfg, params, col, calib)
     del col
@@ -776,7 +1112,7 @@ def main() -> int:
     with Phase("kernels against their plain versions on the card"):
         errs = check_kernels(port, dev, comp)
     with Phase("kernel times (bfloat16, main-path shapes)"):
-        times = time_kernels(port, dev, cfg, comp)
+        times = time_kernels(port, dev, cfg, comp, snap)
     with Phase("decode throughput, prompt 128, 64 new tokens"):
         tput = throughput(port, dev, cfg, params, comp)
     step_ms = np.median([m["ms_per_step"] for m in tput[("drank-20%", 8)]])
@@ -790,12 +1126,21 @@ def main() -> int:
         parity(port, dev, cfg, comp)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(card)
+    for name in ("bf16 contiguous", "bf16 paged", "bf16 contiguous again"):
+        r = rates[name]
+        log(f"batcher {name}, batch {CB_BATCH}: {r['tokens_per_s']:.1f} "
+            f"tokens/s, {r['ms_per_step']:.2f} ms/step (host clock between "
+            f"syncs, admissions included)")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = times[name]
+        # the paged kernel's launches are its path's: the batcher's
+        launches = (cb_counts if name == "decode_attention_paged"
+                    else counts)[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts[name],
+            "replaces": replaces, "launches": launches,
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],

@@ -44,6 +44,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.params import Params, set_capture
 from repro_torch.models.transformer import tree_index
+from repro_torch.obs import trace
 
 
 class Collector:
@@ -269,29 +270,35 @@ class StreamingCalibrator:
 
     def ingest(self, batch: Dict) -> None:
         """Fold one calibration batch into the device accumulators."""
-        if self._accs is None:
-            self._dims = discover_capture_dims(self.tagged, self.cfg, batch)
-            self._routes = {t: "whiten" if _tag_whitened(self.whiten, t)
-                            else "replicated" for t in self._dims}
-            self._accs = _zero_accs(self._dims, self.whiten,
-                                    self.tagged["embed"].device)
-        from repro_torch.models import transformer as T
-        tape = StreamingTape(whiten=self.whiten, partials=self._accs)
-        with torch.no_grad(), tape:
-            T.forward(self.tagged, self.cfg, batch)
-            for tag, blocks in tape.xblocks.items():
-                acc = self._accs[tag]
-                acc["chol"] = torch.linalg.qr(
-                    torch.cat([acc["chol"], *blocks], dim=0), mode="r")[1]
-        self._since_flush += 1
-        if self._since_flush >= self.flush_every:
-            self.flush()
+        with trace.span("calib_ingest", since_flush=self._since_flush):
+            if self._accs is None:
+                self._dims = discover_capture_dims(self.tagged, self.cfg,
+                                                   batch)
+                self._routes = {t: "whiten" if _tag_whitened(self.whiten, t)
+                                else "replicated" for t in self._dims}
+                self._accs = _zero_accs(self._dims, self.whiten,
+                                        self.tagged["embed"].device)
+            from repro_torch.models import transformer as T
+            tape = StreamingTape(whiten=self.whiten, partials=self._accs)
+            with torch.no_grad(), tape:
+                T.forward(self.tagged, self.cfg, batch)
+                for tag, blocks in tape.xblocks.items():
+                    acc = self._accs[tag]
+                    acc["chol"] = torch.linalg.qr(torch.cat(
+                        [acc["chol"], *blocks], dim=0), mode="r")[1]
+            self._since_flush += 1
+            if self._since_flush >= self.flush_every:
+                self.flush()
 
     def flush(self) -> None:
         """Pull the float32 accumulators to the host, fold them into
         float64, zero them. Whitening factors stay on the device."""
         if self._accs is None or self._since_flush == 0:
             return
+        with trace.span("calib_flush", batches=self._since_flush):
+            self._flush_inner()
+
+    def _flush_inner(self) -> None:
         for tag, acc in self._accs.items():
             new = {"absx": acc["absx"].cpu().double().numpy(),
                    "count": acc["count"]}
@@ -321,6 +328,10 @@ class StreamingCalibrator:
         """Return the fp64 host-side statistics as a Collector (drop-in for
         the compression driver). Whitened tags expose their running
         Cholesky factor as ``col.chol[tag]`` and have no Gram entry."""
+        with trace.span("calib_finalize"):
+            return self._finalize_inner()
+
+    def _finalize_inner(self) -> Collector:
         self.flush()
         col = Collector()
         for tag, acc in self._host.items():

@@ -48,6 +48,7 @@ from repro_torch.core.groups import (BETA_MAP, Group, MatrixRef,
 from repro_torch.device import DeviceLike
 from repro_torch.models import transformer as T
 from repro_torch.models.params import Params
+from repro_torch.obs import trace
 
 METHODS = ("svd", "fwsvd", "asvd", "svdllm", "basis", "drank", "dranke")
 # where the host path's whitening, SVD and truncation run
@@ -214,44 +215,47 @@ def _decompose_groups_device(
                            []).append(g)
     out: Dict[str, Tuple] = {}
     for (d1, nd2, n, kmax), gs in sorted(buckets.items()):
-        W = torch.stack([
-            torch.cat([_member_tensor(lp, m) for m in g.members], dim=1)
-            for g in gs]).to(dev)
-        kwargs: Dict = {}
-        if ccfg.method == "asvd":
-            kwargs["diag"] = put(np.stack([np.power(np.maximum(np.mean(
-                [col.mean_abs(m.tag) for m in g.members], axis=0), 1e-8),
-                ccfg.asvd_alpha) for g in gs]))
-        elif ccfg.method != "svd":                   # cholesky family
-            tags = [m.tag for g in gs for m in g.members]
-            if col.chol and all(t in col.chol for t in tags):
-                kwargs["factor"] = numd.combine_factors(put(np.stack(
-                    [np.stack([col.chol[m.tag] for m in g.members])
-                     for g in gs])))
-            else:
-                # buckets mixing whitened and plain tags fall back to
-                # Grams, substituting RᵀR for factor-only tags
-                kwargs["gram"] = put(np.stack(
-                    [np.sum([_gram_of(col, m.tag) for m in g.members],
-                            axis=0) for g in gs]))
-                kwargs["damp"] = ccfg.damp
-        rsvd = int(bool(ccfg.rsvd_threshold)
-                   and min(d1, nd2) >= ccfg.rsvd_threshold)
-        sig, B, C = numd.decompose(
-            W, k=kmax, rsvd=rsvd, rsvd_oversample=ccfg.rsvd_oversample,
-            rsvd_iters=ccfg.rsvd_iters, **kwargs)
-        sig = sig.double().cpu().numpy()
-        if not np.isfinite(sig).all():
-            # a member still failing Cholesky escalation comes out as NaNs;
-            # fail as loudly as the host oracle does on non-finite Grams
-            bad = [gs[i].gid for i in range(len(gs))
-                   if not np.isfinite(sig[i]).all()]
-            raise np.linalg.LinAlgError(
-                f"device decomposition produced non-finite spectra for "
-                f"groups {bad} (bucket d1={d1}, n·d2={nd2}) — non-finite "
-                f"calibration Grams or weights")
-        for i, g in enumerate(gs):
-            out[g.gid] = (sig[i], B[i], C[i])
+        with trace.span("decompose_bucket", d1=d1, nd2=nd2,
+                        kmax=kmax, n_groups=len(gs)):
+            W = torch.stack([
+                torch.cat([_member_tensor(lp, m) for m in g.members], dim=1)
+                for g in gs]).to(dev)
+            kwargs: Dict = {}
+            if ccfg.method == "asvd":
+                kwargs["diag"] = put(np.stack([np.power(np.maximum(np.mean(
+                    [col.mean_abs(m.tag) for m in g.members], axis=0), 1e-8),
+                    ccfg.asvd_alpha) for g in gs]))
+            elif ccfg.method != "svd":                   # cholesky family
+                tags = [m.tag for g in gs for m in g.members]
+                if col.chol and all(t in col.chol for t in tags):
+                    kwargs["factor"] = numd.combine_factors(put(np.stack(
+                        [np.stack([col.chol[m.tag] for m in g.members])
+                         for g in gs])))
+                else:
+                    # buckets mixing whitened and plain tags fall back to
+                    # Grams, substituting RᵀR for factor-only tags
+                    kwargs["gram"] = put(np.stack(
+                        [np.sum([_gram_of(col, m.tag) for m in g.members],
+                                axis=0) for g in gs]))
+                    kwargs["damp"] = ccfg.damp
+            rsvd = int(bool(ccfg.rsvd_threshold)
+                       and min(d1, nd2) >= ccfg.rsvd_threshold)
+            sig, B, C = numd.decompose(
+                W, k=kmax, rsvd=rsvd, rsvd_oversample=ccfg.rsvd_oversample,
+                rsvd_iters=ccfg.rsvd_iters, **kwargs)
+            sig = sig.double().cpu().numpy()
+            if not np.isfinite(sig).all():
+                # a member still failing Cholesky escalation comes out
+                # as NaNs; fail as loudly as the host oracle does on
+                # non-finite Grams
+                bad = [gs[i].gid for i in range(len(gs))
+                       if not np.isfinite(sig[i]).all()]
+                raise np.linalg.LinAlgError(
+                    f"device decomposition produced non-finite spectra for "
+                    f"groups {bad} (bucket d1={d1}, n·d2={nd2}) — non-finite "
+                    f"calibration Grams or weights")
+            for i, g in enumerate(gs):
+                out[g.gid] = (sig[i], B[i], C[i])
     return out
 
 
@@ -321,8 +325,10 @@ def build_plan_and_params(
 
     col = collector
     if col is None and (ccfg.method != "svd" or ccfg.refine):
-        col = calibrate(lp, cfg, calib_batches, streaming=streaming,
-                        mesh=mesh, whiten_tags=whiten_tags)
+        with trace.span("calibrate", batches=len(calib_batches),
+                        streaming=streaming):
+            col = calibrate(lp, cfg, calib_batches, streaming=streaming,
+                            mesh=mesh, whiten_tags=whiten_tags)
 
     include_x = ccfg.include_experts and ccfg.method in (
         "basis", "drank", "dranke", "svdllm")
@@ -345,14 +351,15 @@ def build_plan_and_params(
         dec = _decompose_groups_device(lp, groups, ccfg, col, dev)
         sig_of = {gid: d[0] for gid, d in dec.items()}
     else:
-        for g in groups:
-            W_cat = np.concatenate(
-                [_member_weight(lp, m) for m in g.members], axis=1)
-            wh = _whitener_for(g, ccfg, col) if col else \
-                num.identity_whitener()
-            U, sig, Vt = num.whitened_svd(W_cat, wh)
-            svds[g.gid] = (U, sig, Vt, wh)
-            sig_of[g.gid] = sig
+        with trace.span("decompose_host", n_groups=len(groups)):
+            for g in groups:
+                W_cat = np.concatenate(
+                    [_member_weight(lp, m) for m in g.members], axis=1)
+                wh = _whitener_for(g, ccfg, col) if col else \
+                    num.identity_whitener()
+                U, sig, Vt = num.whitened_svd(W_cat, wh)
+                svds[g.gid] = (U, sig, Vt, wh)
+                sig_of[g.gid] = sig
     gspecs: List[alloc.GroupSpec] = []
     for g in groups:
         gspecs.append(alloc.GroupSpec(
@@ -416,9 +423,10 @@ def build_plan_and_params(
         # whiten_tags exists to avoid
         wt = (frozenset(col.chol) if col is not None and col.chol
               and streaming else None)
-        new_lp = refine_coefficients(lp, new_lp, cfg, groups, calib_batches,
-                                     streaming=streaming, device=device,
-                                     mesh=mesh, whiten_tags=wt)
+        with trace.span("refine", n_groups=len(groups)):
+            new_lp = refine_coefficients(
+                lp, new_lp, cfg, groups, calib_batches, streaming=streaming,
+                device=device, mesh=mesh, whiten_tags=wt)
     return new_lp, plan
 
 
@@ -538,6 +546,82 @@ def load_plan(ckpt_dir: str, cfg: Optional[ModelConfig] = None,
                 f"compressed checkpoint was built for {meta['model']}, "
                 f"got config {want}")
     return params, plan
+
+
+# ---------------------------------------------------------------------------
+# Serve-time elastic rank: pow2 bucket ladder over the saved factors
+# ---------------------------------------------------------------------------
+def _pow2_ceil(n: int) -> int:
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+def rank_bucket(r: int, level: int, min_rank: int = 1) -> int:
+    """Rank served at degradation ``level`` for a factor of full rank
+    ``r``: level 0 is the exact allocated rank; level ℓ ≥ 1 serves
+    ``pow2_ceil(r) >> ℓ`` (clamped to [min_rank, r]) — roughly a halving
+    per level, always a power of two, so the whole ladder adds at most
+    ``levels`` decode signatures however many distinct ranks the plan
+    allocated."""
+    if level <= 0:
+        return r
+    return max(min_rank, min(r, _pow2_ceil(r) >> level))
+
+
+def slice_rank_ladder(list_params: Params, levels: int = 2,
+                      min_rank: int = 1) -> List[Params]:
+    """Slice a factorized params tree into a serve-time degradation
+    ladder ``[full, level1, ..., levelN]``.
+
+    The factors are singular-value-ordered (B's columns and C's rows come
+    out of the whitened SVD sorted by descending σ), so ``B[..., :k']`` /
+    ``C[..., :k', :]`` is the rank-k' truncation of the same
+    decomposition: one artifact serves any rank ≤ k with a slice. Level ℓ
+    slices every factorized linear to ``rank_bucket(r, ℓ)``:
+
+    * level 0 is ``list_params`` itself (the same tensors), so the
+      full-rank rung is token-identical to the engine without a ladder;
+    * shared bases stay shared: a basis B reused across a group's layers
+      is sliced once per (tensor, rank) and re-aliased;
+    * B's column slice is copied into a contiguous tensor, since the
+      low-rank kernels read contiguous operands; C's row slice is a view;
+      dense (``w``) linears, biases, LoRA adapters and norms pass through
+      by reference.
+
+    A level that slices nothing (dense params, or every rank already at
+    its bucket) is ``list_params`` itself, so a degenerate ladder is
+    detectable by identity.
+    """
+    ladder = [list_params]
+    for lvl in range(1, levels + 1):
+        sliced_b: Dict[Tuple[int, int], torch.Tensor] = {}
+
+        def walk(node, lvl=lvl, sliced_b=sliced_b):
+            if isinstance(node, dict):
+                if "B" in node and "C" in node:
+                    B, C = node["B"], node["C"]
+                    r = int(B.shape[-1])
+                    k = rank_bucket(r, lvl, min_rank)
+                    out = dict(node)
+                    if k < r:
+                        key = (id(B), k)
+                        if key not in sliced_b:
+                            sliced_b[key] = B[..., :k].contiguous()
+                        out["B"] = sliced_b[key]
+                        out["C"] = C[..., :k, :]
+                    return out
+                return {kk: walk(v) for kk, v in node.items()}
+            if isinstance(node, list):
+                return [walk(v) for v in node]
+            if isinstance(node, tuple):
+                return tuple(walk(v) for v in node)
+            return node
+
+        rung = walk(list_params)
+        ladder.append(rung if sliced_b else list_params)
+    return ladder
 
 
 def compressed_param_count(list_params: Params) -> int:

@@ -1,13 +1,16 @@
-"""Ragged single-token decode attention: wrapper around
+"""Ragged single-token decode attention: wrappers around
 ``csrc/decode_attention.cu``.
 
-Replaces the TPU kernel ``decode_attention_bkgh``
+``decode_attention_bkgh`` replaces the TPU kernel of the same name
 (``repro/kernels/decode_attention.py``, ``_kernel``) in its full and ring
-cache layouts. The cache pool is read in place at its own length: no
-padding copy. What bounds the kernel on the card and how the design answers
-is in the note at the top of the CUDA source. The plain version is
-``kernels.ref.decode_attention``. The paged variant
-(``decode_attention_paged_bkgh``) is not ported yet.
+cache layouts; the cache pool is read in place at its own length, with no
+padding copy. ``decode_attention_paged_bkgh`` replaces the paged TPU kernel
+(``_paged_kernel``): the full layout read through a block table out of one
+arena of blocks. Both launch one kernel template; in the paged one only the
+row address differs. What bounds them on the card and how the design
+answers is in the note at the top of the CUDA source. The plain versions
+are ``kernels.ref.decode_attention`` and ``kernels.ref.
+decode_attention_paged``.
 """
 from __future__ import annotations
 
@@ -28,6 +31,22 @@ def _fn():
     return fn
 
 
+def _paged_fn():
+    fn = _build.lib("decode_attention").drt_decode_attention_paged
+    if fn.argtypes is None:
+        fn.argtypes = [P] * 6 + [I] * 7 + [F, F, I, P]
+        fn.restype = I
+    return fn
+
+
+def _check_index(what: str, t: torch.Tensor, shape, device) -> None:
+    if (tuple(t.shape) != tuple(shape) or t.dtype != torch.int32
+            or t.device != device or not t.is_contiguous()):
+        raise ValueError(f"{what} must be a contiguous {tuple(shape)} int32 "
+                         f"tensor on {device}, got {tuple(t.shape)} "
+                         f"{t.dtype} on {t.device}")
+
+
 def decode_attention_bkgh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           lengths: torch.Tensor, *, window: int = 0,
                           softcap: float = 0.0) -> torch.Tensor:
@@ -43,10 +62,7 @@ def decode_attention_bkgh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"decode_attention: unsupported shapes q "
                          f"{tuple(q.shape)} k {tuple(k.shape)} (hd in "
                          f"{HEAD_DIMS}, G <= {MAX_GROUP})")
-    if (lengths.shape != (B,) or lengths.dtype != torch.int32
-            or lengths.device != q.device or not lengths.is_contiguous()):
-        raise ValueError(f"decode_attention: lengths must be a contiguous "
-                         f"({B},) int32 tensor on {q.device}")
+    _check_index("decode_attention: lengths", lengths, (B,), q.device)
     o = torch.empty_like(q)
     if q.numel() == 0:
         return o
@@ -59,3 +75,53 @@ def decode_attention_bkgh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 decode_attention_bkgh.launches = 0
+
+
+# the staged table row must fit in shared memory beside the 37 KB the
+# kernel's softmax state takes at hd 128
+MAX_TABLE_BLOCKS = 40960
+
+
+def decode_attention_paged_bkgh(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, lengths: torch.Tensor,
+                                table: torch.Tensor, *,
+                                softcap: float = 0.0) -> torch.Tensor:
+    """q (B, KV, G, hd) one token per slot; k/v (P, bk, KV, hd) block
+    arena, block 0 the never-written null block; lengths (B,) int32 = pos
+    + 1 (0: dead slot, exact-zero output); table (B, NB) int32, logical
+    block j of slot b in arena block table[b, j] (entries in [0, P)). All
+    on the card. Returns (B, KV, G, hd)."""
+    code = _build.check_operands("decode_attention_paged", q, k, v)
+    B, KV, G, hd = q.shape
+    if k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"decode_attention_paged: k/v must be one (P, bk, "
+                         f"KV, hd) arena shape, got {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    P, bk = k.shape[0], k.shape[1]
+    if (k.shape[2] != KV or k.shape[3] != hd or hd not in HEAD_DIMS
+            or not 1 <= G <= MAX_GROUP or P < 1 or bk < 1):
+        raise ValueError(f"decode_attention_paged: unsupported shapes q "
+                         f"{tuple(q.shape)} arena {tuple(k.shape)} (hd in "
+                         f"{HEAD_DIMS}, G <= {MAX_GROUP})")
+    if table.dim() != 2 or table.shape[0] != B:
+        raise ValueError(f"decode_attention_paged: table must be ({B}, NB), "
+                         f"got {tuple(table.shape)}")
+    NB = table.shape[1]
+    if not 1 <= NB <= MAX_TABLE_BLOCKS:
+        raise ValueError(f"decode_attention_paged: NB = {NB} outside "
+                         f"[1, {MAX_TABLE_BLOCKS}]")
+    _check_index("decode_attention_paged: lengths", lengths, (B,), q.device)
+    _check_index("decode_attention_paged: table", table, (B, NB), q.device)
+    o = torch.empty_like(q)
+    if q.numel() == 0:
+        return o
+    rc = _paged_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     lengths.data_ptr(), table.data_ptr(), o.data_ptr(), B,
+                     NB, bk, P, KV, G, hd, hd ** -0.5, float(softcap), code,
+                     _build.stream_of(q))
+    _build.check_rc(rc, "decode_attention_paged")
+    decode_attention_paged_bkgh.launches += 1
+    return o
+
+
+decode_attention_paged_bkgh.launches = 0

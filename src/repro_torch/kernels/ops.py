@@ -27,7 +27,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.decode_attention import decode_attention_bkgh
+from repro_torch.kernels.decode_attention import (
+    decode_attention_bkgh, decode_attention_paged_bkgh)
 from repro_torch.kernels.flash_attention import flash_attention_bshd
 from repro_torch.kernels.gram import gram_blocked
 from repro_torch.kernels.lowrank_matmul import lowrank_gemv, lowrank_matmul_2d
@@ -154,6 +155,25 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = decode_attention_bkgh(q.reshape(B, KV, H // KV, hd), k, v,
                               lengths.to(torch.int32), window=window,
                               softcap=softcap)
+    return o.reshape(B, H, hd)
+
+
+def decode_attention_paged(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, lengths: torch.Tensor,
+                           table: torch.Tensor, *,
+                           softcap: float = 0.0) -> torch.Tensor:
+    """Paged-pool decode attention. q: (B, H, hd); k/v: (P, bk, KV, hd)
+    block arena (block 0 the null block); lengths: (B,) live length per
+    slot (pos + 1; 0: a dead slot, exact-zero row); table: (B, NB) block
+    table. Returns (B, H, hd). Inference-only, full layout only."""
+    if not _route(q, "decode_attention_paged"):
+        return ref.decode_attention_paged(q, k, v, lengths, table,
+                                          softcap=softcap)
+    B, H, hd = q.shape
+    KV = k.shape[2]
+    o = decode_attention_paged_bkgh(
+        q.reshape(B, KV, H // KV, hd), k, v, lengths.to(torch.int32),
+        table.to(torch.int32), softcap=softcap)
     return o.reshape(B, H, hd)
 
 

@@ -8,10 +8,11 @@ and plain version agree tightly in bf16 as well:
 * ``lowrank_matmul`` rounds the rank-R intermediate ``t = x@B`` to C's dtype
   before the second product (``_gemv_kernel``/``_kernel`` of the TPU
   package, ``lowrank_matmul.py:49,68``);
-* ``flash_attention`` and ``decode_attention`` round the softmax weights to
-  v's dtype before the PV product, while the denominator sums the unrounded
-  weights; masked scores take ``NEG_INF = -1e30``, never ``-inf``, and the
-  denominator is floored at ``1e-30``.
+* ``flash_attention``, ``decode_attention`` and ``decode_attention_paged``
+  round the softmax weights to v's dtype before the PV product, while the
+  denominator sums the unrounded weights; masked scores take
+  ``NEG_INF = -1e30``, never ``-inf``, and the denominator is floored at
+  ``1e-30``.
 
 In float32 every rounding above is the identity, so these equal the JAX
 package's oracles to float32 accuracy.
@@ -101,6 +102,26 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       torch.zeros_like(out))
     return out.reshape(B, H, hd).to(q.dtype)
 
+
+
+def decode_attention_paged(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, lengths: torch.Tensor,
+                           table: torch.Tensor, *,
+                           softcap: float = 0.0) -> torch.Tensor:
+    """Paged-pool decode attention, as the contiguous plain version on the
+    gathered layout. q: (B, H, hd); k/v: (P, bk, KV, hd) block arena
+    (block 0 the never-written null block); lengths: (B,) = pos + 1 (0: a
+    dead slot, exact-zero row); table: (B, NB) int, logical block j of
+    slot b in arena block table[b, j]. Gathering each slot's blocks back
+    into a (B, NB*bk, KV, hd) cache gives the contiguous layout value for
+    value, so this equals ``decode_attention`` on it bit for bit. Returns
+    (B, H, hd)."""
+    B, NB = table.shape
+    bk = k.shape[1]
+    idx = table.to(device=k.device, dtype=torch.long)
+    kc = k[idx].reshape(B, NB * bk, *k.shape[2:])
+    vc = v[idx].reshape(B, NB * bk, *v.shape[2:])
+    return decode_attention(q, kc, vc, lengths, softcap=softcap)
 
 def gram(x: torch.Tensor) -> torch.Tensor:
     """G = XᵀX with fp32 accumulation. x: (N, D) -> (D, D) fp32."""

@@ -2,15 +2,21 @@
 (train/prefill) and cached single-token (decode) paths (counterpart of
 ``repro/models/attention.py``).
 
-Every score computation goes through ``kernels.ops``: the flash kernel for
-full sequences, the decode kernel against the cache, and on the CPU their
-plain versions, which are the dense-mask formulation of the JAX package's
-``_sdpa``. Cross-attention, M-RoPE and the paged pool come with their
-slices.
+Every score computation of the cached paths goes through ``kernels.ops``:
+the flash kernel for full sequences, the decode kernels against the
+contiguous cache or the paged block arena, and on the CPU their plain
+versions, which are the dense-mask formulation of the JAX package's
+``_sdpa``. The prefix-reuse tail prefill (``attend_prefill_ext``) is plain
+torch ops, as the JAX package computes it outside any Pallas kernel.
+Cross-attention and M-RoPE come with their model families.
 
 The decode KV cache is preallocated and updated IN PLACE by index
 assignment, where the JAX package returns a new cache from a functional
-``.at[].set`` (``attention.py:443-444``).
+``.at[].set`` (``attention.py:443-444``). The JAX package routes the paged
+writes it must skip (dead rows, positions past the table) to an
+out-of-range block and lets XLA drop them (``mode="drop"``); PyTorch's
+``index_put_`` has no such mode, so the write index list is filtered
+explicitly (``paged_write_index``).
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models import rotary
 from repro_torch.models.params import Builder, apply_linear, head_rms_norm
 
@@ -83,26 +90,77 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, window: int,
     }
 
 
+def cache_write_index(pos: torch.Tensor, length: int, window: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Where a decode step writes each row's new K/V in a contiguous cache
+    of ``length`` slots: (rows, slots) of the rows that write. Ring
+    (window > 0): every row, at pos mod length. Full: a dead row (pos =
+    -1) parks its write at slot 0 of its own row, masked by length 0
+    downstream and overwritten on slot reuse, as in the JAX package; a
+    row past the end of the cache (pos >= length, a request longer than
+    max_len) writes nothing, where JAX's out-of-range ``.at[].set`` is
+    dropped. The full layout needs one host sync on the card
+    (``nonzero``); ``decode_step`` computes the index once per step."""
+    if window:
+        return (torch.arange(pos.shape[0], device=pos.device),
+                torch.remainder(pos, length).long())
+    rows = torch.nonzero(pos < length).squeeze(1)
+    return rows, pos[rows].clamp_min(0).long()
+
+
+def paged_write_index(pos: torch.Tensor, table: torch.Tensor, bk: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Where a decode step writes each row's new K/V in a paged arena:
+    (rows, blocks, offsets) of the rows that write. A dead row (pos < 0)
+    and a position past the table write nothing: they are filtered out of
+    the lists here, where the JAX package points them at an out-of-range
+    block that XLA drops. The null block 0 is never a target (a live
+    position's table entry is an allocated block). One host sync on the
+    card (``nonzero``); ``decode_step`` computes it once per step."""
+    NB = table.shape[1]
+    safe = pos.clamp_min(0).long()
+    ok = (pos >= 0) & (torch.div(safe, bk, rounding_mode="floor") < NB)
+    rows = torch.nonzero(ok).squeeze(1)
+    sp = safe[rows]
+    blk = table[rows, torch.div(sp, bk, rounding_mode="floor")].long()
+    return rows, blk, sp % bk
+
+
 def attend_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                   pos: torch.Tensor, cache: Dict,
                   angles: Optional[torch.Tensor], *, window: int = 0,
+                  table: Optional[torch.Tensor] = None,
+                  write_index: Optional[Tuple[torch.Tensor, ...]] = None,
                   ) -> Tuple[torch.Tensor, Dict]:
     """x: (B,1,D); pos: (B,) int per-sequence positions of the new token
     (-1 marks a dead/purged slot: its output row is exact zeros). Writes
-    the new K/V into ``cache`` in place and returns (out, cache)."""
+    the new K/V into ``cache`` in place and returns (out, cache).
+
+    With ``table`` (B, NB) int32 the cache is a paged arena: k/v (P, bk,
+    KV, hd), logical block j of row b in arena block table[b, j] (full
+    layout only). Dead rows write nothing there. ``write_index`` is what
+    ``paged_write_index`` (paged) or ``cache_write_index`` (contiguous)
+    returns, when the caller has it."""
     B = x.shape[0]
     q, k_new, v_new = _qkv(p, cfg, x, angles)
-    rows = torch.arange(B, device=x.device)
-    L = cache["k"].shape[1]
-    # dead rows (pos = -1) park their write in their own row (slot 0 of the
-    # full cache, the last slot of the ring) — masked by length 0
-    # downstream, fully overwritten on slot reuse
-    slot = torch.remainder(pos, L) if window else pos.clamp_min(0)
-    cache["k"][rows, slot.long()] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, slot.long()] = v_new[:, 0].to(cache["v"].dtype)
-    out = kops.decode_attention(q[:, 0], cache["k"], cache["v"], pos + 1,
-                                window=window,
-                                softcap=cfg.attn_logit_softcap)
+    if table is not None:
+        if window:
+            raise ValueError("the paged cache is full-layout only")
+        rows, blk, off = (write_index if write_index is not None else
+                          paged_write_index(pos, table, cache["k"].shape[1]))
+        cache["k"][blk, off] = k_new[rows, 0].to(cache["k"].dtype)
+        cache["v"][blk, off] = v_new[rows, 0].to(cache["v"].dtype)
+        out = kops.decode_attention_paged(q[:, 0], cache["k"], cache["v"],
+                                          pos + 1, table,
+                                          softcap=cfg.attn_logit_softcap)
+    else:
+        rows, slot = (write_index if write_index is not None else
+                      cache_write_index(pos, cache["k"].shape[1], window))
+        cache["k"][rows, slot] = k_new[rows, 0].to(cache["k"].dtype)
+        cache["v"][rows, slot] = v_new[rows, 0].to(cache["v"].dtype)
+        out = kops.decode_attention(q[:, 0], cache["k"], cache["v"],
+                                    pos + 1, window=window,
+                                    softcap=cfg.attn_logit_softcap)
     out = apply_linear(p["wo"], out.reshape(B, 1, cfg.q_dim))
     return out, cache
 
@@ -151,4 +209,67 @@ def attend_prefill(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
     ck = _cache_slots(k, lengths, L, window)
     cv = _cache_slots(v, lengths, L, window)
+    return out, {"k": ck, "v": cv}
+
+
+def _sdpa_masked(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Dense-mask attention of the JAX package's ``_sdpa``: q (B, S, H,
+    hd), k/v (B, T, KV, hd), mask (B, S, T) bool. Products accumulate in
+    fp32 (inputs widened exactly), scores are scaled after QK, masked
+    scores take ``NEG_INF``, the softmax runs in fp32 and its weights are
+    rounded to v's dtype for PV. Returns (B, S, H*hd) in v's dtype."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, S, KV, G, hd).float()
+    s = torch.einsum("bskgh,btkh->bkgst", qg, k.float()) * hd ** -0.5
+    cap = cfg.attn_logit_softcap
+    if cap:
+        s = cap * torch.tanh(s / cap)
+    s = torch.where(mask[:, None, None], s,
+                    torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1).to(v.dtype).float()
+    out = torch.einsum("bkgst,btkh->bskgh", w, v.float())
+    return out.to(v.dtype).reshape(B, S, H * hd)
+
+
+def attend_prefill_ext(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                       angles: Optional[torch.Tensor], arena: Dict,
+                       table: torch.Tensor, starts: torch.Tensor,
+                       lengths: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    """Tail prefill against a paged prefix (prefix-reuse admission).
+
+    x: (B, St, D) embeds of the UNSHARED tail only, positions starting at
+    ``starts`` (the caller's rope angles encode that offset); arena: paged
+    k/v (P, bk, KV, hd), read only; table: (B, NB) int block table whose
+    first ``starts[b]`` positions hold the shared prefix; starts/lengths:
+    (B,) prefix length and live TAIL length.
+
+    Each tail query attends [shared prefix | causal tail]. Returns (out
+    (B, St, D), tail cache {k, v}: (B, St, KV, hd), slot s = tail position
+    s, zeroed past ``lengths``; ``serve.aot.scatter_paged`` writes it
+    through the table at absolute offsets). Plain torch ops, as in the JAX
+    package (no kernel there either): prefix-reuse serving is bound by the
+    admission rate, not by prefill operations."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, cfg, x, angles)
+    bk = arena["k"].shape[1]
+    NB = table.shape[1]
+    Lp = NB * bk
+    idx = table.to(device=x.device, dtype=torch.long)
+    kp = arena["k"][idx].reshape(B, Lp, *arena["k"].shape[2:])
+    vp = arena["v"][idx].reshape(B, Lp, *arena["v"].shape[2:])
+    kk = torch.cat([kp.to(k.dtype), k], dim=1)          # (B, Lp+S, KV, hd)
+    vv = torch.cat([vp.to(v.dtype), v], dim=1)
+    starts = starts.to(device=x.device, dtype=torch.long)
+    prefix_ok = (torch.arange(Lp, device=x.device)[None, :]
+                 < starts[:, None])                     # (B, Lp)
+    ar = torch.arange(S, device=x.device)
+    tail_ok = ar[None, :] <= ar[:, None]                # (S, S)
+    mask = torch.cat([prefix_ok[:, None, :].expand(B, S, Lp),
+                      tail_ok[None].expand(B, S, S)], dim=2)
+    out = apply_linear(p["wo"], _sdpa_masked(cfg, q, kk, vv, mask))
+    ck = _cache_slots(k, lengths, S, 0).to(k.dtype)
+    cv = _cache_slots(v, lengths, S, 0).to(v.dtype)
     return out, {"k": ck, "v": cv}

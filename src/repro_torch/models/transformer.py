@@ -10,12 +10,16 @@ per-layer ranks differ. PyTorch runs eagerly, so both forms execute as a
 Python loop over layers; a stacked run is indexed layer by layer (views, no
 copies).
 
-This slice serves the ``attn`` and ``swa`` kinds of decoder-only models.
-The recurrent kinds, MoE, encoder-decoder wiring, M-RoPE and the paged
-cache come with their model families (ROADMAP Queue 1, items 7 and 10).
+This port serves the ``attn`` and ``swa`` kinds of decoder-only models,
+with the contiguous per-slot KV cache (``init_cache``) or, for pure
+``attn`` stacks, the paged block arena (``init_cache_paged``, read through
+a block table in ``decode_step(table=)`` and ``prefill_ext``). The
+recurrent kinds, MoE, encoder-decoder wiring and M-RoPE come with their
+model families (ROADMAP Queue 1, item 10).
 
 Batch dictionary convention: ``tokens`` (B, S) int, optional ``positions``
-(B, S) int and, for prefill, ``lengths`` (B,) int.
+(B, S) int and, for prefill, ``lengths`` (B,) int; ``prefill_ext`` also
+takes ``starts`` (B,) int.
 """
 from __future__ import annotations
 
@@ -27,8 +31,9 @@ from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import rotary
 from repro_torch.models.attention import (attend_decode, attend_full,
-                                          attend_prefill, init_attention,
-                                          init_kv_cache)
+                                          attend_prefill, attend_prefill_ext,
+                                          cache_write_index, init_attention,
+                                          init_kv_cache, paged_write_index)
 from repro_torch.models.mlp import apply_mlp, init_mlp
 from repro_torch.models.params import (Builder, Params, apply_linear,
                                        rms_norm, softcap)
@@ -236,12 +241,41 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             "pos": torch.full((batch,), -1, dtype=torch.int32, device=dev)}
 
 
+def init_cache_paged(cfg: ModelConfig, batch: int, blocks: int,
+                     block_len: int, device: DeviceLike = None) -> Dict:
+    """Paged cache: one flat KV block arena per run instead of the per-slot
+    (batch, max_len) pool. k/v are (n, blocks, block_len, KV, hd); arena
+    block 0 is the never-allocated null block (what a dead table entry
+    points at). The logical-to-physical map lives outside, in the
+    engine's (batch, NB) block table. Pure-attention decoders only:
+    recurrent kinds have no paged layout and windowed kinds keep the ring
+    cache. Every slot starts dead (pos = -1)."""
+    check_supported(cfg)
+    kinds = {kind for kind, _ in cfg.layer_runs()}
+    if kinds != {"attn"}:
+        raise ValueError(f"the paged cache supports pure-attention stacks "
+                         f"only, got layer kinds {sorted(kinds)}")
+    dev = resolve_device(device)
+    dtype = dtype_of(cfg.dtype)
+    runs: Dict[str, Any] = {}
+    for r, (_kind, n) in enumerate(cfg.layer_runs()):
+        shape = (n, blocks, block_len, cfg.n_kv_heads, cfg.head_dim)
+        runs[f"run{r}"] = {"kv": {
+            "k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}}
+    return {"runs": runs,
+            "pos": torch.full((batch,), -1, dtype=torch.int32, device=dev)}
+
+
 def _block_decode(kind: str, cfg: ModelConfig, p: Params, kv: Dict,
                   x: torch.Tensor, pos: torch.Tensor,
-                  angles: Optional[torch.Tensor]) -> torch.Tensor:
+                  angles: Optional[torch.Tensor],
+                  table: Optional[torch.Tensor] = None,
+                  write_index=None) -> torch.Tensor:
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
     out, _ = attend_decode(p["attn"], cfg, h, pos, kv, angles,
-                           window=_kind_window(cfg, kind))
+                           window=_kind_window(cfg, kind), table=table,
+                           write_index=write_index)
     x = x + out
     if "mlp" in p:
         h = rms_norm(p["ln2"], x, cfg.norm_eps)
@@ -252,21 +286,32 @@ def _block_decode(kind: str, cfg: ModelConfig, p: Params, kv: Dict,
 def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
                 tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
+                table: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, Dict]:
     """One new token per sequence. tokens (B,1) int. The KV cache is
     updated in place; ``cache["pos"]`` is replaced: dead slots (pos = -1)
-    stay dead, live slots advance. Returns (logits (B,1,V), cache)."""
+    stay dead, live slots advance. With ``table`` (B, NB) int32 the cache
+    is a paged arena (``init_cache_paged``) and every KV read and write
+    goes through the table; dead slots write nothing. Returns (logits
+    (B,1,V), cache)."""
     dev = _params_device(params)
     pos = cache["pos"]
     x = embed_tokens(params, cfg, tokens)
     rp = positions if positions is not None else pos[:, None]
+    if table is not None:
+        table = table.to(device=dev, dtype=torch.int32)
     for r, (kind, n) in enumerate(cfg.layer_runs()):
         angles = _angles_for(cfg, kind, rp)
         kv = cache["runs"][f"run{r}"]["kv"]
+        win = _kind_window(cfg, kind)
+        # where this step writes: computed once for all layers of the run
+        wi = (paged_write_index(pos, table, kv["k"].shape[2])
+              if table is not None else
+              cache_write_index(pos, kv["k"].shape[2], win))
         for i, pl in enumerate(_layers(params["decoder"][f"run{r}"], n)):
             x = _block_decode(kind, cfg, pl,
                               {"k": kv["k"][i], "v": kv["v"][i]}, x, pos,
-                              angles)
+                              angles, table, wi)
     logits = lm_logits(params, cfg, x)
     cache["pos"] = torch.where(pos >= 0, pos + 1, pos).to(device=dev)
     return logits, cache
@@ -318,3 +363,58 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict,
         pos0 = lengths
     logits = lm_logits(params, cfg, x_last)
     return logits, {"runs": runs, "pos": pos0}
+
+
+def prefill_ext(params: Params, cfg: ModelConfig, batch: Dict,
+                arena: Dict, table: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    """Tail prefill for prefix-reuse admission (paged pool only): run the
+    UNSHARED tail of each prompt against a shared prefix already resident
+    in the paged arena, which is read, never written.
+
+    batch: tokens (B, St) right-padded tail ids; lengths (B,) live tail
+    lengths; starts (B,) prefix lengths (tail position i is absolute
+    position starts + i). arena: an ``init_cache_paged`` tree; table:
+    (B, NB) int block table (its first ``starts[b]`` positions are the
+    prefix).
+
+    Returns (logits of each row's last live tail position (B, 1, V), tail
+    cache): tail k/v are (n, B, St, KV, hd) in slot layout (slot s = tail
+    position s), which ``serve.aot.scatter_paged`` writes through the
+    table at the absolute offsets; cache ``pos`` = starts + lengths."""
+    check_supported(cfg)
+    dev = _params_device(params)
+    lengths = torch.as_tensor(batch["lengths"], device=dev).to(torch.int32)
+    starts = torch.as_tensor(batch["starts"], device=dev).to(torch.int32)
+    table = torch.as_tensor(table, device=dev)
+    x = embed_tokens(params, cfg, _tokens(batch, dev))
+    B, S, _ = x.shape
+    positions = None
+    if cfg.rope_kind != "none":
+        positions = (starts[:, None]
+                     + torch.arange(S, device=dev, dtype=torch.int32)[None])
+    runs: Dict[str, Any] = {}
+    for r, (kind, n) in enumerate(cfg.layer_runs()):
+        if kind != "attn":
+            raise ValueError(f"prefill_ext supports pure-attention stacks "
+                             f"only, got {kind}")
+        angles = _angles_for(cfg, kind, positions)
+        arena_kv = arena["runs"][f"run{r}"]["kv"]
+        ks, vs = [], []
+        for i, pl in enumerate(_layers(params["decoder"][f"run{r}"], n)):
+            h = rms_norm(pl["ln1"], x, cfg.norm_eps)
+            out, kv = attend_prefill_ext(
+                pl["attn"], cfg, h, angles,
+                {"k": arena_kv["k"][i], "v": arena_kv["v"][i]}, table,
+                starts, lengths)
+            x = x + out
+            if "mlp" in pl:
+                h = rms_norm(pl["ln2"], x, cfg.norm_eps)
+                x = x + apply_mlp(pl["mlp"], cfg, h)
+            ks.append(kv["k"])
+            vs.append(kv["v"])
+        runs[f"run{r}"] = {"kv": {"k": torch.stack(ks),
+                                  "v": torch.stack(vs)}}
+    last = (lengths.clamp_min(1) - 1).long()
+    x_last = x[torch.arange(B, device=dev), last][:, None]
+    logits = lm_logits(params, cfg, x_last)
+    return logits, {"runs": runs, "pos": starts + lengths}

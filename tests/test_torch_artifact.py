@@ -188,8 +188,9 @@ def test_wrong_config_fingerprint_is_rejected(tmp_path):
 def test_from_compressed_batcher_and_retries_spelling(tmp_path):
     cfg, _, _, _, _, tlp, tplan = _setup()
     CC.save_plan(str(tmp_path), tlp, tplan, cfg)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        E.from_compressed(str(tmp_path), cfg, device="cpu")
+    cb = E.from_compressed(str(tmp_path), cfg, device="cpu")
+    assert isinstance(cb, E.ContinuousBatcher)      # the default, as in JAX
+    assert cb.plan.to_json() == tplan.to_json()
     with pytest.warns(DeprecationWarning):
         eng = E.Engine.from_compressed(str(tmp_path), cfg, E.ServeConfig(),
                                        retries=1, device="cpu")

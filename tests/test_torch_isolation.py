@@ -22,7 +22,9 @@ def test_import_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.serve.engine, "
             "repro_torch.core.compress, repro_torch.bridge, "
             "repro_torch.ckpt.store, repro_torch.core.numerics_device, "
-            "repro_torch.kernels.gram; "
+            "repro_torch.kernels.gram, repro_torch.serve.aot, "
+            "repro_torch.serve.paged, repro_torch.serve.admission, "
+            "repro_torch.obs, repro_torch.dist.faultinject; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.')); print(bad); sys.exit(1 if bad else 0)")
@@ -36,8 +38,10 @@ def test_sources_import_no_jax_and_nothing_of_repro():
     assert (ROOT / "chip_smoke.py").exists()
     assert len(SOURCES) > 20
     names = {p.relative_to(PORT).as_posix() for p in SOURCES[:-1]}
-    assert {"ckpt/store.py", "core/numerics_device.py",
-            "kernels/gram.py"} <= names
+    assert {"ckpt/store.py", "core/numerics_device.py", "kernels/gram.py",
+            "serve/aot.py", "serve/paged.py", "serve/admission.py",
+            "obs/trace.py", "obs/metrics.py", "obs/flightrec.py",
+            "dist/faultinject.py"} <= names
     for path in SOURCES:
         text = path.read_text()
         assert not _JAX.search(text), f"{path} imports jax"

@@ -11,7 +11,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.decode_attention import decode_attention_bkgh
+from repro_torch.kernels.decode_attention import (
+    decode_attention_bkgh, decode_attention_paged_bkgh)
 from repro_torch.kernels.flash_attention import flash_attention_bshd
 from repro_torch.kernels.lowrank_matmul import lowrank_gemv, lowrank_matmul_2d
 
@@ -133,9 +134,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         flash_attention_bshd(q, q, q)
     with pytest.raises(ValueError):
         decode_attention_bkgh(q, q, q, torch.ones(1, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        decode_attention_paged_bkgh(q, q, q, torch.ones(1, dtype=torch.int32),
+                                    torch.ones(1, 2, dtype=torch.int32))
     assert (lowrank_gemv.launches, lowrank_matmul_2d.launches,
-            flash_attention_bshd.launches, decode_attention_bkgh.launches
-            ) == (0, 0, 0, 0)
+            flash_attention_bshd.launches, decode_attention_bkgh.launches,
+            decode_attention_paged_bkgh.launches) == (0, 0, 0, 0, 0)
 
 
 def test_gram_plain_version():
