@@ -44,15 +44,18 @@ What it does, in order, printing the seconds of each phase:
    relative, every group's B·C within 1e-4 relative;
 5. every kernel against its plain PyTorch version on the card, at the main
    path's shapes (the plan's ranks, the calibration's activations) and
-   ragged ones, in bfloat16 and float32: max-relative error within 2e-5
-   (float32; and the Gram in both dtypes) and 2e-2 (bfloat16); the paged
-   decode kernel also bit for bit against the contiguous one on the
+   ragged ones, in bfloat16 and float32, each variant of
+   ``lowrank_matmul_2d`` and ``gram_blocked`` (tensor-core "wgmma",
+   CUDA-core "simt") on every shape it takes: max-relative error within
+   2e-5 (float32; and the Gram in both dtypes) and 2e-2 (bfloat16); the
+   paged decode kernel also bit for bit against the contiguous one on the
    gathered layout;
 6. each kernel's device time for the work it does in one prefill, one
    decode step or one calibration batch of the main path (the paged decode
    kernel: one decode step of the batcher's path, at its live lengths),
    beside its plain version's time, one PyTorch library call's time and
-   the bound the card's peak rates set;
+   the bound the card's peak rates set; the two kernels with variants also
+   in their CUDA-core variant, the earlier design;
 7. decode throughput of the dense and the D-Rank model at batch 8 and 64,
    and a ``torch.profiler`` view of one D-Rank decode step of the
    ``Engine`` and of the batcher on each pool: host time, device-busy
@@ -60,7 +63,13 @@ What it does, in order, printing the seconds of each phase:
 8. the whole slice in float32 on the card (kernels) against the CPU (plain
    versions): identical greedy tokens, prefill logits within atol 2e-3.
 
-The line before the last is one JSON object ``{"kernels": [...]}``; the last
+The build phase logs the registers and spills of the tensor-core entry
+points and the clusters the card holds at once; the main path and the
+batcher's path assert that their bf16 calibration and prefills ran the
+tensor-core variants (per-variant launch counts, ``launches_by_variant``).
+The line before the last is one JSON object ``{"kernels": [...]}`` (the two
+kernels with variants also carry the variant the main path ran and the
+CUDA-core variant's time, ``simt_ms``); the last
 is ``{"ok": true, "device": {...}}``. Any failure raises, so the script
 exits non-zero and prints no result; so it does with no CUDA device, or
 without the repository's ``src/repro_torch`` beside it.
@@ -118,6 +127,9 @@ KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
     "decode_attention_paged": ("src/repro_torch/csrc/decode_attention.cu",
                                "src/repro/kernels/decode_attention.py:192"),
 }
+# kernels with a tensor-core ("wgmma") and a CUDA-core ("simt") variant; the
+# main path's bf16 work must take the first
+TC_KERNELS = ("lowrank_matmul_2d", "gram_blocked")
 # kernels the batcher's path runs (it calibrates nothing)
 CB_KERNELS = ("lowrank_gemv", "lowrank_matmul_2d", "flash_attention",
               "decode_attention", "decode_attention_paged")
@@ -179,6 +191,7 @@ class Port:
         self.build, self.ops, self.ref = _build, ops, ref
         self.T, self.engine = transformer, engine
         self.faultinject, self.admission = faultinject, admission
+        self.lm, self.gm = lm, gm
         self.wrappers = {"lowrank_gemv": lm.lowrank_gemv,
                          "lowrank_matmul_2d": lm.lowrank_matmul_2d,
                          "flash_attention": fa.flash_attention_bshd,
@@ -190,9 +203,17 @@ class Port:
     def reset_counts(self) -> None:
         for w in self.wrappers.values():
             w.launches = 0
+            for v in getattr(w, "launches_by_variant", {}):
+                w.launches_by_variant[v] = 0
 
     def counts(self):
         return {n: w.launches for n, w in self.wrappers.items()}
+
+    def variant_counts(self):
+        """{kernel: {variant: launches}} for the kernels with variants."""
+        return {n: dict(w.launches_by_variant)
+                for n, w in self.wrappers.items()
+                if hasattr(w, "launches_by_variant")}
 
 
 def linears(params):
@@ -283,6 +304,30 @@ def build_kernels(port) -> None:
                                              text)]
         log(f"  {name}: {len(regs)} entry points, max {max(regs or [0])} "
             f"registers, {sum(spills)} bytes of spill stores")
+        for entry in text.split("Compiling entry function '")[1:]:
+            fn = entry.split("'", 1)[0]
+            if "wgmma" not in fn:
+                continue
+            reg = re.search(r"Used (\d+) registers", entry)
+            spill = re.search(r"(\d+) bytes spill stores", entry)
+            short = re.search(r"(\w*wgmma_kernel\w*?)E", fn)
+            log(f"    {short.group(1) if short else fn}: "
+                f"{reg.group(1) if reg else '?'} registers, "
+                f"{spill.group(1) if spill else '?'} bytes of spill stores")
+    # the wrappers' pure mirrors of the shared-memory bounds against the
+    # compiled formulas, and the clusters the card holds at once
+    lm = port.lm
+    c_simt = lm._fn("drt_lowrank_2d_max_rank")()
+    c_wg = lm._fn("drt_lowrank_2d_wgmma_max_rank")()
+    log(f"  lowrank_matmul_2d rank bounds: simt {c_simt}, wgmma {c_wg} "
+        f"(Python mirrors {lm.simt_max_rank()}, {lm.wgmma_max_rank()})")
+    assert (c_simt, c_wg) == (lm.simt_max_rank(), lm.wgmma_max_rank()), \
+        "the Python mirror of a rank bound disagrees with the CUDA source"
+    for R in (704, c_wg):
+        occ = {cl: lm._fn("drt_lowrank_2d_wgmma_clusters")(R, cl)
+               for cl in (8, 16)}
+        log(f"  lowrank_matmul_2d wgmma at rank {R}: clusters the card holds "
+            f"at once {occ} (cluster size: count; the kernel's is 8)")
 
 
 def calib_batches(port, cfg, dev):
@@ -360,9 +405,14 @@ def main_path(port, dev):
                                                               GEN_NEW)
     torch.cuda.synchronize()
     counts = port.counts()
+    variants = port.variant_counts()
     log(f"generate from the artifact: {GEN_BATCH} x {GEN_PROMPT} prompt "
         f"tokens, {GEN_NEW} new each, {secs['generate']:.2f} s")
-    log(f"launches on the main path: {counts}")
+    log(f"launches on the main path: {counts}; by variant {variants}")
+    for name in TC_KERNELS:     # bf16 calibration and prefills, all
+        assert variants[name]["wgmma"] > 0 and variants[name]["simt"] == 0, \
+            f"{name} left its tensor-core variant on the bf16 main path: " \
+            f"{variants[name]}"
     log("compression seconds: " + ", ".join(
         f"{k} {v:.2f}" for k, v in secs.items()))
     missing = [n for n, c in counts.items()
@@ -376,7 +426,7 @@ def main_path(port, dev):
         prompts, device=dev)}, max_len=GEN_PROMPT + 1)
     assert torch.isfinite(logits).all(), "non-finite logits"
     log(f"first tokens of row 0: {toks[0, :8].tolist()}")
-    return cfg, params, comp, plan, counts, col, calib
+    return cfg, params, comp, plan, (counts, variants), col, calib
 
 
 def cb_requests(vocab: int):
@@ -436,7 +486,7 @@ def batcher_path(port, dev, cfg, comp):
     bound = int(np.ceil(np.log2(CB_MAX_LEN)))
     elastic_cfg = port.admission.AdmissionConfig(
         elastic=True, elastic_levels=2, degrade_above=4, restore_below=1)
-    snap, rates, outs = {}, {}, {}
+    snap, rates, outs, bf16_variants = {}, {}, {}, None
     port.reset_counts()
     t0 = time.perf_counter()
     first = E.ContinuousBatcher.from_compressed(str(ARTIFACT_DIR), cfg,
@@ -457,6 +507,8 @@ def batcher_path(port, dev, cfg, comp):
         # the elastic run drops rank under the stagger's queue pressure,
         # so its tokens are not the full-rank ones
         elastic = name.endswith("elastic")
+        if c.dtype == "float32" and bf16_variants is None:
+            bf16_variants = port.variant_counts()   # the bf16 runs' launches
         cb = first if first is not None else E.ContinuousBatcher(
             comp, c, scfg, device=dev,
             faults=FI.FaultPlan(**plan) if plan else None,
@@ -509,9 +561,18 @@ def batcher_path(port, dev, cfg, comp):
             assert cb.faults.fired and m["poison_events"] == 1, name
         del cb
     counts = port.counts()
-    log(f"  launches on the batcher's path: {counts}")
+    variants = port.variant_counts()
+    log(f"  launches on the batcher's path: {counts}; by variant {variants}")
     missing = [n for n in CB_KERNELS if counts[n] <= 0]
     assert not missing, f"kernels not launched on the batcher path: {missing}"
+    fp32 = {v: variants["lowrank_matmul_2d"][v]
+            - bf16_variants["lowrank_matmul_2d"][v] for v in port.lm.VARIANTS}
+    log(f"  lowrank_matmul_2d by variant: bf16 runs "
+        f"{bf16_variants['lowrank_matmul_2d']}, float32 runs {fp32}")
+    assert (bf16_variants["lowrank_matmul_2d"]["wgmma"] > 0
+            and bf16_variants["lowrank_matmul_2d"]["simt"] == 0), \
+        "the batcher's bf16 prefills left the tensor-core 2-D kernel"
+    assert fp32["wgmma"] == 0, "a float32 prefill ran the tensor-core kernel"
 
     def same(a, b):
         bad = [r for r in outs[a] if outs[a][r] != outs[b][r]]
@@ -610,31 +671,55 @@ def check_kernels(port, dev, comp):
         return (torch.randn(shape, generator=gen, device=dev) * scale
                 ).to(dtype)
 
-    # the plan's (K, R, N) at the first layer, the largest rank, and a
-    # ragged shape with nothing a multiple of anything
+    # the plan's (K, R, N) at the first layer, the largest rank, ragged
+    # ranks at SmolLM's widths (13 and 697: B's rows on 2-byte boundaries;
+    # 698: on 4-byte ones; 696 and 800: on 16-byte ones, B by TMA), and a
+    # shape with nothing a multiple of anything (the CUDA-core 2-D kernel
+    # only); then B at an offset of one element. Every variant that takes a
+    # shape is held to the plain version (errors by variant in ``worst``;
+    # ``errs`` has the largest).
     lins = linears(comp)
     shapes = {(int(p["B"].shape[0]), int(p["B"].shape[1]),
                int(p["C"].shape[1])) for p in lins[:7]}
     big = max(lins, key=lambda p: p["B"].shape[1])
     shapes.add((int(big["B"].shape[0]), int(big["B"].shape[1]),
                 int(big["C"].shape[1])))
-    shapes.add((100, 13, 77))
+    shapes |= {(100, 13, 77), (960, 13, 320), (960, 697, 960),
+               (960, 696, 960), (960, 698, 960), (2560, 800, 960)}
     errs = {n: 0.0 for n in w}
     for dtype, dname in ((torch.bfloat16, "bfloat16"),
                          (torch.float32, "float32")):
-        worst = {n: 0.0 for n in w}
+        worst = {}
+
+        def hold(name, got, want, variant=None):
+            key = f"{name}[{variant}]" if variant else name
+            worst[key] = max(worst.get(key, 0.0), rel_err(got, want))
+            errs[name] = max(errs[name], abs_err(got, want))
+
         for K, R, N in sorted(shapes):
             B = rnd((K, R), dtype, K ** -0.5)
             C = rnd((R, N), dtype, R ** -0.5)
-            for M in (1, 8, 64, 100, GEN_BATCH * GEN_PROMPT):
+            for M in (1, 8, 64, 65, 100, GEN_BATCH * GEN_PROMPT, 2048):
                 x = rnd((M, K), dtype)
-                name = ("lowrank_gemv" if M <= port.ops.GEMV_MAX_ROWS
-                        else "lowrank_matmul_2d")
-                y = w[name](x, B, C)
                 yr = ref.lowrank_matmul(x, B, C)
-                torch.cuda.synchronize()
-                worst[name] = max(worst[name], rel_err(y, yr))
-                errs[name] = max(errs[name], abs_err(y, yr))
+                if M <= port.ops.GEMV_MAX_ROWS:
+                    y = w["lowrank_gemv"](x, B, C)
+                    torch.cuda.synchronize()
+                    hold("lowrank_gemv", y, yr)
+                    continue
+                for v in port.lm._allowed_2d(dtype, M, K, R, N):
+                    y = w["lowrank_matmul_2d"](x, B, C, variant=v)
+                    torch.cuda.synchronize()
+                    hold("lowrank_matmul_2d", y, yr, v)
+        K, R, N = max(shapes, key=lambda s: s[1])
+        x = rnd((GEN_BATCH * GEN_PROMPT, K), dtype)
+        C = rnd((R, N), dtype, R ** -0.5)
+        B = rnd((K * R + 1,), dtype, K ** -0.5)[1:].view(K, R)
+        yr = ref.lowrank_matmul(x, B, C)
+        for v in port.lm._allowed_2d(dtype, x.shape[0], K, R, N):
+            y = w["lowrank_matmul_2d"](x, B, C, variant=v)
+            torch.cuda.synchronize()
+            hold("lowrank_matmul_2d", y, yr, v)
         # flash: G = 3 at SmolLM's heads; causal, window, softcap, ragged
         for Bb, S, causal, window, cap in ((2, 64, True, 0, 0.0),
                                            (2, 128, True, 48, 0.0),
@@ -649,10 +734,7 @@ def check_kernels(port, dev, comp):
             orf = ref.flash_attention(q, k, v, causal=causal, window=window,
                                       softcap=cap)
             torch.cuda.synchronize()
-            worst["flash_attention"] = max(worst["flash_attention"],
-                                           rel_err(o, orf))
-            errs["flash_attention"] = max(errs["flash_attention"],
-                                          abs_err(o, orf))
+            hold("flash_attention", o, orf)
         # decode: full layout with a dead slot and mixed lengths; ring
         for L, window, lens in ((97, 0, [0, 1, 17, 64, 80, 96, 97, 33]),
                                 (32, 32, [0, 5, 31, 32, 33, 77, 96, 1])):
@@ -665,10 +747,7 @@ def check_kernels(port, dev, comp):
                                        window=window).reshape(8, 5, 3, 64)
             torch.cuda.synchronize()
             assert (o[0] == 0).all(), "dead slot must give exact zeros"
-            worst["decode_attention"] = max(worst["decode_attention"],
-                                            rel_err(o, orf))
-            errs["decode_attention"] = max(errs["decode_attention"],
-                                           abs_err(o, orf))
+            hold("decode_attention", o, orf)
         # paged decode: a shuffled, non-monotonic table in which slots 0
         # and 1 share their first block; a dead slot; lengths that are no
         # multiple of bk; at bk 6, length 7's last 4-row group (rows 4-6)
@@ -707,28 +786,25 @@ def check_kernels(port, dev, comp):
             assert torch.equal(o, oc), \
                 "the paged kernel differs from the contiguous one"
             assert (o[2] == 0).all(), "dead slot must give exact zeros"
-            worst["decode_attention_paged"] = max(
-                worst["decode_attention_paged"], rel_err(o, orf))
-            errs["decode_attention_paged"] = max(
-                errs["decode_attention_paged"], abs_err(o, orf))
-        # gram: one calibration batch's two widths, a ragged N at an
-        # aligned width (vector loads), a ragged N and D (scalar loads);
-        # overwrite and accumulate into an accumulator
+            hold("decode_attention_paged", o, orf)
+        # gram: one calibration batch's two widths at N and at a ragged N
+        # (aligned widths: vector loads, and the tensor-core variant in
+        # bf16), a ragged N and D (scalar loads); overwrite and accumulate
+        # into an accumulator, every variant that takes the shape
         N = CALIB_BATCH * CALIB_SEQ
-        for n_rows, d in ((N, 960), (N, 2560), (N - 24, 960), (N - 24, 97)):
+        for n_rows, d in ((N, 960), (N, 2560), (N - 24, 960),
+                          (N - 24, 2560), (N - 24, 97)):
             x = rnd((n_rows, d), dtype)
             acc = rnd((d, d), torch.float32, n_rows ** 0.5)
-            g = w["gram_blocked"](x)
-            ga = w["gram_blocked"](x, out=acc.clone())
             gr = ref.gram(x)
-            torch.cuda.synchronize()
-            for got, want in ((g, gr), (ga, acc + gr)):
-                worst["gram_blocked"] = max(worst["gram_blocked"],
-                                            rel_err(got, want))
-                errs["gram_blocked"] = max(errs["gram_blocked"],
-                                           abs_err(got, want))
+            for v in port.gm._allowed(dtype, n_rows, d):
+                g = w["gram_blocked"](x, variant=v)
+                ga = w["gram_blocked"](x, out=acc.clone(), variant=v)
+                torch.cuda.synchronize()
+                hold("gram_blocked", g, gr, v)
+                hold("gram_blocked", ga, acc + gr, v)
         for n, e in worst.items():
-            tol = GRAM_TOL if n == "gram_blocked" else TOL[dname]
+            tol = GRAM_TOL if n.startswith("gram_blocked") else TOL[dname]
             log(f"  {n} {dname}: max-relative error {e:.2e} "
                 f"(tolerance {tol:.0e})")
             assert e <= tol, f"{n} disagrees with its plain version"
@@ -770,6 +846,13 @@ def time_kernels(port, dev, cfg, comp, snap):
                 torch.linalg.multi_dot([x, B, C])
                 for x, (B, C) in zip(xs, lins)]),
             bound=bound_ms(nbytes, ops, "bfloat16"))
+        if name == "lowrank_matmul_2d":   # the earlier CUDA-core design
+            out[name]["variant"] = sorted({
+                port.lm._variant_2d(bf, M, B.shape[0], B.shape[1],
+                                    C.shape[1]) for B, C in lins})
+            out[name]["simt_ms"] = device_ms(torch, lambda: [
+                w[name](x, B, C, variant="simt")
+                for x, (B, C) in zip(xs, lins)])
 
     # flash: one prefill's attention, nl layers of (8, 64, 15, 64)
     Bb, S = GEN_BATCH, GEN_PROMPT
@@ -886,15 +969,21 @@ def time_kernels(port, dev, cfg, comp, snap):
             for x, a in zip(xg, accs)]),
         bound=bound_ms(sum(2 * x.numel() + 8 * x.shape[1] ** 2 for x in xg),
                        sum(N * x.shape[1] * (x.shape[1] + 1) for x in xg),
-                       "bfloat16"))
+                       "bfloat16"),
+        variant=sorted({port.gm._variant(bf, *x.shape) for x in xg}),
+        simt_ms=device_ms(torch, lambda: [
+            w["gram_blocked"](x, out=a, variant="simt")
+            for x, a in zip(xg, accs)]))
     xf = [x.float() for x in xg]
     log(f"  gram_blocked: cuBLAS float32 x.T @ x on a widened copy, TF32 "
         f"off: {device_ms(torch, lambda: [x.T @ x for x in xf]):.4f} ms")
     del xf
     for name, r in out.items():
-        log(f"  {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"library {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
-            f"({r['bound'][1]}) -- {r['work']}")
+        earlier = (f" ({', '.join(r['variant'])}; the CUDA-core design "
+                   f"{r['simt_ms']:.4f} ms)" if "simt_ms" in r else "")
+        log(f"  {name}: {r['ms']:.4f} ms{earlier}, plain {r['plain_ms']:.4f}"
+            f" ms, library {r['library_ms']:.4f} ms, bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]}) -- {r['work']}")
     return out
 
 
@@ -1094,8 +1183,8 @@ def main() -> int:
     try:
         with Phase("main path: SmolLM-360M, streaming calibration, D-Rank "
                    "20% on the card, save, boot, generate"):
-            cfg, params, comp, plan, counts, col, calib = main_path(port,
-                                                                    dev)
+            cfg, params, comp, plan, (counts, variants), col, calib = \
+                main_path(port, dev)
         with Phase("batcher path: ContinuousBatcher from the artifact, "
                    "contiguous, paged and prefix pools, fault plans"):
             cb_counts, snap, rates = batcher_path(port, dev, cfg, comp)
@@ -1145,6 +1234,10 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
             "work": t["work"]})
+        if "simt_ms" in t:     # the variant the main path ran, the earlier
+            kernels[-1].update(variant="+".join(t["variant"]),
+                               launches_by_variant=variants[name],
+                               simt_ms=t["simt_ms"])
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -24,22 +24,44 @@
 //   third small launch sums phase 2's partials into y. The sums run in a
 //   fixed order, so the result is deterministic.
 // lowrank_matmul_2d: at prefill M is hundreds of rows and the work is bound
-//   by operations. As on the TPU, t[32 rows, R] never leaves the chip: a
-//   cluster of 8 blocks owns a 32-row tile, each block computes its share
-//   of t's columns over the whole of K (float32 FMA on the CUDA cores,
-//   2 x 4 outputs a thread), rounds it to C's dtype into shared memory, and
-//   reads the other shares from its peers' shared memory (Hopper's
-//   distributed shared memory) before emitting its share of y's columns.
-//   So nothing is recomputed and 8 SMs work on each row tile: 16 row tiles
-//   (512 prefill rows) keep 128 of 132 SMs busy. Each step stages 64
-//   reduction values of x and of the weight; the next step's loads are in
-//   flight while the current one is multiplied. t takes R_64 x 128 bytes
-//   of shared memory (90 KB at SmolLM's largest rank, 698), which bounds
-//   the rank at drt_lowrank_2d_max_rank() (1600). Tensor-core (wgmma)
-//   tiles and TMA staging are later work.
+//   by operations at the CUDA cores' rate, by bytes (0.3 ms a SmolLM-360M
+//   prefill) at the tensor cores'. As on the TPU, t never leaves the chip: a
+//   cluster of blocks owns a row tile, each block computes its share of t's
+//   columns over the whole of K and the blocks exchange their shares through
+//   distributed shared memory before each emits its share of y's columns.
+//   So nothing is recomputed. Two variants, picked by the wrapper from the
+//   dtype and the shapes:
+//   - "wgmma" (bfloat16; K and N multiples of 8, x and C 16-byte aligned,
+//     R <= drt_lowrank_2d_wgmma_max_rank(), 896): both products on the
+//     tensor cores (hopper_mma.cuh), t[64 rows, R] in bf16, which is the
+//     rounding the TPU kernel gives t. A cluster of 8 blocks owns a 64-row
+//     tile. A block has a producer warp, which stages tiles by TMA into a
+//     ring of slots (full/empty mbarriers), and two consumer warpgroups,
+//     each computing 64-column chunks of t, then of y; the blocks push their
+//     t chunks into their peers' shared memory with bulk copies that
+//     complete on an mbarrier. B's rows start where its rank puts them: by
+//     TMA where R % 8 == 0, else the consumers copy them (4-byte copies at
+//     an even rank, raw 16-byte words shifted into place at an odd one).
+//     Nothing is padded in memory.
+//     What bounds it on this card, measured at SmolLM-360M's shapes: the
+//     rate at which an SM takes in tiles from L2, ~35-40 GB/s a block (a
+//     phase's time does not move with the ring's depth or with the MMAs
+//     taken out). Each cluster streams all of B and C through its 8 SMs,
+//     and at 512 rows only 64 SMs work (8 row tiles x 8). Clusters of 16
+//     would use 128, but the card holds 7 of them at once (one a GPC)
+//     against 15 of 8: measured slower at 512 and 2048 rows. The consumers
+//     issue every wgmma on a warp-uniform path: a wgmma on a path that
+//     diverges inside the warpgroup (a TMA issued by one of its threads, a
+//     branch around the MMA) is serialized by the compiler.
+//   - "simt" (float32, and the shapes above that the tensor-core kernel
+//     does not take): a cluster of 8 blocks owns a 32-row tile, float32 FMA
+//     on the CUDA cores, 2 x 4 outputs a thread, t[32, R] in float32
+//     rounded to C's dtype (R <= drt_lowrank_2d_max_rank(), 1600). float32
+//     stays here because TF32 products miss the 2e-5 float32 tier.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "hopper_mma.cuh"
 
 namespace drt {
 namespace {
@@ -362,13 +384,394 @@ int launch_2d(const void* x, const void* B, const void* C, void* y, int M,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// Prefill shape, bfloat16 on the tensor cores
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+constexpr int WG_T = mma::TILE;               // rows a cluster, t/y columns
+constexpr int WG_GROUPS = 2;                  // warpgroups a block
+constexpr int WG_BLOCK = WG_GROUPS * mma::WG_THREADS;
+constexpr int WG_CL = 8;                      // blocks a cluster
+// Ring slots of phase 1 (a tile of x and a raw tile of B per warpgroup) and
+// of phase 2 (a tile of C per warpgroup), in one region of shared memory.
+#ifndef DRT_WG_S2   // a profiling build may set phase 2's ring depth
+#define DRT_WG_S2 6
+#endif
+constexpr int WG_S1 = 3, WG_S2 = DRT_WG_S2;
+constexpr int WG_SLOT1 = mma::TILE_BYTES + WG_GROUPS * mma::RAW_BYTES;
+constexpr int WG_SLOT2 = WG_GROUPS * mma::TILE_BYTES;
+constexpr int WG_BSW = 2 * WG_GROUPS * mma::TILE_BYTES;   // unpacked B
+// How the kernel stages B (K x R), by where its rows start (bmode).
+enum BStage : int { B_RAW = 0, B_TMA = 1, B_PAIRS = 2 };
+// Dynamic shared memory, from a 1024-byte-aligned base: t (nrc tiles of
+// 64 rows x 64 ranks, K-major), then the ring region, which holds phase
+// 1's slots and the unpacked B tiles (two per warpgroup), and later phase
+// 2's slots; plus the alignment slack.
+__host__ __device__ constexpr size_t wg_smem_bytes(int nrc) {
+  return 1024 + (size_t)nrc * mma::TILE_BYTES +
+         ((size_t)WG_S1 * WG_SLOT1 + WG_BSW > (size_t)WG_S2 * WG_SLOT2
+              ? (size_t)WG_S1 * WG_SLOT1 + WG_BSW
+              : (size_t)WG_S2 * WG_SLOT2);
+}
+// The dynamic shared memory a block may take beside the kernel's static
+// mbarrier (with room to spare).
+constexpr size_t WG_SMEM_MAX = MM_SMEM_MAX - 1024;
+
+// y[m0:m0+64, :] = round_bf16(x[m0:m0+64, :] @ B) @ C for the row tile of
+// this cluster, both products on wgmma. A block has two consumer
+// warpgroups and one producer warp. The producer's lane 0 fills a ring of
+// slots by TMA (the x tile; the B tiles where B's rows start on 16-byte
+// boundaries; the C tiles), each slot with a "full" mbarrier (the bytes to
+// expect) and an "empty" one (the consumers release it after the wgmma that
+// read it); the consumers only wait, multiply and store, so nothing
+// divergent runs beside their wgmma (the compiler would serialize them).
+// Phase 1: warpgroup w of block c of the cluster computes t's 64-column
+// chunks c + CL w, c + CL (2 + w), ... over the whole of K (A = the x tile,
+// K-major, shared by both; B = the factor's tile, MN-major), rounds each to
+// bf16, stores it as a K-major tile of t and pushes it into every peer's
+// shared memory (one bulk copy per peer, completing on the peer's tbar).
+// Where B's rows are not 16-byte aligned each warpgroup stages its own B
+// tiles by cp.async, WG_S1 - 2 steps ahead (bmode B_PAIRS: 4-byte copies
+// of rows on 4-byte boundaries; B_RAW: raw words, shifted into place
+// before the MMA).
+// Phase 2: warpgroup w emits y's 64-column chunks c + CL w, c + CL (2 + w),
+// ... from the whole of t (A = t, K-major; B = C's tile, MN-major), once
+// the peers' chunks have landed.
+__global__ void __launch_bounds__(WG_BLOCK + 32, 1) lowrank_2d_wgmma_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ B,
+    const bf16* __restrict__ C, bf16* __restrict__ y, int M, int K, int R,
+    int N, int bmode, const __grid_constant__ CUtensorMap tmx,
+    const __grid_constant__ CUtensorMap tmb,
+    const __grid_constant__ CUtensorMap tmc) {
+  namespace cg = cooperative_groups;
+  using namespace mma;
+  extern __shared__ __align__(16) char smem_in[];
+  // full and empty barriers of both rings, then tbar: the peers' chunks of
+  // t have landed
+  __shared__ __align__(8) uint64_t bars[2 * (WG_S1 + WG_S2) + 1];
+  char* ts = smem_in + ((1024 - (smem_u32(smem_in) & 1023)) & 1023);
+  const int nrc = cdiv(R, WG_T);
+  char* ring = ts + (size_t)nrc * TILE_BYTES;
+  char* bsw = ring + WG_S1 * WG_SLOT1;
+  const uint32_t ts_a = smem_u32(ts), ring_a = smem_u32(ring);
+  const uint32_t bsw_a = smem_u32(bsw);
+  const uint32_t full1 = smem_u32(bars), empty1 = full1 + 8 * WG_S1;
+  const uint32_t full2 = empty1 + 8 * WG_S1, empty2 = full2 + 8 * WG_S2;
+  const uint32_t tbar = empty2 + 8 * WG_S2;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int CL = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  // 0, 1: consumer warpgroups; 2: the producer warp (a warp-uniform value
+  // the compiler can see as such)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / WG_THREADS, 0);
+  const int wt = threadIdx.x % WG_THREADS;
+  const int m0 = blockIdx.y * WG_T;
+  const int nk = cdiv(K, WG_T), nnc = cdiv(N, WG_T);
+  const int steps1 =
+      rank < nrc ? cdiv(nrc - rank, WG_GROUPS * CL) * nk : 0;
+  const int steps2 =
+      rank < nnc ? cdiv(nnc - rank, WG_GROUPS * CL) * nrc : 0;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < WG_S1; ++i) {
+      mbar_init(full1 + 8 * i, 1);
+      mbar_init(empty1 + 8 * i, WG_BLOCK);
+    }
+    for (int i = 0; i < WG_S2; ++i) {
+      mbar_init(full2 + 8 * i, 1);
+      mbar_init(empty2 + 8 * i, WG_BLOCK);
+    }
+    // Each block pushes every chunk of t it computes into its peers'
+    // shared memory and waits here for the chunks its peers compute.
+    const int own = rank < nrc ? cdiv(nrc - rank, CL) : 0;
+    mbar_init(tbar, 1);
+    mbar_arrive_expect(tbar, (nrc - own) * TILE_BYTES);
+  }
+  const int slot_id = blockIdx.y * 16 + rank;   // profiling builds only
+  prof_stamp(slot_id, 0);
+  cluster.sync();   // every barrier is ready before any peer pushes into it
+  prof_stamp(slot_id, 1);
+
+  // ---- phase 1: this block's chunks of t = x @ B -------------------------
+  if (wg == WG_GROUPS) {
+    // producer: the x tiles, and B's where aligned; lane 0 arms the slot's
+    // barrier, then lanes 0-2 issue one TMA each (an issue takes ~100
+    // cycles, so they go in parallel)
+    const int lane = wt % 32;
+    if (lane == 0) {
+      tma_prefetch(&tmx);
+      if (bmode == B_TMA) tma_prefetch(&tmb);
+    }
+    for (int q = 0; q < steps1; ++q) {
+      const int slot = q % WG_S1, k0 = (q % nk) * WG_T;
+      const int rc = rank + CL * WG_GROUPS * (q / nk);
+      const uint32_t s = ring_a + slot * WG_SLOT1, bar = full1 + 8 * slot;
+      const int nb = bmode == B_TMA ? (rc < nrc) + (rc + CL < nrc) : 0;
+      if (lane == 0) {
+        if (q >= WG_S1) mbar_wait(empty1 + 8 * slot, (q / WG_S1 - 1) & 1);
+        mbar_arrive_expect(bar, TILE_BYTES * (1 + nb));
+      }
+      __syncwarp();
+      if (lane == 0) tma_load_2d(s, &tmx, k0, m0, bar);
+      if (lane >= 1 && lane <= nb)
+        tma_load_2d(s + TILE_BYTES + (lane - 1) * RAW_BYTES, &tmb,
+                    (rc + CL * (lane - 1)) * WG_T, k0, bar);
+    }
+  } else {
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    auto chunk = [&](int q) {   // this warpgroup's t chunk at step q
+      return rank + CL * (WG_GROUPS * (q / nk) + wg);
+    };
+    auto stage_b = [&](int q) {   // this warpgroup's own B tile by cp.async
+      const int rc = chunk(q), k0 = (q % nk) * WG_T;
+      if (rc >= nrc) return;
+      const uint32_t b =
+          ring_a + (q % WG_S1) * WG_SLOT1 + TILE_BYTES + wg * RAW_BYTES;
+      if (bmode == B_PAIRS)
+        stage_tile_pairs<WG_THREADS>(b, B, R, K, R, k0, rc * WG_T, wt);
+      else
+        stage_raw<WG_THREADS>(b, B, R, K, k0, rc * WG_T, wt);
+    };
+    const bool own_b = bmode != B_TMA;
+    if (own_b) {
+#pragma unroll
+      for (int p = 0; p < WG_S1 - 2; ++p) {
+        if (p < steps1) stage_b(p);
+        cp_async_commit();
+      }
+    }
+    for (int q = 0; q < steps1; ++q) {
+      const int slot = q % WG_S1, rc = chunk(q), k0 = (q % nk) * WG_T;
+      mbar_wait(full1 + 8 * slot, (q / WG_S1) & 1);
+      uint32_t b = ring_a + slot * WG_SLOT1 + TILE_BYTES + wg * RAW_BYTES;
+      if (own_b) {
+        cp_async_wait<WG_S1 - 3>();
+        fence_proxy_async();
+        // this warpgroup's B copies of step q are visible to it, and its
+        // MMA of step q - 2 has completed in every warp
+        asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(WG_THREADS)
+                     : "memory");
+        if (q + WG_S1 - 2 < steps1) stage_b(q + WG_S1 - 2);
+        cp_async_commit();
+        if (bmode == B_RAW) {
+          if (rc < nrc)
+            unpack_raw<WG_THREADS>(bsw + (2 * wg + (q & 1)) * TILE_BYTES,
+                                   ring + slot * WG_SLOT1 + TILE_BYTES +
+                                       wg * RAW_BYTES,
+                                   B, R, K, R, k0, rc * WG_T, wt);
+          fence_proxy_async();
+          asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(WG_THREADS)
+                       : "memory");
+          b = bsw_a + (2 * wg + (q & 1)) * TILE_BYTES;
+        }
+      }
+      // A warpgroup without a chunk multiplies stale tiles and stores
+      // nothing: a wgmma on a divergent path is serialized.
+      const uint32_t a = ring_a + slot * WG_SLOT1;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16<0, 1>(acc, desc_kmajor(a, kk), desc_mnmajor(b, kk),
+                              !(q % nk == 0 && kk == 0));
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (q > 0) mbar_arrive(empty1 + 8 * ((q - 1) % WG_S1));
+      if (q % nk != nk - 1 || rc >= nrc) continue;
+      // the chunk is done: round it into t, then push it to every peer
+      wgmma_wait<0>();
+      hold_regs(acc);
+      char* t = ts + (size_t)rc * TILE_BYTES;
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int r = acc_row(wt, i), c = acc_col(wt, i);
+        *reinterpret_cast<__nv_bfloat162*>(t + swz_offset(r, c / 8) +
+                                           2 * (c % 8)) =
+            __floats2bfloat162_rn(acc[i], acc[i + 1]);
+      }
+      fence_proxy_async();
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(WG_THREADS)
+                   : "memory");
+      if (wt == 0) {
+        for (int p = 1; p < CL; ++p)
+          push_to_peer(smem_u32(t), tbar, TILE_BYTES, (rank + p) % CL);
+        bulk_commit();
+      }
+    }
+    wgmma_wait<0>();
+    cp_async_wait<0>();
+    prof_stamp(slot_id, 2);
+  }
+  // phase 1's slots are read out before phase 2's tiles land in the region
+  __syncthreads();
+
+  // ---- phase 2: this block's chunks of y = t @ C -------------------------
+  if (wg == WG_GROUPS) {
+    // producer: both warpgroups' C tiles, lanes 0 and 1 one each
+    const int lane = wt % 32;
+    if (lane == 0) tma_prefetch(&tmc);
+    for (int q = 0; q < steps2; ++q) {
+      const int slot = q % WG_S2, nc0 = rank + CL * WG_GROUPS * (q / nrc);
+      const int n = (nc0 < nnc) + (nc0 + CL < nnc);
+      if (lane == 0) {
+        if (q >= WG_S2) mbar_wait(empty2 + 8 * slot, (q / WG_S2 - 1) & 1);
+        mbar_arrive_expect(full2 + 8 * slot, TILE_BYTES * n);
+      }
+      __syncwarp();
+      if (lane < n)
+        tma_load_2d(ring_a + slot * WG_SLOT2 + lane * TILE_BYTES, &tmc,
+                    (nc0 + CL * lane) * WG_T, (q % nrc) * WG_T,
+                    full2 + 8 * slot);
+    }
+  } else {
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    prof_stamp(slot_id, 3);
+    mbar_wait(tbar, 0);   // t complete; no peer pushes into this block later
+    for (int q = 0; q < steps2; ++q) {
+      const int slot = q % WG_S2, j = q % nrc;
+      const int nc = rank + CL * (WG_GROUPS * (q / nrc) + wg);
+      mbar_wait(full2 + 8 * slot, (q / WG_S2) & 1);
+      // t past R and C's rows past R are zeros; a warpgroup without a
+      // chunk multiplies stale tiles and stores nothing
+      const uint32_t a = ts_a + j * TILE_BYTES;
+      const uint32_t b = ring_a + slot * WG_SLOT2 + wg * TILE_BYTES;
+#ifndef DRT_PROFILE_NO_MMA2   // a profiling build may leave them out
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16<0, 1>(acc, desc_kmajor(a, kk), desc_mnmajor(b, kk),
+                              !(j == 0 && kk == 0));
+      wgmma_commit();
+      wgmma_wait<1>();
+#endif
+      if (q > 0) mbar_arrive(empty2 + 8 * ((q - 1) % WG_S2));
+      if (j != nrc - 1 || nc >= nnc) continue;
+      wgmma_wait<0>();
+      hold_regs(acc);
+      const int n0 = nc * WG_T;
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {   // N % 8 == 0: pairs are in or out
+        const int m = m0 + acc_row(wt, i), n = n0 + acc_col(wt, i);
+        if (m < M && n < N)
+          *reinterpret_cast<__nv_bfloat162*>(y + (size_t)m * N + n) =
+              __floats2bfloat162_rn(acc[i], acc[i + 1]);
+      }
+    }
+    wgmma_wait<0>();
+    prof_stamp(slot_id, 4);
+    if (wt == 0) bulk_wait_read();   // the pushes have read this block's t
+  }
+}
+
+// Both attributes before the first launch or query: the shared memory
+// beyond 48 KB, and clusters of more than 8 blocks (for the query).
+cudaError_t wg_configure() {
+  static const cudaError_t status = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        lowrank_2d_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(WG_SMEM_MAX));
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(lowrank_2d_wgmma_kernel,
+                                cudaFuncAttributeNonPortableClusterSizeAllowed,
+                                1);
+  }();
+  return status;
+}
+
+void wg_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int M,
+               size_t smem, int cluster, cudaStream_t st) {
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(cluster, cdiv(M, WG_T), 1);
+  cfg.blockDim = dim3(WG_BLOCK + 32, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+}
+
+int launch_2d_wgmma(const void* x, const void* B, const void* C, void* y,
+                    int M, int K, int R, int N, cudaStream_t st) {
+  const size_t smem = wg_smem_bytes(cdiv(R, WG_T));
+  if (R < 1 || K < 8 || K % 8 || N % 8 || smem > WG_SMEM_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = wg_configure();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  wg_config(cfg, attr, M, smem, WG_CL, st);
+  // x and C by TMA; B too where its rows start on 16-byte boundaries, else
+  // by cp.async (a profiling build with DRT_B_RAW takes raw words for every
+  // such B, to time them against the 4-byte copies)
+  const uintptr_t b = reinterpret_cast<uintptr_t>(B);
+  int bmode = B_RAW;
+  if (R % 8 == 0 && b % 16 == 0) bmode = B_TMA;
+#ifndef DRT_B_RAW
+  else if (R % 2 == 0 && b % 4 == 0) bmode = B_PAIRS;
+#endif
+  CUtensorMap tmx, tmb, tmc;
+  e = mma::make_tmap(&tmx, x, K, M, 2ull * K);
+  if (e == cudaSuccess) e = mma::make_tmap(&tmc, C, N, R, 2ull * N);
+  tmb = tmx;
+  if (e == cudaSuccess && bmode == B_TMA)
+    e = mma::make_tmap(&tmb, B, R, K, 2ull * R);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaLaunchKernelEx(&cfg, lowrank_2d_wgmma_kernel,
+                         static_cast<const bf16*>(x),
+                         static_cast<const bf16*>(B),
+                         static_cast<const bf16*>(C), static_cast<bf16*>(y),
+                         M, K, R, N, bmode, tmx, tmb, tmc);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 }  // namespace drt
 
 extern "C" {
 
-// Largest rank the prefill kernel takes: t (rank rounded up to 64, times 32
-// rows, float32) plus its staging tiles must fit one block's shared memory.
+// Largest rank the tensor-core prefill kernel takes: t (64 rows, the rank
+// rounded up to 64, bf16) and the ring must fit one block's shared memory.
+int drt_lowrank_2d_wgmma_max_rank() {
+  int n = 0;
+  while (drt::wg_smem_bytes(n + 1) <= drt::WG_SMEM_MAX) ++n;
+  return n * drt::WG_T;
+}
+
+// Clusters of `cluster` blocks of the tensor-core prefill kernel at rank R
+// that the card can hold at once (cudaOccupancyMaxActiveClusters), or a
+// negative CUDA error: what chose WG_CL.
+int drt_lowrank_2d_wgmma_clusters(int R, int cluster) {
+  cudaError_t e = drt::wg_configure();
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  drt::wg_config(cfg, attr, drt::WG_T, drt::wg_smem_bytes(drt::cdiv(R, 64)),
+                 cluster, nullptr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, drt::lowrank_2d_wgmma_kernel, &cfg);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
+// bfloat16 x (M, K), B (K, R), C (R, N), y (M, N) on the tensor cores; K and
+// N multiples of 8, x and C 16-byte aligned (B any), R at most
+// drt_lowrank_2d_wgmma_max_rank().
+int drt_lowrank_matmul_2d_wgmma(const void* x, const void* B, const void* C,
+                                void* y, int M, int K, int R, int N,
+                                void* stream) {
+  return drt::launch_2d_wgmma(x, B, C, y, M, K, R, N,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// Largest rank the CUDA-core prefill kernel takes: t (rank rounded up to 64,
+// times 32 rows, float32) plus its staging tiles must fit one block's shared
+// memory.
 int drt_lowrank_2d_max_rank() {
   int r = 0;
   while (drt::mm_smem_bytes(r + drt::MM_BN) <= drt::MM_SMEM_MAX)

@@ -43,11 +43,50 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def _target(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+def flags(defines=()) -> tuple:
+    """The nvcc flags of a build, with ``-D`` for each of ``defines``."""
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def target(name: str, csrc: Path = CSRC, out_dir: Path = BUILD_DIR,
+           defines=()) -> Path:
+    """The library ``csrc/<name>.cu`` builds into: named after a hash of
+    the flags, the source and every header beside it."""
+    h = hashlib.sha256(" ".join(flags(defines)).encode())
+    for src in sorted(Path(csrc).glob("*.cuh")) + [Path(csrc) / f"{name}.cu"]:
         h.update(src.read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return Path(out_dir) / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def compile_sources(jobs: dict) -> Dict[object, float]:
+    """Compile ``jobs`` ({key: (source .cu, output .so, defines)}), one
+    ``nvcc`` each, all started together; each library's compiler output
+    goes beside it (``.log``). Returns {key: seconds}. Raises with the
+    compiler's output if any build fails."""
+    if not jobs:
+        return {}
+    nvcc = _nvcc()
+    procs = {}
+    t0 = time.perf_counter()
+    for key, (src, out, defines) in jobs.items():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *flags(defines), "-o", str(tmp), str(src)]
+        procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT,
+                                       text=True), tmp, out)
+    secs, failed = {}, []
+    for key, (p, tmp, out) in procs.items():
+        log, _ = p.communicate()
+        secs[key] = time.perf_counter() - t0
+        out.with_suffix(".log").write_text(log)
+        if p.returncode != 0:
+            failed.append(f"--- {key} (exit {p.returncode}) ---\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return secs
 
 
 def build_all() -> Dict[str, float]:
@@ -55,42 +94,19 @@ def build_all() -> Dict[str, float]:
     started together. Returns {name: build seconds}. Raises with the
     compiler's output if any build fails."""
     with _lock:
-        todo = {n: _target(n) for n in SOURCES
-                if n not in build_seconds and not _target(n).exists()}
+        todo = {n: (CSRC / f"{n}.cu", target(n), ()) for n in SOURCES
+                if n not in build_seconds and not target(n).exists()}
         for n in SOURCES:
             if n not in todo:
                 build_seconds.setdefault(n, 0.0)
-        if not todo:
-            return dict(build_seconds)
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = _nvcc()
-        procs = {}
-        t0 = time.perf_counter()
-        for n, out in todo.items():
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                         stderr=subprocess.STDOUT,
-                                         text=True), tmp, out)
-        failed = []
-        for n, (p, tmp, out) in procs.items():
-            log, _ = p.communicate()
-            build_seconds[n] = time.perf_counter() - t0
-            out.with_suffix(".log").write_text(log)
-            if p.returncode != 0:
-                failed.append(f"--- {n} (exit {p.returncode}) ---\n{log}")
-                build_seconds.pop(n)
-            else:
-                os.replace(tmp, out)
-        if failed:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        build_seconds.update(compile_sources(todo))
         return dict(build_seconds)
 
 
 def build_log(name: str) -> str:
     """The compiler's output (``-Xptxas -v``: registers, shared memory,
     spills) of the last build of ``name`` in this checkout."""
-    p = _target(name).with_suffix(".log")
+    p = target(name).with_suffix(".log")
     return p.read_text() if p.exists() else ""
 
 
@@ -102,7 +118,7 @@ def lib(name: str) -> ctypes.CDLL:
         with _lock:
             so = _libs.get(name)
             if so is None:
-                so = ctypes.CDLL(str(_target(name)))
+                so = ctypes.CDLL(str(target(name)))
                 _libs[name] = so
     return so
 

@@ -9,10 +9,17 @@ note at the top of the CUDA source. Each wrapper validates its operands,
 allocates the output (and the gemv's float32 partials), launches on the
 current stream and counts its launches in ``.launches``.
 The plain version is ``kernels.ref.lowrank_matmul``.
+
+``lowrank_matmul_2d`` has two variants, picked by ``_variant_2d`` from the
+dtype, the shapes and whether x and C start on 16-byte boundaries (the
+tensor-core kernel's TMA copies need it; a tensor PyTorch allocates does):
+``"wgmma"`` (bfloat16 on the tensor cores) and ``"simt"`` (float32 FMA on
+the CUDA cores; float32 operands, and the operands the tensor-core kernel
+does not take). ``.launches_by_variant`` counts each.
 """
 from __future__ import annotations
 
-import functools
+from typing import Optional
 
 import torch
 
@@ -33,6 +40,10 @@ def _fn(name: str):
             fn.argtypes = [P] * 6 + [I] * 9 + [P]
         elif name == "drt_lowrank_matmul_2d":
             fn.argtypes = [P] * 4 + [I] * 5 + [P]
+        elif name == "drt_lowrank_matmul_2d_wgmma":
+            fn.argtypes = [P] * 4 + [I] * 4 + [P]
+        elif name == "drt_lowrank_2d_wgmma_clusters":
+            fn.argtypes = [I, I]
         else:
             fn.argtypes = []
         fn.restype = I
@@ -76,37 +87,118 @@ def lowrank_gemv(x: torch.Tensor, B: torch.Tensor,
 lowrank_gemv.launches = 0
 
 
-@functools.lru_cache(maxsize=None)
-def max_rank_2d() -> int:
-    """Largest rank ``lowrank_matmul_2d`` takes (t[32 rows, R] must fit
-    one block's shared memory)."""
-    return _fn("drt_lowrank_2d_max_rank")()
+# Shared memory one block may use on sm_90 (csrc: MM_SMEM_MAX), and the
+# layouts of the two prefill kernels' shared memory, mirrored from the CUDA
+# sources (mm_smem_bytes, wg_smem_bytes) so that the variant is chosen on
+# any machine; chip_smoke.py holds the mirrors to the compiled formulas.
+SMEM_MAX = 232448
+WGMMA_TILE = 64           # rows of a cluster's tile, ranks of a t chunk
+VARIANTS = ("wgmma", "simt")
 
 
-def lowrank_matmul_2d(x: torch.Tensor, B: torch.Tensor,
-                      C: torch.Tensor) -> torch.Tensor:
+def _simt_smem(rp: int) -> int:
+    return 4 * (rp * 32 + 64 * 64 + 64 * 33)
+
+
+def _wgmma_smem(nrc: int) -> int:
+    # two warpgroups; the ring region: 3 slots of phase 1 beside the
+    # unpacked B tiles, or 6 of phase 2
+    tile, raw = 64 * 64 * 2, 64 * 9 * 16
+    slot1, slot2, bsw = tile + 2 * raw, 2 * tile, 4 * tile
+    return 1024 + nrc * tile + max(3 * slot1 + bsw, 6 * slot2)
+
+
+def _max_rank(smem, limit: int, step: int) -> int:
+    n = 0
+    while smem(n + 1) <= limit:
+        n += 1
+    return n * step
+
+
+def simt_max_rank() -> int:
+    """Largest rank of the CUDA-core kernel: t[32 rows, R] in float32."""
+    return _max_rank(lambda n: _simt_smem(64 * n), SMEM_MAX, 64)
+
+
+def wgmma_max_rank() -> int:
+    """Largest rank of the tensor-core kernel: t[64 rows, R] in bf16 (its
+    dynamic shared memory leaves 1 KB for its static mbarriers)."""
+    return _max_rank(_wgmma_smem, SMEM_MAX - 1024, WGMMA_TILE)
+
+
+def max_rank_2d(dtype: torch.dtype = torch.float32) -> int:
+    """Largest rank ``lowrank_matmul_2d`` takes for ``dtype``."""
+    if dtype == torch.bfloat16:
+        return max(simt_max_rank(), wgmma_max_rank())
+    return simt_max_rank()
+
+
+def _allowed_2d(dtype: torch.dtype, M: int, K: int, R: int, N: int,
+                aligned: bool = True) -> tuple:
+    """The variants that take these operands, preferred first. ``aligned``:
+    x and C start on 16-byte boundaries (the tensor-core kernel copies them
+    by TMA; y is allocated here, so it always does)."""
+    out = []
+    if (dtype == torch.bfloat16 and K % 8 == 0 and K > 0 and N % 8 == 0
+            and aligned
+            and 1 <= R <= wgmma_max_rank()):
+        out.append("wgmma")
+    if R <= simt_max_rank():
+        out.append("simt")
+    return tuple(out)
+
+
+def _variant_2d(dtype: torch.dtype, M: int, K: int, R: int, N: int,
+                aligned: bool = True, variant: Optional[str] = None) -> str:
+    """The variant ``lowrank_matmul_2d`` launches for these operands: the
+    preferred one, or ``variant`` if it takes them. Raises ValueError for a
+    variant that does not, or a rank no variant takes."""
+    allowed = _allowed_2d(dtype, M, K, R, N, aligned)
+    if variant is not None and variant not in allowed:
+        raise ValueError(f"lowrank_matmul_2d: variant {variant!r} does not "
+                         f"take {dtype} operands x ({M}, {K}), B ({K}, {R}),"
+                         f" C ({R}, {N}) (allowed: {allowed})")
+    if not allowed:
+        raise ValueError(f"lowrank_matmul_2d: rank {R} exceeds the kernels' "
+                         f"shared-memory bound {max_rank_2d(dtype)}")
+    return variant or allowed[0]
+
+
+def _aligned(*ts: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def lowrank_matmul_2d(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, *,
+                      variant: Optional[str] = None) -> torch.Tensor:
     """x (M, K), B (K, R), C (R, N) on the card, one dtype -> y (M, N).
-    Prefill shape. One launch: a cluster of 8 blocks per 32-row tile keeps
-    t = x@B, rounded to C's dtype (the TPU kernel's rounding of t), in its
-    shared memory and emits y = t@C."""
+    Prefill shape. One launch: a cluster of blocks per row tile keeps t =
+    x@B, rounded to C's dtype (the TPU kernel's rounding of t), in its
+    shared memory and emits y = t@C. ``variant`` ("wgmma" or "simt")
+    forces one that takes these operands, for comparing the two; by
+    default ``_variant_2d`` picks."""
     code = _build.check_operands("lowrank_matmul_2d", x, B, C)
     M, K = x.shape
     R, N = C.shape
     if B.shape != (K, R):
         raise ValueError(f"lowrank_matmul_2d: shapes {tuple(x.shape)} "
                          f"{tuple(B.shape)} {tuple(C.shape)}")
-    if R > max_rank_2d():
-        raise ValueError(f"lowrank_matmul_2d: rank {R} exceeds the kernel's "
-                         f"shared-memory bound {max_rank_2d()}")
+    variant = _variant_2d(x.dtype, M, K, R, N, _aligned(x, C), variant)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return y
-    rc = _fn("drt_lowrank_matmul_2d")(
-        x.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(), M, K, R, N,
-        code, _build.stream_of(x))
-    _build.check_rc(rc, "lowrank_matmul_2d")
+    if variant == "wgmma":
+        rc = _fn("drt_lowrank_matmul_2d_wgmma")(
+            x.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(), M, K, R,
+            N, _build.stream_of(x))
+    else:
+        rc = _fn("drt_lowrank_matmul_2d")(
+            x.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(), M, K, R,
+            N, code, _build.stream_of(x))
+    _build.check_rc(rc, f"lowrank_matmul_2d ({variant})")
     lowrank_matmul_2d.launches += 1
+    lowrank_matmul_2d.launches_by_variant[variant] += 1
     return y
 
 
 lowrank_matmul_2d.launches = 0
+lowrank_matmul_2d.launches_by_variant = dict.fromkeys(VARIANTS, 0)
