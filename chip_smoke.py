@@ -37,6 +37,21 @@ What it does, in order, printing the seconds of each phase:
    prefill signatures and one decode signature per rank level in each
    run; every kernel of the path must have launched, the paged decode
    kernel included. The batcher's tokens/s and ms/step are printed;
+2c. gemma3-12b at full width (d_model 3840, 16 heads over 8 KV heads of
+   256, d_ff 15360, vocab 262144), depth cut to 6 layers (one whole 5 local
+   : 1 global pattern), random weights from seed 5 with every linear
+   replaced by seeded random factors at ``uniform_allocate``'s 20% ranks
+   (1585 for wq/wo, 2457 for the MLP): ``Engine.generate`` in bf16 on one
+   1200-token prompt (past the 1024-token window: the ring cache wraps) and
+   one 100-token prompt, 16 new tokens each, with the counts set to 0 just
+   before and read just after: the 2-D products through "split", flash
+   through "wgmma" at hd 256, decode attention on the ring and the full
+   layout, no "simt" launch; then every kernel call of that run (the
+   first of each operand signature, its operands kept) again through every
+   variant that takes it, against the plain version on the same operands;
+   then the same params and prompts in float32 on the card, whose kernel
+   calls are held the same way, and on the CPU, 8 new tokens: identical
+   greedy tokens, prefill logits within atol 2e-3;
 3. the streaming Grams against the eager fp64 ``Collector`` on the card,
    every tag: Gram and mean |x| within 1e-4 relative, equal row counts;
 4. the device decomposition against the host fp64 oracle at full width and
@@ -44,18 +59,25 @@ What it does, in order, printing the seconds of each phase:
    relative, every group's B·C within 1e-4 relative;
 5. every kernel against its plain PyTorch version on the card, at the main
    path's shapes (the plan's ranks, the calibration's activations) and
-   ragged ones, in bfloat16 and float32, each variant of
-   ``lowrank_matmul_2d`` and ``gram_blocked`` (tensor-core "wgmma",
-   CUDA-core "simt") on every shape it takes: max-relative error within
-   2e-5 (float32; and the Gram in both dtypes) and 2e-2 (bfloat16); the
-   paged decode kernel also bit for bit against the contiguous one on the
-   gathered layout;
+   ragged ones, the dense configs' ranks 1585-3018 at 65, 512 and 2048
+   rows, every head_dim the attention kernels take, decode lengths within
+   one 32-row chunk and across many, in bfloat16 and float32, each variant
+   of
+   ``lowrank_matmul_2d`` (tensor-core "wgmma", CUDA-core "simt",
+   two-launch "split"), ``flash_attention`` and ``gram_blocked`` on every
+   shape it takes: max-relative error within 2e-5 (float32; and the Gram
+   in both dtypes) and 2e-2 (bfloat16); the paged decode kernel also bit
+   for bit against the contiguous one on the gathered layout;
 6. each kernel's device time for the work it does in one prefill, one
    decode step or one calibration batch of the main path (the paged decode
    kernel: one decode step of the batcher's path, at its live lengths),
    beside its plain version's time, one PyTorch library call's time and
-   the bound the card's peak rates set; the two kernels with variants also
-   in their CUDA-core variant, the earlier design;
+   the bound the card's peak rates set; the kernels with variants also in
+   their CUDA-core variant (the 2-D product and flash: the earlier design);
+   gemma3-12b's shapes: flash at hd 256 per gemma prefill, the 2-D
+   product's variants at its ranks at 512 and 2048 rows; and the 2-D
+   product's two float32 variants at the parity run's, the batcher's and
+   the gemma3 path's rows;
 7. decode throughput of the dense and the D-Rank model at batch 8 and 64,
    and a ``torch.profiler`` view of one D-Rank decode step of the
    ``Engine`` and of the batcher on each pool: host time, device-busy
@@ -63,13 +85,14 @@ What it does, in order, printing the seconds of each phase:
 8. the whole slice in float32 on the card (kernels) against the CPU (plain
    versions): identical greedy tokens, prefill logits within atol 2e-3.
 
-The build phase logs the registers and spills of the tensor-core entry
-points and the clusters the card holds at once; the main path and the
-batcher's path assert that their bf16 calibration and prefills ran the
-tensor-core variants (per-variant launch counts, ``launches_by_variant``).
-The line before the last is one JSON object ``{"kernels": [...]}`` (the two
-kernels with variants also carry the variant the main path ran and the
-CUDA-core variant's time, ``simt_ms``); the last
+The build phase logs the registers and spills of the tensor-core and
+chunked entry points and the clusters the card holds at once; the main path
+and the batcher's path assert that their bf16 calibration and prefills ran
+the tensor-core variants (per-variant launch counts,
+``launches_by_variant``). The line before the last is one JSON object
+``{"kernels": [...]}`` (the kernels with variants also carry the variant
+the main path ran and the CUDA-core variant's time, ``simt_ms``; the 2-D
+product also its two-launch variant's, ``split_ms``); the last
 is ``{"ok": true, "device": {...}}``. Any failure raises, so the script
 exits non-zero and prints no result; so it does with no CUDA device, or
 without the repository's ``src/repro_torch`` beside it.
@@ -112,6 +135,14 @@ CB_BATCH, CB_MAX_LEN, CB_BLOCK = 8, 256, 16
 CB_REQUESTS, CB_NEW, CB_STAGGER, CB_PREFIX = 24, 32, 8, 64
 CB_CHAOS = (dict(nan_decode_step=3, nan_rows=(1,)),
             dict(nan_decode_step=5, nan_rows="all"))
+# gemma3-12b at full width, cut to one 5 local : 1 global pattern; one
+# prompt past the 1024-token window, one short
+GEMMA, GEMMA_LAYERS, GEMMA_SEED, GEMMA_RATIO = "gemma3-12b", 6, 5, 0.2
+GEMMA_PROMPTS, GEMMA_NEW, GEMMA_NEW_F32 = (1200, 100), 16, 8
+# the 2-D product at the dense configs' uniform-20% ranks (K, R, N):
+# qwen3-4b's MLP, gemma3-12b's MLP, mistral-nemo-12b's w_up, gemma3's wq
+LARGE_RANKS = ((2560, 1621, 9728), (3840, 2457, 15360), (5120, 3018, 14336),
+               (3840, 1585, 4096))
 
 KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
     "lowrank_gemv": ("src/repro_torch/csrc/lowrank_matmul.cu",
@@ -129,7 +160,7 @@ KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
 }
 # kernels with a tensor-core ("wgmma") and a CUDA-core ("simt") variant; the
 # main path's bf16 work must take the first
-TC_KERNELS = ("lowrank_matmul_2d", "gram_blocked")
+TC_KERNELS = ("lowrank_matmul_2d", "gram_blocked", "flash_attention")
 # kernels the batcher's path runs (it calibrates nothing)
 CB_KERNELS = ("lowrank_gemv", "lowrank_matmul_2d", "flash_attention",
               "decode_attention", "decode_attention_paged")
@@ -191,7 +222,7 @@ class Port:
         self.build, self.ops, self.ref = _build, ops, ref
         self.T, self.engine = transformer, engine
         self.faultinject, self.admission = faultinject, admission
-        self.lm, self.gm = lm, gm
+        self.lm, self.gm, self.fa, self.da = lm, gm, fa, da
         self.wrappers = {"lowrank_gemv": lm.lowrank_gemv,
                          "lowrank_matmul_2d": lm.lowrank_matmul_2d,
                          "flash_attention": fa.flash_attention_bshd,
@@ -292,27 +323,45 @@ def bound_ms(nbytes: float, ops: float, dtype: str):
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
+def kernel_name(mangled: str) -> str:
+    """A kernel's name and its template arguments' mangled text, from its
+    mangled symbol (each name is preceded by its length; the last such name
+    ending in ``_kernel``, after any namespace built from the source's
+    path)."""
+    found = mangled
+    for m in re.finditer(r"\d+", mangled):
+        for k in range(len(m.group())):     # a hash's digits may precede it
+            name = mangled[m.end():m.end() + int(m.group()[k:])]
+            if name.endswith("_kernel"):
+                args = re.match(r"I(\w*?)EE", mangled[m.end() + len(name):])
+                found = name + (f"<{args.group(1)}>" if args else "")
+                break
+    return found
+
+
 def build_kernels(port) -> None:
     t0 = time.perf_counter()
     secs = port.build.build_all()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s wall "
         f"({', '.join(f'{n} {s:.1f} s' for n, s in secs.items())})")
-    for name in secs:
+    for name in port.build.SOURCES:
         text = port.build.build_log(name)
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
         spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores",
                                              text)]
         log(f"  {name}: {len(regs)} entry points, max {max(regs or [0])} "
             f"registers, {sum(spills)} bytes of spill stores")
+        serialized = re.findall(r"C75\d\d[^\n]*", text)
+        if serialized:
+            log(f"    ptxas: {len(serialized)} wgmma serialization warnings, "
+                f"first: {serialized[0][:160]}")
         for entry in text.split("Compiling entry function '")[1:]:
-            fn = entry.split("'", 1)[0]
-            if "wgmma" not in fn:
+            fn = kernel_name(entry.split("'", 1)[0])
+            if not re.search(r"(wgmma|partial)_kernel", fn):
                 continue
             reg = re.search(r"Used (\d+) registers", entry)
             spill = re.search(r"(\d+) bytes spill stores", entry)
-            short = re.search(r"(\w*wgmma_kernel\w*?)E", fn)
-            log(f"    {short.group(1) if short else fn}: "
-                f"{reg.group(1) if reg else '?'} registers, "
+            log(f"    {fn}: {reg.group(1) if reg else '?'} registers, "
                 f"{spill.group(1) if spill else '?'} bytes of spill stores")
     # the wrappers' pure mirrors of the shared-memory bounds against the
     # compiled formulas, and the clusters the card holds at once
@@ -328,6 +377,11 @@ def build_kernels(port) -> None:
                for cl in (8, 16)}
         log(f"  lowrank_matmul_2d wgmma at rank {R}: clusters the card holds "
             f"at once {occ} (cluster size: count; the kernel's is 8)")
+    chunk = port.build.lib("decode_attention").drt_decode_chunk()
+    log(f"  decode attention: {chunk} rows a block (Python mirror "
+        f"{port.da.CHUNK})")
+    assert chunk == port.da.CHUNK, \
+        "the Python mirror of the decode chunk disagrees with the CUDA source"
 
 
 def calib_batches(port, cfg, dev):
@@ -565,14 +619,16 @@ def batcher_path(port, dev, cfg, comp):
     log(f"  launches on the batcher's path: {counts}; by variant {variants}")
     missing = [n for n in CB_KERNELS if counts[n] <= 0]
     assert not missing, f"kernels not launched on the batcher path: {missing}"
-    fp32 = {v: variants["lowrank_matmul_2d"][v]
-            - bf16_variants["lowrank_matmul_2d"][v] for v in port.lm.VARIANTS}
-    log(f"  lowrank_matmul_2d by variant: bf16 runs "
-        f"{bf16_variants['lowrank_matmul_2d']}, float32 runs {fp32}")
-    assert (bf16_variants["lowrank_matmul_2d"]["wgmma"] > 0
-            and bf16_variants["lowrank_matmul_2d"]["simt"] == 0), \
-        "the batcher's bf16 prefills left the tensor-core 2-D kernel"
-    assert fp32["wgmma"] == 0, "a float32 prefill ran the tensor-core kernel"
+    for name in ("lowrank_matmul_2d", "flash_attention"):
+        fp32 = {v: n - bf16_variants[name][v]
+                for v, n in variants[name].items()}
+        log(f"  {name} by variant: bf16 runs {bf16_variants[name]}, float32 "
+            f"runs {fp32}")
+        assert (bf16_variants[name]["wgmma"] > 0
+                and bf16_variants[name]["simt"] == 0), \
+            f"the batcher's bf16 prefills left the tensor-core {name} kernel"
+        assert fp32["wgmma"] == 0, \
+            f"a float32 prefill ran the tensor-core {name} kernel"
 
     def same(a, b):
         bad = [r for r in outs[a] if outs[a][r] != outs[b][r]]
@@ -696,10 +752,11 @@ def check_kernels(port, dev, comp):
             worst[key] = max(worst.get(key, 0.0), rel_err(got, want))
             errs[name] = max(errs[name], abs_err(got, want))
 
-        for K, R, N in sorted(shapes):
+        rows = (1, 8, 64, 65, 100, GEN_BATCH * GEN_PROMPT, 2048)
+        for K, R, N in sorted(shapes) + list(LARGE_RANKS):
             B = rnd((K, R), dtype, K ** -0.5)
             C = rnd((R, N), dtype, R ** -0.5)
-            for M in (1, 8, 64, 65, 100, GEN_BATCH * GEN_PROMPT, 2048):
+            for M in (rows if (K, R, N) in shapes else (65, 512, 2048)):
                 x = rnd((M, K), dtype)
                 yr = ref.lowrank_matmul(x, B, C)
                 if M <= port.ops.GEMV_MAX_ROWS:
@@ -720,44 +777,70 @@ def check_kernels(port, dev, comp):
             y = w["lowrank_matmul_2d"](x, B, C, variant=v)
             torch.cuda.synchronize()
             hold("lowrank_matmul_2d", y, yr, v)
-        # flash: G = 3 at SmolLM's heads; causal, window, softcap, ragged
-        for Bb, S, causal, window, cap in ((2, 64, True, 0, 0.0),
-                                           (2, 128, True, 48, 0.0),
-                                           (2, 64, True, 0, 30.0),
-                                           (3, 50, False, 0, 0.0),
-                                           (1, 77, True, 16, 20.0)):
-            q = rnd((Bb, S, 15, 64), dtype)
-            k = rnd((Bb, S, 5, 64), dtype)
-            v = rnd((Bb, S, 5, 64), dtype)
-            o = w["flash_attention"](q, k, v, causal=causal, window=window,
-                                     softcap=cap)
+        # flash, every variant that takes the shape: G = 3 at SmolLM's heads
+        # (hd 64), G = 2 at gemma3's (hd 256); causal, window, softcap,
+        # ragged S; gemma3's prefill past its 1024-token window; and each
+        # other head dim the kernels take (hd 128: qwen3-4b's and
+        # mistral-nemo-12b's 32 heads over 8)
+        others = [case for hd in (16, 32, 128) for case in (
+            (2, 77, 6, 2, hd, True, 24, 0.0),
+            (1, 130, 6, 3, hd, False, 0, 0.0),
+            (2, 64, 6, 2, hd, True, 0, 30.0))]
+        others.append((1, 300, 32, 8, 128, True, 0, 0.0))
+        for Bb, S, H, KVh, hd, causal, window, cap in others + [
+                (2, 64, 15, 5, 64, True, 0, 0.0),
+                (2, 128, 15, 5, 64, True, 48, 0.0),
+                (2, 64, 15, 5, 64, True, 0, 30.0),
+                (3, 50, 15, 5, 64, False, 0, 0.0),
+                (1, 77, 15, 5, 64, True, 16, 20.0),
+                (2, 128, 4, 2, 256, True, 0, 0.0),
+                (1, 200, 4, 2, 256, True, 64, 0.0),
+                (2, 64, 4, 2, 256, True, 0, 30.0),
+                (2, 77, 4, 2, 256, False, 0, 0.0),
+                (1, 1100, 2, 1, 256, True, 1024, 0.0)]:
+            q = rnd((Bb, S, H, hd), dtype)
+            k = rnd((Bb, S, KVh, hd), dtype)
+            v = rnd((Bb, S, KVh, hd), dtype)
             orf = ref.flash_attention(q, k, v, causal=causal, window=window,
                                       softcap=cap)
-            torch.cuda.synchronize()
-            hold("flash_attention", o, orf)
-        # decode: full layout with a dead slot and mixed lengths; ring
-        for L, window, lens in ((97, 0, [0, 1, 17, 64, 80, 96, 97, 33]),
-                                (32, 32, [0, 5, 31, 32, 33, 77, 96, 1])):
+            for var in port.fa._allowed(dtype, hd):
+                o = w["flash_attention"](q, k, v, causal=causal,
+                                         window=window, softcap=cap,
+                                         variant=var)
+                torch.cuda.synchronize()
+                hold("flash_attention", o, orf, f"{var}, hd {hd}")
+        # decode: full layout with a dead slot and mixed lengths, shorter
+        # than one chunk (32 rows) and across several; ring; both at
+        # SmolLM's heads and gemma3's (hd 256, G 2; its 1024-row ring)
+        for L, window, KVh, G, hd, lens in (
+                (97, 0, 5, 3, 64, [0, 1, 17, 64, 80, 96, 97, 33]),
+                (32, 32, 5, 3, 64, [0, 5, 31, 32, 33, 77, 96, 1]),
+                (1217, 0, 2, 2, 256, [0, 1, 31, 32, 33, 100, 1100, 1217]),
+                (1024, 1024, 2, 2, 256, [0, 5, 1023, 1024, 1025, 2000, 77,
+                                         1])):
             lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-            q = rnd((8, 5, 3, 64), dtype)
-            k = rnd((8, L, 5, 64), dtype)
-            v = rnd((8, L, 5, 64), dtype)
+            q = rnd((8, KVh, G, hd), dtype)
+            k = rnd((8, L, KVh, hd), dtype)
+            v = rnd((8, L, KVh, hd), dtype)
             o = w["decode_attention"](q, k, v, lengths, window=window)
-            orf = ref.decode_attention(q.reshape(8, 15, 64), k, v, lengths,
-                                       window=window).reshape(8, 5, 3, 64)
+            orf = ref.decode_attention(q.reshape(8, KVh * G, hd), k, v,
+                                       lengths, window=window
+                                       ).reshape(o.shape)
             torch.cuda.synchronize()
             assert (o[0] == 0).all(), "dead slot must give exact zeros"
-            hold("decode_attention", o, orf)
+            hold("decode_attention", o, orf, f"hd {hd}")
         # paged decode: a shuffled, non-monotonic table in which slots 0
         # and 1 share their first block; a dead slot; lengths that are no
         # multiple of bk; at bk 6, length 7's last 4-row group (rows 4-6)
-        # straddles the block boundary at 6. SmolLM's shapes and G 8 at
-        # hd 128. Bit for bit against the contiguous kernel on the
-        # gathered layout, then against the plain version.
+        # straddles the block boundary at 6. SmolLM's shapes, G 8 at hd
+        # 128, and gemma3's hd 256 with lengths over many 32-row chunks.
+        # Bit for bit against the contiguous kernel on the gathered layout,
+        # then against the plain version.
         for KVh, G, hd, bk, lens in (
                 (5, 3, 64, 16, [40, 23, 0, 1, 16, 17, 255, 100]),
                 (5, 3, 64, 6, [7, 13, 0, 6, 5, 12, 61, 30]),
-                (2, 8, 128, 16, [33, 70, 0, 15, 64, 2, 128, 49])):
+                (2, 8, 128, 16, [33, 70, 0, 15, 64, 2, 128, 49]),
+                (2, 2, 256, 16, [33, 700, 0, 15, 64, 2, 1100, 49])):
             nb = -(-max(lens) // bk)
             P = 8 * nb + 2
             perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
@@ -786,7 +869,7 @@ def check_kernels(port, dev, comp):
             assert torch.equal(o, oc), \
                 "the paged kernel differs from the contiguous one"
             assert (o[2] == 0).all(), "dead slot must give exact zeros"
-            hold("decode_attention_paged", o, orf)
+            hold("decode_attention_paged", o, orf, f"hd {hd}")
         # gram: one calibration batch's two widths at N and at a ragged N
         # (aligned widths: vector loads, and the tensor-core variant in
         # bf16), a ragged N and D (scalar loads); overwrite and accumulate
@@ -853,6 +936,11 @@ def time_kernels(port, dev, cfg, comp, snap):
             out[name]["simt_ms"] = device_ms(torch, lambda: [
                 w[name](x, B, C, variant="simt")
                 for x, (B, C) in zip(xs, lins)])
+            # the two-launch variant on the same prefill: whether it could
+            # replace the fused tensor-core kernel
+            out[name]["split_ms"] = device_ms(torch, lambda: [
+                w[name](x, B, C, variant="split")
+                for x, (B, C) in zip(xs, lins)])
 
     # flash: one prefill's attention, nl layers of (8, 64, 15, 64)
     Bb, S = GEN_BATCH, GEN_PROMPT
@@ -877,7 +965,11 @@ def time_kernels(port, dev, cfg, comp, snap):
                                            enable_gqa=True)
             for q, (k, v) in zip(qt, kvt)]),
         bound=bound_ms(nl * 2 * Bb * (2 * S * H * hd + 2 * S * KV * hd),
-                       nl * 4 * Bb * H * hd * pairs, "bfloat16"))
+                       nl * 4 * Bb * H * hd * pairs, "bfloat16"),
+        variant=sorted({port.fa._variant(bf, hd)}),
+        simt_ms=device_ms(torch, lambda: [
+            w["flash_attention"](q, k, v, variant="simt")
+            for q, (k, v) in zip(qs, kvs)]))
 
     # decode: one decode step's attention, nl layers, every slot mid-way
     L = GEN_PROMPT + GEN_NEW + 1
@@ -893,11 +985,14 @@ def time_kernels(port, dev, cfg, comp, snap):
            for k, v in cache]
     mask = (torch.arange(L, device=dev)[None, :] < lengths[:, None]
             )[:, None, None, :]
+
+    def decode():
+        return [w["decode_attention"](q, k, v, lengths)
+                for q, (k, v) in zip(qd, cache)]
     out["decode_attention"] = dict(
         work=f"{nl} layers of decode attention at B={Bb} H={H} KV={KV} "
              f"hd={hd}, {ln} live cache rows per slot (one decode step)",
-        ms=device_ms(torch, lambda: [w["decode_attention"](q, k, v, lengths)
-                                     for q, (k, v) in zip(qd, cache)]),
+        ms=device_ms(torch, decode),
         plain_ms=device_ms(torch, lambda: [
             ref.decode_attention(q.reshape(Bb, H, hd), k, v, lengths)
             for q, (k, v) in zip(qd, cache)]),
@@ -926,13 +1021,15 @@ def time_kernels(port, dev, cfg, comp, snap):
     pmask = (torch.arange(Lc, device=dev)[None, :] < lp[:, None]
              )[:, None, None, :]
     live = int(lp.sum())
+
+    def paged():
+        return [w["decode_attention_paged"](q, k, v, lp, tp)
+                for q, (k, v) in zip(qd, arenas)]
     out["decode_attention_paged"] = dict(
         work=f"{nl} layers of paged decode attention at B={Bb} H={H} "
              f"KV={KV} hd={hd}, block {CB_BLOCK}, live lengths "
              f"{lp.tolist()} (one decode step of the batcher's path)",
-        ms=device_ms(torch, lambda: [
-            w["decode_attention_paged"](q, k, v, lp, tp)
-            for q, (k, v) in zip(qd, arenas)]),
+        ms=device_ms(torch, paged),
         plain_ms=device_ms(torch, lambda: [
             ref.decode_attention_paged(q.reshape(Bb, H, hd), k, v, lp, tp)
             for q, (k, v) in zip(qd, arenas)]),
@@ -981,10 +1078,368 @@ def time_kernels(port, dev, cfg, comp, snap):
     for name, r in out.items():
         earlier = (f" ({', '.join(r['variant'])}; the CUDA-core design "
                    f"{r['simt_ms']:.4f} ms)" if "simt_ms" in r else "")
+        if "split_ms" in r:
+            earlier += f" (split {r['split_ms']:.4f} ms)"
         log(f"  {name}: {r['ms']:.4f} ms{earlier}, plain {r['plain_ms']:.4f}"
             f" ms, library {r['library_ms']:.4f} ms, bound "
             f"{r['bound'][0]:.4f} ms ({r['bound'][1]}) -- {r['work']}")
     return out
+
+
+def time_large_shapes(port, dev):
+    """gemma3-12b's and the other dense configs' shapes, bf16: flash at hd
+    256 for one gemma3 prefill (6 layers of B 2, S 1200, 16 heads over 8),
+    and every variant of the 2-D product that takes each of LARGE_RANKS and
+    two of SmolLM's linears (rank <= 896, where "split" is timed against
+    the fused tensor-core kernel), at 512 and 2048 rows, per linear, beside
+    ``multi_dot``. Returns {"flash_hd256": {...}, "lowrank_2d": [...]}."""
+    torch, ref, w = port.torch, port.ref, port.wrappers
+    F = torch.nn.functional
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(bf)
+
+    nl, Bb, S, H, KV, hd = GEMMA_LAYERS, 2, GEMMA_PROMPTS[0], 16, 8, 256
+    qs = [rnd((Bb, S, H, hd)) for _ in range(nl)]
+    kvs = [(rnd((Bb, S, KV, hd)), rnd((Bb, S, KV, hd))) for _ in range(nl)]
+    qt = [q.transpose(1, 2).contiguous() for q in qs]
+    kvt = [(k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous())
+           for k, v in kvs]
+    pairs = S * (S + 1) // 2
+    bound = bound_ms(nl * 2 * Bb * (2 * S * H * hd + 2 * S * KV * hd),
+                     nl * 4 * Bb * H * hd * pairs, "bfloat16")
+    flash = dict(
+        work=f"{nl} layers of causal attention at B={Bb} S={S} H={H} "
+             f"KV={KV} hd={hd} (one gemma3-12b prefill, no window)",
+        ms=device_ms(torch, lambda: [w["flash_attention"](q, k, v)
+                                     for q, (k, v) in zip(qs, kvs)]),
+        simt_ms=device_ms(torch, lambda: [
+            w["flash_attention"](q, k, v, variant="simt")
+            for q, (k, v) in zip(qs, kvs)], reps=3),
+        plain_ms=device_ms(torch, lambda: [ref.flash_attention(q, k, v)
+                                           for q, (k, v) in zip(qs, kvs)],
+                           reps=3),
+        library_ms=device_ms(torch, lambda: [
+            F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                           enable_gqa=True)
+            for q, (k, v) in zip(qt, kvt)]),
+        bound_ms=bound[0], bound_by=bound[1])
+    log(f"  flash_attention at hd 256: wgmma {flash['ms']:.4f} ms, simt "
+        f"{flash['simt_ms']:.4f}, plain {flash['plain_ms']:.4f}, library "
+        f"{flash['library_ms']:.4f}, bound {bound[0]:.4f} ({bound[1]}) -- "
+        f"{flash['work']}")
+
+    rows = []
+    for K, R, N in ((960, 698, 2560), (2560, 600, 960)) + LARGE_RANKS:
+        B, C = rnd((K, R), K ** -0.5), rnd((R, N), R ** -0.5)
+        for M in (512, 2048):
+            x = rnd((M, K))
+            r = {"K": K, "R": R, "N": N, "M": M}
+            for v in port.lm._allowed_2d(bf, M, K, R, N):
+                r[f"{v}_ms"] = device_ms(torch, lambda: [
+                    w["lowrank_matmul_2d"](x, B, C, variant=v)
+                    for _ in range(10)]) / 10
+            r["library_ms"] = device_ms(torch, lambda: [
+                torch.linalg.multi_dot([x, B, C]) for _ in range(10)]) / 10
+            r["bound_ms"] = bound_ms(
+                2 * (M * K + K * R + R * N + M * N),
+                2 * M * R * (K + N), "bfloat16")[0]
+            rows.append(r)
+            log(f"  lowrank_matmul_2d ({K}, {R}, {N}) at {M} rows, per "
+                f"linear: " + ", ".join(
+                    f"{k[:-3]} {v:.4f} ms" for k, v in r.items()
+                    if k.endswith("_ms")))
+    return {"flash_hd256": flash, "lowrank_2d": rows}
+
+
+def time_float32_2d(port, dev, comp, gemma_shapes):
+    """The two float32 2-D variants, the fused CUDA-core kernel ("simt")
+    against the two-launch one ("split"): per prefill of the main path's
+    plan (every compressed linear) at the parity run's 128 rows and at 256,
+    512 and 2048 of the batcher's bucketed rows, and per linear at the gemma3
+    path's prefill (2400 rows) for its ranks the fused kernel takes.
+    Returns a list of rows {work, M, simt_ms, split_ms}."""
+    torch, w = port.torch, port.wrappers
+    f32 = torch.float32
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    lins = [(p["B"].to(f32), p["C"].to(f32)) for p in linears(comp)]
+    out = []
+
+    def row(work, M, calls):
+        r = {"work": work, "M": M}
+        for v in ("simt", "split"):
+            r[f"{v}_ms"] = device_ms(torch, lambda: [
+                w["lowrank_matmul_2d"](x, B, C, variant=v)
+                for x, B, C in calls])
+        out.append(r)
+        log(f"  lowrank_matmul_2d float32, {work} at {M} rows: simt "
+            f"{r['simt_ms']:.4f} ms, split {r['split_ms']:.4f} ms")
+    for M in (PARITY_BATCH * PARITY_PROMPT, 256, 512, 2048):
+        xs = {K: torch.randn((M, K), generator=gen, device=dev)
+              for K in {B.shape[0] for B, _ in lins}}
+        row(f"one prefill of the plan's {len(lins)} linears", M,
+            [(xs[B.shape[0]], B, C) for B, C in lins])
+    M = GEMMA_PROMPTS[0] * 2
+    for K, R, N in gemma_shapes:
+        if "simt" not in port.lm._allowed_2d(f32, M, K, R, N):
+            continue
+        B = torch.randn((K, R), generator=gen, device=dev) * K ** -0.5
+        C = torch.randn((R, N), generator=gen, device=dev) * R ** -0.5
+        x = torch.randn((M, K), generator=gen, device=dev)
+        row(f"gemma3's ({K}, {R}, {N})", M, [(x, B, C)])
+    return out
+
+
+def random_factors(port, params, cfg, ratio: float, seed: int):
+    """``params`` with every linear replaced by factors B (d_in, k), C (k,
+    d_out) drawn from a generator seeded with ``seed``, at the ranks of
+    ``uniform_allocate`` at ``ratio`` (method svd's rule; GQA models group
+    one matrix each), scaled so that B·C has the dense weight's variance.
+    No calibration, no SVD. Returns (list-form params, {gid: rank})."""
+    torch = port.torch
+    from repro_torch.core import allocate as alloc
+    from repro_torch.core import groups as grp
+    lp = port.capture.to_list_params(params, cfg)
+    groups = grp.build_groups(grp.enumerate_matrices(lp, cfg), cfg, 1)
+    ks = alloc.uniform_allocate([alloc.GroupSpec(
+        gid=g.gid, mtype=g.mtype, reff=1.0, omega=g.omega, kmax=g.cost_cap,
+        kmin=1, dense_params=g.dense_params) for g in groups], ratio)
+    gen = torch.Generator(device=params["embed"].device)
+    gen.manual_seed(seed)
+    for g in groups:
+        for m in g.members:
+            parent = lp
+            for key in m.path[:-1]:
+                parent = parent[key]
+            wd = parent[m.path[-1]]["w"]
+            k = ks[g.gid]
+            B = torch.randn((m.d_in, k), generator=gen, device=wd.device,
+                            dtype=wd.dtype) * k ** -0.5
+            C = torch.randn((k, m.d_out), generator=gen, device=wd.device,
+                            dtype=wd.dtype) * wd.float().std()
+            parent[m.path[-1]] = {"B": B, "C": C}
+    return lp, ks
+
+
+def greedy(port, params, cfg, prompts, steps: int, device, lengths=None):
+    """Prefill ``prompts`` (right-padded to a common length when
+    ``lengths`` is given) and ``steps`` greedy decode steps on ``device``
+    in ``cfg``'s dtype. Returns the logits of every step on the CPU."""
+    torch, T = port.torch, port.T
+    p = port.engine.place_params(params, T.dtype_of(cfg.dtype), device)
+    batch = {"tokens": torch.as_tensor(prompts, device=device)}
+    if lengths is not None:
+        batch["lengths"] = torch.as_tensor(lengths, device=device)
+    with torch.inference_mode():
+        logits, cache = T.prefill(p, cfg, batch,
+                                  max_len=prompts.shape[1] + steps + 1)
+        out = [logits.float().cpu()]
+        for _ in range(steps):
+            tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
+            logits, cache = T.decode_step(p, cfg, cache, tok)
+            out.append(logits.float().cpu())
+    return out
+
+
+def compare_greedy(torch, gpu, cpu) -> None:
+    """Card against CPU logits of ``greedy``: prefill logits within atol
+    2e-3 and identical greedy tokens at every step."""
+    diffs = [abs_err(a, b) for a, b in zip(gpu, cpu)]
+    toks_g = [s[:, -1].argmax(-1) for s in gpu]
+    toks_c = [s[:, -1].argmax(-1) for s in cpu]
+    same = all(torch.equal(a, b) for a, b in zip(toks_g, toks_c))
+    log(f"  prefill logits max |card - cpu| = {diffs[0]:.3e} (atol "
+        f"{LOGITS_ATOL:.0e}); over all {len(diffs)} steps "
+        f"{max(diffs):.3e}; tokens identical: {same}")
+    if not same:
+        for i, (a, b) in enumerate(zip(toks_g, toks_c)):
+            for r in torch.nonzero(a != b).flatten().tolist():
+                top = torch.topk(cpu[i][r, -1], 2).values
+                log(f"  step {i} row {r}: card {int(a[r])} cpu {int(b[r])}, "
+                    f"cpu argmax margin {float(top[0] - top[1]):.3e}")
+    assert diffs[0] < LOGITS_ATOL, "prefill logits differ from the CPU's"
+    assert same, "greedy tokens differ between the card and the CPU"
+
+
+# the kernel wrappers the model reaches through ``ops``, by name there
+PATH_WRAPPERS = {"lowrank_gemv": "lowrank_gemv",
+                 "lowrank_matmul_2d": "lowrank_matmul_2d",
+                 "flash_attention": "flash_attention_bshd",
+                 "decode_attention": "decode_attention_bkgh"}
+
+
+@contextlib.contextmanager
+def recording(port):
+    """Within the block each kernel wrapper the model calls through ``ops``
+    keeps a copy of its operands at the first call of each signature (the
+    operands' shapes and dtypes and the keyword arguments), in the list it
+    yields as (kernel, args, kwargs)."""
+    torch = port.torch
+    calls, seen, saved = [], set(), {}
+
+    def spy(name, fn):
+        def wrapper(*args, **kwargs):
+            key = (name, tuple((tuple(a.shape), a.dtype) for a in args),
+                   tuple(sorted(kwargs.items())))
+            if key not in seen:
+                seen.add(key)
+                calls.append((name, [a.clone() for a in args],
+                              dict(kwargs)))
+            return fn(*args, **kwargs)
+        return wrapper
+    for name, attr in PATH_WRAPPERS.items():
+        saved[attr] = getattr(port.ops, attr)
+        setattr(port.ops, attr, spy(name, saved[attr]))
+    try:
+        yield calls
+    finally:
+        for attr, fn in saved.items():
+            setattr(port.ops, attr, fn)
+
+
+def hold_recorded(port, calls, dname: str) -> None:
+    """Every recorded call again through every variant that takes its
+    operands, held to the plain version on the same operands within
+    ``TOL[dname]``."""
+    torch, ref, w = port.torch, port.ref, port.wrappers
+    worst = {}
+    for name, args, kw in calls:
+        with torch.inference_mode():
+            if name in ("lowrank_gemv", "lowrank_matmul_2d"):
+                x, B, C = args
+                want = ref.lowrank_matmul(x, B, C)
+                sig = (f"{tuple(x.shape)} @ {tuple(B.shape)} @ "
+                       f"{tuple(C.shape)}")
+                variants = ((None,) if name == "lowrank_gemv" else
+                            port.lm._allowed_2d(x.dtype, *x.shape, *C.shape,
+                                                port.lm._aligned(x, C)))
+            elif name == "flash_attention":
+                q, k, v = args
+                want = ref.flash_attention(q, k, v, **kw)
+                sig = f"q {tuple(q.shape)} k {tuple(k.shape)} {kw}"
+                variants = port.fa._allowed(q.dtype, q.shape[-1], all(
+                    t.data_ptr() % 16 == 0 for t in args))
+            else:
+                q, k, v, lengths = args
+                Bq, KVh, G, hd = q.shape
+                want = ref.decode_attention(q.reshape(Bq, KVh * G, hd), k, v,
+                                            lengths, **kw).reshape(q.shape)
+                sig = (f"q {tuple(q.shape)} cache {tuple(k.shape)} lengths "
+                       f"{lengths.tolist()} {kw}")
+                variants = (None,)
+            for var in variants:
+                extra = {} if var is None else {"variant": var}
+                got = w[name](*args, **kw, **extra)
+                torch.cuda.synchronize()
+                e = rel_err(got, want)
+                key = f"{name}[{var}]" if var else name
+                worst[key] = max(worst.get(key, 0.0), e)
+                log(f"  {key} {dname} at {sig}: max-relative error {e:.2e} "
+                    f"(max |plain| {float(want.float().abs().max()):.3e}, "
+                    f"{int((got != want).sum())} of {want.numel()} "
+                    f"elements differ)")
+    for key, e in worst.items():
+        assert e <= TOL[dname], \
+            f"{key} disagrees with its plain version at the gemma3 path's " \
+            f"operands ({e:.2e} > {TOL[dname]:.0e})"
+
+
+def gemma_path(port, dev):
+    """gemma3-12b at full width, 6 layers, seeded random factors at the
+    uniform 20% ranks: ``Engine.generate`` in bf16 on one prompt past the
+    sliding window and one short one, with every launch count set to 0 just
+    before and read just after; then float32 on the card against the CPU."""
+    torch, T, E = port.torch, port.T, port.engine
+    cfg = port.get_config(GEMMA).replace(n_layers=GEMMA_LAYERS)
+    t0 = time.perf_counter()
+    params, _ = T.init_model(cfg, seed=GEMMA_SEED, device=dev)
+    comp, ks = random_factors(port, params, cfg, GEMMA_RATIO, GEMMA_SEED)
+    del params
+    torch.cuda.synchronize()
+    ranks = {}
+    for gid, k in ks.items():
+        ranks.setdefault(gid.split(":")[0], set()).add(k)
+    log(f"  {T.param_count(comp) / 1e9:.3f} B params ({GEMMA_LAYERS} layers "
+        f"of {cfg.layer_kinds()}), ranks {ranks}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    long, short = GEMMA_PROMPTS
+    rng = np.random.default_rng(GEMMA_SEED)
+    prompts = rng.integers(0, cfg.vocab_size, (2, long), dtype=np.int32)
+    prompts[1, short:] = 0
+    lengths = np.asarray([long, short], dtype=np.int32)
+    eng = E.Engine(comp, cfg, E.ServeConfig(batch=2), device=dev)
+    windows = []
+    decode = port.ops.decode_attention_bkgh
+
+    def spy(*args, **kwargs):        # the cache layouts decode reads
+        windows.append(kwargs.get("window", 0))
+        return decode(*args, **kwargs)
+    port.ops.decode_attention_bkgh = spy
+    try:
+        with recording(port) as calls:
+            port.reset_counts()
+            t0 = time.perf_counter()
+            toks = eng.generate(prompts, GEMMA_NEW, lengths=lengths)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts, variants = port.counts(), port.variant_counts()
+    finally:
+        port.ops.decode_attention_bkgh = decode
+    log(f"  bf16 generate, prompts of {long} and {short} tokens, {GEMMA_NEW} "
+        f"new each: {secs:.2f} s; first tokens {toks[:, :6].tolist()}")
+    log(f"  launches: {counts}; by variant {variants}; decode layouts "
+        f"(window: launches) { {x: windows.count(x) for x in set(windows)} }")
+    assert toks.shape == (2, GEMMA_NEW)
+    assert ((toks >= 0) & (toks < cfg.vocab_size)).all(), "token out of range"
+    for name in ("lowrank_gemv", "lowrank_matmul_2d", "flash_attention",
+                 "decode_attention"):
+        assert counts[name] > 0, f"{name} never launched on the gemma3 path"
+    assert variants["lowrank_matmul_2d"]["split"] > 0, variants
+    assert variants["flash_attention"]["wgmma"] > 0, variants
+    for name in ("lowrank_matmul_2d", "flash_attention"):
+        assert variants[name]["simt"] == 0, \
+            f"a bf16 {name} launch took simt on the gemma3 path"
+    assert {0, cfg.sliding_window} <= set(windows), \
+        "decode attention missed the full or the ring layout"
+    with torch.inference_mode():
+        logits, _ = T.prefill(eng.params, cfg, {
+            "tokens": torch.as_tensor(prompts, device=dev),
+            "lengths": torch.as_tensor(lengths, device=dev)},
+            max_len=long + 1)
+    assert torch.isfinite(logits).all(), "non-finite gemma3 logits"
+    del eng, logits
+    # every kernel call of the run, through every variant that takes it,
+    # against the plain version on the same operands
+    shapes = sorted({(a[0].shape[1], a[1].shape[1], a[2].shape[1])
+                     for n, a, _ in calls if n == "lowrank_matmul_2d"})
+    log(f"  the bf16 run's {len(calls)} kernel signatures against the plain "
+        f"versions:")
+    hold_recorded(port, calls, "bfloat16")
+    del calls
+    # float32, card kernels against the CPU's plain versions, and against
+    # the plain versions on the card on the run's own operands
+    cfg32 = cfg.replace(dtype="float32")
+    t0 = time.perf_counter()
+    with recording(port) as calls:
+        gpu = greedy(port, comp, cfg32, prompts, GEMMA_NEW_F32, dev,
+                     lengths)
+    card_s = time.perf_counter() - t0
+    log(f"  the float32 run's {len(calls)} kernel signatures against the "
+        f"plain versions:")
+    hold_recorded(port, calls, "float32")
+    del calls
+    t0 = time.perf_counter()
+    cpu = greedy(port, comp, cfg32, prompts, GEMMA_NEW_F32,
+                 torch.device("cpu"), lengths)
+    log(f"  float32, {GEMMA_NEW_F32} new tokens: card {card_s:.1f} s, cpu "
+        f"{time.perf_counter() - t0:.1f} s")
+    compare_greedy(torch, gpu, cpu)
+    return shapes
 
 
 def throughput(port, dev, cfg, params, comp):
@@ -1120,41 +1575,13 @@ def parity(port, dev, cfg, comp):
     """The compressed model in float32 on the card (kernels) and on the
     CPU (plain versions): identical greedy tokens, prefill logits within
     atol 2e-3."""
-    torch, T = port.torch, port.T
     cfg32 = cfg.replace(dtype="float32")
     prompts = np.random.default_rng(2).integers(
         0, cfg.vocab_size, (PARITY_BATCH, PARITY_PROMPT), dtype=np.int32)
-
-    def greedy(device):
-        p = port.engine.place_params(comp, torch.float32, device)
-        with torch.inference_mode():
-            logits, cache = T.prefill(
-                p, cfg32, {"tokens": torch.as_tensor(prompts, device=device)},
-                max_len=PARITY_PROMPT + PARITY_STEPS + 1)
-            steps = [logits.float().cpu()]
-            for _ in range(PARITY_STEPS):
-                tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
-                logits, cache = T.decode_step(p, cfg32, cache, tok)
-                steps.append(logits.float().cpu())
-        return steps
-
-    gpu = greedy(dev)
-    cpu = greedy(torch.device("cpu"))
-    diffs = [abs_err(a, b) for a, b in zip(gpu, cpu)]
-    toks_g = [s[:, -1].argmax(-1) for s in gpu]
-    toks_c = [s[:, -1].argmax(-1) for s in cpu]
-    same = all(torch.equal(a, b) for a, b in zip(toks_g, toks_c))
-    log(f"  prefill logits max |card - cpu| = {diffs[0]:.3e} (atol "
-        f"{LOGITS_ATOL:.0e}); over all {len(diffs)} steps "
-        f"{max(diffs):.3e}; tokens identical: {same}")
-    if not same:
-        for i, (a, b) in enumerate(zip(toks_g, toks_c)):
-            for r in torch.nonzero(a != b).flatten().tolist():
-                top = torch.topk(cpu[i][r, -1], 2).values
-                log(f"  step {i} row {r}: card {int(a[r])} cpu {int(b[r])}, "
-                    f"cpu argmax margin {float(top[0] - top[1]):.3e}")
-    assert diffs[0] < LOGITS_ATOL, "prefill logits differ from the CPU's"
-    assert same, "greedy tokens differ between the card and the CPU"
+    gpu = greedy(port, comp, cfg32, prompts, PARITY_STEPS, dev)
+    cpu = greedy(port, comp, cfg32, prompts, PARITY_STEPS,
+                 port.torch.device("cpu"))
+    compare_greedy(port.torch, gpu, cpu)
 
 
 def main() -> int:
@@ -1190,6 +1617,10 @@ def main() -> int:
             cb_counts, snap, rates = batcher_path(port, dev, cfg, comp)
     finally:
         shutil.rmtree(ARTIFACT_DIR, ignore_errors=True)
+    with Phase(f"gemma3 path: {GEMMA} at full width, {GEMMA_LAYERS} layers, "
+               f"random factors at uniform 20%, bf16 generate, float32 card "
+               f"against CPU"):
+        gemma_shapes = gemma_path(port, dev)
     with Phase("batcher step profile, bf16, batch 8"):
         profile_batcher(port, dev, cfg, comp)
     with Phase("streaming Grams against the eager fp64 oracle, every tag"):
@@ -1202,6 +1633,10 @@ def main() -> int:
         errs = check_kernels(port, dev, comp)
     with Phase("kernel times (bfloat16, main-path shapes)"):
         times = time_kernels(port, dev, cfg, comp, snap)
+    with Phase("kernel times (bfloat16, the dense configs' shapes)"):
+        large = time_large_shapes(port, dev)
+    with Phase("kernel times (float32 2-D product, simt against split)"):
+        f32_2d = time_float32_2d(port, dev, comp, gemma_shapes)
     with Phase("decode throughput, prompt 128, 64 new tokens"):
         tput = throughput(port, dev, cfg, params, comp)
     step_ms = np.median([m["ms_per_step"] for m in tput[("drank-20%", 8)]])
@@ -1238,6 +1673,12 @@ def main() -> int:
             kernels[-1].update(variant="+".join(t["variant"]),
                                launches_by_variant=variants[name],
                                simt_ms=t["simt_ms"])
+        if "split_ms" in t:
+            kernels[-1]["split_ms"] = t["split_ms"]
+    by_name = {k["name"]: k for k in kernels}
+    by_name["flash_attention"]["gemma3_hd256"] = large["flash_hd256"]
+    by_name["lowrank_matmul_2d"]["by_shape"] = large["lowrank_2d"]
+    by_name["lowrank_matmul_2d"]["float32"] = f32_2d
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -9,18 +9,44 @@
 //
 // Layout: q (B, S, H, hd), k/v (B, T, KV, hd), o (B, S, H, hd), read in
 // place: no transpose, no padding copy; ragged S and T are masked here.
-// One block per (32 query rows, head); query head h reads kv head h / G, so
-// repeated K/V never exist (G need not be a power of two).
+// Query head h reads kv head h / G, so repeated K/V never exist (G need not
+// be a power of two). Both variants skip the key tiles that the causal or
+// window mask empties for every row of a block, the block skipping the TPU
+// kernel leaves to a later iteration; a skipped tile would only have added
+// p = exp(-1e30 - m) = 0 to every row.
 //
-// Bound: at the prefill shapes of the main path (S of 64 to 128, hd 64) the
-// work is small and bound by operations on the CUDA cores. Each block keeps
-// its q tile and one 64-key K/V tile in shared memory (float32) and skips
-// the key tiles that the causal or window mask empties for all its rows, the
-// block skipping the TPU kernel leaves to a later iteration. Four threads
-// share a query row: each scores 16 keys, the row max and sum are reduced
-// with warp shuffles, and each owns a quarter of the output dims. Tensor-core
-// tiles (wgmma) are later work.
+// What bounds it. At the main path's prefill shapes (S 64, hd 64; gemma3's
+// S ~1100, hd 256) the bytes are small (q, k, v and o read or written once:
+// 25 us at SmolLM's prefill) and the work is two products per key tile: on
+// the CUDA cores it is bound by their float32 rate (67 TFLOP/s) and ran 33x
+// over its bound. Two variants, picked by the wrapper:
+// - "wgmma" (bfloat16, hd in {16, 32, 64, 128, 256}, q/k/v 16-byte
+//   aligned): both products on the tensor cores. A block is one consumer
+//   warpgroup, which owns 64 query rows of one head, and a producer warp,
+//   which stages the q tile once and the K and V tiles of each 64-key step
+//   by TMA (4-D tensor maps over the (B, T, heads, hd) layout, 64-column
+//   boxes: 1, 2 or 4 of them by hd; columns past hd < 64 land as zeros)
+//   into a ring of slots with full and empty mbarriers. S = q K^T is a
+//   wgmma with q as the K-major A operand and the K tile as the K-major B
+//   operand (hd / 16 k16 steps). The masks take each accumulator element's
+//   (row, key) from the m64n64 accumulator layout (acc_row, acc_col); a
+//   row's max and sum are reduced over the 4 threads that hold it (two
+//   shuffles). O += P V is a wgmma with P as the register A operand: the S
+//   accumulator, exponentiated, rounded to bf16 in place (a_frag), which is
+//   exactly the TPU kernel's rounding of p to v's dtype; V is the MN-major
+//   B operand, one m64n64 product per 64 columns of hd. At hd 256 the O
+//   accumulator is 128 registers a thread, S 32 and P 16: the key tile stays
+//   64 and the ring 2 slots deep (160 KB of shared memory). Every wgmma is
+//   issued unconditionally by the whole warpgroup and TMA is issued only by
+//   the producer warp, whose role is a warp-uniform shuffle broadcast (the
+//   compiler serializes wgmma next to divergent code).
+// - "simt" (float32, and operands the tensor-core kernel does not take):
+//   one block per (32 query rows, head), q/K/V tiles in shared memory as
+//   float32 (172 KB at hd 256), four threads a query row: each scores 16
+//   keys, the row max and sum are reduced with warp shuffles, and each owns
+//   a quarter of the output dims.
 #include "common.cuh"
+#include "hopper_mma.cuh"
 
 namespace drt {
 namespace {
@@ -174,6 +200,233 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B,
                                         causal, window, softcap, st);
     case 128: return launch_flash<T, 128>(q, k, v, o, B, S, Tk, H, KV, scale,
                                           causal, window, softcap, st);
+    case 256: return launch_flash<T, 256>(q, k, v, o, B, S, Tk, H, KV, scale,
+                                          causal, window, softcap, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// bfloat16 on the tensor cores
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+constexpr int FW_T = mma::TILE;                       // query rows, keys a tile
+constexpr int FW_THREADS = mma::WG_THREADS + 32;      // + the producer warp
+
+template <int HD>
+struct FlashWg {
+  static constexpr int NSUB = HD >= 64 ? HD / 64 : 1;  // 64-column boxes
+  static constexpr int KSTEPS = HD / 16;               // k16 steps of q K^T
+  static constexpr int STAGES = HD >= 256 ? 2 : 3;     // ring slots
+  static constexpr int SLOT = 2 * NSUB * mma::TILE_BYTES;   // K, then V
+  static constexpr int SMEM = 1024 + NSUB * mma::TILE_BYTES + STAGES * SLOT;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(FW_THREADS, 1) flash_wgmma_kernel(
+    bf16* __restrict__ o, int S, int Tk, int H, int KV, float scale,
+    int causal, int window, float softcap,
+    const __grid_constant__ CUtensorMap tmq,
+    const __grid_constant__ CUtensorMap tmk,
+    const __grid_constant__ CUtensorMap tmv) {
+  using namespace mma;
+  using F = FlashWg<HD>;
+  extern __shared__ __align__(16) char smem_in[];
+  // full and empty barriers of the ring, then the q tile's
+  __shared__ __align__(8) uint64_t bars[2 * F::STAGES + 1];
+  char* qs = smem_in + ((1024 - (smem_u32(smem_in) & 1023)) & 1023);
+  const uint32_t qs_a = smem_u32(qs);
+  const uint32_t ring_a = qs_a + F::NSUB * TILE_BYTES;
+  const uint32_t full = smem_u32(bars), empty = full + 8 * F::STAGES;
+  const uint32_t qbar = empty + 8 * F::STAGES;
+
+  const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / (H / KV);
+  const int q0 = blockIdx.x * FW_T;
+  // the key tiles that hold a live entry for some row of this block
+  const int kv_end = causal ? min(Tk, q0 + FW_T) : Tk;
+  const int kv_beg = (window ? max(0, q0 - window + 1) : 0) / FW_T * FW_T;
+  const int nt = kv_end > kv_beg ? cdiv(kv_end - kv_beg, FW_T) : 0;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < F::STAGES; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, WG_THREADS);
+    }
+    mbar_init(qbar, 1);
+  }
+  __syncthreads();
+  // 0: the consumer warpgroup; 1: the producer warp (warp-uniform)
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / WG_THREADS, 0);
+  const int wt = threadIdx.x % WG_THREADS;
+
+  if (role == 1) {
+    const int lane = wt % 32;
+    if (lane == 0) {
+      tma_prefetch(&tmq);
+      tma_prefetch(&tmk);
+      tma_prefetch(&tmv);
+      mbar_arrive_expect(qbar, F::NSUB * TILE_BYTES);
+    }
+    __syncwarp();
+    if (lane < F::NSUB)
+      tma_load_4d(qs_a + lane * TILE_BYTES, &tmq, lane * 64, h, q0, b, qbar);
+    for (int j = 0; j < nt; ++j) {
+      const int slot = j % F::STAGES, k0 = kv_beg + j * FW_T;
+      const uint32_t s = ring_a + slot * F::SLOT, bar = full + 8 * slot;
+      if (lane == 0) {
+        if (j >= F::STAGES)
+          mbar_wait(empty + 8 * slot, (j / F::STAGES - 1) & 1);
+        mbar_arrive_expect(bar, F::SLOT);
+      }
+      __syncwarp();
+      if (lane < 2 * F::NSUB) {   // lanes 0.. the K boxes, then the V boxes
+        const int c = lane % F::NSUB;
+        tma_load_4d(s + lane * TILE_BYTES, lane < F::NSUB ? &tmk : &tmv,
+                    c * 64, kvh, k0, b, bar);
+      }
+    }
+    return;
+  }
+
+  float oacc[F::NSUB][32];
+#pragma unroll
+  for (int c = 0; c < F::NSUB; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) oacc[c][i] = 0.f;
+  // this thread's two query rows (acc_row of elements 0 and 2)
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  const int qp0 = q0 + acc_row(wt, 0);
+  mbar_wait(qbar, 0);
+  for (int j = 0; j < nt; ++j) {
+    const int slot = j % F::STAGES, k0 = kv_beg + j * FW_T;
+    const uint32_t ka = ring_a + slot * F::SLOT;
+    const uint32_t va = ka + F::NSUB * TILE_BYTES;
+    mbar_wait(full + 8 * slot, (j / F::STAGES) & 1);
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < F::KSTEPS; ++kk)
+      wgmma_m64n64k16<0, 0>(s, desc_kmajor(qs_a + (kk / 4) * TILE_BYTES, kk % 4),
+                            desc_kmajor(ka + (kk / 4) * TILE_BYTES, kk % 4),
+                            kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold_regs(s);
+
+    // scale, softcap, mask; the running max of each of the two rows
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float x = s[i] * scale;
+      if (softcap != 0.f) x = softcap * tanhf(x / softcap);
+      const int qp = qp0 + 8 * ((i / 2) % 2), kp = k0 + acc_col(wt, i);
+      bool ok = kp < Tk;
+      if (causal) ok = ok && kp <= qp;
+      if (window) ok = ok && kp > qp - window;
+      s[i] = ok ? x : NEG_INF;
+      mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+    }
+    float alpha[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = expf(m[r] - mx[r]);
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = expf(s[i] - mx[(i / 2) % 2]);
+      ps[(i / 2) % 2] += s[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 1);
+      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 2);
+      l[r] = l[r] * alpha[r] + ps[r];
+    }
+#pragma unroll
+    for (int c = 0; c < F::NSUB; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) oacc[c][i] *= alpha[(i / 2) % 2];
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) a_frag(pa[kk], s, kk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int c = 0; c < F::NSUB; ++c)
+        wgmma_m64n64k16_rs<1>(oacc[c], pa[kk],
+                              desc_mnmajor(va + c * TILE_BYTES, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < F::NSUB; ++c) hold_regs(oacc[c]);
+    mbar_arrive(empty + 8 * slot);
+  }
+
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) den[r] = fmaxf(l[r], 1e-30f);
+#pragma unroll
+  for (int c = 0; c < F::NSUB; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int qp = qp0 + 8 * ((i / 2) % 2), d = c * 64 + acc_col(wt, i);
+      if (qp < S && d < HD)   // hd even: a pair is wholly in or out
+        *reinterpret_cast<__nv_bfloat162*>(
+            o + (((size_t)b * S + qp) * H + h) * HD + d) =
+            __floats2bfloat162_rn(oacc[c][i] / den[(i / 2) % 2],
+                                  oacc[c][i + 1] / den[(i / 2) % 2]);
+    }
+}
+
+template <int HD>
+int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
+                       int B, int S, int Tk, int H, int KV, float scale,
+                       int causal, int window, float softcap,
+                       cudaStream_t st) {
+  using F = FlashWg<HD>;
+  static const cudaError_t configured = cudaFuncSetAttribute(
+      flash_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      F::SMEM);
+  if (configured != cudaSuccess) return static_cast<int>(configured);
+  CUtensorMap tmq, tmk, tmv;
+  cudaError_t e = mma::make_tmap_bshd(&tmq, q, HD, H, S, B);
+  // at Tk == 0 no key tile is read; a map needs one row all the same
+  const int rows = Tk > 0 ? Tk : 1;
+  if (e == cudaSuccess) e = mma::make_tmap_bshd(&tmk, k, HD, KV, rows, B);
+  if (e == cudaSuccess) e = mma::make_tmap_bshd(&tmv, v, HD, KV, rows, B);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(cdiv(S, FW_T), B * H);
+  flash_wgmma_kernel<HD><<<grid, FW_THREADS, F::SMEM, st>>>(
+      static_cast<bf16*>(o), S, Tk, H, KV, scale, causal, window, softcap,
+      tmq, tmk, tmv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch_wgmma(const void* q, const void* k, const void* v, void* o,
+                   int B, int S, int Tk, int H, int KV, int hd, float scale,
+                   int causal, int window, float softcap, cudaStream_t st) {
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (hd) {
+    case 16: return launch_flash_wgmma<16>(q, k, v, o, B, S, Tk, H, KV, scale,
+                                           causal, window, softcap, st);
+    case 32: return launch_flash_wgmma<32>(q, k, v, o, B, S, Tk, H, KV, scale,
+                                           causal, window, softcap, st);
+    case 64: return launch_flash_wgmma<64>(q, k, v, o, B, S, Tk, H, KV, scale,
+                                           causal, window, softcap, st);
+    case 128: return launch_flash_wgmma<128>(q, k, v, o, B, S, Tk, H, KV,
+                                             scale, causal, window, softcap,
+                                             st);
+    case 256: return launch_flash_wgmma<256>(q, k, v, o, B, S, Tk, H, KV,
+                                             scale, causal, window, softcap,
+                                             st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -197,6 +450,18 @@ int drt_flash_attention(const void* q, const void* k, const void* v, void* o,
                                            scale, causal, window, softcap,
                                            st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+
+// bfloat16 q, k, v, o as drt_flash_attention, 16-byte aligned, on the
+// tensor cores.
+int drt_flash_attention_wgmma(const void* q, const void* k, const void* v,
+                              void* o, int B, int S, int T, int H, int KV,
+                              int hd, float scale, int causal, int window,
+                              float softcap, void* stream) {
+  return drt::dispatch_wgmma(q, k, v, o, B, S, T, H, KV, hd, scale, causal,
+                             window, softcap,
+                             static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -19,7 +19,9 @@
 //     to the address, so an offset inside the atom is exact). LBO is not
 //     used for swizzled K-major operands (set to 16 bytes).
 //       - x (M x K, row-major) as A of t = x @ B;
-//       - t (64 rows x R, kept on chip) as A of y = t @ C.
+//       - t (64 rows x R, kept on chip or read back) as A of y = t @ C;
+//       - attention's q (64 query rows x hd) as A and a K tile (64 keys x
+//         hd) as B of S = q K^T.
 //   MN-major (trans 1): the tile's rows are K and its columns are M (or N).
 //     One k16 step is 16 rows, so the descriptor of step kk starts
 //     2048 * kk bytes into the tile. A tile is one swizzle atom wide along
@@ -29,14 +31,18 @@
 //       - C (R x N, row-major) as B of y = t @ C;
 //       - the Gram's panels of x (N x D, row-major): A = x[:, i-panel]^T
 //         and B = x[:, j-panel], both MN-major; on a diagonal tile one
-//         panel serves as both.
+//         panel serves as both;
+//       - attention's V tile (64 keys x hd) as B of O += P V, where P, the
+//         softmax of an accumulator, is the register A operand (a_frag).
 //
 // Staging. Three ways, all into the swizzled tile above, zero outside the
 // matrix, nothing padded in device memory:
 //   - TMA (make_tmap, tma_load_2d): a 64 x 64 box of a row-major matrix
 //     whose rows start on 16-byte boundaries; the 128-byte swizzle of the
 //     tensor map writes exactly this layout. One thread issues it and
-//     arrives on the slot's mbarrier with the bytes to expect.
+//     arrives on the slot's mbarrier with the bytes to expect. The
+//     attention kernels' (batch, rows, heads, hd) arrays take a rank-4 map
+//     (make_tmap_bshd, tma_load_4d) whose box is one head's 64 rows.
 //   - raw words (stage_raw, then unpack_raw), for any row stride: the
 //     factor B at a rank R % 8 != 0 (its row stride, 2R bytes, is no
 //     multiple of 16, so no tensor map exists). The aligned 16-byte words
@@ -156,6 +162,49 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d[64 x 64] += A[64 x 16] @ B[16 x 64] with A in registers: a[0..3] hold
+// bf16 pairs in the layout of a float32 accumulator's columns 16 kk ..
+// 16 kk + 15 (a_frag), so a product's accumulator becomes the next
+// product's A operand without passing through shared memory. TB as above.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
+}
+
+// The A fragment of k16 step kk from a float32 accumulator p[32] (columns
+// 16 kk .. 16 kk + 15 of its 64), rounded to bf16 (round to nearest even):
+// the accumulator's elements 8 kk .. 8 kk + 7 in order, two to a register.
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const float (&p)[32],
+                                       int kk) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const __nv_bfloat162 h =
+        __floats2bfloat162_rn(p[8 * kk + 2 * e], p[8 * kk + 2 * e + 1]);
+    a[e] = *reinterpret_cast<const uint32_t*>(&h);
+  }
 }
 
 // Row and column of accumulator element i (0..31) for thread t.
@@ -353,13 +402,9 @@ __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 // --- TMA --------------------------------------------------------------------
-// A tensor map over a row-major (dim1 x dim0) bf16 matrix with a row stride
-// of `stride1` bytes (a multiple of 16, base 16-byte aligned): 64 x 64 boxes
-// with the 128-byte swizzle, so a box lands as the tile described at the
-// top; reads outside the matrix land as zeros. The CUDA driver's encoder is
-// reached through the runtime, so nothing links against libcuda.
-inline cudaError_t make_tmap(CUtensorMap* map, const void* base,
-                             uint64_t dim0, uint64_t dim1, uint64_t stride1) {
+// The CUDA driver's tensor-map encoder, reached through the runtime so that
+// nothing links against libcuda (null if the driver lacks it).
+inline PFN_cuTensorMapEncodeTiled tmap_encoder() {
   static PFN_cuTensorMapEncodeTiled encode = [] {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult q;
@@ -369,6 +414,16 @@ inline cudaError_t make_tmap(CUtensorMap* map, const void* base,
       fn = nullptr;
     return reinterpret_cast<PFN_cuTensorMapEncodeTiled>(fn);
   }();
+  return encode;
+}
+
+// A tensor map over a row-major (dim1 x dim0) bf16 matrix with a row stride
+// of `stride1` bytes (a multiple of 16, base 16-byte aligned): 64 x 64 boxes
+// with the 128-byte swizzle, so a box lands as the tile described at the
+// top; reads outside the matrix land as zeros.
+inline cudaError_t make_tmap(CUtensorMap* map, const void* base,
+                             uint64_t dim0, uint64_t dim1, uint64_t stride1) {
+  const PFN_cuTensorMapEncodeTiled encode = tmap_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {dim0, dim1};
   const cuuint64_t strides[1] = {stride1};
@@ -396,6 +451,42 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* m,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(m)), "r"(c0), "r"(r0), "r"(bar)
+      : "memory");
+}
+
+// A tensor map over a (batch, rows, heads, hd) bf16 array, the attention
+// kernels' layout, read for one (batch, head) at a time: 64-column x 64-row
+// boxes (dims hd, heads, rows, batch innermost first; box 64 x 1 x 64 x 1)
+// with the 128-byte swizzle, so a box lands as the tile described at the
+// top. Columns past hd (hd < 64) and rows past `rows` land as zeros. The
+// base must be 16-byte aligned and hd a multiple of 8.
+inline cudaError_t make_tmap_bshd(CUtensorMap* map, const void* base,
+                                  uint64_t hd, uint64_t heads, uint64_t rows,
+                                  uint64_t batch) {
+  const PFN_cuTensorMapEncodeTiled encode = tmap_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {hd, heads, rows, batch};
+  const cuuint64_t strides[3] = {2 * hd, 2 * hd * heads, 2 * hd * heads * rows};
+  const cuuint32_t box[4] = {TILE, 1, TILE, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+      dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The box at (c0, c1, c2, c3) (innermost first) of a rank-4 map into shared
+// memory at `dst` (1024-byte aligned), completing on mbarrier `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* m,
+                                            int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(m)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(bar)
       : "memory");
 }
 

@@ -25,12 +25,14 @@
 //   fixed order, so the result is deterministic.
 // lowrank_matmul_2d: at prefill M is hundreds of rows and the work is bound
 //   by operations at the CUDA cores' rate, by bytes (0.3 ms a SmolLM-360M
-//   prefill) at the tensor cores'. As on the TPU, t never leaves the chip: a
-//   cluster of blocks owns a row tile, each block computes its share of t's
-//   columns over the whole of K and the blocks exchange their shares through
-//   distributed shared memory before each emits its share of y's columns.
-//   So nothing is recomputed. Two variants, picked by the wrapper from the
-//   dtype and the shapes:
+//   prefill) at the tensor cores'. The TPU kernel keeps t whole in VMEM, so
+//   it takes any rank; here t of a row tile must fit one block's shared
+//   memory for t to stay on chip. Three variants, picked by the wrapper
+//   from the dtype and the shapes. In the first two, as on the TPU, t never
+//   leaves the chip: a cluster of blocks owns a row tile, each block
+//   computes its share of t's columns over the whole of K and the blocks
+//   exchange their shares through distributed shared memory before each
+//   emits its share of y's columns, so nothing is recomputed:
 //   - "wgmma" (bfloat16; K and N multiples of 8, x and C 16-byte aligned,
 //     R <= drt_lowrank_2d_wgmma_max_rank(), 896): both products on the
 //     tensor cores (hopper_mma.cuh), t[64 rows, R] in bf16, which is the
@@ -58,6 +60,22 @@
 //     on the CUDA cores, 2 x 4 outputs a thread, t[32, R] in float32
 //     rounded to C's dtype (R <= drt_lowrank_2d_max_rank(), 1600). float32
 //     stays here because TF32 products miss the 2e-5 float32 tier.
+//   - "split" (any rank): two launches, t = round(x @ B) into an (M, R)
+//     tensor of x's dtype, then y = t @ C, each a plain tiled product over
+//     every SM, t crossing between them through L2 (1.2 MB at 512 rows and
+//     rank 1200 in bf16). bfloat16 operands with K and N multiples of 8
+//     run both on the tensor cores (the 2-D kernel's phase-1 mainloop
+//     without the cluster: a producer warp stages the operand both
+//     warpgroups share by TMA, each warpgroup its own tile of B or of t by
+//     TMA at R % 8 == 0, else by the raw-word copies, so a ragged rank such
+//     as gemma3-12b's 2457 stays on the tensor cores); every other operand,
+//     float32 included, runs a 64 x 64 CUDA-core tile a block. Measured on
+//     the card it is 13.8-19.8x faster than "simt" at bf16 rank 1585, so
+//     the wrapper prefers it above rank 896; in float32 its tiles spread
+//     over more SMs than "simt"'s clusters and it is faster from 512 rows
+//     (1.3-1.8x a SmolLM prefill), slower at 128 and 256, so the wrapper
+//     prefers it from 512 rows (PERF.md). Both CUDA-core forms sum each
+//     output as one float32 FMA chain in k order: they give the same bits.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -731,6 +749,292 @@ int launch_2d_wgmma(const void* x, const void* B, const void* C, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// Prefill shape, any rank: two launches through an (M, R) t in device memory
+// ---------------------------------------------------------------------------
+// out (M x N) = round_T(A (M x K) @ W (K x N)), all row-major: launch 1 is
+// t = x @ B, launch 2 is y = t @ C, so t is rounded to T between the two
+// products exactly as the fused kernels round it on chip.
+
+// CUDA cores, any dtype and shape: a 64 x 64 output tile a block, 256
+// threads of 4 x 4 float32 sums, the reduction staged 16 values at a time
+// in shared memory (A transposed, so both operands are read as float4s).
+constexpr int SG_T = 64, SG_K = 16, SG_THREADS = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(SG_THREADS) gemm_simt_kernel(
+    const T* __restrict__ A, const T* __restrict__ W, T* __restrict__ out,
+    int M, int K, int N) {
+  __shared__ __align__(16) float as[SG_K][SG_T + 4];   // as[k][m]
+  __shared__ __align__(16) float ws[SG_K][SG_T];       // ws[k][n]
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int m0 = blockIdx.y * SG_T, n0 = blockIdx.x * SG_T;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += SG_K) {
+#pragma unroll
+    for (int j = 0; j < SG_T * SG_K / SG_THREADS; ++j) {
+      const int i = threadIdx.x + j * SG_THREADS;
+      const int am = i / SG_K, ak = i % SG_K;       // A: k fastest
+      const int wk = i / SG_T, wn = i % SG_T;       // W: n fastest
+      as[ak][am] = (m0 + am < M && k0 + ak < K)
+                       ? ld(A + (size_t)(m0 + am) * K + k0 + ak) : 0.f;
+      ws[wk][wn] = (k0 + wk < K && n0 + wn < N)
+                       ? ld(W + (size_t)(k0 + wk) * N + n0 + wn) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < SG_K; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
+      const float4 w = *reinterpret_cast<const float4*>(&ws[kk][tx * 4]);
+      const float a4[4] = {a.x, a.y, a.z, a.w};
+      const float w4[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] += a4[i] * w4[j];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n < N) out[(size_t)m * N + n] = cvt<T>(acc[i][j]);
+    }
+  }
+}
+
+template <typename T>
+int launch_split_simt(const void* x, const void* B, const void* C, void* y,
+                      void* t, int M, int K, int R, int N, cudaStream_t st) {
+  gemm_simt_kernel<T><<<dim3(cdiv(R, SG_T), cdiv(M, SG_T)), SG_THREADS, 0,
+                        st>>>(static_cast<const T*>(x),
+                              static_cast<const T*>(B), static_cast<T*>(t),
+                              M, K, R);
+  gemm_simt_kernel<T><<<dim3(cdiv(N, SG_T), cdiv(M, SG_T)), SG_THREADS, 0,
+                        st>>>(static_cast<const T*>(t),
+                              static_cast<const T*>(C), static_cast<T*>(y),
+                              M, R, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bfloat16 on the tensor cores: the 2-D kernel's phase 1 without the
+// cluster. A block has two consumer warpgroups and a producer warp; each
+// warpgroup owns a 64 x 64 tile of the output and loops over K in steps of
+// 64 through a ring of SP_S slots, one float32 accumulation. The two
+// warpgroups share one operand tile a step, which the producer stages by
+// TMA ("shared"), and each has its own tile of the other ("own"):
+//   OWN_B (launch 1, t = x @ B): a 64 x 128 block tile; shared = the x tile
+//     (K-major A), own = warpgroup w's B tile (columns n0 + 64 w, MN-major);
+//   !OWN_B (launch 2, y = t @ C): a 128 x 64 block tile; shared = the C
+//     tile (MN-major B), own = warpgroup w's t tile (rows m0 + 64 w,
+//     K-major A).
+// The own operand is the one whose row stride is the rank (B: 2R bytes, t:
+// 2R bytes), so it has a tensor map only at R % 8 == 0: then the producer
+// stages it too; at a ragged rank each warpgroup copies the aligned 16-byte
+// words that cover its tile by cp.async, SP_S - 2 steps ahead, and shifts
+// them into place (stage_raw, unpack_raw) before the MMA, as the 2-D
+// kernel's B. Nothing is padded: t is (M, R) with row stride R. The blocks
+// tile the whole output, so both launches spread over every SM (at 512
+// rows: 160 blocks for t at R 2457, 960 for y at N 15360).
+constexpr int SP_S = 4;                                   // ring slots
+constexpr int SP_SLOT = mma::TILE_BYTES + WG_GROUPS * mma::RAW_BYTES;
+constexpr int SP_BSW = 2 * WG_GROUPS * mma::TILE_BYTES;   // unpacked own
+constexpr int SP_SMEM = 1024 + SP_S * SP_SLOT + SP_BSW;
+
+template <bool OWN_B>
+__global__ void __launch_bounds__(WG_BLOCK + 32, 1) split_wgmma_kernel(
+    const bf16* __restrict__ own, bf16* __restrict__ out, int M, int K, int N,
+    int own_tma, const __grid_constant__ CUtensorMap tms,
+    const __grid_constant__ CUtensorMap tmo) {
+  using namespace mma;
+  extern __shared__ __align__(16) char smem_in[];
+  __shared__ __align__(8) uint64_t bars[2 * SP_S];   // full, then empty
+  char* ring = smem_in + ((1024 - (smem_u32(smem_in) & 1023)) & 1023);
+  char* bsw = ring + SP_S * SP_SLOT;
+  const uint32_t ring_a = smem_u32(ring), bsw_a = smem_u32(bsw);
+  const uint32_t full = smem_u32(bars), empty = full + 8 * SP_S;
+  // 0, 1: consumer warpgroups; 2: the producer warp
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / WG_THREADS, 0);
+  const int wt = threadIdx.x % WG_THREADS;
+  const int m0 = blockIdx.y * (OWN_B ? WG_T : 2 * WG_T);
+  const int n0 = blockIdx.x * (OWN_B ? 2 * WG_T : WG_T);
+  const int nk = cdiv(K, WG_T);
+  // the own operand (row-major, rows x cols, row stride cols): B (K x N) or
+  // t (M x K); tile w starts at row or0(w), column oc0(w, k0)
+  const int orows = OWN_B ? K : M, ocols = OWN_B ? N : K;
+  auto or0 = [&](int w, int k0) { return OWN_B ? k0 : m0 + w * WG_T; };
+  auto oc0 = [&](int w, int k0) { return OWN_B ? n0 + w * WG_T : k0; };
+  auto own_ok = [&](int w) {   // the tile lies (partly) inside the output
+    return OWN_B ? n0 + w * WG_T < N : m0 + w * WG_T < M;
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < SP_S; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, WG_BLOCK);
+    }
+  }
+  __syncthreads();
+
+  if (wg == WG_GROUPS) {
+    // producer: lane 0 arms the slot and issues the shared tile, lanes 1-2
+    // the own tiles where they have a tensor map
+    const int lane = wt % 32;
+    if (lane == 0) {
+      tma_prefetch(&tms);
+      if (own_tma) tma_prefetch(&tmo);
+    }
+    const int no = own_tma ? own_ok(0) + own_ok(1) : 0;
+    for (int q = 0; q < nk; ++q) {
+      const int slot = q % SP_S, k0 = q * WG_T;
+      const uint32_t s = ring_a + slot * SP_SLOT, bar = full + 8 * slot;
+      if (lane == 0) {
+        if (q >= SP_S) mbar_wait(empty + 8 * slot, (q / SP_S - 1) & 1);
+        mbar_arrive_expect(bar, TILE_BYTES * (1 + no));
+      }
+      __syncwarp();
+      if (lane == 0) {
+        if (OWN_B) tma_load_2d(s, &tms, k0, m0, bar);      // x (M x K)
+        else tma_load_2d(s, &tms, n0, k0, bar);            // C (K x N)
+      }
+      if (lane >= 1 && lane <= no) {
+        const int w = lane - 1;
+        tma_load_2d(s + TILE_BYTES + w * RAW_BYTES, &tmo, oc0(w, k0),
+                    or0(w, k0), bar);
+      }
+    }
+  } else {
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    const bool ok = own_ok(wg);
+    auto stage_own = [&](int q) {
+      if (!ok) return;
+      stage_raw<WG_THREADS>(
+          ring_a + (q % SP_S) * SP_SLOT + TILE_BYTES + wg * RAW_BYTES, own,
+          ocols, orows, or0(wg, q * WG_T), oc0(wg, q * WG_T), wt);
+    };
+    if (!own_tma) {
+#pragma unroll
+      for (int p = 0; p < SP_S - 2; ++p) {
+        if (p < nk) stage_own(p);
+        cp_async_commit();
+      }
+    }
+    for (int q = 0; q < nk; ++q) {
+      const int slot = q % SP_S, k0 = q * WG_T;
+      mbar_wait(full + 8 * slot, (q / SP_S) & 1);
+      uint32_t o = ring_a + slot * SP_SLOT + TILE_BYTES + wg * RAW_BYTES;
+      if (!own_tma) {
+        cp_async_wait<SP_S - 3>();
+        fence_proxy_async();
+        // this warpgroup's copies of step q are visible to it, and its MMA
+        // of step q - 2 has completed in every warp
+        asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(WG_THREADS)
+                     : "memory");
+        if (q + SP_S - 2 < nk) stage_own(q + SP_S - 2);
+        cp_async_commit();
+        if (ok)
+          unpack_raw<WG_THREADS>(bsw + (2 * wg + (q & 1)) * TILE_BYTES,
+                                 ring + slot * SP_SLOT + TILE_BYTES +
+                                     wg * RAW_BYTES,
+                                 own, ocols, orows, ocols, or0(wg, k0),
+                                 oc0(wg, k0), wt);
+        fence_proxy_async();
+        asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(WG_THREADS)
+                     : "memory");
+        o = bsw_a + (2 * wg + (q & 1)) * TILE_BYTES;
+      }
+      // A warpgroup whose tile lies past the output multiplies stale tiles
+      // and stores nothing: a wgmma on a divergent path is serialized.
+      const uint32_t sh = ring_a + slot * SP_SLOT;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (OWN_B)
+          wgmma_m64n64k16<0, 1>(acc, desc_kmajor(sh, kk), desc_mnmajor(o, kk),
+                                !(q == 0 && kk == 0));
+        else
+          wgmma_m64n64k16<0, 1>(acc, desc_kmajor(o, kk), desc_mnmajor(sh, kk),
+                                !(q == 0 && kk == 0));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (q > 0) mbar_arrive(empty + 8 * ((q - 1) % SP_S));
+    }
+    wgmma_wait<0>();
+    cp_async_wait<0>();
+    hold_regs(acc);
+    const int r0 = m0 + (OWN_B ? 0 : wg * WG_T);
+    const int c0 = n0 + (OWN_B ? wg * WG_T : 0);
+    if (N % 2 == 0) {     // pairs of columns are wholly in or out
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int m = r0 + acc_row(wt, i), n = c0 + acc_col(wt, i);
+        if (m < M && n < N)
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * N + n) =
+              __floats2bfloat162_rn(acc[i], acc[i + 1]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int m = r0 + acc_row(wt, i), n = c0 + acc_col(wt, i);
+        if (m < M && n < N) out[(size_t)m * N + n] = __float2bfloat16(acc[i]);
+      }
+    }
+  }
+}
+
+template <bool OWN_B>
+int launch_split_gemm(const bf16* own, bf16* out, int M, int K, int N,
+                      int own_tma, const CUtensorMap& tms,
+                      const CUtensorMap& tmo, cudaStream_t st) {
+  static const cudaError_t configured = cudaFuncSetAttribute(
+      split_wgmma_kernel<OWN_B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SP_SMEM);
+  if (configured != cudaSuccess) return static_cast<int>(configured);
+  const dim3 grid = OWN_B ? dim3(cdiv(N, 2 * WG_T), cdiv(M, WG_T))
+                          : dim3(cdiv(N, WG_T), cdiv(M, 2 * WG_T));
+  split_wgmma_kernel<OWN_B><<<grid, WG_BLOCK + 32, SP_SMEM, st>>>(
+      own, out, M, K, N, own_tma, tms, tmo);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_split_wgmma(const void* x, const void* B, const void* C, void* y,
+                       void* t, int M, int K, int R, int N, cudaStream_t st) {
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  const uintptr_t ca = reinterpret_cast<uintptr_t>(C);
+  const uintptr_t ta = reinterpret_cast<uintptr_t>(t);
+  if (R < 1 || K < 8 || K % 8 || N % 8 || xa % 16 || ca % 16 || ta % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // B and t have tensor maps where their rows (2R bytes) start on 16-byte
+  // boundaries; else the consumers copy their words
+  const int own_tma =
+      R % 8 == 0 && reinterpret_cast<uintptr_t>(B) % 16 == 0 ? 1 : 0;
+  CUtensorMap tmx, tmb, tmc, tmt;
+  cudaError_t e = mma::make_tmap(&tmx, x, K, M, 2ull * K);
+  if (e == cudaSuccess) e = mma::make_tmap(&tmc, C, N, R, 2ull * N);
+  tmb = tmx;
+  tmt = tmc;
+  if (e == cudaSuccess && own_tma) e = mma::make_tmap(&tmb, B, R, K, 2ull * R);
+  if (e == cudaSuccess && own_tma) e = mma::make_tmap(&tmt, t, R, M, 2ull * R);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int rc = launch_split_gemm<true>(static_cast<const bf16*>(B),
+                                   static_cast<bf16*>(t), M, K, R, own_tma,
+                                   tmx, tmb, st);
+  if (rc != 0) return rc;
+  return launch_split_gemm<false>(static_cast<const bf16*>(t),
+                                  static_cast<bf16*>(y), M, R, N, own_tma,
+                                  tmc, tmt, st);
+}
+
 }  // namespace
 }  // namespace drt
 
@@ -767,6 +1071,26 @@ int drt_lowrank_matmul_2d_wgmma(const void* x, const void* B, const void* C,
                                 void* stream) {
   return drt::launch_2d_wgmma(x, B, C, y, M, K, R, N,
                               static_cast<cudaStream_t>(stream));
+}
+
+// x (M, K), B (K, R), C (R, N), y (M, N) of one dtype, any rank: two
+// launches through t (M, R), scratch of the same dtype. bfloat16 with K
+// and N multiples of 8 and x, C and t 16-byte aligned runs on the tensor
+// cores (tensor_cores != 0); every other operand on the CUDA cores.
+int drt_lowrank_matmul_2d_split(const void* x, const void* B, const void* C,
+                                void* y, void* t, int M, int K, int R, int N,
+                                int dtype, int tensor_cores, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (tensor_cores)
+    return dtype == drt::kBFloat16
+               ? drt::launch_split_wgmma(x, B, C, y, t, M, K, R, N, st)
+               : static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == drt::kFloat32)
+    return drt::launch_split_simt<float>(x, B, C, y, t, M, K, R, N, st);
+  if (dtype == drt::kBFloat16)
+    return drt::launch_split_simt<__nv_bfloat16>(x, B, C, y, t, M, K, R, N,
+                                                 st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Largest rank the CUDA-core prefill kernel takes: t (rank rounded up to 64,

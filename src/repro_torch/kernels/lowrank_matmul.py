@@ -10,12 +10,17 @@ allocates the output (and the gemv's float32 partials), launches on the
 current stream and counts its launches in ``.launches``.
 The plain version is ``kernels.ref.lowrank_matmul``.
 
-``lowrank_matmul_2d`` has two variants, picked by ``_variant_2d`` from the
-dtype, the shapes and whether x and C start on 16-byte boundaries (the
-tensor-core kernel's TMA copies need it; a tensor PyTorch allocates does):
-``"wgmma"`` (bfloat16 on the tensor cores) and ``"simt"`` (float32 FMA on
-the CUDA cores; float32 operands, and the operands the tensor-core kernel
-does not take). ``.launches_by_variant`` counts each.
+``lowrank_matmul_2d`` has three variants, picked by ``_variant_2d`` from
+the dtype, the shapes and whether x and C start on 16-byte boundaries (the
+tensor-core kernels' TMA copies need it; a tensor PyTorch allocates does):
+``"wgmma"`` (one launch, t kept on chip, bfloat16 on the tensor cores, R up
+to ``wgmma_max_rank()``), ``"simt"`` (one launch, t on chip, float32 FMA on
+the CUDA cores, R up to ``simt_max_rank()``) and ``"split"`` (two launches
+through an (M, R) t in device memory, any rank: on the tensor cores for
+bfloat16 operands whose K and N are multiples of 8 and whose x and C are
+aligned, ``_split_on_tensor_cores``, else on the CUDA cores). Every rank
+takes ``"split"``, so no rank is refused. ``.launches_by_variant`` counts
+each.
 """
 from __future__ import annotations
 
@@ -42,6 +47,8 @@ def _fn(name: str):
             fn.argtypes = [P] * 4 + [I] * 5 + [P]
         elif name == "drt_lowrank_matmul_2d_wgmma":
             fn.argtypes = [P] * 4 + [I] * 4 + [P]
+        elif name == "drt_lowrank_matmul_2d_split":
+            fn.argtypes = [P] * 5 + [I] * 6 + [P]
         elif name == "drt_lowrank_2d_wgmma_clusters":
             fn.argtypes = [I, I]
         else:
@@ -93,7 +100,12 @@ lowrank_gemv.launches = 0
 # any machine; chip_smoke.py holds the mirrors to the compiled formulas.
 SMEM_MAX = 232448
 WGMMA_TILE = 64           # rows of a cluster's tile, ranks of a t chunk
-VARIANTS = ("wgmma", "simt")
+VARIANTS = ("wgmma", "simt", "split")
+# float32 rows from which "split"'s two tiled products beat the fused
+# CUDA-core kernel: measured 1.3-1.8x faster a SmolLM prefill at 512 and
+# 2048 rows, 1.2x slower at 128 and 256 (PERF.md). The two give the same
+# bits: each sums every output as one float32 FMA chain in k order.
+SPLIT_ROWS_F32 = 512
 
 
 def _simt_smem(rp: int) -> int:
@@ -126,41 +138,48 @@ def wgmma_max_rank() -> int:
     return _max_rank(_wgmma_smem, SMEM_MAX - 1024, WGMMA_TILE)
 
 
-def max_rank_2d(dtype: torch.dtype = torch.float32) -> int:
-    """Largest rank ``lowrank_matmul_2d`` takes for ``dtype``."""
-    if dtype == torch.bfloat16:
-        return max(simt_max_rank(), wgmma_max_rank())
-    return simt_max_rank()
+def _split_on_tensor_cores(dtype: torch.dtype, K: int, N: int,
+                           aligned: bool = True) -> bool:
+    """Whether ``"split"`` runs its two products on the tensor cores: x and
+    C by TMA (K and N multiples of 8, both 16-byte aligned); B and t by TMA
+    at R % 8 == 0, else by 16-byte words shifted into place."""
+    return (dtype == torch.bfloat16 and K >= 8 and K % 8 == 0
+            and N % 8 == 0 and aligned)
 
 
 def _allowed_2d(dtype: torch.dtype, M: int, K: int, R: int, N: int,
                 aligned: bool = True) -> tuple:
-    """The variants that take these operands, preferred first. ``aligned``:
-    x and C start on 16-byte boundaries (the tensor-core kernel copies them
-    by TMA; y is allocated here, so it always does)."""
+    """The variants that take these operands, preferred first: the fused
+    kernels where t fits on chip, then ``"split"``, which takes every rank.
+    ``"split"`` goes ahead of the fused CUDA-core kernel where it runs on
+    the tensor cores and the fused tensor-core kernel cannot hold t (bf16
+    ranks above ``wgmma_max_rank()``: measured 13.8-19.8x faster at rank
+    1585 at 2048 and 512 rows), and for float32 from ``SPLIT_ROWS_F32``
+    rows (PERF.md). ``aligned``: x and C start on 16-byte boundaries (y and
+    t are allocated here, so they always do)."""
+    tc = _split_on_tensor_cores(dtype, K, N, aligned)
     out = []
-    if (dtype == torch.bfloat16 and K % 8 == 0 and K > 0 and N % 8 == 0
-            and aligned
-            and 1 <= R <= wgmma_max_rank()):
+    if tc and 1 <= R <= wgmma_max_rank():
         out.append("wgmma")
+    if ((tc and R > wgmma_max_rank())
+            or (dtype == torch.float32 and M >= SPLIT_ROWS_F32)):
+        out.append("split")
     if R <= simt_max_rank():
         out.append("simt")
+    if "split" not in out:
+        out.append("split")
     return tuple(out)
 
 
 def _variant_2d(dtype: torch.dtype, M: int, K: int, R: int, N: int,
                 aligned: bool = True, variant: Optional[str] = None) -> str:
     """The variant ``lowrank_matmul_2d`` launches for these operands: the
-    preferred one, or ``variant`` if it takes them. Raises ValueError for a
-    variant that does not, or a rank no variant takes."""
+    preferred one, or ``variant`` if it takes them (else ValueError)."""
     allowed = _allowed_2d(dtype, M, K, R, N, aligned)
     if variant is not None and variant not in allowed:
         raise ValueError(f"lowrank_matmul_2d: variant {variant!r} does not "
                          f"take {dtype} operands x ({M}, {K}), B ({K}, {R}),"
                          f" C ({R}, {N}) (allowed: {allowed})")
-    if not allowed:
-        raise ValueError(f"lowrank_matmul_2d: rank {R} exceeds the kernels' "
-                         f"shared-memory bound {max_rank_2d(dtype)}")
     return variant or allowed[0]
 
 
@@ -171,11 +190,12 @@ def _aligned(*ts: torch.Tensor) -> bool:
 def lowrank_matmul_2d(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, *,
                       variant: Optional[str] = None) -> torch.Tensor:
     """x (M, K), B (K, R), C (R, N) on the card, one dtype -> y (M, N).
-    Prefill shape. One launch: a cluster of blocks per row tile keeps t =
-    x@B, rounded to C's dtype (the TPU kernel's rounding of t), in its
-    shared memory and emits y = t@C. ``variant`` ("wgmma" or "simt")
-    forces one that takes these operands, for comparing the two; by
-    default ``_variant_2d`` picks."""
+    Prefill shape. t = x@B is rounded to C's dtype (the TPU kernel's
+    rounding of t) before y = t@C: in one launch, a cluster of blocks per
+    row tile keeping t in its shared memory ("wgmma", "simt"), or in two
+    through a (M, R) t allocated here ("split"). ``variant`` forces one that
+    takes these operands, for comparing them; by default ``_variant_2d``
+    picks."""
     code = _build.check_operands("lowrank_matmul_2d", x, B, C)
     M, K = x.shape
     R, N = C.shape
@@ -186,7 +206,14 @@ def lowrank_matmul_2d(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, *,
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return y
-    if variant == "wgmma":
+    if variant == "split":
+        t = torch.empty((M, R), dtype=x.dtype, device=x.device)
+        rc = _fn("drt_lowrank_matmul_2d_split")(
+            x.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
+            t.data_ptr(), M, K, R, N, code,
+            int(_split_on_tensor_cores(x.dtype, K, N, _aligned(x, C))),
+            _build.stream_of(x))
+    elif variant == "wgmma":
         rc = _fn("drt_lowrank_matmul_2d_wgmma")(
             x.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(), M, K, R,
             N, _build.stream_of(x))

@@ -220,11 +220,18 @@ class Engine:
 
     # ---- batch generation (simple API, fixed same-length prompts) --------
     @torch.inference_mode()
-    def generate(self, prompts: np.ndarray, n_new: int) -> np.ndarray:
-        """prompts: (B, S) int. Returns (B, n_new) int32."""
+    def generate(self, prompts: np.ndarray, n_new: int,
+                 lengths: Optional[np.ndarray] = None) -> np.ndarray:
+        """prompts: (B, S) int; ``lengths`` (B,) int, optional: row b's
+        prompt is its first lengths[b] tokens (right-padded), as
+        ``T.prefill`` takes them. Returns (B, n_new) int32."""
         tokens = torch.as_tensor(np.asarray(prompts), device=self.device)
         max_len = tokens.shape[1] + n_new + 1
-        logits, cache = T.prefill(self.params, self.cfg, {"tokens": tokens},
+        batch = {"tokens": tokens}
+        if lengths is not None:
+            batch["lengths"] = torch.as_tensor(np.asarray(lengths),
+                                               device=self.device)
+        logits, cache = T.prefill(self.params, self.cfg, batch,
                                   max_len=max_len)
         outs = []
         tok = self._sample(logits)

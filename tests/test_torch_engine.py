@@ -57,6 +57,28 @@ def test_generate_matches_jax_engine(name):
             assert run[0]["attn"]["wq"]["B"] is run[1]["attn"]["wq"]["B"]
 
 
+def test_generate_right_padded_prompts_matches_jax_prefill():
+    """``lengths`` gives each row its own prompt length, as ``prefill``
+    takes it: the tokens equal a greedy loop over the JAX package's
+    ``prefill`` (with the same lengths) and ``decode_step``."""
+    cfg, jcfg, jlp = _compressed("smollm-gqa3")
+    tlp = bridge.from_numpy(jax.tree.map(np.asarray, jlp), device="cpu")
+    prompts = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (3, 12), dtype=np.int32)
+    lengths = np.asarray([12, 4, 9], dtype=np.int32)
+    out = Engine(tlp, cfg, ServeConfig(), device="cpu").generate(
+        prompts, 6, lengths=lengths)
+    logits, cache = JT.prefill(jlp, jcfg, {
+        "tokens": jnp.asarray(prompts), "lengths": jnp.asarray(lengths)},
+        max_len=12 + 6 + 1)
+    want = []
+    for _ in range(6):
+        tok = jnp.argmax(logits[:, -1:], -1).astype(jnp.int32)
+        want.append(np.asarray(tok))
+        logits, cache = JT.decode_step(jlp, jcfg, cache, tok)
+    np.testing.assert_array_equal(out, np.concatenate(want, axis=1))
+
+
 def test_measure_decode_throughput_reports_rates():
     cfg, _, jlp = _compressed("smollm-gqa3")
     tlp = bridge.from_numpy(jax.tree.map(np.asarray, jlp), device="cpu")

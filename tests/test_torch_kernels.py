@@ -78,6 +78,7 @@ def test_lowrank_matmul_leading_dims_and_grads():
     (1, 48, 4, 4, 32, True, 16, 0.0),      # MHA sliding window
     (2, 24, 3, 1, 16, True, 0, 30.0),      # MQA G=3 + softcap
     (1, 20, 2, 2, 16, False, 0, 0.0),      # bidirectional, ragged keys
+    (1, 20, 4, 2, 256, True, 8, 30.0),     # gemma3's hd 256, G=2, window
 ])
 def test_flash_attention_matches_jax(B, S, H, KV, hd, causal, window, cap):
     rng = np.random.default_rng(2)
@@ -100,13 +101,18 @@ def test_flash_attention_grad_is_reference_formulation():
     torch.testing.assert_close(g1, g2, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("L,window,lengths", [
-    (48, 0, [0, 5, 17, 40]),       # full layout: dead slot + mixed lengths
-    (16, 16, [0, 3, 16, 37]),      # ring layout: dead, partial, full, wrapped
+@pytest.mark.parametrize("L,window,lengths,hd", [
+    # full layout: dead slot + mixed lengths
+    pytest.param(48, 0, [0, 5, 17, 40], 16, id="48-0-lengths0"),
+    # ring layout: dead, partial, full, wrapped
+    pytest.param(16, 16, [0, 3, 16, 37], 16, id="16-16-lengths1"),
+    # gemma3's hd 256, full and ring
+    pytest.param(40, 0, [0, 7, 40], 256, id="40-0-hd256"),
+    pytest.param(8, 8, [0, 5, 13], 256, id="8-8-hd256"),
 ])
-def test_decode_attention_matches_jax(L, window, lengths):
+def test_decode_attention_matches_jax(L, window, lengths, hd):
     rng = np.random.default_rng(4)
-    B, H, KV, hd = len(lengths), 6, 2, 16
+    B, H, KV = len(lengths), 6, 2
     q, k, v = (_rnd(rng, (B, H, hd)), _rnd(rng, (B, L, KV, hd)),
                _rnd(rng, (B, L, KV, hd)))
     ln = np.asarray(lengths, dtype=np.int32)

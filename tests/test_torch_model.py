@@ -26,11 +26,13 @@ CPU = torch.device("cpu")
 
 # (port config, JAX config): llama-mini reduced kept MHA; SmolLM reduced
 # with 6 query heads over 2 KV heads (GQA G = 3, tied embeddings); Gemma-3
-# reduced, cut to one sliding-window (ring cache) and one global layer.
+# reduced, cut to one sliding-window (ring cache) and one global layer,
+# also at its full head_dim of 256.
 CONFIGS = {
     "llama-mini-mha": ("llama-mini", dict(n_kv_heads=4)),
     "smollm-gqa3": ("smollm-360m", dict(n_heads=6, n_kv_heads=2)),
     "gemma3-swa": ("gemma3-12b", dict(n_layers=2)),
+    "gemma3-hd256": ("gemma3-12b", dict(n_layers=2, head_dim=256)),
 }
 
 
@@ -75,7 +77,7 @@ def _no_tf32():
 @pytest.mark.parametrize("name,compressed", [
     ("llama-mini-mha", False), ("llama-mini-mha", True),
     ("smollm-gqa3", False), ("smollm-gqa3", True),
-    ("gemma3-swa", False),
+    ("gemma3-swa", False), ("gemma3-hd256", False),
 ])
 def test_forward_prefill_decode_match_jax(name, compressed):
     cfg, jcfg, jp, tp = _models(name, compressed)

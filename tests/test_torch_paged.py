@@ -29,10 +29,10 @@ torch.set_num_threads(1)
 # ---------------------------------------------------------------------------
 # the plain version against the TPU kernel (interpret mode)
 # ---------------------------------------------------------------------------
-def _paged_inputs(dtype=np.float32):
+def _paged_inputs(dtype=np.float32, hd=16):
     """tests/test_decode_fast_path.py's paged shapes: a shuffled arena, a
     dead slot (all-null table row) and a slot filling every block."""
-    bk, B, NB, H, KV, hd = 16, 3, 4, 4, 2, 16
+    bk, B, NB, H, KV = 16, 3, 4, 4, 2
     P = B * NB + 1
     rng = np.random.default_rng(6)
     q = rng.standard_normal((B, H, hd)).astype(dtype)
@@ -51,9 +51,11 @@ def _paged_inputs(dtype=np.float32):
     return q, ka, va, lengths, table
 
 
-@pytest.mark.parametrize("softcap", [0.0, 20.0])
-def test_plain_paged_matches_jax_kernel_and_contiguous_plain(softcap):
-    q, ka, va, lengths, table = _paged_inputs()
+@pytest.mark.parametrize("softcap,hd", [
+    pytest.param(0.0, 16, id="0.0"), pytest.param(20.0, 16, id="20.0"),
+    pytest.param(0.0, 256, id="0.0-hd256")])   # gemma3's head dim
+def test_plain_paged_matches_jax_kernel_and_contiguous_plain(softcap, hd):
+    q, ka, va, lengths, table = _paged_inputs(hd=hd)
     B, H, hd = q.shape
     KV = ka.shape[2]
     jo = decode_attention_paged_bkgh(

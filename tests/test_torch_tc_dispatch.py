@@ -1,8 +1,8 @@
-"""How the tensor-core (``"wgmma"``) and CUDA-core (``"simt"``) variants of
-``lowrank_matmul_2d`` and ``gram_blocked`` are chosen: by dtype and shape
-alone, through pure functions that run here. The kernels themselves run only
-on the card (``chip_smoke.py`` holds each variant against its plain
-version there)."""
+"""How the tensor-core (``"wgmma"``), CUDA-core (``"simt"``) and two-launch
+(``"split"``) variants of ``lowrank_matmul_2d`` and the variants of
+``gram_blocked`` are chosen: by dtype and shape alone, through pure
+functions that run here. The kernels themselves run only on the card
+(``chip_smoke.py`` holds each variant against its plain version there)."""
 import re
 from pathlib import Path
 
@@ -31,7 +31,14 @@ def test_bf16_main_path_shapes_take_the_tensor_cores(M, K, R, N):
 
 @pytest.mark.parametrize("K,R,N", SMOLLM_LINEARS + [(100, 13, 77)])
 def test_float32_stays_on_the_cuda_cores(K, R, N):
-    assert lm._variant_2d(torch.float32, 512, K, R, N) == "simt"
+    """The fused CUDA-core kernel below ``SPLIT_ROWS_F32`` rows, the
+    two-launch variant's CUDA-core products from there on."""
+    assert lm.SPLIT_ROWS_F32 == 512
+    assert not lm._split_on_tensor_cores(torch.float32, K, N)
+    assert lm._variant_2d(torch.float32, 128, K, R, N) == "simt"
+    assert lm._variant_2d(torch.float32, 511, K, R, N) == "simt"
+    assert lm._variant_2d(torch.float32, 512, K, R, N) == "split"
+    assert lm._allowed_2d(torch.float32, 2048, K, R, N) == ("split", "simt")
     assert gm._variant(torch.float32, 1024, K) == "simt"
 
 
@@ -44,9 +51,14 @@ def test_float32_stays_on_the_cuda_cores(K, R, N):
 ])
 def test_shapes_the_tensor_core_kernel_refuses_take_simt(K, R, N, aligned,
                                                          why):
-    assert lm._allowed_2d(torch.bfloat16, 512, K, R, N, aligned) == \
-        ("simt",), why
-    assert lm._variant_2d(torch.bfloat16, 512, K, R, N, aligned) == "simt"
+    """Such shapes never take "wgmma". Where the two-launch variant has no
+    tensor cores either, the fused CUDA-core kernel comes first; where it
+    has them (only t is too large for the fused kernel), it comes first."""
+    tc = lm._split_on_tensor_cores(torch.bfloat16, K, N, aligned)
+    want = ("split", "simt") if tc else ("simt", "split")
+    assert tc == (R == 1000), why
+    assert lm._allowed_2d(torch.bfloat16, 512, K, R, N, aligned) == want, why
+    assert lm._variant_2d(torch.bfloat16, 512, K, R, N, aligned) == want[0]
 
 
 @pytest.mark.parametrize("N,D,aligned,want", [
@@ -93,20 +105,44 @@ def test_rank_limits_mirror_the_cuda_sources():
     assert lm.simt_max_rank() == rp == 1600
 
 
+def test_t_that_does_not_fit_the_tensor_core_kernel_takes_split_first():
+    """bf16 ranks above the fused tensor-core kernel's bound take the
+    two-launch tensor-core variant ahead of the fused CUDA-core one (it was
+    measured 13.8-19.8x faster at rank 1585); the CUDA-core kernel stays allowed up to
+    its own bound, and takes such ranks where split has no tensor cores."""
+    wg = lm.wgmma_max_rank()
+    assert lm._allowed_2d(torch.bfloat16, 512, 960, 1000, 960) == \
+        ("split", "simt")
+    assert lm._allowed_2d(torch.bfloat16, 512, 960, wg + 1, 960) == \
+        ("split", "simt")
+    assert lm._allowed_2d(torch.bfloat16, 512, 100, 1000, 960) == \
+        ("simt", "split")
+    assert lm._allowed_2d(torch.float32, 256, 960, 1000, 960) == \
+        ("simt", "split")
+    assert lm._allowed_2d(torch.float32, 512, 960, 1000, 960) == \
+        ("split", "simt")
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_no_rank_that_worked_before_is_refused(dtype):
-    """Every rank up to 1600 (the CUDA-core kernel's bound) is taken in
-    both dtypes; the tensor-core kernel's lower bound only moves bf16 ranks
-    above it to the CUDA-core kernel."""
-    assert lm.max_rank_2d(dtype) == 1600
+    """Every rank is taken in both dtypes: up to the tensor-core kernel's
+    bound bf16 keeps "wgmma"; above it bf16 takes "split" on the tensor
+    cores; float32 keeps "simt" up to 1600 (the CUDA-core kernel's bound)
+    below ``SPLIT_ROWS_F32`` rows and takes "split" from there on; above
+    1600, where ``_variant_2d`` used to raise, every operand takes
+    "split"."""
     wg = lm.wgmma_max_rank()
-    assert 698 <= wg < 1600
+    assert 698 <= wg < 1600 == lm.simt_max_rank()
     for R in range(1, 1601):
         v = lm._variant_2d(dtype, 512, 960, R, 960)
-        assert v == ("wgmma" if dtype == torch.bfloat16 and R <= wg
-                     else "simt")
-    with pytest.raises(ValueError, match="exceeds"):
-        lm._variant_2d(dtype, 512, 960, 1601, 960)
+        if dtype == torch.bfloat16:
+            assert v == ("wgmma" if R <= wg else "split")
+        else:
+            assert v == "split"
+            assert lm._variant_2d(dtype, 128, 960, R, 960) == "simt"
+    for R in (1601, 2457, 3018, 10000):
+        assert lm._allowed_2d(dtype, 512, 960, R, 960) == ("split",)
+        assert lm._variant_2d(dtype, 512, 960, R, 960) == "split"
 
 
 @pytest.mark.parametrize("dtype,K,R,N,variant", [
@@ -132,7 +168,7 @@ def test_forcing_an_allowed_variant_is_honoured():
         gm._variant(torch.bfloat16, 1024, 97, variant="wgmma")
 
 
-@pytest.mark.parametrize("variant", [None, "wgmma", "simt"])
+@pytest.mark.parametrize("variant", [None, "wgmma", "simt", "split"])
 def test_wrappers_refuse_cpu_tensors_and_count_nothing(variant):
     before = (lm.lowrank_matmul_2d.launches,
               dict(lm.lowrank_matmul_2d.launches_by_variant),
@@ -149,8 +185,9 @@ def test_wrappers_refuse_cpu_tensors_and_count_nothing(variant):
                       lm.lowrank_matmul_2d.launches_by_variant,
                       gm.gram_blocked.launches,
                       gm.gram_blocked.launches_by_variant)
-    assert set(lm.lowrank_matmul_2d.launches_by_variant) == \
-        set(gm.gram_blocked.launches_by_variant) == {"wgmma", "simt"}
+    assert set(lm.lowrank_matmul_2d.launches_by_variant) == {
+        "wgmma", "simt", "split"}
+    assert set(gm.gram_blocked.launches_by_variant) == {"wgmma", "simt"}
 
 
 @pytest.mark.parametrize("D", [97, 960, 2560])
