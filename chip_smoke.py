@@ -62,7 +62,10 @@ What it does, in order, printing the seconds of each phase:
    ragged ones, the dense configs' ranks 1585-3018 at 65, 512 and 2048
    rows, every head_dim the attention kernels take, decode lengths within
    one 32-row chunk and across many, in bfloat16 and float32, each variant
-   of
+   of ``lowrank_gemv`` (the two-launch weight stream, "mma" in bf16 and
+   "fma" in float32, and the earlier "splitk"; at 1, 8 and 64 rows, with
+   B and C, and x, at an odd element offset; two calls and two replays of
+   a captured CUDA graph giving the same bits),
    ``lowrank_matmul_2d`` (tensor-core "wgmma", CUDA-core "simt",
    two-launch "split"), ``flash_attention`` and ``gram_blocked`` on every
    shape it takes: max-relative error within 2e-5 (float32; and the Gram
@@ -70,10 +73,12 @@ What it does, in order, printing the seconds of each phase:
    for bit against the contiguous one on the gathered layout;
 6. each kernel's device time for the work it does in one prefill, one
    decode step or one calibration batch of the main path (the paged decode
-   kernel: one decode step of the batcher's path, at its live lengths),
-   beside its plain version's time, one PyTorch library call's time and
-   the bound the card's peak rates set; the kernels with variants also in
-   their CUDA-core variant (the 2-D product and flash: the earlier design);
+   kernel: one decode step of the batcher's path, at its live lengths; the
+   gemv also at 64 rows, the larger throughput batch), beside its plain
+   version's time, one PyTorch library call's time and the bound the
+   card's peak rates set; the kernels with variants also in their earlier
+   variant (the gemv: "splitk"; the 2-D product and flash: the CUDA-core
+   design);
    gemma3-12b's shapes: flash at hd 256 per gemma prefill, the 2-D
    product's variants at its ranks at 512 and 2048 rows; and the 2-D
    product's two float32 variants at the parity run's, the batcher's and
@@ -85,13 +90,16 @@ What it does, in order, printing the seconds of each phase:
 8. the whole slice in float32 on the card (kernels) against the CPU (plain
    versions): identical greedy tokens, prefill logits within atol 2e-3.
 
-The build phase logs the registers and spills of the tensor-core and
-chunked entry points and the clusters the card holds at once; the main path
-and the batcher's path assert that their bf16 calibration and prefills ran
-the tensor-core variants (per-variant launch counts,
-``launches_by_variant``). The line before the last is one JSON object
-``{"kernels": [...]}`` (the kernels with variants also carry the variant
-the main path ran and the CUDA-core variant's time, ``simt_ms``; the 2-D
+The build phase logs the registers and spills of the tensor-core, gemv
+and chunked entry points and the clusters the card holds at once, and
+holds the gemv's Python launch geometry (``gemv_plan``) against the
+compiled one; the main path, the batcher's path and the gemma3 path assert
+that their bf16 calibration and prefills ran the tensor-core variants and
+that every gemv took the two-launch kernel, never "splitk" (per-variant
+launch counts, ``launches_by_variant``). The line before the last is one
+JSON object ``{"kernels": [...]}`` (the kernels with variants also carry
+the variant the main path ran and the earlier variant's time, ``simt_ms``
+or, for the gemv, ``splitk_ms`` and its 64-row times, ``rows_64``; the 2-D
 product also its two-launch variant's, ``split_ms``); the last
 is ``{"ok": true, "device": {...}}``. Any failure raises, so the script
 exits non-zero and prints no result; so it does with no CUDA device, or
@@ -164,6 +172,10 @@ TC_KERNELS = ("lowrank_matmul_2d", "gram_blocked", "flash_attention")
 # kernels the batcher's path runs (it calibrates nothing)
 CB_KERNELS = ("lowrank_gemv", "lowrank_matmul_2d", "flash_attention",
               "decode_attention", "decode_attention_paged")
+# the gemv variant every decode step must take, by dtype ("splitk", the
+# earlier design, only where this script forces it)
+GEMV_VARIANT = {"bfloat16": "mma", "float32": "fma"}
+GEMV_ROWS_WIDE = 64             # the larger throughput batch: gemv rows
 
 
 def log(msg: str = "") -> None:
@@ -266,6 +278,15 @@ def linears(params):
     return out
 
 
+def assert_gemv(counts: dict, dname: str, where: str) -> None:
+    """Every gemv launch in ``counts`` ({variant: launches}) took the
+    two-launch kernel of ``dname``, and at least one did."""
+    want = GEMV_VARIANT[dname]
+    other = {v: n for v, n in counts.items() if v != want and n}
+    assert counts[want] > 0 and not other, \
+        f"a {dname} gemv on {where} left the {want} kernel: {counts}"
+
+
 def rel_err(a, b) -> float:
     a, b = a.float(), b.float()
     return float((a - b).abs().max() / (b.abs().max() + 1e-6))
@@ -357,7 +378,7 @@ def build_kernels(port) -> None:
                 f"first: {serialized[0][:160]}")
         for entry in text.split("Compiling entry function '")[1:]:
             fn = kernel_name(entry.split("'", 1)[0])
-            if not re.search(r"(wgmma|partial)_kernel", fn):
+            if not re.search(r"(wgmma|partial|gemv_stream)_kernel", fn):
                 continue
             reg = re.search(r"Used (\d+) registers", entry)
             spill = re.search(r"(\d+) bytes spill stores", entry)
@@ -377,6 +398,36 @@ def build_kernels(port) -> None:
                for cl in (8, 16)}
         log(f"  lowrank_matmul_2d wgmma at rank {R}: clusters the card holds "
             f"at once {occ} (cluster size: count; the kernel's is 8)")
+    # the gemv's launch geometry: the Python mirror against the compiled
+    # plan, at the main path's, the gemma3 path's and ragged shapes, for
+    # this card's SMs and shared memory (asked of the driver)
+    import ctypes
+    card = lm.card(port.torch.device("cuda"))
+    props = port.torch.cuda.get_device_properties(0)
+    assert card[0] == props.multi_processor_count, (card, props)
+    got = (ctypes.c_int * 11)()
+    shapes = [(M, K, R, N) for M in (1, 8, 17, 33, 64) for K, R, N in (
+        (960, 698, 2560), (2560, 600, 960), (960, 120, 320), (100, 13, 77),
+        (3840, 2457, 15360), (15360, 2457, 3840), (3840, 1585, 4096))]
+    for (M, K, R, N), dt in ((s, d) for s in shapes
+                             for d in ("bfloat16", "float32")):
+        p = lm.gemv_plan(M, K, R, N, getattr(port.torch, dt), card)
+        lm._fn("drt_lowrank_gemv_plan")(
+            M, K, R, N, *(lt["blocks"] for lt in p["launches"]),
+            int(dt == "bfloat16"), ctypes.cast(got, ctypes.c_void_p))
+        want = [p["rows_tile"], p["stages"], p["t_stride"]] + [
+            lt[k] for lt in p["launches"]
+            for k in ("strips", "cluster", "chunks_per_block", "smem")]
+        assert list(got) == want, \
+            f"gemv_plan disagrees with the CUDA source at {(M, K, R, N)} " \
+            f"{dt}: {list(got)} against {want}"
+    p = lm.gemv_plan(GEN_BATCH, 960, 698, 2560, port.torch.bfloat16, card)
+    log(f"  lowrank_gemv plan: {len(shapes) * 2} shapes agree with the "
+        f"compiled one on a card of {card[0]} SMs, {card[1]} bytes of "
+        f"shared memory an SM; at (8, 960, 698, 2560) bf16 (blocks aimed "
+        f"at, strips, cluster, chunks a block, smem) " + ", ".join(
+            f"{lt['blocks']}, {lt['strips']}, {lt['cluster']}, "
+            f"{lt['chunks_per_block']}, {lt['smem']}" for lt in p["launches"]))
     chunk = port.build.lib("decode_attention").drt_decode_chunk()
     log(f"  decode attention: {chunk} rows a block (Python mirror "
         f"{port.da.CHUNK})")
@@ -467,6 +518,7 @@ def main_path(port, dev):
         assert variants[name]["wgmma"] > 0 and variants[name]["simt"] == 0, \
             f"{name} left its tensor-core variant on the bf16 main path: " \
             f"{variants[name]}"
+    assert_gemv(variants["lowrank_gemv"], "bfloat16", "the main path")
     log("compression seconds: " + ", ".join(
         f"{k} {v:.2f}" for k, v in secs.items()))
     missing = [n for n, c in counts.items()
@@ -629,6 +681,13 @@ def batcher_path(port, dev, cfg, comp):
             f"the batcher's bf16 prefills left the tensor-core {name} kernel"
         assert fp32["wgmma"] == 0, \
             f"a float32 prefill ran the tensor-core {name} kernel"
+    fp32 = {v: n - bf16_variants["lowrank_gemv"][v]
+            for v, n in variants["lowrank_gemv"].items()}
+    log(f"  lowrank_gemv by variant: bf16 runs "
+        f"{bf16_variants['lowrank_gemv']}, float32 runs {fp32}")
+    assert_gemv(bf16_variants["lowrank_gemv"], "bfloat16",
+                "the batcher's bf16 runs")
+    assert_gemv(fp32, "float32", "the batcher's float32 runs")
 
     def same(a, b):
         bad = [r for r in outs[a] if outs[a][r] != outs[b][r]]
@@ -760,9 +819,14 @@ def check_kernels(port, dev, comp):
                 x = rnd((M, K), dtype)
                 yr = ref.lowrank_matmul(x, B, C)
                 if M <= port.ops.GEMV_MAX_ROWS:
-                    y = w["lowrank_gemv"](x, B, C)
-                    torch.cuda.synchronize()
-                    hold("lowrank_gemv", y, yr)
+                    for v in port.lm._allowed_gemv(dtype, M, K, R):
+                        y = w["lowrank_gemv"](x, B, C, variant=v)
+                        y2 = w["lowrank_gemv"](x, B, C, variant=v)
+                        torch.cuda.synchronize()
+                        assert torch.equal(y, y2), \
+                            f"lowrank_gemv ({v}) gave other bits on a " \
+                            f"second call at {(M, K, R, N)} {dname}"
+                        hold("lowrank_gemv", y, yr, v)
                     continue
                 for v in port.lm._allowed_2d(dtype, M, K, R, N):
                     y = w["lowrank_matmul_2d"](x, B, C, variant=v)
@@ -777,6 +841,22 @@ def check_kernels(port, dev, comp):
             y = w["lowrank_matmul_2d"](x, B, C, variant=v)
             torch.cuda.synchronize()
             hold("lowrank_matmul_2d", y, yr, v)
+        # the gemv with B and C, then x too, at an odd element offset: B and
+        # C take the shifted raw words, x's rows the earlier design
+        for M in (1, GEN_BATCH, GEMV_ROWS_WIDE):
+            Bo = rnd((K * R + 1,), dtype, K ** -0.5)[1:].view(K, R)
+            Co = rnd((R * N + 1,), dtype, R ** -0.5)[1:].view(R, N)
+            xo = rnd((M * K + 1,), dtype)[1:].view(M, K)
+            xa = xo.clone()
+            yr = ref.lowrank_matmul(xa, Bo, Co)
+            for v in port.lm._allowed_gemv(dtype, M, K, R):
+                hold("lowrank_gemv", w["lowrank_gemv"](xa, Bo, Co, variant=v),
+                     yr, f"{v}, B and C offset")
+            assert port.lm._variant_gemv(dtype, M, K, R,
+                                         port.lm._aligned(xo)) == "splitk"
+            hold("lowrank_gemv", w["lowrank_gemv"](xo, Bo, Co), yr,
+                 "splitk, x offset")
+        gemv_graph(port, x[:GEN_BATCH].contiguous(), B.clone(), C, dname)
         # flash, every variant that takes the shape: G = 3 at SmolLM's heads
         # (hd 64), G = 2 at gemma3's (hd 256); causal, window, softcap,
         # ragged S; gemma3's prefill past its 1024-token window; and each
@@ -894,6 +974,34 @@ def check_kernels(port, dev, comp):
     return errs
 
 
+def gemv_graph(port, x, B, C, dname: str) -> None:
+    """One gemv call (its two launches, the second a programmatic
+    dependent launch) captured in a CUDA graph and replayed twice: both
+    replays give the bits of an eager call."""
+    torch, gemv = port.torch, port.wrappers["lowrank_gemv"]
+    eager = gemv(x, B, C)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm up off the default stream
+        gemv(x, B, C)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = gemv(x, B, C)
+    graph.replay()
+    torch.cuda.synchronize()
+    first = y.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    variant = port.lm._variant_gemv(x.dtype, *x.shape, B.shape[1])
+    log(f"  lowrank_gemv {dname} ({variant}) at {tuple(x.shape)} @ "
+        f"{tuple(B.shape)} @ {tuple(C.shape)} captured in a CUDA graph: "
+        f"two replays identical {torch.equal(first, y)}, equal to an "
+        f"eager call {torch.equal(first, eager)}")
+    assert torch.equal(first, y) and torch.equal(first, eager), \
+        "the gemv's graph replays differ"
+
+
 def time_kernels(port, dev, cfg, comp, snap):
     """Per kernel: the device time of the work it does in one prefill or
     one decode step of the main path (the paged kernel: one decode step
@@ -907,19 +1015,22 @@ def time_kernels(port, dev, cfg, comp, snap):
     gen.manual_seed(1)
     lins = [(p["B"].to(bf), p["C"].to(bf)) for p in linears(comp)]
     H, KV, hd, nl = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
-    rows = {"lowrank_gemv": GEN_BATCH,
+    # the gemv at the decode step's 8 rows and at the larger throughput
+    # batch's 64 ("lowrank_gemv@64", main() files it under the gemv)
+    rows = {"lowrank_gemv": GEN_BATCH, "lowrank_gemv@64": GEMV_ROWS_WIDE,
             "lowrank_matmul_2d": GEN_BATCH * GEN_PROMPT}
     out = {}
-    for name, M in rows.items():
+    for key, M in rows.items():
+        name = key.split("@")[0]
         xs = [torch.randn((M, B.shape[0]), generator=gen, device=dev
                           ).to(bf) for B, _ in lins]
         nbytes = sum(2 * (M * B.shape[0] + B.numel() + C.numel()
                           + M * C.shape[1]) for B, C in lins)
         ops = sum(2 * M * B.shape[1] * (B.shape[0] + C.shape[1])
                   for B, C in lins)
-        out[name] = dict(
+        out[key] = dict(
             work=f"{len(lins)} compressed linears at {M} rows (one "
-                 f"{'decode step' if M == GEN_BATCH else 'prefill'})",
+                 f"{'prefill' if name.endswith('2d') else 'decode step'})",
             ms=device_ms(torch, lambda: [w[name](x, B, C) for x, (B, C)
                                          in zip(xs, lins)]),
             plain_ms=device_ms(torch, lambda: [ref.lowrank_matmul(x, B, C)
@@ -929,6 +1040,13 @@ def time_kernels(port, dev, cfg, comp, snap):
                 torch.linalg.multi_dot([x, B, C])
                 for x, (B, C) in zip(xs, lins)]),
             bound=bound_ms(nbytes, ops, "bfloat16"))
+        if name == "lowrank_gemv":        # the earlier three-launch design
+            out[key]["variant"] = sorted({
+                port.lm._variant_gemv(bf, M, B.shape[0], B.shape[1])
+                for B, _ in lins})
+            out[key]["splitk_ms"] = device_ms(torch, lambda: [
+                w[name](x, B, C, variant="splitk")
+                for x, (B, C) in zip(xs, lins)])
         if name == "lowrank_matmul_2d":   # the earlier CUDA-core design
             out[name]["variant"] = sorted({
                 port.lm._variant_2d(bf, M, B.shape[0], B.shape[1],
@@ -1080,6 +1198,9 @@ def time_kernels(port, dev, cfg, comp, snap):
                    f"{r['simt_ms']:.4f} ms)" if "simt_ms" in r else "")
         if "split_ms" in r:
             earlier += f" (split {r['split_ms']:.4f} ms)"
+        if "splitk_ms" in r:
+            earlier = (f" ({', '.join(r['variant'])}; the earlier design, "
+                       f"splitk, {r['splitk_ms']:.4f} ms)")
         log(f"  {name}: {r['ms']:.4f} ms{earlier}, plain {r['plain_ms']:.4f}"
             f" ms, library {r['library_ms']:.4f} ms, bound "
             f"{r['bound'][0]:.4f} ms ({r['bound'][1]}) -- {r['work']}")
@@ -1315,9 +1436,10 @@ def hold_recorded(port, calls, dname: str) -> None:
                 want = ref.lowrank_matmul(x, B, C)
                 sig = (f"{tuple(x.shape)} @ {tuple(B.shape)} @ "
                        f"{tuple(C.shape)}")
-                variants = ((None,) if name == "lowrank_gemv" else
-                            port.lm._allowed_2d(x.dtype, *x.shape, *C.shape,
-                                                port.lm._aligned(x, C)))
+                variants = (port.lm._allowed_gemv(
+                    x.dtype, *x.shape, B.shape[1], port.lm._aligned(x))
+                    if name == "lowrank_gemv" else port.lm._allowed_2d(
+                        x.dtype, *x.shape, *C.shape, port.lm._aligned(x, C)))
             elif name == "flash_attention":
                 q, k, v = args
                 want = ref.flash_attention(q, k, v, **kw)
@@ -1401,6 +1523,7 @@ def gemma_path(port, dev):
         assert counts[name] > 0, f"{name} never launched on the gemma3 path"
     assert variants["lowrank_matmul_2d"]["split"] > 0, variants
     assert variants["flash_attention"]["wgmma"] > 0, variants
+    assert_gemv(variants["lowrank_gemv"], "bfloat16", "the gemma3 path")
     for name in ("lowrank_matmul_2d", "flash_attention"):
         assert variants[name]["simt"] == 0, \
             f"a bf16 {name} launch took simt on the gemma3 path"
@@ -1425,10 +1548,13 @@ def gemma_path(port, dev):
     # the plain versions on the card on the run's own operands
     cfg32 = cfg.replace(dtype="float32")
     t0 = time.perf_counter()
+    port.reset_counts()
     with recording(port) as calls:
         gpu = greedy(port, comp, cfg32, prompts, GEMMA_NEW_F32, dev,
                      lengths)
     card_s = time.perf_counter() - t0
+    assert_gemv(port.variant_counts()["lowrank_gemv"], "float32",
+                "the gemma3 path's float32 run")
     log(f"  the float32 run's {len(calls)} kernel signatures against the "
         f"plain versions:")
     hold_recorded(port, calls, "float32")
@@ -1675,7 +1801,16 @@ def main() -> int:
                                simt_ms=t["simt_ms"])
         if "split_ms" in t:
             kernels[-1]["split_ms"] = t["split_ms"]
+        if "splitk_ms" in t:   # the gemv: the earlier three-launch design
+            kernels[-1].update(variant="+".join(t["variant"]),
+                               launches_by_variant=variants[name],
+                               splitk_ms=t["splitk_ms"])
     by_name = {k["name"]: k for k in kernels}
+    wide = times["lowrank_gemv@64"]
+    by_name["lowrank_gemv"]["rows_64"] = dict(
+        work=wide["work"], ms=wide["ms"], splitk_ms=wide["splitk_ms"],
+        plain_ms=wide["plain_ms"], library_ms=wide["library_ms"],
+        bound_ms=wide["bound"][0], bound_by=wide["bound"][1])
     by_name["flash_attention"]["gemma3_hd256"] = large["flash_hd256"]
     by_name["lowrank_matmul_2d"]["by_shape"] = large["lowrank_2d"]
     by_name["lowrank_matmul_2d"]["float32"] = f32_2d

@@ -267,12 +267,15 @@ __device__ __forceinline__ void stage_tile_pairs(uint32_t tile,
 // stride: raw row r holds the RAW_WORDS words from the one containing
 // element (r0 + r, c0) on. Words at or past the matrix's end are zeros; a
 // word is never read past the 16-byte boundary that follows the last
-// element, so no page is crossed.
+// element, so no page is crossed. m may start anywhere: a zero word names
+// the 16-byte boundary at or before m, and reads nothing.
 template <int NT>
 __device__ __forceinline__ void stage_raw(uint32_t raw,
                                           const __nv_bfloat16* m, int ld,
                                           int rows, int r0, int c0, int t) {
   const uintptr_t end = reinterpret_cast<uintptr_t>(m + (size_t)rows * ld);
+  const void* none = reinterpret_cast<const void*>(
+      reinterpret_cast<uintptr_t>(m) & ~uintptr_t(15));
 #pragma unroll
   for (int j = 0; j < (TILE * RAW_WORDS + NT - 1) / NT; ++j) {
     const int q = t + j * NT;
@@ -283,7 +286,7 @@ __device__ __forceinline__ void stage_raw(uint32_t raw,
     const uintptr_t word = (a & ~uintptr_t(15)) + 16 * w;
     const bool ok = r0 + r < rows && word < end;
     cp_async16(raw + 16 * (r * RAW_WORDS + w),
-               ok ? reinterpret_cast<const void*>(word) : m, ok ? 16 : 0);
+               ok ? reinterpret_cast<const void*>(word) : none, ok ? 16 : 0);
   }
 }
 

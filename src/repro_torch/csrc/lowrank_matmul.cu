@@ -10,19 +10,47 @@
 // scratch from the K steps to the N steps. Hopper runs blocks in parallel
 // and in no order, so the two kernels here answer that differently.
 //
-// lowrank_gemv: at decode M is a handful of rows, so the work is bound by
-//   the bytes of B and C (read once each) and by latency: one matrix is
-//   ~1 MB, too little to keep 3.35 TB/s in flight from a few SMs. The
-//   design spreads each weight over many blocks: blocks tile the output
-//   columns (64 a block, coalesced rows of B or C) and split the reduction
-//   axis into up to 16 slices, each block writing a float32 partial; inside
-//   a block four thread groups take interleaved rows and issue 16 row loads
-//   each at once, to keep more bytes in flight. So each phase is its own
-//   launch, and t crosses between them as M x R x 4-byte partials that
-//   stay in the 50 MB L2. Phase 2 sums
-//   phase 1's partials and rounds t while staging it in shared memory; a
-//   third small launch sums phase 2's partials into y. The sums run in a
-//   fixed order, so the result is deterministic.
+// lowrank_gemv: at decode M is 1 to 64 rows, so the work is bound by
+//   bytes: B and C read once, 2 (KR + RN) bytes a bf16 linear, plus x and
+//   y (one SmolLM-360M decode step's 224 linears at 8 rows: 0.1528 ms at
+//   3.35 TB/s). A linear's weights are 0.2-5 MB, so a launch lasts a few
+//   microseconds and its fixed costs (the launch, its tail, a DRAM round
+//   trip) weigh as much as its bytes. The design ("mma" in bf16, "fma" in
+//   float32; gemv_stream_kernel below) answers the earlier split-K design
+//   ("splitk", kept for x whose rows are not on 16-byte boundaries and for
+//   comparison) on each of its four faults:
+//   - three launches a linear and float32 partials in device memory: now
+//     two, t = round(x @ B) then y = t @ C, and the only scratch is t in
+//     the operands' dtype (11 KB at 8 rows and rank 698). A cluster of up
+//     to 8 blocks splits a strip's reduction; each block sends its float32
+//     partial sums by st.async to the block that owns their rows, which
+//     adds them in rank order. Both launches are programmatic dependent
+//     launches that wait in griddepcontrol.wait for the kernel ahead:
+//     launch 2 streams its first C chunks into shared memory before that
+//     (C's bytes are the larger half of an MLP linear), and the next
+//     linear's launch 1 is already resident when launch 2 ends;
+//   - one 2-byte load per thread: now 16-byte cp.async copies, neighbouring
+//     threads on neighbouring addresses, through a ring of 5 chunks of 64
+//     rows (32 KB of a bf16 weight in flight a block). At a ragged rank
+//     B's rows start on no 16-byte boundary: 4-byte copies at an even rank,
+//     else hopper_mma.cuh's raw words (stage_raw, unpack_raw), nothing
+//     padded;
+//   - every weight read M / 8 times (8 rows a block): a block now holds all
+//     M <= 64 rows of x, so each weight element is read by one block, once;
+//   - two float32 scratch tensors a call: now one t (its row stride rounded
+//     up to 16 bytes), and no host sync, so a call can be captured in a
+//     CUDA graph (measured: two replays give an eager call's bits).
+//   bf16 products run on the tensor cores (mma.sync m16n8k16, x's rows the
+//   16-row operand, zero past M): at 64 rows FMA on the CUDA cores would
+//   need ~0.48 ms a decode step for the operations alone. float32 stays in
+//   FMA on the CUDA cores (TF32 misses the 2e-5 tier).
+//   Measured (chip_smoke.py and kernels/gemv_profile.py in one call on an
+//   NVIDIA H100 80GB HBM3 at 700 W): one SmolLM-360M decode step's 224
+//   linears take 1.55-1.64 ms at 8 rows (the three-launch design
+//   3.78-3.84, multi_dot 3.69-3.90) and 2.63-2.69 ms at 64 (8.75-9.30 and
+//   3.81-4.08), 10x the byte bound. What holds it is latency, not bytes:
+//   in a profiler trace a linear's two launches span 7.0 us at 8 rows,
+//   against 0.7 us for its bytes at the card's rate.
 // lowrank_matmul_2d: at prefill M is hundreds of rows and the work is bound
 //   by operations at the CUDA cores' rate, by bytes (0.3 ms a SmolLM-360M
 //   prefill) at the tensor cores'. The TPU kernel keeps t whole in VMEM, so
@@ -85,8 +113,13 @@ namespace drt {
 namespace {
 
 // ---------------------------------------------------------------------------
-// Decode shape: split-reduction products
+// Decode shape, the earlier design ("splitk"): split-reduction products
 // ---------------------------------------------------------------------------
+// Blocks tile the output columns (64 a block, one a thread) and 8 rows, and
+// split the reduction into up to 16 slices, each block writing a float32
+// partial; four thread groups take interleaved rows of a staged chunk. The
+// partials of x @ B are summed and rounded while phase 2 stages t; a third
+// launch sums phase 2's partials into y, in slice order.
 constexpr int GV_CT = 64;        // output columns per block, one per thread
 constexpr int GV_KG = 4;         // thread groups splitting a staged chunk
 constexpr int GV_THREADS = GV_CT * GV_KG;
@@ -205,6 +238,545 @@ int launch_gemv(const void* x, const void* B, const void* C, void* y,
   const int mn = M * N;
   reduce_kernel<T><<<cdiv(mn, 256), 256, 0, st>>>(ypart, static_cast<T*>(y),
                                                    s2, mn);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// Decode shape: the weights streamed once, two launches a linear
+// ---------------------------------------------------------------------------
+// One launch computes out (M x ncols) = round_T(A (M x kred) @ W (kred x
+// ncols)), all row-major: launch 1 is t = x @ B (out t, row stride
+// gv2_t_stride), launch 2 is y = t @ C. A cluster of blocks owns a strip of
+// GV2_WS output columns; its blocks split the reduction rows into whole
+// GV2_KC-row chunks, block r of the cluster taking chunks [r per, (r + 1)
+// per). Each block holds all M rows of A, so every weight element is read
+// by exactly one block; it streams its chunks of W and of A through a ring
+// of GV2_STAGES slots by cp.async and sums its slice in float32 (bf16: the
+// tensor cores, mma.sync m16n8k16 with A's rows as the 16-row operand;
+// float32: FMA on the CUDA cores). The blocks' float32 partials meet in
+// distributed shared memory: row m goes to block m % cluster, which sums
+// the cluster's partials of its rows in rank order, rounds once to T and
+// stores them. No value is summed by atomics, so two calls give the same
+// bits.
+constexpr int GV2_WS = 64;               // output columns a block (a strip)
+constexpr int GV2_KC = 64;               // reduction rows a staged chunk
+constexpr int GV2_THREADS = 128;         // four warps
+constexpr int GV2_STAGES = 5;            // ring slots; 4 chunks in flight
+constexpr int GV2_MAX_CLUSTER = 8;       // blocks splitting a strip's rows
+constexpr int GV2_MAX_ROWS = 64;         // rows of A a block holds
+constexpr int GV2_RED = GV2_WS + 4;      // padded row of the partial sums
+static_assert(GV2_THREADS == 2 * GV2_WS, "fma: two row halves a column");
+
+// Rows a block's A tile holds: M rounded up to 16, 32 or 64.
+__host__ __device__ constexpr int gv2_rows_tile(int M) {
+  return M <= 16 ? 16 : M <= 32 ? 32 : 64;
+}
+
+// Row stride of t, in values: R rounded up to 16 bytes, so that launch 2
+// stages t's rows by 16-byte copies at any rank. The padding is never
+// written or read.
+__host__ __device__ constexpr int gv2_t_stride(int R, int esize) {
+  return (R + 16 / esize - 1) / (16 / esize) * (16 / esize);
+}
+
+// Dynamic shared memory of a block with `mt` rows of A and `esize`-byte
+// values: per ring slot the weight chunk (bf16: the raw words of
+// mma::stage_raw, or the swizzled tile in their first 8 KB; float32: 64 x
+// 64 values) and the A chunk (mt rows of 64 values); bf16 also the tile
+// the raw words are unpacked into; the region the cluster's partial sums
+// of this block's rows land in (at most mt + GV2_MAX_CLUSTER rows of
+// GV2_RED float32); 128 bytes to align the base. float32 sums its two row
+// halves over the ring.
+__host__ __device__ constexpr size_t gv2_smem_bytes(int esize, int mt) {
+  return 128 +
+         (size_t)GV2_STAGES *
+             ((esize == 2 ? mma::RAW_BYTES : GV2_KC * GV2_WS * 4) +
+              (size_t)mt * GV2_KC * esize) +
+         (esize == 2 ? mma::TILE_BYTES : 0) +
+         (size_t)(mt + GV2_MAX_CLUSTER) * GV2_RED * 4;
+}
+static_assert(GV2_MAX_ROWS * GV2_RED <= GV2_STAGES * GV2_KC * GV2_WS,
+              "float32's row halves fit the ring");
+
+// The geometry of one launch over a (kred x ncols) weight: strips of
+// GV2_WS columns, clusters of `cluster` blocks, `per` chunks a block. The
+// caller gives the blocks the launch aims at (the wrapper: what the card
+// holds at once at this shared memory, from its SM count, halved for a
+// small weight; kernels/lowrank_matmul.py, _gemv_target_blocks); the
+// cluster is as large as that allows (at most GV2_MAX_CLUSTER and the
+// chunk count), then shrunk so that no block is left without a chunk.
+struct Gv2Launch {
+  int strips, cluster, per;
+};
+inline Gv2Launch gv2_launch_plan(int kred, int ncols, int blocks) {
+  const int nch = cdiv(kred, GV2_KC), strips = cdiv(ncols, GV2_WS);
+  int cs = blocks / strips;
+  cs = cs < GV2_MAX_CLUSTER ? cs : GV2_MAX_CLUSTER;
+  cs = cs < nch ? cs : nch;
+  cs = cs > 1 ? cs : 1;
+  const int per = cdiv(nch, cs);
+  return {strips, cdiv(nch, per), per};
+}
+
+// The cluster barrier in two halves: arrive (no ordering) at the start,
+// wait before the first access to a peer's shared memory, which is then
+// known to have started.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Asynchronous stores into a peer's shared memory (shared::cluster
+// addresses, mapa), each completing `bytes` on the peer's mbarrier.
+__device__ __forceinline__ void st_async2(uint32_t dst, float a, float b,
+                                          uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], "
+      "{%1, %2}, [%3];\n" ::"r"(dst),
+      "f"(a), "f"(b), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void st_async1(uint32_t dst, float a,
+                                          uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];\n" ::"r"(dst),
+      "f"(a), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, lane l giving the address
+// of row l % 8 of matrix l / 8; .trans hands each thread the transposed
+// elements (the "col" B operand of mma.sync from a row-major k x n tile).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+// d[16 x 8] += a[16 x 16] @ b[16 x 8], bf16 in, float32 accumulators.
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Rows [r0, r0 + ROWS) x columns [c0, c0 + 64) of the row-major (rows x
+// cols) matrix m (row stride ld; rows on 16-byte boundaries) into shared
+// memory at `dst` by 16-byte cp.async copies, zeros outside the matrix:
+// bf16 rows of 128 bytes in the swizzled layout of hopper_mma.cuh, float32
+// rows of 256 bytes in order.
+template <typename T, int ROWS>
+__device__ __forceinline__ void gv2_stage16(uint32_t dst, const T* m, int ld,
+                                            int rows, int cols, int r0,
+                                            int c0, int t) {
+  constexpr int E = 16 / sizeof(T);         // values a copy
+  constexpr int CPR = 64 / E;               // copies a row
+  static_assert(ROWS * CPR % GV2_THREADS == 0, "whole copies a thread");
+#pragma unroll
+  for (int j = 0; j < ROWS * CPR / GV2_THREADS; ++j) {
+    const int q = t + j * GV2_THREADS;
+    const int r = q / CPR, c = q % CPR, gr = r0 + r, gc = c0 + E * c;
+    int n = gr < rows ? cols - gc : 0;
+    n = n < 0 ? 0 : n > E ? E : n;
+    const uint32_t off = sizeof(T) == 2
+                             ? mma::swz_offset(r, c)
+                             : static_cast<uint32_t>(r * 256 + 16 * c);
+    mma::cp_async16(dst + off, n > 0 ? m + (size_t)gr * ld + gc : m,
+                    n * static_cast<int>(sizeof(T)));
+  }
+}
+
+// The same for a float32 weight whose rows are not on 16-byte boundaries:
+// 4-byte copies, 64 rows.
+__device__ __forceinline__ void gv2_stage4(uint32_t dst, const float* m,
+                                           int ld, int rows, int cols,
+                                           int r0, int c0, int t) {
+#pragma unroll 8
+  for (int j = 0; j < 64 * 64 / GV2_THREADS; ++j) {
+    const int q = t + j * GV2_THREADS;
+    const int r = q / 64, c = q % 64;
+    const bool ok = r0 + r < rows && c0 + c < cols;
+    mma::cp_async4(dst + r * 256 + 4 * c,
+                   ok ? m + (size_t)(r0 + r) * ld + c0 + c : m, ok ? 4 : 0);
+  }
+}
+
+// acc += A chunk (MT x 64, swizzled at `at`) @ W chunk (64 x 64, swizzled
+// at `wt`) on the tensor cores: warp w owns the strip's columns 16 w ..
+// 16 w + 15 (two n8 tiles) for every m16 tile of A. The fragments of a
+// chunk's four k16 steps are loaded together before their MMAs.
+template <int MT>
+__device__ __forceinline__ void gv2_mma_chunk(float (&acc)[MT / 16][2][4],
+                                              uint32_t wt, uint32_t at,
+                                              int warp, int lane) {
+  constexpr int KS = GV2_KC / 16;
+  const int r = (lane & 7) + 8 * ((lane >> 3) & 1), h = lane >> 4;
+  uint32_t b[KS][4];   // k 0-7 and 8-15 of columns +0..7, then of +8..15
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    ldsm_x4_trans(b[kk], wt + mma::swz_offset(16 * kk + r, 2 * warp + h));
+#pragma unroll
+  for (int i = 0; i < MT / 16; ++i) {
+    uint32_t a[KS][4];
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      ldsm_x4(a[kk], at + mma::swz_offset(16 * i + r, 2 * kk + h));
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      mma_16816(acc[i][0], a[kk], b[kk][0], b[kk][1]);
+      mma_16816(acc[i][1], a[kk], b[kk][2], b[kk][3]);
+    }
+  }
+}
+
+// acc[m] += A chunk (MT x 64) @ W chunk (64 x 64) in float32 FMA: thread t
+// owns column t % 64 and the chunk's rows 32 (t / 64) .. +31, four at a
+// time, each row of A read as a float4 that a warp shares.
+template <int MT>
+__device__ __forceinline__ void gv2_fma_chunk(float (&acc)[MT],
+                                              const float* wt,
+                                              const float* at, int t) {
+  const int c = t % GV2_WS, k0 = (t / GV2_WS) * (GV2_KC / 2);
+#pragma unroll 2
+  for (int k = k0; k < k0 + GV2_KC / 2; k += 4) {
+    const float w0 = wt[k * GV2_WS + c], w1 = wt[(k + 1) * GV2_WS + c];
+    const float w2 = wt[(k + 2) * GV2_WS + c], w3 = wt[(k + 3) * GV2_WS + c];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const float4 a = *reinterpret_cast<const float4*>(at + m * GV2_KC + k);
+      acc[m] = fmaf(a.x, w0, acc[m]);
+      acc[m] = fmaf(a.y, w1, acc[m]);
+      acc[m] = fmaf(a.z, w2, acc[m]);
+      acc[m] = fmaf(a.w, w3, acc[m]);
+    }
+  }
+}
+
+// How a weight's chunks are staged: 16-byte copies straight into place
+// (rows on 16-byte boundaries); for bf16 rows on 4-byte boundaries (an
+// even rank) 4-byte copies of column pairs straight into the tile
+// (mma::stage_tile_pairs), else raw 16-byte words shifted into place
+// (mma::stage_raw / unpack_raw); float32 otherwise 4-byte copies.
+enum Gv2WMode : int { W_ROWS16 = 0, W_RAW = 1, W_FOUR = 2, W_PAIRS = 3 };
+
+// One launch of the decode product (see above). A launch with programmatic
+// stream serialization may start before the kernel ahead of it in the
+// stream has finished: griddepcontrol.wait returns once that kernel is
+// complete and its writes visible (at once for a plain launch). Nothing
+// written by an earlier kernel is read before the wait, except W with
+// early_w (launch 2: C, which no kernel between the caller's last write
+// and launch 1's wait can have touched, since launch 2 cannot start before
+// launch 1 passes its wait). Past the wait every block lets the next
+// launch start (launch_dependents): launch 2 then streams its first chunks
+// of C while launch 1 still works.
+template <typename T, int MT>
+__global__ void __launch_bounds__(GV2_THREADS) gemv_stream_kernel(
+    const T* __restrict__ A, int lda, const T* __restrict__ W,
+    T* __restrict__ out, int ldo, int M, int kred, int ncols, int per,
+    int wmode, int early_w) {
+  namespace cg = cooperative_groups;
+  constexpr bool kBF16 = sizeof(T) == 2;
+  constexpr size_t WSLOT = kBF16 ? mma::RAW_BYTES : GV2_KC * GV2_WS * 4;
+  constexpr size_t ASLOT = (size_t)MT * GV2_KC * sizeof(T);
+  extern __shared__ unsigned char gv2_smem[];
+  __shared__ __align__(8) uint64_t gv2_rbar;   // the peers' partials landed
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  // this block's rows of the output: m = rank, rank + cs, ...
+  const int own = M > rank ? cdiv(M - rank, cs) : 0;
+  const uint32_t rbar = mma::smem_u32(&gv2_rbar);
+  if (threadIdx.x == 0) {
+    mma::mbar_init(rbar, 1);
+    mma::mbar_arrive_expect(rbar, (cs - 1) * own * GV2_WS * 4);
+  }
+  cluster_arrive_relaxed();   // waited for before the first remote store
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(gv2_smem) + 127) & ~uintptr_t(127));
+  unsigned char* wring = base;
+  unsigned char* aring = base + GV2_STAGES * WSLOT;
+  unsigned char* utile = aring + GV2_STAGES * ASLOT;   // bf16 only
+  float* recv = reinterpret_cast<float*>(
+      utile + (kBF16 ? mma::TILE_BYTES : 0));        // peers' partials
+  const int col0 = blockIdx.x * GV2_WS;
+  const int cbeg = rank * per;
+  int nk = cdiv(kred, GV2_KC) - cbeg;
+  nk = nk < per ? nk : per;
+
+  auto load_w = [&](int i) {
+    const int k0 = (cbeg + i) * GV2_KC;
+    const uint32_t dst = mma::smem_u32(wring + (i % GV2_STAGES) * WSLOT);
+    if constexpr (kBF16) {
+      if (wmode == W_RAW)
+        mma::stage_raw<GV2_THREADS>(dst, W, ncols, kred, k0, col0, tid);
+      else if (wmode == W_PAIRS)
+        mma::stage_tile_pairs<GV2_THREADS>(dst, W, ncols, kred, ncols, k0,
+                                           col0, tid);
+      else
+        gv2_stage16<T, GV2_KC>(dst, W, ncols, kred, ncols, k0, col0, tid);
+    } else {
+      if (wmode == W_FOUR)
+        gv2_stage4(dst, W, ncols, kred, ncols, k0, col0, tid);
+      else
+        gv2_stage16<T, GV2_KC>(dst, W, ncols, kred, ncols, k0, col0, tid);
+    }
+  };
+  auto load_a = [&](int i) {
+    gv2_stage16<T, MT>(mma::smem_u32(aring + (i % GV2_STAGES) * ASLOT), A,
+                       lda, M, kred, 0, (cbeg + i) * GV2_KC, tid);
+  };
+
+  // The ring's first chunks of W, one commit group each (with early_w
+  // before the wait), then the same chunks of A as one more group.
+  auto prologue_w = [&] {
+#pragma unroll
+    for (int i = 0; i < GV2_STAGES - 1; ++i) {
+      if (i < nk) load_w(i);
+      mma::cp_async_commit();
+    }
+  };
+  if (early_w) prologue_w();
+  griddep_wait();
+  griddep_launch_dependents();
+  if (!early_w) prologue_w();
+#pragma unroll
+  for (int i = 0; i < GV2_STAGES - 1; ++i)
+    if (i < nk) load_a(i);
+  mma::cp_async_commit();
+
+  float acc[kBF16 ? MT / 16 : 1][2][4] = {};   // bf16: [m16 tile][n8 tile]
+  float facc[kBF16 ? 1 : MT] = {};             // float32: [row]
+  for (int i = 0; i < nk; ++i) {
+    if (i == 0)
+      mma::cp_async_wait<0>();
+    else
+      mma::cp_async_wait<GV2_STAGES - 2>();
+    __syncthreads();   // chunk i landed; chunk i - 1's slot is free
+    if (i + GV2_STAGES - 1 < nk) {
+      load_w(i + GV2_STAGES - 1);
+      load_a(i + GV2_STAGES - 1);
+    }
+    mma::cp_async_commit();
+    const unsigned char* wt = wring + (i % GV2_STAGES) * WSLOT;
+    const unsigned char* at = aring + (i % GV2_STAGES) * ASLOT;
+    if constexpr (kBF16) {
+      if (wmode == W_RAW) {
+        mma::unpack_raw<GV2_THREADS>(reinterpret_cast<char*>(utile),
+                                     reinterpret_cast<const char*>(wt), W,
+                                     ncols, kred, ncols,
+                                     (cbeg + i) * GV2_KC, col0, tid);
+        __syncthreads();
+        wt = utile;
+      }
+      gv2_mma_chunk<MT>(acc, mma::smem_u32(wt), mma::smem_u32(at), warp,
+                        lane);
+    } else {
+      gv2_fma_chunk<MT>(facc, reinterpret_cast<const float*>(wt),
+                        reinterpret_cast<const float*>(at), tid);
+    }
+  }
+
+  // Each row's partial sums go to the block that owns the row: row m to
+  // rank m % cs, into its receive region at [this rank][m / cs]: its own
+  // rows by plain stores, a peer's by st.async, which completes the bytes
+  // on the peer's mbarrier (rbar, armed with the bytes every peer sends).
+  mma::cp_async_wait<0>();
+  const int lr = cdiv(M, cs);         // rows a block owns, at most
+  const uint32_t recv_a = mma::smem_u32(recv);
+  // m / cs for m < 1024 as a multiply and a shift (exact: the rounding of
+  // 2^16 / cs stays below 1 / cs over that range)
+  const uint32_t inv = (65536u + cs - 1) / cs;
+  // Row m's n (2: a float2 at v, 1: v.x) partial sums from column c on, to
+  // the block that owns the row.
+  auto put = [&](int m, int c0, float2 v0, int c1, float2 v1, int n) {
+    const int q = static_cast<int>((m * inv) >> 16), o = m - q * cs;
+    const int off = (rank * lr + q) * GV2_RED;
+    if (o == rank) {
+      float* dst = recv + off;
+      if (n == 2) {
+        *reinterpret_cast<float2*>(dst + c0) = v0;
+        *reinterpret_cast<float2*>(dst + c1) = v1;
+      } else {
+        dst[c0] = v0.x;
+      }
+    } else {
+      const uint32_t d = mma::peer_addr(recv_a + 4 * off, o);
+      const uint32_t bar = mma::peer_addr(rbar, o);
+      if (n == 2) {
+        st_async2(d + 4 * c0, v0.x, v0.y, bar);
+        st_async2(d + 4 * c1, v1.x, v1.y, bar);
+      } else {
+        st_async1(d + 4 * c0, v0.x, bar);
+      }
+    }
+  };
+  cluster_wait();                     // every block of the cluster runs
+  if constexpr (kBF16) {
+    const int g = lane >> 2, col = 16 * warp + 2 * (lane & 3);
+#pragma unroll
+    for (int i = 0; i < MT / 16; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {   // rows 16 i + g and 16 i + g + 8
+        const int row = 16 * i + g + 8 * h;
+        if (row < M)
+          put(row, col, make_float2(acc[i][0][2 * h], acc[i][0][2 * h + 1]),
+              col + 8, make_float2(acc[i][1][2 * h], acc[i][1][2 * h + 1]),
+              2);
+      }
+  } else {               // the column's two row halves, first one first
+    float* half1 = reinterpret_cast<float*>(base);   // over the ring
+    const int c = tid % GV2_WS, half = tid / GV2_WS;
+    __syncthreads();
+    if (half == 1) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m) half1[m * GV2_RED + c] = facc[m];
+    }
+    __syncthreads();
+    if (half == 0) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+        if (m < M)
+          put(m, c, make_float2(facc[m] + half1[m * GV2_RED + c], 0.f), c,
+              make_float2(0.f, 0.f), 1);
+    }
+  }
+  __syncthreads();                    // this block's own partials
+  mma::mbar_wait(rbar, 0);            // and every peer's
+  // This block's rows: the cluster's partials in rank order, rounded once.
+  // No block touches a peer's memory from here on.
+  for (int e = tid; e < own * (GV2_WS / 4); e += GV2_THREADS) {
+    const int l = e / (GV2_WS / 4), c = 4 * (e % (GV2_WS / 4));
+    float4 v[GV2_MAX_CLUSTER];        // every rank's four sums, loaded first
+#pragma unroll
+    for (int r = 0; r < GV2_MAX_CLUSTER; ++r)
+      if (r < cs)
+        v[r] = *reinterpret_cast<const float4*>(
+            recv + (r * lr + l) * GV2_RED + c);
+    float4 sum = v[0];
+#pragma unroll
+    for (int r = 1; r < GV2_MAX_CLUSTER; ++r)
+      if (r < cs) {
+        sum.x += v[r].x;
+        sum.y += v[r].y;
+        sum.z += v[r].z;
+        sum.w += v[r].w;
+      }
+    T* o = out + (size_t)(rank + l * cs) * ldo + col0 + c;
+    const float s4[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (col0 + c + q < ncols) o[q] = cvt<T>(s4[q]);
+  }
+}
+
+// Both launches are programmatic dependent launches: each waits in
+// griddepcontrol.wait for the kernel ahead of it instead of in the stream.
+template <typename T, int MT>
+cudaError_t gv2_launch(const T* A, int lda, const T* W, T* out, int ldo,
+                       int M, int kred, int ncols, int blocks, bool early_w,
+                       cudaStream_t st) {
+  const size_t smem = gv2_smem_bytes(sizeof(T), MT);
+  static const cudaError_t configured = [smem] {
+    const cudaError_t e = cudaFuncSetAttribute(
+        gemv_stream_kernel<T, MT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(gemv_stream_kernel<T, MT>,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                cudaSharedmemCarveoutMaxShared);
+  }();
+  if (configured != cudaSuccess) return configured;
+  const Gv2Launch p = gv2_launch_plan(kred, ncols, blocks);
+  const bool rows16 = reinterpret_cast<uintptr_t>(W) % 16 == 0 &&
+                      (size_t)ncols * sizeof(T) % 16 == 0;
+  const bool rows4 = reinterpret_cast<uintptr_t>(W) % 4 == 0 &&
+                     (size_t)ncols * sizeof(T) % 4 == 0;
+  const int wmode = rows16            ? W_ROWS16
+                    : sizeof(T) == 4  ? W_FOUR
+                    : rows4           ? W_PAIRS
+                                      : W_RAW;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(p.strips, p.cluster, 1);
+  cfg.blockDim = dim3(GV2_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = 1;
+  attrs[0].val.clusterDim.y = p.cluster;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attrs[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 2;
+  return cudaLaunchKernelEx(&cfg, gemv_stream_kernel<T, MT>, A, lda, W, out,
+                            ldo, M, kred, ncols, p.per, wmode,
+                            static_cast<int>(early_w));
+}
+
+// t = round(x @ B) into t (M x gv2_t_stride(R)), then y = t @ C, launch 2
+// overlapping launch 1's tail; each launch aims at blocks1 / blocks2
+// blocks. x's rows on 16-byte boundaries; B and C any.
+template <typename T, int MT>
+cudaError_t gv2_pair(const T* x, const T* B, const T* C, T* y, T* t, int M,
+                     int K, int R, int N, int blocks1, int blocks2,
+                     cudaStream_t st) {
+  const int rp = gv2_t_stride(R, sizeof(T));
+  cudaError_t e =
+      gv2_launch<T, MT>(x, K, B, t, rp, M, K, R, blocks1, false, st);
+  if (e == cudaSuccess)
+    e = gv2_launch<T, MT>(t, rp, C, y, N, M, R, N, blocks2, true, st);
+  return e;
+}
+
+template <typename T>
+int launch_gemv_stream(const void* x, const void* B, const void* C, void* y,
+                       void* t, int M, int K, int R, int N, int blocks1,
+                       int blocks2, cudaStream_t st) {
+  if (M < 1 || M > GV2_MAX_ROWS || K < 1 || R < 1 || N < 1 ||
+      blocks1 < 1 || blocks2 < 1 ||
+      reinterpret_cast<uintptr_t>(x) % 16 || (size_t)K * sizeof(T) % 16 ||
+      reinterpret_cast<uintptr_t>(t) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto xp = static_cast<const T*>(x);
+  auto bp = static_cast<const T*>(B);
+  auto cp = static_cast<const T*>(C);
+  auto yp = static_cast<T*>(y);
+  auto tp = static_cast<T*>(t);
+  const int mt = gv2_rows_tile(M);
+  const cudaError_t e =
+      mt == 16   ? gv2_pair<T, 16>(xp, bp, cp, yp, tp, M, K, R, N, blocks1,
+                                   blocks2, st)
+      : mt == 32 ? gv2_pair<T, 32>(xp, bp, cp, yp, tp, M, K, R, N, blocks1,
+                                   blocks2, st)
+                 : gv2_pair<T, 64>(xp, bp, cp, yp, tp, M, K, R, N, blocks1,
+                                   blocks2, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1119,6 +1691,63 @@ int drt_lowrank_gemv(const void* x, const void* B, const void* C, void* y,
     return drt::launch_gemv<__nv_bfloat16>(x, B, C, y, tp, yp, M, K, R, N,
                                            s1, kper1, s2, kper2, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// x (M, K), B (K, R), C (R, N), y (M, N) of one dtype, 1 <= M <= 64: the
+// two-launch decode product through t, scratch of x's dtype and shape (M,
+// gv2_t_stride(R)), launch 1 aiming at blocks1 blocks and launch 2 at
+// blocks2. x and t start on 16-byte boundaries and K * the value size is a
+// multiple of 16; B and C may start anywhere.
+int drt_lowrank_gemv_stream(const void* x, const void* B, const void* C,
+                            void* y, void* t, int M, int K, int R, int N,
+                            int blocks1, int blocks2, int dtype,
+                            void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == drt::kFloat32)
+    return drt::launch_gemv_stream<float>(x, B, C, y, t, M, K, R, N, blocks1,
+                                          blocks2, st);
+  if (dtype == drt::kBFloat16)
+    return drt::launch_gemv_stream<__nv_bfloat16>(x, B, C, y, t, M, K, R, N,
+                                                  blocks1, blocks2, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The card the block targets of drt_lowrank_gemv_stream are planned for:
+// out[0] its SMs, out[1] the shared memory of one SM in bytes (the current
+// device, from the driver).
+int drt_lowrank_gemv_card(int* out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&out[0], cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(
+        &out[1], cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  return static_cast<int>(e);
+}
+
+// The launch geometry of drt_lowrank_gemv_stream for these operands and
+// block targets, into out[0..10]: rows of A a block holds, ring slots, t's
+// row stride, then for launch 1 (x @ B) and launch 2 (t @ C) each: strips,
+// cluster size, chunks a block, dynamic shared memory bytes.
+// kernels/lowrank_matmul.py's gemv_plan mirrors it.
+int drt_lowrank_gemv_plan(int M, int K, int R, int N, int blocks1,
+                          int blocks2, int dtype, int* out) {
+  const int es = dtype == drt::kBFloat16 ? 2 : 4;
+  const int mt = drt::gv2_rows_tile(M);
+  out[0] = mt;
+  out[1] = drt::GV2_STAGES;
+  out[2] = drt::gv2_t_stride(R, es);
+  const int dims[2][3] = {{K, R, blocks1}, {R, N, blocks2}};
+  for (int l = 0; l < 2; ++l) {
+    const drt::Gv2Launch p =
+        drt::gv2_launch_plan(dims[l][0], dims[l][1], dims[l][2]);
+    out[3 + 4 * l] = p.strips;
+    out[4 + 4 * l] = p.cluster;
+    out[5 + 4 * l] = p.per;
+    out[6 + 4 * l] = static_cast<int>(drt::gv2_smem_bytes(es, mt));
+  }
+  return 0;
 }
 
 // x (M, K), B (K, R), C (R, N), y (M, N), one dtype; R at most
