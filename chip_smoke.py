@@ -52,6 +52,22 @@ What it does, in order, printing the seconds of each phase:
    then the same params and prompts in float32 on the card, whose kernel
    calls are held the same way, and on the CPU, 8 new tokens: identical
    greedy tokens, prefill logits within atol 2e-3;
+2d. the same batcher path through ``serve.aot.AotRegistry``, with the
+   counts set to 0 just before it and read just after: every decode and
+   prefill signature captured as a CUDA graph when ``warm_executables``
+   runs on the empty pool, then replayed. bf16 contiguous, paged, paged
+   with prefix reuse and paged elastic, float32 contiguous and paged, on
+   2b's 24 requests: tokens identical to the eager runs (2b's, and an
+   eager bf16 prefix run made here), the warm set the JAX registry's, no
+   entry made after warm but the elastic run's late low-rung prefills,
+   every decode step a replay; ms/step and tokens/s beside the eager
+   runs'. Then one graph step under ``torch.profiler`` on each pool
+   (printed beside the eager step of phase 7), dense against D-Rank with
+   graphs (in turns, on the same requests), and the serve CLI itself:
+   ``python -m repro_torch.launch.serve --aot`` on the artifact as three
+   subprocesses (contiguous, paged + prefix, ``--stream``), each exiting 0,
+   drained, with the tokens of an eager ``serve()`` of the same options,
+   and ``load_engine``'s boot to first token with and without ``--aot``;
 3. the streaming Grams against the eager fp64 ``Collector`` on the card,
    every tag: Gram and mean |x| within 1e-4 relative, equal row counts;
 4. the device decomposition against the host fp64 oracle at full width and
@@ -86,7 +102,7 @@ What it does, in order, printing the seconds of each phase:
 7. decode throughput of the dense and the D-Rank model at batch 8 and 64,
    and a ``torch.profiler`` view of one D-Rank decode step of the
    ``Engine`` and of the batcher on each pool: host time, device-busy
-   time, launches per step;
+   time, launches per step, beside the graph step of 2d;
 8. the whole slice in float32 on the card (kernels) against the CPU (plain
    versions): identical greedy tokens, prefill logits within atol 2e-3.
 
@@ -176,6 +192,11 @@ CB_KERNELS = ("lowrank_gemv", "lowrank_matmul_2d", "flash_attention",
 # earlier design, only where this script forces it)
 GEMV_VARIANT = {"bfloat16": "mma", "float32": "fma"}
 GEMV_ROWS_WIDE = 64             # the larger throughput batch: gemv rows
+# the host calls that put work on the device: kernel launches, and a CUDA
+# graph's launch (one a replay)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaLaunchKernelExC")
+GRAPH_LAUNCH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
 
 
 def log(msg: str = "") -> None:
@@ -225,9 +246,12 @@ class Port:
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import gram as gm
         from repro_torch.kernels import lowrank_matmul as lm
+        from repro_torch.ckpt import store
+        from repro_torch.launch import serve as launch
         from repro_torch.models import transformer
-        from repro_torch.serve import admission, engine
+        from repro_torch.serve import admission, aot, api, engine
         self.torch = torch
+        self.store, self.launch, self.aot, self.api = store, launch, aot, api
         self.get_config = get_config
         self.capture, self.compress = capture, compress
         self.synthetic = synthetic
@@ -555,11 +579,12 @@ def cb_requests(vocab: int):
 
 def drive_batcher(port, cb, reqs, snapshot=None):
     """Submit ``reqs`` CB_STAGGER at a time with a ``step()`` between, then
-    ``run_until_drained``. Returns (result, seconds, steps); the host clock
-    runs from a synchronize before the first submit to one after the
-    drain. ``snapshot`` (a dict) receives each slot's live length (pos +
-    1) and the block table right after the staggered steps."""
+    ``run_until_drained``. Returns (result, seconds, steps of this drive);
+    the host clock runs from a synchronize before the first submit to one
+    after the drain. ``snapshot`` (a dict) receives each slot's live length
+    (pos + 1) and the block table right after the staggered steps."""
     torch, E = port.torch, port.engine
+    steps0 = cb._step_idx
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i, (rid, toks) in enumerate(reqs):
@@ -573,7 +598,7 @@ def drive_batcher(port, cb, reqs, snapshot=None):
                                             device=cb.device)
     res = cb.run_until_drained(watchdog_s=120.0)
     torch.cuda.synchronize()
-    return res, time.perf_counter() - t0, cb._step_idx
+    return res, time.perf_counter() - t0, cb._step_idx - steps0
 
 
 def batcher_path(port, dev, cfg, comp):
@@ -707,7 +732,307 @@ def batcher_path(port, dev, cfg, comp):
         assert same(a, b), f"{a} and {b} give different tokens"
     log(f"  tokens identical: bf16 contiguous = paged = paged under both "
         f"fault plans; fp32 contiguous = paged = paged + prefix")
-    return counts, snap, rates
+    return counts, snap, rates, outs
+
+
+# ---------------------------------------------------------------------------
+# The graph path: the batcher through AotRegistry, and the serve CLI
+# ---------------------------------------------------------------------------
+def prefill_buckets(max_len: int) -> list:
+    """The pow2 prompt buckets of a pool of ``max_len`` (2, 4, ..., and
+    max_len itself), as the JAX registry enumerates them."""
+    out, b = [], 2
+    while b < max_len:
+        out.append(b)
+        b *= 2
+    return sorted(set(out + [max_len]))
+
+
+def warm_set_size(rungs: int, paged: bool, max_len: int) -> int:
+    """Entries of the JAX AotRegistry's warm set: decode per rank rung and
+    prefill per bucket at rung 0, then scatter and purge; paged: prefill
+    per bucket, decode_paged per rung, prefill_ext per bucket,
+    scatter_paged per source width (max_len and every bucket), purge_paged
+    and copy_blocks."""
+    n = len(prefill_buckets(max_len))
+    if not paged:
+        return rungs + n + 2
+    return n + rungs + n + len(set(prefill_buckets(max_len))
+                               | {max_len}) + 2
+
+
+def drive_graphs(port, cb, reqs):
+    """Warm ``cb``'s AotRegistry on its empty pool, then ``drive_batcher``.
+    Returns (result, seconds, steps, info): the warm seconds, the stats
+    after warm, and the decode dispatches and replays of the drive."""
+    torch, reg = port.torch, cb.exec
+    dec = "decode_paged" if cb.paged else "decode"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cb.warm_executables()
+    torch.cuda.synchronize()
+    info = {"warm_s": time.perf_counter() - t0, "warm": dict(cb.stats)}
+    calls0, rep0 = dict(reg.calls), dict(reg.replays)
+    res, secs, steps = drive_batcher(port, cb, reqs)
+    info["decode_calls"] = reg.calls.get(dec, 0) - calls0.get(dec, 0)
+    info["decode_replays"] = reg.replays.get(dec, 0) - rep0.get(dec, 0)
+    info["prefill_replays"] = sum(
+        reg.replays.get(r, 0) - rep0.get(r, 0)
+        for r in ("prefill", "prefill_ext"))
+    return res, secs, steps, info
+
+
+def graph_path(port, dev, cfg, comp, eager_outs, eager_rates):
+    """The batcher's path through ``AotRegistry`` (one CUDA graph per decode
+    and prefill signature) on the main path's artifact, every launch count
+    set to 0 just before and read just after: bf16 contiguous, paged,
+    paged + prefix and paged elastic, float32 contiguous and paged, on 2b's
+    24 requests. Tokens must be the eager runs' (2b's; the bf16 prefix
+    pool's eager run is made here), the warm set JAX's, no entry made
+    after warm but the elastic run's late low-rung prefills, and every
+    decode step a replay. Returns (launch counts, {run: rates}, the bf16
+    contiguous and paged batchers, drained, for the profile and Fig. 4
+    phases)."""
+    torch, E, aot = port.torch, port.engine, port.aot
+    fp = port.store.artifact_fingerprint(str(ARTIFACT_DIR),
+                                         name=port.compress.ARTIFACT_NAME)
+    cfg32 = cfg.replace(dtype="float32")
+    reqs = cb_requests(cfg.vocab_size)
+    contig = E.ServeConfig(batch=CB_BATCH, max_len=CB_MAX_LEN)
+    paged = E.ServeConfig(batch=CB_BATCH, max_len=CB_MAX_LEN,
+                          kv_block=CB_BLOCK)
+    shared = E.ServeConfig(batch=CB_BATCH, max_len=CB_MAX_LEN,
+                           kv_block=CB_BLOCK, prefix_cache=True)
+    elastic_cfg = port.admission.AdmissionConfig(
+        elastic=True, elastic_levels=2, degrade_above=4, restore_below=1)
+    runs = [("bf16 contiguous", cfg, contig, "bf16 contiguous"),
+            ("bf16 paged", cfg, paged, "bf16 paged"),
+            ("bf16 paged + prefix", cfg, shared, None),
+            ("bf16 paged, elastic", cfg, paged, "bf16 paged, elastic"),
+            ("fp32 contiguous", cfg32, contig, "fp32 contiguous"),
+            ("fp32 paged", cfg32, paged, "fp32 paged")]
+    port.reset_counts()
+    rates, kept, first = {}, {}, True
+    for name, c, scfg, eager_name in runs:
+        elastic = name.endswith("elastic")
+        acfg = elastic_cfg if elastic else None
+        if eager_name is None:     # bf16 prefix reuse: no eager run in 2b
+            cbe = E.ContinuousBatcher(comp, c, scfg, device=dev,
+                                      admission=acfg)
+            res, secs, steps = drive_batcher(port, cbe, reqs)
+            eager_name = name + " (eager)"
+            eager_outs[eager_name] = {r.rid: list(r.out) for r in res}
+            ntok = sum(len(o) for o in eager_outs[eager_name].values())
+            eager_rates[eager_name] = {"tokens_per_s": ntok / secs,
+                                       "ms_per_step": secs / steps * 1e3}
+            del cbe
+        reg = aot.AotRegistry(c, scfg, fp)
+        if first:                  # booted from the artifact, as 2b
+            cb = E.ContinuousBatcher.from_compressed(
+                str(ARTIFACT_DIR), c, scfg, verify=True, device=dev,
+                executables=reg)
+            first = False
+        else:
+            cb = E.ContinuousBatcher(comp, c, scfg, device=dev,
+                                     admission=acfg, executables=reg)
+        res, secs, steps, info = drive_graphs(port, cb, reqs)
+        out = {r.rid: list(r.out) for r in res}
+        ntok = sum(len(o) for o in out.values())
+        rates[name] = {"tokens_per_s": ntok / secs,
+                       "ms_per_step": secs / steps * 1e3,
+                       "warm_s": info["warm_s"]}
+        er = eager_rates[eager_name]
+        want = warm_set_size(len(cb.ladder), cb.paged, CB_MAX_LEN)
+        warm_n = info["warm"]["aot_compiles"]
+        late = reg.entries()[warm_n:]
+        mb = sum(reg.graph_bytes().values()) / 2 ** 20
+        log(f"  {name}: {res.status}, {len(res)} done, {ntok} tokens in "
+            f"{steps} steps, {secs:.2f} s: {rates[name]['tokens_per_s']:.1f}"
+            f" tokens/s, {rates[name]['ms_per_step']:.2f} ms/step (eager "
+            f"{er['tokens_per_s']:.1f} tokens/s, {er['ms_per_step']:.2f} "
+            f"ms/step); warm {info['warm_s']:.2f} s: {warm_n} entries "
+            f"(JAX's warm set: {want}), {len(reg.graph_bytes())} graphs, "
+            f"{mb:.0f} MB; after the drain {cb.stats['aot_compiles']} "
+            f"entries, {len(late)} late {late}; decode dispatches "
+            f"{info['decode_calls']}, replays {info['decode_replays']}; "
+            f"prefill replays {info['prefill_replays']}")
+        assert res.status == "drained" and len(res) == CB_REQUESTS, name
+        assert not res.failed and not res.shed and not res.rejected, name
+        assert out == eager_outs[eager_name], \
+            f"{name}: the graph run's tokens differ from the eager run's"
+        assert warm_n == want, (name, warm_n, want)
+        if elastic:
+            assert len(cb.metrics()["rank_residency"]) > 1, \
+                "the elastic run never left rank level 0"
+            assert all(role == "prefill" and variant[0] >= 1
+                       for role, variant in late), late
+        else:
+            assert not late, f"{name}: entries made after warm: {late}"
+        assert cb.stats["aot_fallbacks"] == 0, cb.stats
+        assert info["decode_calls"] > 0 and \
+            info["decode_replays"] == info["decode_calls"], \
+            f"{name}: a decode step did not replay its graph: {info}"
+        if name in ("bf16 contiguous", "bf16 paged"):
+            kept[name.split()[-1]] = cb
+        else:
+            del cb, reg
+            torch.cuda.empty_cache()
+    counts = port.counts()
+    log(f"  launches on the graph path (the entries' first calls; a replay "
+        f"goes through no wrapper): {counts}")
+    missing = [n for n in CB_KERNELS if counts[n] <= 0]
+    assert not missing, f"kernels not launched on the graph path: {missing}"
+    log("  tokens identical to the eager runs: bf16 contiguous, paged, "
+        "paged + prefix, elastic; fp32 contiguous, paged")
+    return counts, rates, kept
+
+
+def graph_profile(port, kept, steps: int = 4):
+    """One graph step under ``torch.profiler`` on each kept batcher (bf16,
+    batch 8): the batch-path workload's first 8 requests are admitted, two
+    steps warm up, then ``profile_window``; the rest of the requests then
+    drain, so the pool is empty again. Returns {pool: window}."""
+    E = port.engine
+    out = {}
+    for name, cb in kept.items():
+        cb.done.clear()            # the drained list of the earlier drive
+        for rid, toks in cb_requests(cb.cfg.vocab_size)[:CB_BATCH]:
+            cb.submit(E.Request(rid=rid, tokens=toks.copy(), n_new=CB_NEW))
+        cb.step()
+        cb.step()
+        w = profile_window(port, cb, steps)
+        log_window(f"{name}, graphs", w, steps)
+        log(f"    the port's kernels a replay runs: " + ", ".join(
+            f"{k} {v:.0f}" for k, v in sorted(w["ours"].items())))
+        assert w["graph_launches"] >= 1, "no graph launch in a graph step"
+        out[name] = w
+        res = cb.run_until_drained(watchdog_s=120.0)
+        assert res.status == "drained"
+        cb.done.clear()
+    return out
+
+
+def fig4_graphs(port, dev, cfg, params, comp, kept):
+    """Dense against D-Rank decode with graphs at batch 8 on the batcher
+    path's 24 requests (the paper's Fig. 4 question), bf16, contiguous
+    pool, in turns (dense, D-Rank, D-Rank, dense) on one warmed batcher
+    each. Returns {name: [ms/step, ...]}."""
+    torch, E, aot = port.torch, port.engine, port.aot
+    scfg = E.ServeConfig(batch=CB_BATCH, max_len=CB_MAX_LEN)
+    dense = E.ContinuousBatcher(
+        params, cfg, scfg, device=dev,
+        executables=aot.AotRegistry(cfg, scfg,
+                                    aot.live_fingerprint(params, cfg)))
+    dense.warm_executables()
+    engines = {"dense": dense, "drank-20%": kept["contiguous"]}
+    reqs = cb_requests(cfg.vocab_size)
+    res_ms, toks = {}, {}
+    for name in ("dense", "drank-20%", "drank-20%", "dense"):
+        cb = engines[name]
+        cb.done.clear()
+        res, secs, steps = drive_batcher(port, cb, reqs)
+        assert res.status == "drained" and len(res) == CB_REQUESTS, name
+        out = {r.rid: list(r.out) for r in res}
+        assert toks.setdefault(name, out) == out, \
+            f"{name}: two graph drains of one batcher disagree"
+        res_ms.setdefault(name, []).append(secs / steps * 1e3)
+        log(f"  {name:9s} graphs, batch {CB_BATCH}: {secs / steps * 1e3:.3f}"
+            f" ms/step, {sum(len(o) for o in out.values()) / secs:.1f} "
+            f"tokens/s")
+    del dense
+    torch.cuda.empty_cache()
+    return res_ms
+
+
+CLI_ARGS = ["--arch", ARCH, "--verify", "--batch", str(CB_BATCH),
+            "--max-len", str(CB_MAX_LEN), "--requests", "16",
+            "--prompt-len", "64", "--n-new", "32"]
+CLI_RUNS = {"contiguous": [], "paged + prefix": ["--kv-block",
+                                                 str(CB_BLOCK),
+                                                 "--prefix-cache"],
+            "stream": ["--stream"]}
+
+
+def cli_path(port, cfg):
+    """``python -m repro_torch.launch.serve --aot`` on the artifact as
+    three subprocesses (contiguous, paged + prefix, ``--stream``), started
+    together; meanwhile ``serve()`` of the same options without ``--aot``
+    in this process. Each CLI run must exit 0, drained, with the eager
+    run's tokens (the reports' ``tokens_digest``). Then, alone, the boot
+    to first token of ``load_engine`` with and without ``--aot`` and each
+    graph's memory."""
+    import os
+    torch, api, launch = port.torch, port.api, port.launch
+    base = CLI_ARGS + ["--compressed-ckpt", str(ARTIFACT_DIR)]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(SRC)] + [p for p in [env.get("PYTHONPATH")] if p])
+    procs = {}
+    try:
+        for name, extra in CLI_RUNS.items():
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.serve", *base,
+                 "--aot", *extra], cwd=str(ROOT), env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        eager = {}
+        for name, extra in CLI_RUNS.items():
+            res = api.serve(launch.parse_serve_options(base + extra))
+            assert res.status == "drained", name
+            eager[name] = res.report
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=900)
+            assert proc.returncode == 0, \
+                f"the CLI ({name}) exited {proc.returncode}: {err[-3000:]}"
+            report = json.loads(out[out.rindex("\n{\n") + 1:])
+            warm = re.search(r"AOT warm in ([0-9.]+)s: (\d+) entries, "
+                             r"(\d+) CUDA graphs", out)
+            stats = report["engine_stats"]
+            stats = stats[0] if isinstance(stats, list) else stats
+            log(f"  CLI --aot {name}: exit 0, {report['drain_status']}, "
+                f"{report['generated_tokens']} tokens, "
+                f"{report['tokens_per_s']} tokens/s (three runs at once), "
+                f"warm {warm.group(1) if warm else '?'} s, "
+                f"{warm.group(2) if warm else '?'} entries, "
+                f"{warm.group(3) if warm else '?'} graphs; eager serve() "
+                f"{eager[name]['tokens_per_s']} tokens/s; tokens "
+                f"{'equal' if report['tokens_digest'] == eager[name]['tokens_digest'] else 'DIFFER'}")
+            assert report["drain_status"] == "drained", (name, report)
+            assert report["generated_tokens"] == 16 * 32, report
+            assert warm and stats["aot_compiles"] == int(warm.group(2)), \
+                (name, stats)
+            assert report["tokens_digest"] == eager[name]["tokens_digest"], \
+                f"the CLI ({name}) gave other tokens than the eager serve()"
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab_size, 64, dtype=np.int32)
+    for aot_on in (False, True):
+        opts = launch.parse_serve_options(base + (["--aot"] if aot_on
+                                                  else []))
+        lines = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cb = api.load_engine(opts, echo=lines.append)
+        torch.cuda.synchronize()
+        boot = time.perf_counter() - t0
+        req = port.engine.Request(rid=0, tokens=prompt.copy(), n_new=32)
+        cb.submit(req)
+        while not req.out:
+            cb.step()
+        torch.cuda.synchronize()
+        ttft = time.perf_counter() - t0
+        log(f"  load_engine {'with' if aot_on else 'without'} --aot: boot "
+            f"{boot:.2f} s, boot to first token {ttft:.2f} s"
+            + (f"; {lines[-1]}" if aot_on else ""))
+        if aot_on:
+            log("    graph memory, MB: " + ", ".join(
+                f"{role}{list(variant)} {b / 2 ** 20:.0f}" for
+                (role, variant), b in cb.exec.graph_bytes().items()))
+        del cb
+        torch.cuda.empty_cache()
 
 
 def _rel64(a: np.ndarray, b: np.ndarray) -> float:
@@ -1589,25 +1914,96 @@ def dev_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0))
 
 
+def on_device(events):
+    """The events a profiler's ``key_averages()`` holds for work on the
+    device itself (kernels, copies, sets), not for the host calls that
+    launched it."""
+    from torch.autograd import DeviceType
+    return [e for e in events if e.device_type == DeviceType.CUDA]
+
+
 def device_summary(events, steps: int):
-    """(device-busy ms, the port's kernels' ms, kernel launches) per step
-    from a profiler's ``key_averages()`` over ``steps`` steps."""
-    busy = sum(dev_us(e) for e in events) / steps / 1e3
-    ours = sum(dev_us(e) for e in events if "drt::" in e.key) / steps / 1e3
-    launches = sum(e.count for e in events if e.key in (
-        "cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
-        "cudaLaunchKernelExC")) / steps
-    return busy, ours, launches
+    """(device-busy ms, the port's kernels' ms, kernel launches, device
+    ms summed over every event) per step from a profiler's
+    ``key_averages()`` over ``steps`` steps. Device-busy sums the device
+    events alone; the last sum also counts each kernel's time again on the
+    host call that launched it (how ``device_summary`` summed until the
+    graph path was added), kept to compare with earlier records."""
+    dev = on_device(events)
+    busy = sum(dev_us(e) for e in dev) / steps / 1e3
+    ours = sum(dev_us(e) for e in dev if "drt::" in e.key) / steps / 1e3
+    launches = sum(e.count for e in events if e.key in LAUNCH_CALLS) / steps
+    every = sum(dev_us(e) for e in events) / steps / 1e3
+    return busy, ours, launches, every
 
 
-def profile_batcher(port, dev, cfg, comp, steps: int = 4):
+def profile_window(port, cb, steps: int):
+    """One batcher ``cb`` with live slots: ``steps`` steps timed on the host
+    clock, ``steps`` more under ``torch.profiler`` and ``steps`` more timed
+    again. Returns a dict: host ms/step before and after the profiled
+    window, device-busy ms/step, the port's kernels' ms/step, kernel
+    launches, graph launches, synchronizations and device kernels per step,
+    the port's kernels by name per step, and the profiler's events."""
+    torch = port.torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def timed_ms():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            cb.step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / steps * 1e3
+    host_ms = timed_ms()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            cb.step()
+        torch.cuda.synchronize()
+    again_ms = timed_ms()
+    assert all(r is not None for r in cb.slots), "a slot retired"
+    events = prof.key_averages()
+    busy, ours, launches, every = device_summary(events, steps)
+    kernels = [e for e in on_device(events)
+               if not e.key.startswith(("Memcpy", "Memset"))]
+    return {
+        "host_ms": host_ms, "again_ms": again_ms, "busy_ms": busy,
+        "ours_ms": ours, "launches": launches, "every_ms": every,
+        "graph_launches": sum(e.count for e in events
+                              if e.key in GRAPH_LAUNCH_CALLS) / steps,
+        "syncs": sum(e.count for e in events if e.key in (
+            "cudaStreamSynchronize", "cudaDeviceSynchronize")) / steps,
+        "kernels": sum(e.count for e in kernels) / steps,
+        "ours": {kernel_name(e.key): e.count / steps for e in kernels
+                 if "drt::" in e.key},
+        "events": events,
+    }
+
+
+def log_window(name: str, w: dict, steps: int) -> None:
+    log(f"  {name}: {w['host_ms']:.3f} ms/step on the host clock before the "
+        f"profiled window, {w['again_ms']:.3f} after; device busy "
+        f"{w['busy_ms']:.3f} ms/step (idle "
+        f"{1 - w['busy_ms'] / w['again_ms']:.1%}); {w['launches']:.0f} "
+        f"kernel launches/step, {w['graph_launches']:.0f} graph "
+        f"launches/step, {w['syncs']:.0f} synchronizations/step, "
+        f"{w['kernels']:.0f} kernels/step on the device; the port's "
+        f"kernels {w['ours_ms']:.3f} ms/step; device ms summed over every "
+        f"event, host calls included {w['every_ms']:.3f}")
+    for e in sorted(w["events"], key=lambda e: e.self_cpu_time_total,
+                    reverse=True)[:5]:
+        log(f"    host {e.self_cpu_time_total / steps / 1e3:7.3f} "
+            f"ms/step  {e.count // steps:5d}/step  {e.key[:60]}")
+
+
+def profile_batcher(port, dev, cfg, comp, steps: int = 4, graph=None):
     """Where a batcher decode step's time goes at batch 8, bf16, on the
     contiguous and the paged pool: the batch-path workload's first 8
-    requests are admitted, two steps warm up, then ``steps`` steps are
-    timed on the host clock, ``steps`` more profiled and ``steps`` more
-    timed again (no admission or retirement falls in any window)."""
-    torch, E = port.torch, port.engine
-    from torch.profiler import ProfilerActivity, profile
+    requests are admitted, two steps warm up, then ``profile_window``
+    (no admission or retirement falls in any window). ``graph`` ({pool:
+    window}) holds the graph path's windows of the same step, printed
+    beside."""
+    E = port.engine
     reqs = cb_requests(cfg.vocab_size)[:CB_BATCH]
     pools = {"contiguous": E.ServeConfig(batch=CB_BATCH,
                                          max_len=CB_MAX_LEN),
@@ -1619,35 +2015,18 @@ def profile_batcher(port, dev, cfg, comp, steps: int = 4):
             cb.submit(E.Request(rid=rid, tokens=toks.copy(), n_new=CB_NEW))
         cb.step()
         cb.step()
-
-        def timed_ms():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                cb.step()
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t0) / steps * 1e3
-        host_ms = timed_ms()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                cb.step()
-            torch.cuda.synchronize()
-        again_ms = timed_ms()
-        assert all(r is not None for r in cb.slots), "a slot retired"
-        events = prof.key_averages()
-        busy, ours, launches = device_summary(events, steps)
-        syncs = sum(e.count for e in events if e.key in (
-            "cudaStreamSynchronize", "cudaDeviceSynchronize")) / steps
-        log(f"  {name}: {host_ms:.3f} ms/step on the host clock before the "
-            f"profiled window, {again_ms:.3f} after; device busy "
-            f"{busy:.3f} ms/step (idle {1 - busy / again_ms:.1%}); "
-            f"{launches:.0f} kernel launches/step, {syncs:.0f} "
-            f"synchronizations/step; the port's kernels {ours:.3f} ms/step")
-        for e in sorted(events, key=lambda e: e.self_cpu_time_total,
-                        reverse=True)[:5]:
-            log(f"    host {e.self_cpu_time_total / steps / 1e3:7.3f} "
-                f"ms/step  {e.count // steps:5d}/step  {e.key[:60]}")
+        w = profile_window(port, cb, steps)
+        log_window(name, w, steps)
+        if graph is not None and name in graph:
+            g = graph[name]
+            log(f"    beside the graph step: host {g['again_ms']:.3f} "
+                f"against {w['again_ms']:.3f} ms/step, device busy "
+                f"{g['busy_ms']:.3f} against {w['busy_ms']:.3f}, idle "
+                f"{1 - g['busy_ms'] / g['again_ms']:.1%} against "
+                f"{1 - w['busy_ms'] / w['again_ms']:.1%}, host launches "
+                f"{g['launches'] + g['graph_launches']:.0f} against "
+                f"{w['launches']:.0f} a step, device kernels "
+                f"{g['kernels']:.0f} against {w['kernels']:.0f}")
         del cb
 
 
@@ -1684,11 +2063,12 @@ def profile_decode(port, dev, cfg, comp, steps: int = 4):
                 cache, tok = step(cache, tok)
             torch.cuda.synchronize()
     events = prof.key_averages()
-    busy, ours, launches = device_summary(events, steps)
+    busy, ours, launches, every = device_summary(events, steps)
     log(f"  {host_ms:.3f} ms/step on the host clock; device busy "
         f"{busy:.3f} ms/step (idle {1 - busy / host_ms:.1%}); "
         f"{launches:.0f} kernel launches/step; the port's kernels "
-        f"{ours:.3f} ms/step of device time")
+        f"{ours:.3f} ms/step of device time; device ms summed over every "
+        f"event, host calls included {every:.3f}")
     if busy == 0:
         log("  device time: not measured (the profiler saw no device "
             "activity)")
@@ -1740,7 +2120,21 @@ def main() -> int:
                 main_path(port, dev)
         with Phase("batcher path: ContinuousBatcher from the artifact, "
                    "contiguous, paged and prefix pools, fault plans"):
-            cb_counts, snap, rates = batcher_path(port, dev, cfg, comp)
+            cb_counts, snap, rates, cb_outs = batcher_path(port, dev, cfg,
+                                                           comp)
+        with Phase("graph path: the batcher through AotRegistry, one CUDA "
+                   "graph per decode and prefill signature"):
+            _, graph_rates, kept = graph_path(port, dev, cfg, comp, cb_outs,
+                                              rates)
+        with Phase("graph step profile, bf16, batch 8"):
+            graph_windows = graph_profile(port, kept)
+        with Phase("dense against D-Rank with graphs, bf16, batch 8"):
+            fig4 = fig4_graphs(port, dev, cfg, params, comp, kept)
+        del kept
+        torch.cuda.empty_cache()
+        with Phase("the serve CLI: python -m repro_torch.launch.serve --aot "
+                   "on the artifact"):
+            cli_path(port, cfg)
     finally:
         shutil.rmtree(ARTIFACT_DIR, ignore_errors=True)
     with Phase(f"gemma3 path: {GEMMA} at full width, {GEMMA_LAYERS} layers, "
@@ -1748,7 +2142,7 @@ def main() -> int:
                f"against CPU"):
         gemma_shapes = gemma_path(port, dev)
     with Phase("batcher step profile, bf16, batch 8"):
-        profile_batcher(port, dev, cfg, comp)
+        profile_batcher(port, dev, cfg, comp, graph=graph_windows)
     with Phase("streaming Grams against the eager fp64 oracle, every tag"):
         streaming_vs_eager(port, cfg, params, col, calib)
     del col
@@ -1782,6 +2176,13 @@ def main() -> int:
         log(f"batcher {name}, batch {CB_BATCH}: {r['tokens_per_s']:.1f} "
             f"tokens/s, {r['ms_per_step']:.2f} ms/step (host clock between "
             f"syncs, admissions included)")
+    for name, r in graph_rates.items():
+        log(f"batcher {name} with graphs, batch {CB_BATCH}: "
+            f"{r['tokens_per_s']:.1f} tokens/s, {r['ms_per_step']:.2f} "
+            f"ms/step (warm {r['warm_s']:.2f} s)")
+    log("with graphs, bf16, batch 8, ms/step: " + ", ".join(
+        f"{k} {' / '.join(f'{v:.3f}' for v in vs)}" for k, vs in
+        fig4.items()))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = times[name]

@@ -12,11 +12,15 @@ Cross-attention and M-RoPE come with their model families.
 
 The decode KV cache is preallocated and updated IN PLACE by index
 assignment, where the JAX package returns a new cache from a functional
-``.at[].set`` (``attention.py:443-444``). The JAX package routes the paged
-writes it must skip (dead rows, positions past the table) to an
-out-of-range block and lets XLA drop them (``mode="drop"``); PyTorch's
-``index_put_`` has no such mode, so the write index list is filtered
-explicitly (``paged_write_index``).
+``.at[].set`` (``attention.py:443-444``). The JAX package routes the writes
+it must skip (a paged dead row or a position past the table, a contiguous
+position past the cache) out of range and lets XLA drop them
+(``mode="drop"``); PyTorch's ``index_put_`` has no such mode. So every
+decode write index list has one entry per row of the batch
+(``cache_write_index``, ``paged_write_index``), and a row that must not
+write points at a slot it may read and writes back the value already
+there. The lists are fixed-length and need no host sync, so a decode step
+captures into a CUDA graph (``serve.aot.AotRegistry``).
 """
 from __future__ import annotations
 
@@ -91,39 +95,53 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, window: int,
 
 
 def cache_write_index(pos: torch.Tensor, length: int, window: int
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+                      ) -> Tuple[torch.Tensor, ...]:
     """Where a decode step writes each row's new K/V in a contiguous cache
-    of ``length`` slots: (rows, slots) of the rows that write. Ring
-    (window > 0): every row, at pos mod length. Full: a dead row (pos =
-    -1) parks its write at slot 0 of its own row, masked by length 0
-    downstream and overwritten on slot reuse, as in the JAX package; a
-    row past the end of the cache (pos >= length, a request longer than
-    max_len) writes nothing, where JAX's out-of-range ``.at[].set`` is
-    dropped. The full layout needs one host sync on the card
-    (``nonzero``); ``decode_step`` computes the index once per step."""
+    of ``length`` slots: (rows, slots, keep), one entry per row. Ring
+    (window > 0): every row writes, at pos mod length (keep is None).
+    Full: a dead row (pos = -1) parks its write at slot 0 of its own row,
+    masked by length 0 downstream and overwritten on slot reuse, as in the
+    JAX package; a row past the end of the cache (pos >= length, a request
+    longer than max_len) has keep False and points at slot 0, where its
+    write puts back the value already there (JAX drops its out-of-range
+    ``.at[].set``). ``decode_step`` computes the index once per step."""
+    rows = torch.arange(pos.shape[0], device=pos.device)
     if window:
-        return (torch.arange(pos.shape[0], device=pos.device),
-                torch.remainder(pos, length).long())
-    rows = torch.nonzero(pos < length).squeeze(1)
-    return rows, pos[rows].clamp_min(0).long()
+        return rows, torch.remainder(pos, length).long(), None
+    keep = pos < length
+    slot = torch.where(keep, pos.clamp_min(0), torch.zeros_like(pos))
+    return rows, slot.long(), keep
 
 
 def paged_write_index(pos: torch.Tensor, table: torch.Tensor, bk: int
-                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                      ) -> Tuple[torch.Tensor, ...]:
     """Where a decode step writes each row's new K/V in a paged arena:
-    (rows, blocks, offsets) of the rows that write. A dead row (pos < 0)
-    and a position past the table write nothing: they are filtered out of
-    the lists here, where the JAX package points them at an out-of-range
-    block that XLA drops. The null block 0 is never a target (a live
-    position's table entry is an allocated block). One host sync on the
-    card (``nonzero``); ``decode_step`` computes it once per step."""
+    (blocks, offsets, keep), one entry per row. A dead row (pos < 0) and a
+    position past the table have keep False and point at offset 0 of the
+    null block 0, where their writes put back the value already there, so
+    that block gets no new content (the JAX package points them at an
+    out-of-range block that XLA drops). A live position's table entry is an
+    allocated block, never 0. ``decode_step`` computes it once per step."""
     NB = table.shape[1]
+    rows = torch.arange(pos.shape[0], device=pos.device)
     safe = pos.clamp_min(0).long()
-    ok = (pos >= 0) & (torch.div(safe, bk, rounding_mode="floor") < NB)
-    rows = torch.nonzero(ok).squeeze(1)
-    sp = safe[rows]
-    blk = table[rows, torch.div(sp, bk, rounding_mode="floor")].long()
-    return rows, blk, sp % bk
+    lblk = torch.div(safe, bk, rounding_mode="floor")
+    keep = (pos >= 0) & (lblk < NB)
+    blk = table[rows, lblk.clamp_max(NB - 1)].long()
+    zero = torch.zeros_like(blk)
+    return (torch.where(keep, blk, zero), torch.where(keep, safe % bk, zero),
+            keep)
+
+
+def _write_rows(leaf: torch.Tensor, index: Tuple[torch.Tensor, ...],
+                new: torch.Tensor) -> None:
+    """leaf[i, j] = new for every (i, j) of ``index``'s first two lists;
+    where its ``keep`` is False the value already at (i, j) goes back."""
+    i, j, keep = index
+    new = new.to(leaf.dtype)
+    if keep is not None:
+        new = torch.where(keep[:, None, None], new, leaf[i, j])
+    leaf[i, j] = new
 
 
 def attend_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -146,18 +164,18 @@ def attend_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     if table is not None:
         if window:
             raise ValueError("the paged cache is full-layout only")
-        rows, blk, off = (write_index if write_index is not None else
-                          paged_write_index(pos, table, cache["k"].shape[1]))
-        cache["k"][blk, off] = k_new[rows, 0].to(cache["k"].dtype)
-        cache["v"][blk, off] = v_new[rows, 0].to(cache["v"].dtype)
+        wi = (write_index if write_index is not None else
+              paged_write_index(pos, table, cache["k"].shape[1]))
+        _write_rows(cache["k"], wi, k_new[:, 0])
+        _write_rows(cache["v"], wi, v_new[:, 0])
         out = kops.decode_attention_paged(q[:, 0], cache["k"], cache["v"],
                                           pos + 1, table,
                                           softcap=cfg.attn_logit_softcap)
     else:
-        rows, slot = (write_index if write_index is not None else
-                      cache_write_index(pos, cache["k"].shape[1], window))
-        cache["k"][rows, slot] = k_new[rows, 0].to(cache["k"].dtype)
-        cache["v"][rows, slot] = v_new[rows, 0].to(cache["v"].dtype)
+        wi = (write_index if write_index is not None else
+              cache_write_index(pos, cache["k"].shape[1], window))
+        _write_rows(cache["k"], wi, k_new[:, 0])
+        _write_rows(cache["v"], wi, v_new[:, 0])
         out = kops.decode_attention(q[:, 0], cache["k"], cache["v"],
                                     pos + 1, window=window,
                                     softcap=cfg.attn_logit_softcap)

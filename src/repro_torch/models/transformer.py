@@ -288,9 +288,10 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
                 positions: Optional[torch.Tensor] = None,
                 table: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, Dict]:
-    """One new token per sequence. tokens (B,1) int. The KV cache is
-    updated in place; ``cache["pos"]`` is replaced: dead slots (pos = -1)
-    stay dead, live slots advance. With ``table`` (B, NB) int32 the cache
+    """One new token per sequence. tokens (B,1) int. The KV cache and
+    ``cache["pos"]`` are updated in place: dead slots (pos = -1) stay dead,
+    live slots advance. Nothing here reads the device on the host, so a
+    step captures into a CUDA graph. With ``table`` (B, NB) int32 the cache
     is a paged arena (``init_cache_paged``) and every KV read and write
     goes through the table; dead slots write nothing. Returns (logits
     (B,1,V), cache)."""
@@ -313,7 +314,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
                               {"k": kv["k"][i], "v": kv["v"][i]}, x, pos,
                               angles, table, wi)
     logits = lm_logits(params, cfg, x)
-    cache["pos"] = torch.where(pos >= 0, pos + 1, pos).to(device=dev)
+    pos.copy_(torch.where(pos >= 0, pos + 1, pos))
     return logits, cache
 
 
@@ -360,7 +361,7 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict,
         pos0 = torch.full((B,), S, dtype=torch.int32, device=dev)
     else:
         x_last = x[torch.arange(B, device=dev), (lengths - 1).long()][:, None]
-        pos0 = lengths
+        pos0 = lengths.clone()     # decode_step advances it in place
     logits = lm_logits(params, cfg, x_last)
     return logits, {"runs": runs, "pos": pos0}
 

@@ -29,9 +29,10 @@ Departures from the JAX engine, all deterministic:
   The cast is the same rounding either way; doing it once keeps a decode
   step from reading float32 weights only to round them again. Norm scales
   stay as they are, as JAX reads them;
-* the batcher keeps its next-token column on the host and uploads it for
-  each decode step; the finite guard reads each step's last logits on the
-  host, as JAX does.
+* the batcher keeps its next-token column on the host and hands it to the
+  registry, which uploads it for each decode step (into a captured graph's
+  static buffer with ``serve.aot.AotRegistry``); the finite guard reads
+  each step's last logits on the host, as JAX does.
 """
 from __future__ import annotations
 
@@ -414,6 +415,15 @@ class ContinuousBatcher:
             else aotlib.TracedRegistry(cfg, scfg)
         self.exec.bind_stats(self.stats)
 
+    def warm_executables(self) -> None:
+        """Make the whole serving surface for this batcher's ladder up
+        front: a no-op for the traced registry; for an ``AotRegistry`` the
+        boot step that captures every decode and prefill graph on the
+        still-empty pool, so the steady-state loop only replays (see
+        ``repro_torch.serve.api.load_engine``)."""
+        self.exec.warm(self.ladder, self.bucketed, paged=self.paged,
+                       pool=self.cache)
+
     # ---- streaming emission (hooks) --------------------------------------
     def _emit_token(self, req: Request, tok: int) -> None:
         if self.on_token is not None:
@@ -527,7 +537,9 @@ class ContinuousBatcher:
     @staticmethod
     def _last_logits(logits: torch.Tensor) -> np.ndarray:
         """(B, V) writable float32 host copy of the last position's logits:
-        the host finite guard's input (bf16 widens exactly)."""
+        the host finite guard's input (bf16 widens exactly). A graph
+        registry's logits are its output buffer, which the next replay
+        overwrites: this copy is taken right after the call."""
         return logits[:, -1].float().cpu().numpy()
 
     def _set_tokens(self, slots: np.ndarray, toks: np.ndarray) -> None:
@@ -594,7 +606,8 @@ class ContinuousBatcher:
         """The block table on the device, copied once per host change:
         every host edit of ``self.table`` (admission, CoW fork, release,
         purge) drops the copy, since a stale table is a silent wrong
-        answer."""
+        answer. A graph registry copies it into its decode entry's static
+        buffer only when this copy is a new one."""
         if self._table_dev is None:
             self._table_dev = torch.as_tensor(self.table.copy(),
                                               device=self.device)
@@ -693,9 +706,7 @@ class ContinuousBatcher:
                             level=self.level, ext=ext):
                 if ext:
                     # the arena gather wants the table row of each BATCH row
-                    rtbl = torch.as_tensor(
-                        self.table[np.minimum(slots, B - 1)],
-                        device=self.device)
+                    rtbl = self.table[np.minimum(slots, B - 1)]
                     logits, c1 = self.exec.prefill_ext(
                         self._params_now(),
                         {"tokens": toks, "lengths": lens, "starts": starts},
@@ -932,16 +943,15 @@ class ContinuousBatcher:
         live = [i for i, r in enumerate(self.slots) if r is not None]
         if not live:
             return 0
-        tokens = torch.as_tensor(self.tokens, device=self.device)
         with trace.span("decode_step", step=idx, live=len(live),
                         level=self.level):
             if self.paged:
                 logits, self.cache = self.exec.decode_paged(
-                    self._params_now(), self.cache, tokens,
+                    self._params_now(), self.cache, self.tokens,
                     self._table_device(), level=self.level)
             else:
                 logits, self.cache = self.exec.decode(
-                    self._params_now(), self.cache, tokens,
+                    self._params_now(), self.cache, self.tokens,
                     level=self.level)
         last = self._last_logits(logits)               # (B, V) host copy
         if self.faults is not None:

@@ -24,7 +24,9 @@ def test_import_loads_no_jax():
             "repro_torch.ckpt.store, repro_torch.core.numerics_device, "
             "repro_torch.kernels.gram, repro_torch.serve.aot, "
             "repro_torch.serve.paged, repro_torch.serve.admission, "
-            "repro_torch.obs, repro_torch.dist.faultinject; "
+            "repro_torch.obs, repro_torch.dist.faultinject, "
+            "repro_torch.dist.ft, repro_torch.serve.frontdoor, "
+            "repro_torch.serve.api, repro_torch.launch.serve; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.')); print(bad); sys.exit(1 if bad else 0)")
@@ -41,7 +43,8 @@ def test_sources_import_no_jax_and_nothing_of_repro():
     assert {"ckpt/store.py", "core/numerics_device.py", "kernels/gram.py",
             "serve/aot.py", "serve/paged.py", "serve/admission.py",
             "obs/trace.py", "obs/metrics.py", "obs/flightrec.py",
-            "dist/faultinject.py"} <= names
+            "dist/faultinject.py", "dist/ft.py", "serve/frontdoor.py",
+            "serve/api.py", "launch/serve.py"} <= names
     for path in SOURCES:
         text = path.read_text()
         assert not _JAX.search(text), f"{path} imports jax"

@@ -80,17 +80,24 @@ def test_plain_paged_matches_jax_kernel_and_contiguous_plain(softcap, hd):
 
 
 def test_paged_decode_writes_nothing_for_dead_rows_and_never_block_0():
-    """The paged decode step's write index: a dead row (pos -1) and a
-    position past the table are filtered out; every target is a real
-    block at the right offset."""
+    """The paged decode step's write index has one entry per row: a dead
+    row (pos -1) and a position past the table are not kept and point at
+    offset 0 of the null block, which their write leaves as it was; every
+    kept target is a real block at the right offset."""
     pos = torch.tensor([5, -1, 17, 64], dtype=torch.int32)
     table = torch.tensor([[3, 0, 0, 0], [0, 0, 0, 0], [4, 7, 0, 0],
                           [1, 2, 5, 6]], dtype=torch.int32)
-    rows, blk, off = A.paged_write_index(pos, table, 16)
-    assert rows.tolist() == [0, 2] and blk.tolist() == [3, 7]
-    assert off.tolist() == [5, 1]
-    rows, slot = A.cache_write_index(pos, 64, 0)
-    assert rows.tolist() == [0, 1, 2] and slot.tolist() == [5, 0, 17]
+    blk, off, keep = A.paged_write_index(pos, table, 16)
+    assert keep.tolist() == [True, False, True, False]
+    assert blk.tolist() == [3, 0, 7, 0] and off.tolist() == [5, 0, 1, 0]
+    arena = torch.zeros((8, 16, 1, 2))
+    A._write_rows(arena, (blk, off, keep), torch.ones((4, 1, 2)))
+    assert arena[0].abs().sum() == 0                  # the null block
+    assert arena[3, 5].eq(1).all() and arena[7, 1].eq(1).all()
+    assert arena.eq(1).sum() == 4
+    rows, slot, keep = A.cache_write_index(pos, 64, 0)
+    assert rows.tolist() == [0, 1, 2, 3] and slot.tolist() == [5, 0, 17, 0]
+    assert keep.tolist() == [True, True, True, False]
 
 
 # ---------------------------------------------------------------------------
