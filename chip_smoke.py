@@ -68,6 +68,10 @@ What it does, in order, printing the seconds of each phase:
    subprocesses (contiguous, paged + prefix, ``--stream``), each exiting 0,
    drained, with the tokens of an eager ``serve()`` of the same options,
    and ``load_engine``'s boot to first token with and without ``--aot``;
+   then two replicas on the card with graphs (``serve(ServeOptions(
+   replicas=2, aot=True, elastic=True))``, 48 requests): each replica's
+   thread captures its elastic ladder's low-rung prefills late, beside the
+   other replica serving; every request must finish;
 3. the streaming Grams against the eager fp64 ``Collector`` on the card,
    every tag: Gram and mean |x| within 1e-4 relative, equal row counts;
 4. the device decomposition against the host fp64 oracle at full width and
@@ -86,7 +90,11 @@ What it does, in order, printing the seconds of each phase:
    two-launch "split"), ``flash_attention`` and ``gram_blocked`` on every
    shape it takes: max-relative error within 2e-5 (float32; and the Gram
    in both dtypes) and 2e-2 (bfloat16); the paged decode kernel also bit
-   for bit against the contiguous one on the gathered layout;
+   for bit against the contiguous one on the gathered layout; and under
+   autograd at the training path's shapes, through ``ops``: flash at (8,
+   256, 15, 64) and the 2-D product over 2048 rows, from non-contiguous
+   views that require grad, outputs and input grads against autograd
+   through the plain versions;
 6. each kernel's device time for the work it does in one prefill, one
    decode step or one calibration batch of the main path (the paged decode
    kernel: one decode step of the batcher's path, at its live lengths; the
@@ -104,7 +112,26 @@ What it does, in order, printing the seconds of each phase:
    ``Engine`` and of the batcher on each pool: host time, device-busy
    time, launches per step, beside the graph step of 2d;
 8. the whole slice in float32 on the card (kernels) against the CPU (plain
-   versions): identical greedy tokens, prefill logits within atol 2e-3.
+   versions): identical greedy tokens, prefill logits within atol 2e-3;
+9. the training path, with the counts set to 0 just before and read just
+   after: SmolLM-360M at full size (float32 params, bf16 compute, remat
+   "block", seed 0) through ``Trainer``: 6 steps of 8 x 256 tokens in 2
+   microbatches, an async checkpoint at step 3 and the final save, every
+   loss finite; a second ``Trainer`` resumes from step 3 and its step-6
+   loss is the continuous run's within 1e-4 relative; the step alone
+   (ms/step, tokens/s, its model-FLOPs share, one profiled step's idle
+   share, flash launches a step: twice a layer and microbatch under
+   remat); one float32 step of a 4-layer SmolLM on the card and on the
+   CPU from the same weights (loss within 1e-5, params within 1e-4
+   relative); D-Rank and fwsvd 20% of the trained model on the card, and
+   fwsvd at 4 layers in float32 on the host and the card (identical
+   ranks, B·C within 1e-4); 4 LoRA steps on the D-Rank model (rank 8,
+   alpha 32, lr 1e-4; every 2-D launch ``"wgmma"``); the perplexities on
+   4 held-out batches; then ``python -m repro_torch.launch.train`` (2
+   steps) and ``python -m repro_torch.launch.serve --ckpt`` on its
+   checkpoint as subprocesses, whose tokens must equal an in-process
+   ``serve(ServeOptions(ckpt=...))``. Flash, the 2-D product and the Gram
+   must have launched.
 
 The build phase logs the registers and spills of the tensor-core, gemv
 and chunked entry points and the clusters the card holds at once, and
@@ -116,7 +143,8 @@ launch counts, ``launches_by_variant``). The line before the last is one
 JSON object ``{"kernels": [...]}`` (the kernels with variants also carry
 the variant the main path ran and the earlier variant's time, ``simt_ms``
 or, for the gemv, ``splitk_ms`` and its 64-row times, ``rows_64``; the 2-D
-product also its two-launch variant's, ``split_ms``); the last
+product also its two-launch variant's, ``split_ms``; every kernel its
+launches on the training path, ``train_launches``); the last
 is ``{"ok": true, "device": {...}}``. Any failure raises, so the script
 exits non-zero and prints no result; so it does with no CUDA device, or
 without the repository's ``src/repro_torch`` beside it.
@@ -192,6 +220,18 @@ CB_KERNELS = ("lowrank_gemv", "lowrank_matmul_2d", "flash_attention",
 # earlier design, only where this script forces it)
 GEMV_VARIANT = {"bfloat16": "mma", "float32": "fma"}
 GEMV_ROWS_WIDE = 64             # the larger throughput batch: gemv rows
+# the training path: SmolLM-360M at full size, 6 steps of 8 x 256 tokens in
+# 2 microbatches, an async checkpoint at step 3; the float32 card-vs-CPU
+# step at ORACLE_LAYERS layers on 2 x 128 tokens; held-out and LoRA batches
+# from loader steps far past the training ones
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS, TRAIN_LR = 8, 256, 2, 6, 1e-3
+PARITY_TRAIN_ROWS, PARITY_TRAIN_SEQ = 2, 128
+PPL_STEP0, LORA_STEP0, LORA_STEPS = 1000, 2000, 4
+TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
+CLI_TRAIN_DIR = ROOT / "build" / "chip_smoke_cli_train"
+# kernels the training path runs: flash in every step, the 2-D product in
+# perplexity and LoRA on the compressed models, the Gram in calibration
+TRAIN_KERNELS = ("flash_attention", "lowrank_matmul_2d", "gram_blocked")
 # the host calls that put work on the device: kernel launches, and a CUDA
 # graph's launch (one a replay)
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
@@ -247,10 +287,16 @@ class Port:
         from repro_torch.kernels import gram as gm
         from repro_torch.kernels import lowrank_matmul as lm
         from repro_torch.ckpt import store
+        from repro_torch import pytree
         from repro_torch.launch import serve as launch
         from repro_torch.models import transformer
+        from repro_torch.optim import adamw
         from repro_torch.serve import admission, aot, api, engine
+        from repro_torch.train import lora, loop
+        from repro_torch.train import step as TS
         self.torch = torch
+        self.pytree, self.adamw, self.TS, self.loop, self.lora = (
+            pytree, adamw, TS, loop, lora)
         self.store, self.launch, self.aot, self.api = store, launch, aot, api
         self.get_config = get_config
         self.capture, self.compress = capture, compress
@@ -312,12 +358,12 @@ def assert_gemv(counts: dict, dname: str, where: str) -> None:
 
 
 def rel_err(a, b) -> float:
-    a, b = a.float(), b.float()
+    a, b = a.detach().float(), b.detach().float()
     return float((a - b).abs().max() / (b.abs().max() + 1e-6))
 
 
 def abs_err(a, b) -> float:
-    return float((a.float() - b.float()).abs().max())
+    return float((a.detach().float() - b.detach().float()).abs().max())
 
 
 def device_ms(torch, fn, reps: int = 5) -> float:
@@ -1291,6 +1337,50 @@ def check_kernels(port, dev, comp):
                 torch.cuda.synchronize()
                 hold("gram_blocked", g, gr, v)
                 hold("gram_blocked", ga, acc + gr, v)
+        # under autograd at the training path's shapes, through ``ops``:
+        # flash at (8, 256, 15, 64) causal and the 2-D product at a D-Rank
+        # MLP linear's shape over 8 x 256 rows, from non-contiguous views
+        # that require grad (q, k, v slices of one qkv tensor; x a column
+        # slice); the outputs and the input grads against autograd through
+        # the plain versions. The 2-D product also with B and C frozen (a
+        # LoRA step's case: dx alone).
+        Bb, S, H, KVh, hd = TRAIN_BATCH, TRAIN_SEQ, 15, 5, 64
+        qkv = rnd((Bb, S, H + 2 * KVh, hd), dtype)
+        go = rnd((Bb, S, H, hd), dtype)
+        got = {}
+        for name, fn in (("kernel", port.ops.flash_attention),
+                         ("plain", ref.flash_attention)):
+            t = qkv.clone().requires_grad_()
+            o = fn(t[:, :, :H], t[:, :, H:H + KVh], t[:, :, H + KVh:],
+                   causal=True)
+            got[name] = (o, torch.autograd.grad(o, t, go)[0])
+        torch.cuda.synchronize()
+        hold("flash_attention", got["kernel"][0], got["plain"][0],
+             "autograd, output")
+        hold("flash_attention", got["kernel"][1], got["plain"][1],
+             "autograd, dq dk dv")
+        K, R, N = 960, 558, 2560
+        xw = rnd((Bb * S, K + 64), dtype)
+        B = rnd((K, R), dtype, K ** -0.5)
+        C = rnd((R, N), dtype, R ** -0.5)
+        gy = rnd((Bb * S, N), dtype)
+        for frozen in (False, True):
+            got = {}
+            for name, fn in (("kernel", port.ops.lowrank_matmul),
+                             ("plain", ref.lowrank_matmul)):
+                ins = [xw.clone().requires_grad_(),
+                       B.clone().requires_grad_(not frozen),
+                       C.clone().requires_grad_(not frozen)]
+                y = fn(ins[0][:, :K], ins[1], ins[2])
+                want = [t for t in ins if t.requires_grad]
+                got[name] = (y, torch.autograd.grad(y, want, gy))
+            torch.cuda.synchronize()
+            tag = "B, C frozen" if frozen else "x, B, C"
+            hold("lowrank_matmul_2d", got["kernel"][0], got["plain"][0],
+                 f"autograd ({tag}), output")
+            for i, g in enumerate(got["kernel"][1]):
+                hold("lowrank_matmul_2d", g, got["plain"][1][i],
+                     f"autograd ({tag}), grad {'xBC'[i]}")
         for n, e in worst.items():
             tol = GRAM_TOL if n.startswith("gram_blocked") else TOL[dname]
             log(f"  {n} {dname}: max-relative error {e:.2e} "
@@ -2090,6 +2180,402 @@ def parity(port, dev, cfg, comp):
     compare_greedy(port.torch, gpu, cpu)
 
 
+def replica_graphs(port):
+    """``serve(ServeOptions(replicas=2, aot=True, elastic=True))`` on the
+    artifact: two batchers on the card, each behind its own ``FrontDoor``
+    thread, each warmed on its empty pool; under the queue's pressure the
+    elastic ladder's low-rung prefills are captured late, in one replica's
+    thread while the other replica may be decoding. Every request must
+    finish, and late captures must have happened."""
+    api = port.api
+    opts = api.ServeOptions(
+        arch=ARCH, compressed_ckpt=str(ARTIFACT_DIR), replicas=2, aot=True,
+        elastic=True, batch=CB_BATCH, max_len=CB_MAX_LEN, requests=48,
+        prompt_len=64, n_new=32, watchdog_s=120.0)
+    t0 = time.perf_counter()
+    res = api.serve(opts)
+    secs = time.perf_counter() - t0
+    stats = res.report["engine_stats"]
+    warm = warm_set_size(1 + opts.elastic_levels, False, CB_MAX_LEN)
+    late = [s["aot_compiles"] - warm for s in stats]
+    log(f"  two replicas, --aot, elastic: {res.report['drain_status']}, "
+        f"{res.report['requests']} done, {res.report['generated_tokens']} "
+        f"tokens in {secs:.2f} s (boot and warm included); entries after "
+        f"warm, by replica, {late}; failed {len(res.failed)}")
+    assert res.report["drain_status"] == "drained", res.report
+    assert res.report["requests"] == opts.requests and not res.failed
+    assert sum(late) > 0, "no replica captured a graph after warm"
+
+
+# ---------------------------------------------------------------------------
+# The training path: Trainer, resume, card against CPU, compress the
+# trained model, LoRA, and the train / serve --ckpt CLIs
+# ---------------------------------------------------------------------------
+def model_flops(cfg, n_params: int, rows: int, seq: int):
+    """(6·params·tokens + causal attention, fwd + bwd; one more forward of
+    the layers that remat recomputes) for one step of ``rows`` × ``seq``
+    tokens. Attention: QKᵀ and PV, half the S² pairs (causal), 2 flops a
+    multiply-add, 3× for forward and backward."""
+    tokens = rows * seq
+    attn_fwd = (2 * 2 * rows * cfg.n_heads * seq * seq * cfg.head_dim / 2
+                * cfg.n_layers)
+    layer_params = n_params - cfg.vocab_size * cfg.d_model
+    model = 6 * n_params * tokens + 3 * attn_fwd
+    recompute = 2 * layer_params * tokens + attn_fwd
+    return model, recompute
+
+
+def cut_layers(port, params, n: int):
+    """The first ``n`` layers of a one-run stacked params tree."""
+    run = port.pytree.tree_map(lambda t: t[:n], params["decoder"]["run0"])
+    return dict(params, decoder={"run0": run})
+
+
+def profile_train_step(port, step_fn, state, batch):
+    """One train step under ``torch.profiler``: (host ms, device-busy ms,
+    the port's kernels' ms, kernel launches, device kernels, the five
+    device kernels that took longest, with their ms and counts)."""
+    torch = port.torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+    del out
+    events = prof.key_averages()
+    busy, ours, launches, _ = device_summary(events, 1)
+    kernels = [e for e in on_device(events)
+               if not e.key.startswith(("Memcpy", "Memset"))]
+    top = sorted(kernels, key=dev_us, reverse=True)[:5]
+    return (host, busy, ours, launches, sum(e.count for e in kernels),
+            [(e.key[:70], dev_us(e) / 1e3, e.count) for e in top])
+
+
+def train_path(port, dev):
+    """SmolLM-360M at full size, float32 params, bf16 compute, remat
+    "block", seed 0, with every launch count set to 0 just before and read
+    just after. Returns ({kernel: launches}, {metric: value})."""
+    import os
+    torch, TS, CC, loop = port.torch, port.TS, port.compress, port.loop
+    cfg = port.get_config(ARCH)
+    assert cfg.remat == "block" and cfg.param_dtype == "float32"
+    dcfg = port.synthetic.DataConfig(vocab_size=cfg.vocab_size,
+                                     seq_len=TRAIN_SEQ,
+                                     global_batch=TRAIN_BATCH)
+    tcfg = TS.TrainConfig(microbatches=TRAIN_MICRO,
+                          optimizer=port.adamw.OptimizerConfig(
+                              lr=TRAIN_LR, warmup_steps=2,
+                              total_steps=TRAIN_STEPS))
+    out = {}
+    port.reset_counts()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+    # (a) train: an async checkpoint at step 3, the final save at 6
+    lcfg = loop.LoopConfig(total_steps=TRAIN_STEPS, ckpt_dir=str(TRAIN_DIR),
+                           ckpt_every=TRAIN_STEPS // 2, log_every=1)
+    submits, saves = [], []
+    torch.cuda.reset_peak_memory_stats()
+    with timed(torch, port.store.AsyncCheckpointer, "submit", submits), \
+            timed(torch, port.store, "save", saves):
+        t0 = time.perf_counter()
+        tr = loop.Trainer(cfg, tcfg, dcfg, lcfg, seed=0)
+        res = tr.run()
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [h["loss"] for h in res["history"]]
+    n_params = port.T.param_count(tr.state.params)
+    log(f"  Trainer: {n_params / 1e6:.1f} M params, {TRAIN_STEPS} steps "
+        f"of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_MICRO} "
+        f"microbatches, {time.perf_counter() - t0:.2f} s with init and "
+        f"checkpoints, peak memory {peak:.2f} GiB; losses "
+        + ", ".join(f"{x:.4f}" for x in losses))
+    log(f"  AsyncCheckpointer.submit (a host copy of "
+        f"{n_params * 3 * 4 / 1e9:.2f} GB) ms " + ", ".join(
+            f"{x * 1e3:.1f}" for x in submits) + "; store.save seconds "
+        + ", ".join(f"{x:.2f}" for x in saves)
+        + " (the async writes at steps 3 and 6, ckpt_every dividing the "
+        "run as in the JAX loop, then the final synchronous one)")
+    out["submit_ms"] = [x * 1e3 for x in submits]
+    out["save_s"] = saves
+    assert res["final_step"] == TRAIN_STEPS and len(losses) == TRAIN_STEPS
+    assert all(np.isfinite(losses)), f"non-finite loss: {losses}"
+    assert sorted(os.listdir(TRAIN_DIR)) == [
+        "LATEST", f"step_{TRAIN_STEPS // 2:09d}", f"step_{TRAIN_STEPS:09d}"]
+
+    # (b) resume from step 3, as after a preemption just past its
+    # checkpoint: the last step's directory gone, LATEST back at step 3
+    shutil.rmtree(TRAIN_DIR / f"step_{TRAIN_STEPS:09d}")
+    (TRAIN_DIR / "LATEST").write_text(f"step_{TRAIN_STEPS // 2:09d}")
+    t0 = time.perf_counter()
+    tr2 = loop.Trainer(cfg, tcfg, dcfg, lcfg, seed=0)
+    restore_s = time.perf_counter() - t0
+    assert tr2.start_step == TRAIN_STEPS // 2, tr2.start_step
+    res2 = tr2.run()
+    torch.cuda.synchronize()
+    l6, r6 = losses[-1], res2["history"][-1]["loss"]
+    dmax = max(float((a - b).abs().max()) for a, b in zip(
+        port.pytree.leaves(tr2.state.params),
+        port.pytree.leaves(tr.state.params)))
+    same = all(torch.equal(a, b) for a, b in zip(
+        port.pytree.leaves(tr2.state), port.pytree.leaves(tr.state)))
+    log(f"  resume from step {TRAIN_STEPS // 2} (Trainer boot with restore "
+        f"{restore_s:.2f} s): step-{TRAIN_STEPS} loss {r6:.6f} against the "
+        f"continuous run's {l6:.6f} (rel {abs(r6 - l6) / abs(l6):.2e}, "
+        f"tolerance 1e-4); largest |Δparam| {dmax:.3e}; state "
+        f"{'bit-identical' if same else 'not bit-identical (the embedding backward adds with atomics on CUDA, so bits may differ)'}")
+    assert abs(r6 - l6) <= 1e-4 * abs(l6), (r6, l6)
+    del tr2, res2
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+    # the step alone: host ms and tokens/s over 3 steps after a warm one,
+    # flash launches a step, and one profiled step
+    step_fn = TS.make_train_step(cfg, tcfg)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in tr.loader.batch(0).items()}
+    state = tr.state
+    state, _ = step_fn(state, batch)
+    torch.cuda.synchronize()
+    f0 = port.wrappers["flash_attention"].launches
+    t0 = time.perf_counter()
+    for _ in range(3):
+        state, m = step_fn(state, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 3 * 1e3
+    flash_step = (port.wrappers["flash_attention"].launches - f0) / 3
+    host, busy, ours, launches, kernels, top = profile_train_step(
+        port, step_fn, state, batch)
+    del state, m
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops, recompute = model_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    share = flops / (ms * 1e-3) / PEAK_OPS_PER_S["bfloat16"]
+    log(f"  train step: {ms:.2f} ms/step, {tokens / ms * 1e3:.0f} tokens/s "
+        f"(host clock between syncs, 3 steps); model FLOPs "
+        f"{flops / 1e12:.3f} T a step (6·params·tokens + causal "
+        f"attention), {share:.2%} of 989 TFLOP/s bf16; remat recompute "
+        f"{recompute / 1e12:.3f} T more ({(flops + recompute) / (ms * 1e-3) / PEAK_OPS_PER_S['bfloat16']:.2%} "
+        f"with it); flash launches a step "
+        f"{flash_step:.0f} (expected {2 * cfg.n_layers * TRAIN_MICRO}: "
+        f"forward and remat recompute, per layer and microbatch)")
+    log(f"  profiled step: {host:.2f} ms on the host clock under the "
+        f"profiler, device busy {busy:.2f} ms: idle {1 - busy / host:.1%} "
+        f"of the profiled step (an estimate for the unprofiled steps, "
+        f"this busy time over their {ms:.2f} ms: {1 - busy / ms:.1%}); "
+        f"the port's kernels {ours:.3f} ms, {launches:.0f} kernel "
+        f"launches, {kernels} device kernels; longest: " + "; ".join(
+            f"{k} {t:.2f} ms x{n}" for k, t, n in top))
+    assert flash_step == 2 * cfg.n_layers * TRAIN_MICRO, flash_step
+    out.update(ms_per_step=ms, tokens_per_s=tokens / ms * 1e3,
+               flop_share=share, idle=1 - busy / host,
+               idle_estimate=1 - busy / ms, peak_gib=peak,
+               flash_per_step=flash_step, busy_ms=busy,
+               launches_per_step=launches)
+
+    # (c) float32, card against CPU: one train step of a 4-layer SmolLM
+    # from the same weights, TF32 off, at lr 1e-3 from its first step. The
+    # step's two halves are held apart, each leaf relative to its largest
+    # entry: the grads of lm_loss, and the params that the card's AdamW
+    # makes from the CPU's grads. The limit must fail a leaf left
+    # unchanged, stepped the wrong way, or given zero or negated grads: the
+    # run reads those too. Adam's first update is lr·g/(|g|+eps), which
+    # sends a grad entry near eps to ±lr whatever its last bits, so the
+    # whole step's params (the card's grads through the card's AdamW) are
+    # printed, not held.
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg4 = cfg.replace(n_layers=ORACLE_LAYERS, dtype="float32")
+    ocfg = port.adamw.OptimizerConfig(lr=1e-3, warmup_steps=1)
+    state_cpu, _ = TS.init_train_state(cfg4, seed=1, device="cpu")
+    state_gpu = port.pytree.tree_map(lambda t: t.to(dev), state_cpu)
+    b4 = port.synthetic.ShardedLoader(port.synthetic.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=PARITY_TRAIN_SEQ,
+        global_batch=PARITY_TRAIN_ROWS)).batch(0)
+    leaves, update = port.pytree.leaves, port.adamw.adamw_update
+    t0 = time.perf_counter()
+    l_cpu, _, g_cpu = TS.value_and_grad(
+        state_cpu.params, cfg4, {k: torch.as_tensor(v) for k, v in b4.items()})
+    p_cpu, _, _ = update(ocfg, g_cpu, state_cpu.opt, state_cpu.params)
+    cpu_s = time.perf_counter() - t0
+    l_gpu, _, g_gpu = TS.value_and_grad(
+        state_gpu.params, cfg4,
+        {k: torch.as_tensor(v, device=dev) for k, v in b4.items()})
+    p_gpu, _, _ = update(ocfg, g_gpu, state_gpu.opt, state_gpu.params)
+    p_opt, _, _ = update(ocfg, port.pytree.tree_map(lambda t: t.to(dev),
+                                                    g_cpu),
+                         state_gpu.opt, state_gpu.params)
+    lc, lg = float(l_cpu), float(l_gpu)
+
+    def per_leaf(got, want):
+        return [rel_err(x.cpu(), y) for x, y in zip(leaves(got),
+                                                     leaves(want))]
+
+    g_err = max(per_leaf(g_gpu, g_cpu))
+    p_err = max(per_leaf(p_opt, p_cpu))
+    p_neg, _, _ = update(ocfg, port.pytree.tree_map(torch.neg, g_cpu),
+                         state_cpu.opt, state_cpu.params)
+    # the least that a single leaf reads when it alone is wrong
+    ctrl = {"zero grads": min(per_leaf(port.pytree.tree_map(
+                torch.zeros_like, g_cpu), g_cpu)),
+            "negated grads": min(per_leaf(port.pytree.tree_map(
+                torch.neg, g_cpu), g_cpu)),
+            "params unchanged": min(per_leaf(state_cpu.params, p_cpu)),
+            "params stepped the wrong way": min(per_leaf(p_neg, p_cpu))}
+    step_p = max(per_leaf(p_gpu, p_cpu))
+    # the grad at the entry where the whole step's params differ most
+    g_at = max(((x.cpu() - y).abs().max(), g.flatten()[
+        (x.cpu() - y).abs().argmax()].abs()) for x, y, g in zip(
+            leaves(p_gpu), leaves(p_cpu), leaves(g_cpu)))[1]
+    log(f"  float32 step, {ORACLE_LAYERS} layers, {PARITY_TRAIN_ROWS} x "
+        f"{PARITY_TRAIN_SEQ} tokens, lr 1e-3: loss card {lg:.7f}, CPU "
+        f"{lc:.7f} (rel {abs(lg - lc) / abs(lc):.2e}, tolerance 1e-5); "
+        f"each leaf relative to its largest entry: grads {g_err:.2e}, "
+        f"params from the card's AdamW on the CPU's grads {p_err:.2e} "
+        f"(tolerance 1e-4); one leaf alone wrong reads at least "
+        + ", ".join(f"{k} {v:.2e}" for k, v in ctrl.items())
+        + f"; the card's whole step's params {step_p:.2e}, most where the "
+        f"CPU's grad is {float(g_at):.2e} (not held: Adam's first step "
+        f"scales a grad entry near eps={ocfg.eps:g} to ±lr); CPU step "
+        f"{cpu_s:.2f} s")
+    assert abs(lg - lc) <= 1e-5 * abs(lc), (lg, lc)
+    assert g_err <= 1e-4, g_err
+    assert p_err <= 1e-4, p_err
+    assert min(ctrl.values()) > 1e-4, ctrl
+    out["train_parity"] = dict(loss=abs(lg - lc) / abs(lc), grads=g_err,
+                               params=p_err, step_params=step_p,
+                               controls=ctrl)
+    del state_cpu, state_gpu, g_cpu, g_gpu, p_cpu, p_gpu, p_opt, p_neg
+
+    # (d) compress the trained model: D-Rank and fwsvd 20% on the card,
+    # fwsvd's ranks against the host oracle at ORACLE_LAYERS layers
+    trained = tr.state.params
+    calib = calib_batches(port, cfg, dev)
+    held = [{k: torch.as_tensor(v, device=dev) for k, v in
+             tr.loader.batch(PPL_STEP0 + i).items()} for i in range(4)]
+    t0 = time.perf_counter()
+    col = CC.calibrate(port.capture.to_list_params(trained, cfg), cfg, calib,
+                       flush_every=FLUSH_EVERY)
+    comps, secs = {}, {"calibration": time.perf_counter() - t0}
+    for method in ("drank", "fwsvd"):
+        t0 = time.perf_counter()
+        comps[method] = CC.build_plan_and_params(
+            trained, cfg, CC.CompressionConfig(method=method, ratio=0.2),
+            calib, collector=col, device=True)
+        torch.cuda.synchronize()
+        secs[method] = time.perf_counter() - t0
+    del col
+    cfg_o = cfg.replace(n_layers=ORACLE_LAYERS, dtype="float32")
+    p_o = cut_layers(port, trained, ORACLE_LAYERS)
+    t0 = time.perf_counter()
+    plans = {d: CC.build_plan_and_params(
+        p_o, cfg_o, CC.CompressionConfig(method="fwsvd", ratio=0.2), calib,
+        device=d) for d in (False, True)}
+    secs["oracle"] = time.perf_counter() - t0
+    (lp_h, plan_h), (lp_d, plan_d) = plans[False], plans[True]
+    ks_h = [(g.gid, g.k) for g in plan_h.groups]
+    ks_d = [(g.gid, g.k) for g in plan_d.groups]
+    fac = max(float((d["B"].double() @ d["C"].double()
+                     - h["B"].double() @ h["C"].double()).abs().max()
+                    / (h["B"].double() @ h["C"].double()).abs().max())
+              for d, h in zip(linears(lp_d), linears(lp_h)))
+    log(f"  compress the trained model: calibration {secs['calibration']:.2f}"
+        f" s; D-Rank 20% {secs['drank']:.2f} s (ratio "
+        f"{comps['drank'][1].summary['achieved_ratio']:.4f}); fwsvd 20% "
+        f"{secs['fwsvd']:.2f} s (ratio "
+        f"{comps['fwsvd'][1].summary['achieved_ratio']:.4f}); fwsvd at "
+        f"{ORACLE_LAYERS} layers, float32 ({secs['oracle']:.2f} s, host and "
+        f"device): {len(ks_h)} groups, ranks "
+        f"{'equal' if ks_h == ks_d else 'DIFFER'} host and device, B·C "
+        f"max-relative {fac:.3e} (tolerance {FACTOR_TOL:.0e})")
+    assert ks_h == ks_d, "fwsvd's device ranks differ from the host's"
+    assert fac < FACTOR_TOL, "fwsvd's device factors disagree with the host"
+    del plans, lp_h, lp_d, p_o
+
+    # (e) LoRA on the D-Rank model: 4 steps, rank 8, alpha 32, lr 1e-4
+    lora_batches = [{k: torch.as_tensor(v, device=dev) for k, v in
+                     tr.loader.batch(LORA_STEP0 + i).items()}
+                    for i in range(LORA_STEPS)]
+    v0 = port.variant_counts()["lowrank_matmul_2d"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lora_p, lora_hist = port.lora.lora_finetune(
+        comps["drank"][0], cfg, lora_batches, steps=LORA_STEPS, rank=8,
+        alpha=32.0, lr=1e-4)
+    torch.cuda.synchronize()
+    lora_ms = (time.perf_counter() - t0) / LORA_STEPS * 1e3
+    v1 = port.variant_counts()["lowrank_matmul_2d"]
+    lora_v = {k: v1[k] - v0[k] for k in v1}
+    log(f"  LoRA on D-Rank 20%: {LORA_STEPS} steps of {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, {lora_ms:.1f} ms/step (the first step's warm-up "
+        f"included); losses " + ", ".join(
+            f"{h['loss']:.4f}" for h in lora_hist)
+        + f"; 2-D product launches by variant {lora_v}")
+    assert all(np.isfinite([h["loss"] for h in lora_hist]))
+    assert lora_v["wgmma"] > 0 and sum(lora_v.values()) == lora_v["wgmma"], \
+        f"a bf16 2-D launch of the LoRA steps left wgmma: {lora_v}"
+    out["lora_ms"] = lora_ms
+    ppl = {name: TS.evaluate_ppl(p, cfg, held) for name, p in (
+        ("dense (trained)", trained), ("D-Rank 20%", comps["drank"][0]),
+        ("fwsvd 20%", comps["fwsvd"][0]), ("D-Rank 20% + LoRA", lora_p))}
+    log("  perplexity on 4 held-out batches of synthetic data (random init "
+        "+ 6 steps, not a language model): " + ", ".join(
+            f"{k} {v['ppl']:.2f}" for k, v in ppl.items()))
+    assert all(np.isfinite(v["ppl"]) for v in ppl.values())
+    out["ppl"] = {k: v["ppl"] for k, v in ppl.items()}
+    del comps, lora_p, tr
+
+    # (f) the CLIs: train 2 steps, then serve that checkpoint in a
+    # subprocess and in this process
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(SRC)] + [p for p in [env.get("PYTHONPATH")] if p])
+    try:
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             ARCH, "--steps", "2", "--global-batch", "4", "--seq-len", "64",
+             "--warmup", "1", "--log-every", "1", "--ckpt-dir",
+             str(CLI_TRAIN_DIR)], cwd=str(ROOT), env=env,
+            capture_output=True, text=True, timeout=600)
+        assert r.returncode == 0, f"launch.train exited {r.returncode}: " \
+            f"{r.stderr[-3000:]}"
+        rows = [json.loads(ln) for ln in r.stdout.splitlines()
+                if ln.startswith("{")]
+        log(f"  launch.train: exit 0 in {time.perf_counter() - t0:.1f} s, "
+            f"losses {[round(x['loss'], 4) for x in rows]}; "
+            f"{r.stderr.strip().splitlines()[-1]}")
+        assert [x["step"] for x in rows] == [1, 2]
+        args = ["--arch", ARCH, "--ckpt", str(CLI_TRAIN_DIR), "--requests",
+                "4", "--batch", "4", "--max-len", "128", "--prompt-len",
+                "32", "--n-new", "8"]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", *args],
+            cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        mine = port.api.serve(port.launch.parse_serve_options(args))
+        sout, serr = proc.communicate(timeout=600)
+        assert proc.returncode == 0, \
+            f"launch.serve --ckpt exited {proc.returncode}: {serr[-3000:]}"
+        report = json.loads(sout[sout.rindex("\n{\n") + 1:])
+        log(f"  launch.serve --ckpt: exit 0 in {time.perf_counter() - t0:.1f}"
+            f" s, {report['drain_status']}, "
+            f"{report['generated_tokens']} tokens; tokens "
+            f"{'equal' if report['tokens_digest'] == mine.report['tokens_digest'] else 'DIFFER'}"
+            f" to serve(ServeOptions(ckpt=...)) in this process")
+        assert report["drain_status"] == "drained"
+        assert report["tokens_digest"] == mine.report["tokens_digest"], \
+            "launch.serve --ckpt gave other tokens than serve(ckpt=...)"
+    finally:
+        shutil.rmtree(CLI_TRAIN_DIR, ignore_errors=True)
+    counts = port.counts()
+    log(f"  launches on the training path: {counts}; by variant "
+        f"{port.variant_counts()}")
+    for name in TRAIN_KERNELS:
+        assert counts[name] > 0, f"{name} never launched on the training path"
+    return counts, out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2135,6 +2621,9 @@ def main() -> int:
         with Phase("the serve CLI: python -m repro_torch.launch.serve --aot "
                    "on the artifact"):
             cli_path(port, cfg)
+        with Phase("two replicas on the card with graphs: late elastic "
+                   "captures while the other replica serves"):
+            replica_graphs(port)
     finally:
         shutil.rmtree(ARTIFACT_DIR, ignore_errors=True)
     with Phase(f"gemma3 path: {GEMMA} at full width, {GEMMA_LAYERS} layers, "
@@ -2168,6 +2657,16 @@ def main() -> int:
         profile_decode(port, dev, cfg, comp)
     with Phase("parity: float32, card kernels against CPU plain versions"):
         parity(port, dev, cfg, comp)
+    del params, comp
+    torch.cuda.empty_cache()
+    try:
+        with Phase("training path: SmolLM-360M Trainer, resume, float32 "
+                   "card against CPU, compress the trained model, LoRA, "
+                   "the train and serve --ckpt CLIs"):
+            train_counts, train = train_path(port, dev)
+    finally:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+        shutil.rmtree(CLI_TRAIN_DIR, ignore_errors=True)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
@@ -2183,6 +2682,18 @@ def main() -> int:
     log("with graphs, bf16, batch 8, ms/step: " + ", ".join(
         f"{k} {' / '.join(f'{v:.3f}' for v in vs)}" for k, vs in
         fig4.items()))
+    log(f"train step (SmolLM-360M, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+        f"{TRAIN_MICRO} microbatches, remat block): "
+        f"{train['ms_per_step']:.2f} ms/step, {train['tokens_per_s']:.0f} "
+        f"tokens/s, model FLOPs {train['flop_share']:.2%} of 989 TFLOP/s, "
+        f"device idle {train['idle']:.1%} of a profiled step (estimated "
+        f"{train['idle_estimate']:.1%} of an unprofiled one), peak "
+        f"{train['peak_gib']:.2f} GiB, {train['flash_per_step']:.0f} flash "
+        f"launches a step; submit " + ", ".join(
+            f"{x:.1f}" for x in train["submit_ms"]) + " ms, saves "
+        + ", ".join(f"{x:.2f}" for x in train["save_s"]) + " s; LoRA "
+        f"{train['lora_ms']:.1f} ms/step; perplexity (synthetic data) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in train["ppl"].items()))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = times[name]
@@ -2195,7 +2706,7 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
-            "work": t["work"]})
+            "work": t["work"], "train_launches": train_counts[name]})
         if "simt_ms" in t:     # the variant the main path ran, the earlier
             kernels[-1].update(variant="+".join(t["variant"]),
                                launches_by_variant=variants[name],

@@ -1,7 +1,21 @@
-"""Template-free pytree artifacts: the ``pytree_v1`` format (counterpart of
-the template-free half of ``repro/ckpt/store.py``).
+"""Checkpointing: atomic step checkpoints, an asynchronous checkpointer,
+and the template-free ``pytree_v1`` artifacts (counterpart of
+``repro/ckpt/store.py``). Both formats are the JAX package's, key for key:
+what either package writes, the other reads.
 
-Layout of an artifact ``<dir>/<name>/``:
+Step checkpoints (``save``/``restore``, a training state):
+
+    <dir>/step_000000042/arrays.npz     flat {escaped path -> np array}
+    <dir>/step_000000042/manifest.json  step, keys, shapes, dtypes, meta
+    <dir>/LATEST                        atomic pointer ("step_000000042")
+
+An npz key is the tree path joined by "␟", a NamedTuple field giving its
+name: ``params␟decoder␟run0␟attn␟wq␟w``, ``opt␟mu␟…``, ``opt␟step``.
+``restore`` reads into a template (a tree of the same structure, e.g. a
+fresh ``init_train_state``, which may lie on the ``meta`` device) and casts
+every leaf to the template's dtype.
+
+Template-free artifacts, layout of ``<dir>/<name>/``:
 
     arrays.npz       flat {path joined by "␟" -> numpy array}
     manifest.json    {"format": "pytree_v1", "structure", "hashes", "meta"}
@@ -20,23 +34,25 @@ other, and the same arrays give the same content hashes.
 * a content hash covers the STORED numpy array: its dtype name, its shape
   as numpy prints it, and its bytes.
 
-The step checkpoints (``save``/``restore``) and the asynchronous
-checkpointer of the JAX module come with training (ROADMAP Queue 1,
-item 9).
+The asynchronous checkpointer copies the tree to the host before
+``submit`` returns and writes it on a worker thread.
 """
 from __future__ import annotations
 
 import hashlib
 import json
 import os
+import queue
 import shutil
 import tempfile
+import threading
 import time
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import pytree
 from repro_torch.device import DeviceLike, resolve_device
 
 _SEP = "␟"      # unit-separator glyph: safe path joiner for npz keys
@@ -67,6 +83,111 @@ def _to_numpy(node) -> np.ndarray:
     if arr.dtype.kind not in "fiub" or str(arr.dtype) == "bfloat16":
         arr = arr.astype(np.float32)
     return arr
+
+
+def _from_numpy(arr: np.ndarray) -> torch.Tensor:
+    """A stored array as a tensor, of its shape (``ascontiguousarray``
+    alone makes a 0-d array 1-d)."""
+    return torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))
+
+
+def _flatten(tree) -> Dict[str, np.ndarray]:
+    return {pytree.joined(path, _SEP): _to_numpy(leaf)
+            for path, leaf in pytree.flatten_with_path(tree)}
+
+
+def save(ckpt_dir: str, step: int, tree, meta: Optional[Dict] = None,
+         keep_last: int = 3) -> str:
+    """Synchronous atomic save of a tree of tensors (or numpy arrays).
+    Returns the checkpoint path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    name = f"step_{step:09d}"
+    final = os.path.join(ckpt_dir, name)
+    tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=f".tmp_{name}_")
+    try:
+        arrays = _flatten(tree)
+        np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+        manifest = {
+            "step": step,
+            "time": time.time(),
+            "keys": sorted(arrays.keys()),
+            "shapes": {k: list(v.shape) for k, v in arrays.items()},
+            "dtypes": {k: str(v.dtype) for k, v in arrays.items()},
+            "meta": meta or {},
+        }
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    # atomic LATEST pointer
+    ptr_tmp = os.path.join(ckpt_dir, ".LATEST.tmp")
+    with open(ptr_tmp, "w") as f:
+        f.write(name)
+    os.replace(ptr_tmp, os.path.join(ckpt_dir, "LATEST"))
+    _cleanup(ckpt_dir, keep_last)
+    return final
+
+
+def _cleanup(ckpt_dir: str, keep_last: int) -> None:
+    steps = sorted(d for d in os.listdir(ckpt_dir) if d.startswith("step_"))
+    for d in steps[:-keep_last] if keep_last > 0 else []:
+        shutil.rmtree(os.path.join(ckpt_dir, d), ignore_errors=True)
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    ptr = os.path.join(ckpt_dir, "LATEST")
+    if not os.path.exists(ptr):
+        return None
+    with open(ptr) as f:
+        name = f.read().strip()
+    path = os.path.join(ckpt_dir, name)
+    if not os.path.exists(path):
+        return None
+    return int(name.split("_")[1])
+
+
+def restore(ckpt_dir: str, template, step: Optional[int] = None,
+            shardings=None, device: DeviceLike = None) -> Tuple[int, Any]:
+    """Load the checkpoint at ``step`` (default: ``LATEST``) into the
+    template's structure, each leaf cast to the template leaf's dtype and
+    placed on ``device`` (default: the template leaf's device; a template
+    on the ``meta`` device needs ``device``). Only the template's structure
+    and dtypes are read."""
+    if shardings is not None:
+        raise NotImplementedError(
+            "restore(shardings=...): resharding onto a mesh is not ported "
+            "yet (ROADMAP Queue 1, item 11)")
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+    dev = None if device is None else resolve_device(device)
+    path = os.path.join(ckpt_dir, f"step_{step:09d}")
+    leaves = []
+    # an npz member is read when it is asked for: keys that the template
+    # does not hold stay on the disk
+    with np.load(os.path.join(path, "arrays.npz")) as z:
+        for pth, leaf in pytree.flatten_with_path(template):
+            leaves.append(_restore_leaf(z, pytree.joined(pth, _SEP), leaf,
+                                        dev))
+    return step, pytree.unflatten(template, leaves)
+
+
+def _restore_leaf(z, key: str, leaf, dev):
+    if key not in z.files:
+        raise KeyError(f"checkpoint missing {key}")
+    arr = _from_numpy(z[key])
+    if isinstance(leaf, torch.Tensor):
+        where = dev if dev is not None else leaf.device
+        if where.type == "meta":
+            raise ValueError("restore: the template lies on the meta "
+                             "device; pass device=")
+        return arr.to(device=where, dtype=leaf.dtype)
+    return arr if dev is None else arr.to(device=dev)
 
 
 def _encode_pytree(tree):
@@ -181,9 +302,8 @@ def load_pytree(ckpt_dir: str, name: str = "pytree", verify: bool = False,
         if key not in cache:
             if key not in arrays:
                 raise KeyError(f"artifact missing array {key}")
-            cache[key] = torch.from_numpy(np.ascontiguousarray(
-                arrays[key])).to(device=dev,
-                                 dtype=getattr(torch, spec["dtype"]))
+            cache[key] = _from_numpy(arrays[key]).to(
+                device=dev, dtype=getattr(torch, spec["dtype"]))
         return cache[key]
 
     return build(manifest["structure"]), manifest["meta"]
@@ -261,3 +381,50 @@ def load_pytree_resilient(ckpt_dir: str, name: str = "pytree",
         f"{retries + 1} attempts"
         + (f"; quarantined at {where}" if quarantine else "")
         + f" — last error: {last}") from last
+
+
+class AsyncCheckpointer:
+    """Single worker thread; the newest pending save wins (drop stale).
+
+    ``submit`` copies every tensor to the host before it returns
+    (``.detach().to("cpu", copy=True)``: a CPU tensor gets its own copy
+    too), so a later in-place update of the caller's tensors cannot reach
+    the values the worker writes."""
+
+    def __init__(self, ckpt_dir: str, keep_last: int = 3):
+        self.ckpt_dir = ckpt_dir
+        self.keep_last = keep_last
+        self._q: "queue.Queue" = queue.Queue(maxsize=1)
+        self._err: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            step, host_tree, meta = item
+            try:
+                save(self.ckpt_dir, step, host_tree, meta, self.keep_last)
+            except BaseException as e:          # surfaced on next submit
+                self._err = e
+
+    def submit(self, step: int, tree, meta: Optional[Dict] = None) -> None:
+        if self._err:
+            raise self._err
+        host = pytree.tree_map(
+            lambda t: (t.detach().to("cpu", copy=True)
+                       if isinstance(t, torch.Tensor) else np.array(t)),
+            tree)
+        try:                                     # drop an unstarted stale save
+            self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._q.put((step, host, meta))
+
+    def close(self, timeout: float = 60.0) -> None:
+        self._q.put(None)
+        self._thread.join(timeout=timeout)
+        if self._err:
+            raise self._err

@@ -1,8 +1,9 @@
-"""D-Rank compression pipeline + the baselines whose path needs no
-gradients (counterpart of ``repro/core/compress.py``).
+"""D-Rank compression pipeline + baselines (counterpart of
+``repro/core/compress.py``).
 
 Methods (all post-training, calibration-data-driven):
   svd      plain truncated SVD             (no whitening, n=1, uniform k)
+  fwsvd    Fisher-weighted SVD             (diag Fisher row scale)
   asvd     activation-aware SVD            (diag scale (mean|X|)^α)
   svdllm   whitened SVD                    (Cholesky of XᵀX, n=1, uniform)
   basis    Basis Sharing                   (whitened, grouped n>1, uniform)
@@ -22,9 +23,7 @@ list-form params tree whose linears are factorized {B, C} with a shared
 basis per group, loadable straight into the model; ``save_plan`` writes it
 as a ``pytree_v1`` artifact that either package boots.
 
-Not ported yet: ``fwsvd`` (its Fisher pass needs ``lm_loss`` and the
-backward pass, ROADMAP Queue 1, item 9), the mesh paths (item 11) and the
-serve-time rank ladder (item 6).
+Not ported yet: the mesh paths (ROADMAP Queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -36,6 +35,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import pytree
 from repro_torch.config import ModelConfig
 from repro_torch.core import allocate as alloc
 from repro_torch.core import numerics as num
@@ -55,9 +55,6 @@ METHODS = ("svd", "fwsvd", "asvd", "svdllm", "basis", "drank", "dranke")
 LINALG = "numpy float64 on the host"
 
 _NOT_YET = {
-    "fwsvd": "fwsvd needs the Fisher pass (fisher_rows), which needs "
-             "lm_loss and the backward pass: not ported yet (ROADMAP Queue "
-             "1, item 9)",
     "mesh": "mesh calibration is not ported yet (ROADMAP Queue 1, item "
             "11)",
     "mesh_device": "the mesh group batch of the device decomposition is "
@@ -123,6 +120,40 @@ def calibrate(list_params: Params, cfg: ModelConfig,
     return col
 
 
+def fisher_rows(list_params: Params, cfg: ModelConfig,
+                batches: Iterable[Dict]) -> Dict[str, np.ndarray]:
+    """FWSVD row weights: w_i = sqrt(Σ_j E[g_ij²]) per weight matrix tag,
+    g the gradient of ``lm_loss`` with respect to each list-form linear's
+    ``w``. The squares accumulate in float64 on the params' device (one
+    copy to the host at the end); returns numpy float64 (d_in,) per tag."""
+    clean = strip_tags(list_params)
+    refs = enumerate_matrices(list_params, cfg, include_experts=False)
+    acc: Optional[List[torch.Tensor]] = None
+    nb = 0
+    for batch in batches:
+        with torch.enable_grad():
+            # per-layer leaves: a list-form run holds views of the stacked
+            # tensors, which cannot take their own gradients
+            tree = pytree.tree_map(lambda x: x, clean)
+            ws = []
+            for ref in refs:
+                node = _get_node(tree, ref.path)
+                node["w"] = node["w"].detach().requires_grad_()
+                ws.append(node["w"])
+            loss, _ = T.lm_loss(tree, cfg, batch)
+            grads = torch.autograd.grad(loss, ws)
+        g2 = [g.double() ** 2 for g in grads]
+        acc = g2 if acc is None else [a + g for a, g in zip(acc, g2)]
+        nb += 1
+    fisher: Dict[str, np.ndarray] = {}
+    if acc is None:
+        return fisher
+    for ref, a in zip(refs, acc):
+        f = a / max(1, nb)
+        fisher[ref.tag] = torch.sqrt(f.sum(dim=-1) + 1e-12).cpu().numpy()
+    return fisher
+
+
 # ---------------------------------------------------------------------------
 # Plan
 # ---------------------------------------------------------------------------
@@ -181,15 +212,6 @@ def _member_weight(lp: Params, ref: MatrixRef) -> np.ndarray:
     return w.detach().to(device="cpu", dtype=torch.float64).numpy()
 
 
-def _copy_tree(node):
-    """New containers, same tensors (nothing here mutates a tensor)."""
-    if isinstance(node, dict):
-        return {k: _copy_tree(v) for k, v in node.items()}
-    if isinstance(node, list):
-        return [_copy_tree(v) for v in node]
-    return node
-
-
 # ---------------------------------------------------------------------------
 # Device decomposition (numerics_device): bucket same-shaped groups, one
 # batched call per bucket
@@ -200,7 +222,8 @@ def _member_tensor(lp: Params, ref: MatrixRef) -> torch.Tensor:
 
 def _decompose_groups_device(
         lp: Params, groups: List[Group], ccfg: CompressionConfig,
-        col: Optional[Collector], dev: torch.device
+        col: Optional[Collector], fisher: Optional[Dict[str, np.ndarray]],
+        dev: torch.device
         ) -> Dict[str, Tuple[np.ndarray, torch.Tensor, torch.Tensor]]:
     """Whitened decomposition of every group at its cost cap, batched by
     shape bucket, on ``dev``. Returns gid -> (sig fp64, B
@@ -221,7 +244,12 @@ def _decompose_groups_device(
                 torch.cat([_member_tensor(lp, m) for m in g.members], dim=1)
                 for g in gs]).to(dev)
             kwargs: Dict = {}
-            if ccfg.method == "asvd":
+            if ccfg.method == "fwsvd":
+                # same floor as num.diag_whitener: zero Fisher rows (dead
+                # units) must not divide the basis by zero
+                kwargs["diag"] = put(np.maximum(np.stack(
+                    [fisher[g.members[0].tag] for g in gs]), 1e-8))
+            elif ccfg.method == "asvd":
                 kwargs["diag"] = put(np.stack([np.power(np.maximum(np.mean(
                     [col.mean_abs(m.tag) for m in g.members], axis=0), 1e-8),
                     ccfg.asvd_alpha) for g in gs]))
@@ -262,10 +290,12 @@ def _decompose_groups_device(
 # ---------------------------------------------------------------------------
 # The driver
 # ---------------------------------------------------------------------------
-def _whitener_for(group: Group, ccfg: CompressionConfig,
-                  col: Collector) -> num.Whitener:
+def _whitener_for(group: Group, ccfg: CompressionConfig, col: Collector,
+                  fisher: Optional[Dict[str, np.ndarray]]) -> num.Whitener:
     if ccfg.method == "svd":
         return num.identity_whitener()
+    if ccfg.method == "fwsvd":
+        return num.diag_whitener(fisher[group.members[0].tag])
     if ccfg.method == "asvd":
         s = np.mean([col.mean_abs(m.tag) for m in group.members], axis=0)
         return num.diag_whitener(np.power(np.maximum(s, 1e-8),
@@ -316,8 +346,6 @@ def build_plan_and_params(
     device the params live on.
     """
     assert ccfg.method in METHODS, ccfg.method
-    if ccfg.method == "fwsvd":
-        raise NotImplementedError(_NOT_YET["fwsvd"])
     if device and mesh is not None:
         raise NotImplementedError(_NOT_YET["mesh_device"])
     lp = to_list_params(params, cfg)
@@ -329,6 +357,8 @@ def build_plan_and_params(
                         streaming=streaming):
             col = calibrate(lp, cfg, calib_batches, streaming=streaming,
                             mesh=mesh, whiten_tags=whiten_tags)
+    fisher = (fisher_rows(lp, cfg, calib_batches)
+              if ccfg.method == "fwsvd" else None)
 
     include_x = ccfg.include_experts and ccfg.method in (
         "basis", "drank", "dranke", "svdllm")
@@ -348,15 +378,15 @@ def build_plan_and_params(
     dec: Dict[str, Tuple] = {}
     sig_of: Dict[str, np.ndarray] = {}
     if device:
-        dec = _decompose_groups_device(lp, groups, ccfg, col, dev)
+        dec = _decompose_groups_device(lp, groups, ccfg, col, fisher, dev)
         sig_of = {gid: d[0] for gid, d in dec.items()}
     else:
         with trace.span("decompose_host", n_groups=len(groups)):
             for g in groups:
                 W_cat = np.concatenate(
                     [_member_weight(lp, m) for m in g.members], axis=1)
-                wh = _whitener_for(g, ccfg, col) if col else \
-                    num.identity_whitener()
+                wh = _whitener_for(g, ccfg, col, fisher) if col or fisher \
+                    else num.identity_whitener()
                 U, sig, Vt = num.whitened_svd(W_cat, wh)
                 svds[g.gid] = (U, sig, Vt, wh)
                 sig_of[g.gid] = sig
@@ -384,7 +414,7 @@ def build_plan_and_params(
                                     multiple=ccfg.rank_multiple)
 
     # ---- build factorized params -----------------------------------------
-    new_lp = _copy_tree(lp)
+    new_lp = pytree.tree_map(lambda x: x, lp)  # new containers
     pdt = T.dtype_of(cfg.param_dtype)
     results: List[GroupResult] = []
 
@@ -628,7 +658,7 @@ def compressed_param_count(list_params: Params) -> int:
     """Parameter count with shared bases deduped by tensor identity."""
     seen = set()
     total = 0
-    for leaf in T.tree_leaves(list_params):
+    for leaf in pytree.tensors(list_params):
         if id(leaf) not in seen:
             seen.add(id(leaf))
             total += leaf.numel()

@@ -60,10 +60,13 @@ def _lowrank_fwd_impl(x: torch.Tensor, B: torch.Tensor,
     C = C.to(x.dtype)
     if not _route(x, "lowrank_matmul"):
         y = ref.lowrank_matmul(x2, B, C)
-    elif x2.shape[0] <= GEMV_MAX_ROWS:
-        y = lowrank_gemv(x2, B, C)
     else:
-        y = lowrank_matmul_2d(x2, B, C)
+        # the kernels read row-major operands; a view that is not one (a
+        # slice, a transpose) is copied once here
+        x2, B, C = x2.contiguous(), B.contiguous(), C.contiguous()
+        kernel = (lowrank_gemv if x2.shape[0] <= GEMV_MAX_ROWS
+                  else lowrank_matmul_2d)
+        y = kernel(x2, B, C)
     return y.reshape(*lead, N)
 
 
@@ -75,16 +78,23 @@ class _LowRank(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        # only the grads asked for: LoRA freezes B and C, and then two
+        # thirds of the products below are never needed
+        need_x, need_B, need_C = ctx.needs_input_grad
         x, B, C = ctx.saved_tensors
-        gf = g.float()
-        xf = x.float()
-        x2 = xf.reshape(-1, x.shape[-1])
-        t2 = x2 @ B.float()                                   # (M, R)
-        g2 = gf.reshape(-1, g.shape[-1])
-        dC = (t2.T @ g2).to(C.dtype)
-        gt = g2 @ C.float().T                                 # (M, R)
-        dB = (x2.T @ gt).to(B.dtype)
-        dx = (gt @ B.float().T).reshape(x.shape).to(x.dtype)
+        g2 = g.float().reshape(-1, g.shape[-1])
+        dx = dB = dC = None
+        if need_B or need_C:
+            x2 = x.float().reshape(-1, x.shape[-1])
+        if need_C:
+            t2 = x2 @ B.float()                               # (M, R)
+            dC = (t2.T @ g2).to(C.dtype)
+        if need_x or need_B:
+            gt = g2 @ C.float().T                             # (M, R)
+        if need_B:
+            dB = (x2.T @ gt).to(B.dtype)
+        if need_x:
+            dx = (gt @ B.float().T).reshape(x.shape).to(x.dtype)
         return dx, dB, dC
 
 
@@ -107,8 +117,9 @@ def _flash_fwd_impl(q, k, v, causal, window, softcap):
     if not _route(q, "flash_attention"):
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
-    return flash_attention_bshd(q, k, v, causal=causal, window=window,
-                                softcap=softcap)
+    return flash_attention_bshd(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal=causal,
+                                window=window, softcap=softcap)
 
 
 class _Flash(torch.autograd.Function):

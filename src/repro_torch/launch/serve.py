@@ -16,9 +16,12 @@ options on the CPU.
     python -m repro_torch.launch.serve --arch smollm-360m \
         --compress drank --ratio 0.2 --device-compress --stream
 
+    # serve a training checkpoint (``launch.train --ckpt-dir``, of either
+    # package) at its last step
+    python -m repro_torch.launch.serve --arch smollm-360m --ckpt runs/smollm
+
 ``--aot`` captures the graphs at boot; they live in the process and are
 never persisted (``--aot-cache-dir`` is accepted and stores nothing).
-``--ckpt`` raises until training is ported (ROADMAP Queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -33,8 +36,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--ckpt", default="",
-                    help="a training checkpoint; not ported yet (ROADMAP "
-                         "Queue 1, item 9)")
+                    help="a training checkpoint directory (its LATEST step)")
     from repro_torch.core.compress import METHODS
     ap.add_argument("--compress", default="", choices=["", *METHODS])
     ap.add_argument("--ratio", type=float, default=0.3)

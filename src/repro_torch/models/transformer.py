@@ -1,6 +1,6 @@
 """Model assembly: embeddings, kind-run layer stacks, final norm, LM head;
-full-sequence forward, cached decode step and prefill (counterpart of
-``repro/models/transformer.py``).
+full-sequence forward and loss, cached decode step and prefill
+(counterpart of ``repro/models/transformer.py``).
 
 A model is a sequence of layer *runs* — consecutive layers of the same kind
 (see ``ModelConfig.layer_kinds``). A run's parameters are either stacked
@@ -8,7 +8,10 @@ along a leading axis (the form ``init_model`` builds) or a *list* of
 per-layer trees — the deploy form of a D-Rank-compressed model whose
 per-layer ranks differ. PyTorch runs eagerly, so both forms execute as a
 Python loop over layers; a stacked run is indexed layer by layer (views, no
-copies).
+copies). Where the JAX package scans a stacked run (``cfg.scan_layers``),
+``cfg.remat`` rematerializes each layer in the backward pass
+(``torch.utils.checkpoint``); list-form and unrolled runs never are, as in
+JAX.
 
 This port serves the ``attn`` and ``swa`` kinds of decoder-only models,
 with the contiguous per-slot KV cache (``init_cache``) or, for pure
@@ -23,10 +26,14 @@ takes ``starts`` (B,) int.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
+from repro_torch import pytree
 from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import rotary
@@ -75,8 +82,10 @@ def init_model(cfg: ModelConfig, seed: int = 0,
     Returns (params, specs) — parallel trees in the JAX package's layout."""
     check_supported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None                  # the meta device: shapes only, no draws
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     b = Builder(gen, dev, param_dtype=dtype_of(cfg.param_dtype))
     b.normal("embed", (cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
              scale=1.0 / cfg.d_model ** 0.5)
@@ -90,18 +99,7 @@ def init_model(cfg: ModelConfig, seed: int = 0,
 
 
 def param_count(params: Params) -> int:
-    return sum(t.numel() for t in tree_leaves(params))
-
-
-def tree_leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from tree_leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from tree_leaves(v)
-    elif isinstance(tree, torch.Tensor):
-        yield tree
+    return sum(t.numel() for t in pytree.tensors(params))
 
 
 def tree_index(tree, i: int):
@@ -157,11 +155,37 @@ def _block_fwd(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
     return x
 
 
-def _run_layers(run_p: Any, n: int, x: torch.Tensor, body) -> torch.Tensor:
+# "dots": keep the matmul outputs through the rematerialized block (JAX's
+# dots_saveable policy); everything else is recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _run_layers(run_p: Any, n: int, x: torch.Tensor, body,
+                cfg: ModelConfig) -> torch.Tensor:
     """Apply a run, list (compressed deploy) or stacked form.
-    `body(p_layer, x) -> x`."""
+    `body(p_layer, x) -> x`. With gradients on, a stacked run of a scanned
+    config rematerializes each layer per ``cfg.remat``
+    ("block"/"full": keep only the layer's input; "dots": keep the matmul
+    outputs too)."""
+    remat = (cfg.remat != "none" and cfg.scan_layers
+             and not isinstance(run_p, list) and torch.is_grad_enabled())
+    kw: Dict[str, Any] = {}
+    if remat and cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_saveable)
     for pl in _layers(run_p, n):
-        x = body(pl, x)
+        if remat:
+            # the model draws no random numbers, so no RNG state to keep
+            x = ckpt.checkpoint(body, pl, x, use_reentrant=False,
+                                preserve_rng_state=False, **kw)
+        else:
+            x = body(pl, x)
     return x
 
 
@@ -216,9 +240,44 @@ def forward(params: Params, cfg: ModelConfig,
         x = _run_layers(
             params["decoder"][f"run{r}"], n, x,
             lambda pl, xx, kind=kind, angles=angles: _block_fwd(
-                kind, cfg, pl, xx, angles, causal=True))
+                kind, cfg, pl, xx, angles, causal=True), cfg)
     logits = lm_logits(params, cfg, x)
     return logits, {"moe_aux": torch.zeros((), device=dev)}
+
+
+def lm_loss(params: Params, cfg: ModelConfig,
+            batch: Dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token CE. If batch has explicit `labels`, logits align 1:1 with
+    them; otherwise labels are tokens shifted left by one (the last
+    position padded with -1, masked). ``loss_mask`` multiplies the mask.
+    Returns (loss, metrics); the metrics are detached and stay on the
+    device."""
+    logits, _ = forward(params, cfg, batch)
+    dev = logits.device
+    if "labels" in batch:
+        labels = torch.as_tensor(batch["labels"], device=dev).long()
+    else:
+        labels = F.pad(_tokens(batch, dev)[:, 1:].long(), (0, 1),
+                       value=-1)
+    mask = (labels >= 0).to(torch.float32)
+    if "loss_mask" in batch:
+        mask = mask * torch.as_tensor(batch["loss_mask"], device=dev)
+    labels_c = labels.clamp_min(0)
+    lf = logits.to(torch.float32)
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels_c[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = nll.sum() / denom
+    with torch.no_grad():
+        acc = (torch.argmax(lf, -1) == labels_c).to(torch.float32) * mask
+        metrics = {
+            "loss": loss.detach(),
+            "ppl_log": loss.detach(),       # exp() applied host-side
+            "accuracy": acc.sum() / denom,
+            "tokens": mask.sum(),
+        }
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------

@@ -39,7 +39,14 @@ Two registries share that interface:
   counts with the captures, so the stats match JAX's. On a CPU pool there
   is no graph: every entry runs the same static-buffer path eagerly.
   A capture that fails on the card raises; nothing falls back to eager
-  dispatch there.
+  dispatch there. Several registries may share one card (``FrontDoor``
+  replicas, each stepping on its own thread): a capture runs in
+  ``thread_local`` error mode, so the other threads go on allocating,
+  copying and launching, and one lock serializes the captures of the
+  process, whose device-wide synchronize and cache release must not fall
+  inside another thread's capture (in torch's default global mode a late
+  capture beside a serving replica failed on the card with
+  ``cudaErrorStreamCaptureInvalidated``).
 
   ``AotCache`` is not ported: a CUDA graph lives in one process and cannot
   be serialized. What a disk cache saves at a cold boot in the port is the
@@ -59,15 +66,21 @@ from __future__ import annotations
 
 import hashlib
 import json
+import threading
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, \
     Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import pytree
 from repro_torch.config import ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.obs import trace
+
+# One capture at a time in the process (module docstring): the CUDA context
+# it guards is the process's.
+_CAPTURE_LOCK = threading.Lock()
 
 # Roles an engine dispatches through the registry; the paged ones are only
 # live when ServeConfig.kv_block > 0
@@ -382,17 +395,6 @@ class TracedRegistry:
         """No-op: the traced registry runs every call eagerly."""
 
 
-def _tree_tensors(tree) -> Iterator[torch.Tensor]:
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _tree_tensors(tree[k])
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _tree_tensors(v)
-    elif isinstance(tree, torch.Tensor):
-        yield tree
-
-
 class _Entry:
     """One (role, variant) of an :class:`AotRegistry`: the static input
     buffers, the params and pool it is bound to (their storage addresses at
@@ -411,7 +413,7 @@ class _Entry:
 
     @staticmethod
     def _ptrs(pool: Optional[Dict]) -> tuple:
-        return (tuple(t.data_ptr() for t in _tree_tensors(pool))
+        return (tuple(t.data_ptr() for t in pytree.tensors(pool))
                 if pool is not None else ())
 
     def binds(self, params, pool: Optional[Dict], feeds: Dict) -> bool:
@@ -509,21 +511,22 @@ class AotRegistry:
         graph whose output buffers the replays fill."""
         dev = e.params["embed"].device
         cur = torch.cuda.current_stream(dev)
-        if self._side is None:
-            self._side = torch.cuda.Stream(dev)
-        self._side.wait_stream(cur)
-        with torch.cuda.stream(self._side):
-            out = run()
-        cur.wait_stream(self._side)
-        for t in _tree_tensors(out):
-            t.record_stream(cur)
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        before = torch.cuda.memory_reserved(dev)
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            e.out = run()
-        e.nbytes = torch.cuda.memory_reserved(dev) - before
+        with _CAPTURE_LOCK:
+            if self._side is None:
+                self._side = torch.cuda.Stream(dev)
+            self._side.wait_stream(cur)
+            with torch.cuda.stream(self._side):
+                out = run()
+            cur.wait_stream(self._side)
+            for t in pytree.tensors(out):
+                t.record_stream(cur)
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_reserved(dev)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, capture_error_mode="thread_local"):
+                e.out = run()
+            e.nbytes = torch.cuda.memory_reserved(dev) - before
         e.graph = g
         return out
 

@@ -27,10 +27,9 @@ stores nothing, see ``serve/aot.py``).
 
 Departures from the JAX package:
 
-* ``ckpt=`` (restoring a training checkpoint) raises: it needs the training
-  state, not ported yet (ROADMAP Queue 1, item 9); ``calib_mesh_shards >
-  1`` raises too (item 11). A random model comes from ``init_model``'s
-  torch seed, so its weights are not JAX's; an artifact of either package
+* ``calib_mesh_shards > 1`` raises (ROADMAP Queue 1, item 11). A random
+  model comes from ``init_model``'s torch seed, so its weights are not
+  JAX's; an artifact or a step checkpoint (``ckpt=``) of either package
   boots the same weights in both.
 * the report also carries ``tokens_digest``, a sha256 over every finished
   request's rid and tokens, so two runs (a CLI run and a Python call, say)
@@ -68,10 +67,6 @@ __all__ = [
 
 _CALIB_BATCH = 8          # rows per calibration batch (matches launch CLI)
 _NOT_YET = {
-    "ckpt": "ckpt= restores a training checkpoint, which needs the "
-            "training state (train.step.init_train_state): not ported yet "
-            "(ROADMAP Queue 1, item 9); boot a compressed artifact with "
-            "compressed_ckpt= instead",
     "mesh": "calib_mesh_shards > 1: mesh calibration is not ported yet "
             "(ROADMAP Queue 1, item 11)",
 }
@@ -281,8 +276,8 @@ def load_engine(opts: ServeOptions, *, replica: int = 0,
     """Options → a ready :class:`ContinuousBatcher` on ``device`` (the card
     by default).
 
-    Resolves the model source (compressed artifact, else random init; a
-    training checkpoint raises, module docstring), runs compress-at-boot
+    Resolves the model source (compressed artifact, else a training
+    checkpoint's params, else random init), runs compress-at-boot
     if asked, wires the resilience layer and, with ``aot=True``, attaches
     an :class:`AotRegistry` keyed on the artifact fingerprint and warms the
     whole serving surface, so the returned engine only replays graphs in
@@ -312,9 +307,20 @@ def load_engine(opts: ServeOptions, *, replica: int = 0,
     else:
         from repro_torch.models import transformer as T
         if opts.ckpt:
-            raise NotImplementedError(_NOT_YET["ckpt"])
-        params, _ = T.init_model(cfg, seed=opts.seed, device=dev)
-        _echo(echo, "serving a randomly initialized model (no ckpt)")
+            from repro_torch.ckpt import store
+            from repro_torch.train import step as TS
+            # the template holds no memory: restore reads its structure
+            # and dtypes only. Its npz keys are the TrainState's
+            # "params␟…", so only the params reach the device, not the
+            # optimizer's moments
+            state, _ = TS.init_train_state(cfg, seed=0, device="meta")
+            step, tree = store.restore(opts.ckpt, {"params": state.params},
+                                       device=dev)
+            params = tree["params"]
+            _echo(echo, f"loaded {opts.ckpt} @ step {step}")
+        else:
+            params, _ = T.init_model(cfg, seed=opts.seed, device=dev)
+            _echo(echo, "serving a randomly initialized model (no ckpt)")
         plan = None
         if opts.compress:
             params, plan = _compress_in_process(opts, params, cfg, dev,

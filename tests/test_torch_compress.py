@@ -17,10 +17,11 @@ from repro.configs import get_config as jget_config
 from repro.core import capture as JCap
 from repro.core import compress as JC
 from repro.models import transformer as JT
-from repro_torch import bridge
+from repro_torch import bridge, pytree
 from repro_torch.configs import get_config
 from repro_torch.core import capture as Cap
 from repro_torch.core import compress as CC
+from repro_torch.models import transformer as T
 
 # test workers share the machine's cores: one intra-op thread each
 torch.set_num_threads(1)
@@ -72,6 +73,12 @@ def _rel(a, b) -> float:
     return float(np.abs(a - b).max() / np.abs(b).max())
 
 
+_MTYPE_PATH = {"q": ("attn", "wq"), "k": ("attn", "wk"),
+               "v": ("attn", "wv"), "o": ("attn", "wo"),
+               "gate": ("mlp", "w_gate"), "up": ("mlp", "w_up"),
+               "down": ("mlp", "w_down")}
+
+
 def _factors(lp, path):
     node = lp
     for k in path:
@@ -115,10 +122,7 @@ def test_plan_and_factors_match_jax(arch, method):
     assert plan.summary == pytest.approx(jplan.summary, rel=1e-6)
     for gr in plan.groups:
         run, layer = "run0", gr.layers[0]
-        sub, name = {"q": ("attn", "wq"), "k": ("attn", "wk"),
-                     "v": ("attn", "wv"), "o": ("attn", "wo"),
-                     "gate": ("mlp", "w_gate"), "up": ("mlp", "w_up"),
-                     "down": ("mlp", "w_down")}[gr.mtype]
+        sub, name = _MTYPE_PATH[gr.mtype]
         path = ("decoder", run, layer, sub, name)
         B, C = _factors(tlp, path)
         jB, jC = _factors(jlp, path)
@@ -139,24 +143,60 @@ def test_compressed_params_run_on_the_port():
         tp, cfg, CC.CompressionConfig(method="drank", ratio=0.3), tcal,
         streaming=False)
     assert 0.25 < plan.summary["achieved_ratio"] < 0.35
-    from repro_torch.models import transformer as T
     logits, _ = T.forward(lp, cfg, tcal[0])
     assert logits.shape == (2, 16, cfg.vocab_size)
     assert torch.isfinite(logits).all()
+
+
+def test_fisher_rows_match_jax():
+    cfg, jcfg, jp, tp, jcal, tcal = _setup("mha")
+    want = JC.fisher_rows(JCap.to_list_params(jp, jcfg), jcfg, jcal)
+    got = CC.fisher_rows(Cap.to_list_params(tp, cfg), cfg, tcal)
+    assert sorted(got) == sorted(want) and len(got) == 7 * 3
+    for tag, f in want.items():
+        assert got[tag].dtype == np.float64 and got[tag].shape == f.shape
+        assert _rel(got[tag], f) < 1e-4, tag
+    # the stacked params are left as they were: no grads, no copies
+    assert all(not t.requires_grad for t in pytree.tensors(tp))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_fwsvd():
+    """The JAX host fwsvd plan (its Fisher pass runs eagerly: built once)."""
+    _, jcfg, jp, _, jcal, _ = _setup("mha")
+    return JC.build_plan_and_params(
+        jp, jcfg, JC.CompressionConfig(method="fwsvd", ratio=0.3), jcal,
+        collector=_collectors("mha")[0], streaming=False)
+
+
+@pytest.mark.parametrize("device", [False, True], ids=["host", "device"])
+def test_fwsvd_plan_matches_jax(device):
+    """fwsvd (once refused as needing the backward pass): the Fisher pass
+    inside ``build_plan_and_params``, then the host oracle or the device
+    decomposition's diag mode, against the JAX host plan."""
+    cfg, _, _, tp, _, tcal = _setup("mha")
+    tlp, plan = CC.build_plan_and_params(
+        tp, cfg, CC.CompressionConfig(method="fwsvd", ratio=0.3), tcal,
+        collector=_collectors("mha")[1], streaming=False, device=device)
+    jlp, jplan = _jax_fwsvd()
+    assert [(g.gid, g.k, g.n) for g in plan.groups] == \
+        [(g.gid, g.k, g.n) for g in jplan.groups]
+    for g, jg in zip(plan.groups, jplan.groups):
+        assert _rel(g.sigma_head, jg.sigma_head) < SIG_TOL, g.gid
+        sub, name = _MTYPE_PATH[g.mtype]
+        path = ("decoder", "run0", g.layers[0], sub, name)
+        B, C = _factors(tlp, path)
+        jB, jC = _factors(jlp, path)
+        assert _rel(B @ C, jB @ jC) < FACTOR_TOL, g.gid
 
 
 @pytest.mark.parametrize("kw,match", [
     (dict(streaming=True, mesh=object()), "streaming"),
     (dict(streaming=False, device=True, mesh=object()), "item 11"),
     (dict(streaming=False, mesh=object()), "mesh"),
-    (dict(streaming=False, ccfg=dict(method="fwsvd")), "fwsvd"),
-    (dict(ccfg=dict(method="fwsvd", refine=True)), "item 9"),
 ])
 def test_unported_options_raise(kw, match):
     cfg = get_config("llama-mini").replace(**dict(_KW, n_kv_heads=4))
-    from repro_torch.models import transformer as T
     tp, _ = T.init_model(cfg, seed=0, device="cpu")
-    kw = dict(kw)
-    ccfg = CC.CompressionConfig(**kw.pop("ccfg", {}))
     with pytest.raises(NotImplementedError, match=match):
-        CC.build_plan_and_params(tp, cfg, ccfg, [], **kw)
+        CC.build_plan_and_params(tp, cfg, CC.CompressionConfig(), [], **kw)

@@ -26,7 +26,11 @@ def test_import_loads_no_jax():
             "repro_torch.serve.paged, repro_torch.serve.admission, "
             "repro_torch.obs, repro_torch.dist.faultinject, "
             "repro_torch.dist.ft, repro_torch.serve.frontdoor, "
-            "repro_torch.serve.api, repro_torch.launch.serve; "
+            "repro_torch.serve.api, repro_torch.launch.serve, "
+            "repro_torch.pytree, repro_torch.optim.adamw, "
+            "repro_torch.optim.powersgd, repro_torch.train.step, "
+            "repro_torch.train.loop, repro_torch.train.lora, "
+            "repro_torch.launch.train; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.')); print(bad); sys.exit(1 if bad else 0)")
@@ -44,7 +48,9 @@ def test_sources_import_no_jax_and_nothing_of_repro():
             "serve/aot.py", "serve/paged.py", "serve/admission.py",
             "obs/trace.py", "obs/metrics.py", "obs/flightrec.py",
             "dist/faultinject.py", "dist/ft.py", "serve/frontdoor.py",
-            "serve/api.py", "launch/serve.py"} <= names
+            "serve/api.py", "launch/serve.py", "pytree.py",
+            "optim/adamw.py", "optim/powersgd.py", "train/step.py",
+            "train/loop.py", "train/lora.py", "launch/train.py"} <= names
     for path in SOURCES:
         text = path.read_text()
         assert not _JAX.search(text), f"{path} imports jax"

@@ -231,10 +231,24 @@ def test_serve_on_a_jax_artifact_gives_jaxs_tokens(
         assert stats == want
 
 
-def test_training_checkpoints_and_mesh_calibration_raise():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        api.load_engine(api.ServeOptions(arch="llama-mini", ckpt="runs/x"),
-                        device="cpu")
+def test_a_training_checkpoint_boots(tmp_path, monkeypatch):
+    """``ckpt=`` (once refused as needing the training state) restores a
+    step checkpoint into a template on the meta device and serves its
+    params."""
+    import repro_torch.configs
+    from repro_torch.ckpt import store
+    from repro_torch.train import step as TS
+    _small(monkeypatch)
+    cfg = repro_torch.configs.get_config("llama-mini")
+    state, _ = TS.init_train_state(cfg, seed=4, device="cpu")
+    store.save(str(tmp_path), 9, state)
+    cb = api.load_engine(api.ServeOptions(arch="llama-mini",
+                                          ckpt=str(tmp_path)), device="cpu")
+    assert torch.equal(cb.params["embed"], state.params["embed"])
+    assert cb.params["embed"].device.type == "cpu"
+
+
+def test_mesh_calibration_raises():
     with pytest.raises(NotImplementedError, match="item 11"):
         api.load_engine(api.ServeOptions(arch="llama-mini", compress="drank",
                                          calib_mesh_shards=2),
