@@ -132,6 +132,35 @@ What it does, in order, printing the seconds of each phase:
    checkpoint as subprocesses, whose tokens must equal an in-process
    ``serve(ServeOptions(ckpt=...))``. Flash, the 2-D product and the Gram
    must have launched.
+10. the MoE path, after the earlier paths' memory is freed, with the
+   counts set to 0 just before granite's calibration and read after its
+   graph runs: granite-moe-1b-a400m at full size (24 layers, d_model
+   1024, 32 experts top-8, d_expert 512, vocab 49155, tied; random
+   weights, seed 0): streaming calibration as in 2 with every expert's
+   Gram (1632 a batch, 1536 of them the experts' 400-row capacity
+   buffers) through ``gram_blocked``; D-Rank 20% on the card (2304 expert
+   and 96 attention groups, the expert buckets in chunks sized to the
+   card's free memory); ``save_plan``; ``from_compressed(verify=True)``;
+   ``generate`` equal to an in-memory ``Engine``'s tokens. Then the
+   batcher on that artifact (2b's 24 requests, bf16): eager on the
+   contiguous, paged and paged + prefix pools with the dropped top-k
+   assignments counted (``DropCounter``); contiguous equals paged, and
+   prefix reuse equals contiguous where neither dropped; then the
+   contiguous and paged pools through ``AotRegistry`` (tokens equal
+   eager, every decode a replay), a profiled graph step, dense against
+   D-Rank with graphs. Every kernel call of the path (the first of each
+   operand signature) is held to its plain version through every
+   variant. Then float32 card against CPU at 4 layers (teacher-forced
+   logits and greedy tokens, held up to the first routing flip, which
+   is allowed only where the CPU's k-th and (k+1)-th probabilities are
+   within 1e-6); streaming against eager Grams and host against device
+   decomposition at 2 layers, expert tags and groups included; a float32
+   train step at 2 layers against the CPU; and qwen2-moe-a2.7b at full
+   width (60 experts padded to 64, 4 shared experts, MHA 16 of 128),
+   depth cut to 2 layers, seeded random factors at uniform 20%: bf16
+   ``generate`` on a 200- and a 64-token prompt, every kernel call held,
+   float32 card against CPU, and no assignment to a padding expert.
+   Every kernel must have launched on the MoE path.
 
 The build phase logs the registers and spills of the tensor-core, gemv
 and chunked entry points and the clusters the card holds at once, and
@@ -144,7 +173,8 @@ JSON object ``{"kernels": [...]}`` (the kernels with variants also carry
 the variant the main path ran and the earlier variant's time, ``simt_ms``
 or, for the gemv, ``splitk_ms`` and its 64-row times, ``rows_64``; the 2-D
 product also its two-launch variant's, ``split_ms``; every kernel its
-launches on the training path, ``train_launches``); the last
+launches on the training path, ``train_launches``, and on the MoE path,
+``moe_launches``); the last
 is ``{"ok": true, "device": {...}}``. Any failure raises, so the script
 exits non-zero and prints no result; so it does with no CUDA device, or
 without the repository's ``src/repro_torch`` beside it.
@@ -232,6 +262,18 @@ CLI_TRAIN_DIR = ROOT / "build" / "chip_smoke_cli_train"
 # kernels the training path runs: flash in every step, the 2-D product in
 # perplexity and LoRA on the compressed models, the Gram in calibration
 TRAIN_KERNELS = ("flash_attention", "lowrank_matmul_2d", "gram_blocked")
+# the MoE path: granite-moe-1b-a400m at full size (calibration, D-Rank
+# 20% on the card, artifact, generate, the batcher eager and with graphs);
+# the float32 card-vs-CPU check at 4 layers; host-vs-device,
+# streaming-vs-eager and the train step at 2; qwen2-moe-a2.7b at full
+# width, 2 of its 24 layers, random factors at uniform 20%. A routing flip
+# between card and CPU is allowed where the CPU's k-th and (k+1)-th
+# probabilities are within ROUTE_GAP
+MOE, MOE_SEED, MOE_RATIO = "granite-moe-1b-a400m", 0, 0.2
+MOE_PARITY_LAYERS, MOE_ORACLE_LAYERS, ROUTE_GAP = 4, 2, 1e-6
+MOE_ARTIFACT_DIR = ROOT / "build" / "chip_smoke_moe_artifact"
+QWEN_MOE, QWEN_LAYERS, QWEN_SEED = "qwen2-moe-a2.7b", 2, 6
+QWEN_PROMPTS, QWEN_NEW, QWEN_NEW_F32 = (200, 64), 16, 8
 # the host calls that put work on the device: kernel launches, and a CUDA
 # graph's launch (one a replay)
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
@@ -289,7 +331,7 @@ class Port:
         from repro_torch.ckpt import store
         from repro_torch import pytree
         from repro_torch.launch import serve as launch
-        from repro_torch.models import transformer
+        from repro_torch.models import mlp, transformer
         from repro_torch.optim import adamw
         from repro_torch.serve import admission, aot, api, engine
         from repro_torch.train import lora, loop
@@ -302,7 +344,7 @@ class Port:
         self.capture, self.compress = capture, compress
         self.synthetic = synthetic
         self.build, self.ops, self.ref = _build, ops, ref
-        self.T, self.engine = transformer, engine
+        self.T, self.engine, self.mlp = transformer, engine, mlp
         self.faultinject, self.admission = faultinject, admission
         self.lm, self.gm, self.fa, self.da = lm, gm, fa, da
         self.wrappers = {"lowrank_gemv": lm.lowrank_gemv,
@@ -1103,14 +1145,15 @@ def streaming_vs_eager(port, cfg, params, col, calib):
         "streaming statistics disagree with the eager fp64 oracle"
 
 
-def device_vs_host(port, dev, calib):
+def device_vs_host(port, dev, calib, cfg=None, params=None):
     """Host fp64 decomposition (the oracle) against the device one at full
-    width and ORACLE_LAYERS layers, model in float32. Returns {path:
-    seconds}."""
+    width, model in float32: SmolLM at ORACLE_LAYERS layers, or ``cfg``
+    and its ``params``. Returns {path: seconds}."""
     torch, T, CC = port.torch, port.T, port.compress
-    cfg = port.get_config(ARCH).replace(n_layers=ORACLE_LAYERS,
-                                        dtype="float32")
-    params, _ = T.init_model(cfg, seed=0, device=dev)
+    if cfg is None:
+        cfg = port.get_config(ARCH).replace(n_layers=ORACLE_LAYERS,
+                                            dtype="float32")
+        params, _ = T.init_model(cfg, seed=0, device=dev)
     col = CC.calibrate(port.capture.to_list_params(params, cfg), cfg, calib)
     ccfg = CC.CompressionConfig(method="drank", ratio=0.2)
     out, secs = {}, {}
@@ -1133,7 +1176,7 @@ def device_vs_host(port, dev, calib):
         pd = ld["B"].double() @ ld["C"].double()
         ph = lh["B"].double() @ lh["C"].double()
         fac = max(fac, float((pd - ph).abs().max() / ph.abs().max()))
-    log(f"  {len(ks_h)} groups at {ORACLE_LAYERS} layers: host fp64 "
+    log(f"  {len(ks_h)} groups at {cfg.n_layers} layers: host fp64 "
         f"{secs['host']:.2f} s ({CC.LINALG}), device "
         f"{secs['device']:.2f} s; rank flips {len(flips)}; σ head "
         f"max-relative {sig:.3e} (tolerance {SIG_TOL:.0e}); reff "
@@ -1735,7 +1778,9 @@ def random_factors(port, params, cfg, ratio: float, seed: int):
     """``params`` with every linear replaced by factors B (d_in, k), C (k,
     d_out) drawn from a generator seeded with ``seed``, at the ranks of
     ``uniform_allocate`` at ``ratio`` (method svd's rule; GQA models group
-    one matrix each), scaled so that B·C has the dense weight's variance.
+    one matrix each), scaled so that B·C has the dense weight's variance;
+    an MoE layer's routed experts each get their own factors, restacked
+    into {"B": (E, d_in, k), "C": (E, k, d_out)} with zero rank padding.
     No calibration, no SVD. Returns (list-form params, {gid: rank})."""
     torch = port.torch
     from repro_torch.core import allocate as alloc
@@ -1747,18 +1792,32 @@ def random_factors(port, params, cfg, ratio: float, seed: int):
         kmin=1, dense_params=g.dense_params) for g in groups], ratio)
     gen = torch.Generator(device=params["embed"].device)
     gen.manual_seed(seed)
+    experts = {}
     for g in groups:
         for m in g.members:
             parent = lp
             for key in m.path[:-1]:
                 parent = parent[key]
-            wd = parent[m.path[-1]]["w"]
+            node = parent[m.path[-1]]
+            wd = node["w"] if m.expert is None else node[m.expert]
             k = ks[g.gid]
             B = torch.randn((m.d_in, k), generator=gen, device=wd.device,
                             dtype=wd.dtype) * k ** -0.5
             C = torch.randn((k, m.d_out), generator=gen, device=wd.device,
                             dtype=wd.dtype) * wd.float().std()
-            parent[m.path[-1]] = {"B": B, "C": C}
+            if m.expert is None:
+                parent[m.path[-1]] = {"B": B, "C": C}
+            else:
+                experts.setdefault(m.path, (parent, {}))[1][m.expert] = (B, C)
+    for path, (parent, fs) in experts.items():
+        E, d_in, d_out = parent[path[-1]].shape
+        r = max(B.shape[1] for B, _ in fs.values())
+        Bs = parent[path[-1]].new_zeros((E, d_in, r))
+        Cs = parent[path[-1]].new_zeros((E, r, d_out))
+        for e, (B, C) in fs.items():
+            Bs[e, :, :B.shape[1]] = B
+            Cs[e, :C.shape[0]] = C
+        parent[path[-1]] = {"B": Bs, "C": Cs}
     return lp, ks
 
 
@@ -1806,7 +1865,9 @@ def compare_greedy(torch, gpu, cpu) -> None:
 PATH_WRAPPERS = {"lowrank_gemv": "lowrank_gemv",
                  "lowrank_matmul_2d": "lowrank_matmul_2d",
                  "flash_attention": "flash_attention_bshd",
-                 "decode_attention": "decode_attention_bkgh"}
+                 "decode_attention": "decode_attention_bkgh",
+                 "gram_blocked": "gram_blocked",
+                 "decode_attention_paged": "decode_attention_paged_bkgh"}
 
 
 @contextlib.contextmanager
@@ -1820,12 +1881,14 @@ def recording(port):
 
     def spy(name, fn):
         def wrapper(*args, **kwargs):
-            key = (name, tuple((tuple(a.shape), a.dtype) for a in args),
+            key = (name, tuple(None if a is None else (tuple(a.shape),
+                                                       a.dtype)
+                               for a in args),
                    tuple(sorted(kwargs.items())))
             if key not in seen:
                 seen.add(key)
-                calls.append((name, [a.clone() for a in args],
-                              dict(kwargs)))
+                calls.append((name, [None if a is None else a.clone()
+                                     for a in args], dict(kwargs)))
             return fn(*args, **kwargs)
         return wrapper
     for name, attr in PATH_WRAPPERS.items():
@@ -1838,10 +1901,12 @@ def recording(port):
             setattr(port.ops, attr, fn)
 
 
-def hold_recorded(port, calls, dname: str) -> None:
+def hold_recorded(port, calls, dname: str,
+                  where: str = "the gemma3 path") -> None:
     """Every recorded call again through every variant that takes its
     operands, held to the plain version on the same operands within
-    ``TOL[dname]``."""
+    ``TOL[dname]`` (the Gram: GRAM_TOL). A recorded Gram runs without
+    its accumulator (``out``), against the plain Gram."""
     torch, ref, w = port.torch, port.ref, port.wrappers
     worst = {}
     for name, args, kw in calls:
@@ -1861,6 +1926,22 @@ def hold_recorded(port, calls, dname: str) -> None:
                 sig = f"q {tuple(q.shape)} k {tuple(k.shape)} {kw}"
                 variants = port.fa._allowed(q.dtype, q.shape[-1], all(
                     t.data_ptr() % 16 == 0 for t in args))
+            elif name == "gram_blocked":
+                x = args[0]
+                args, kw = [x], {}
+                want = ref.gram(x)
+                sig = f"x {tuple(x.shape)}"
+                variants = port.gm._allowed(x.dtype, *x.shape,
+                                            x.data_ptr() % 16 == 0)
+            elif name == "decode_attention_paged":
+                q, k, v, lengths, table = args
+                Bq, KVh, G, hd = q.shape
+                want = ref.decode_attention_paged(
+                    q.reshape(Bq, KVh * G, hd), k, v, lengths, table,
+                    **kw).reshape(q.shape)
+                sig = (f"q {tuple(q.shape)} arena {tuple(k.shape)} table "
+                       f"{tuple(table.shape)} lengths {lengths.tolist()}")
+                variants = (None,)
             else:
                 q, k, v, lengths = args
                 Bq, KVh, G, hd = q.shape
@@ -1881,9 +1962,10 @@ def hold_recorded(port, calls, dname: str) -> None:
                     f"{int((got != want).sum())} of {want.numel()} "
                     f"elements differ)")
     for key, e in worst.items():
-        assert e <= TOL[dname], \
-            f"{key} disagrees with its plain version at the gemma3 path's " \
-            f"operands ({e:.2e} > {TOL[dname]:.0e})"
+        tol = GRAM_TOL if key.startswith("gram_blocked") else TOL[dname]
+        assert e <= tol, \
+            f"{key} disagrees with its plain version at {where}'s " \
+            f"operands ({e:.2e} > {tol:.0e})"
 
 
 def gemma_path(port, dev):
@@ -2576,6 +2658,572 @@ def train_path(port, dev):
     return counts, out
 
 
+# ---------------------------------------------------------------------------
+# The MoE path: granite-moe-1b-a400m at full size, qwen2-moe-a2.7b at full
+# width
+# ---------------------------------------------------------------------------
+class DropCounter:
+    """Within the block, counts the top-k assignments the MoE layers'
+    capacity dropped, by wrapping the port's
+    ``models.mlp._dispatch_to_buffers``: the layer calls it three times
+    (the T·k repeated rows to the one shard, their meta rows, then the
+    received rows to the experts), and an assignment is dropped where the
+    second-level dispatch did not keep one of its first T·k rows, which
+    are the repeated rows in order (the first level keeps every row at
+    expert parallelism 1: its capacity is at least T·k, asserted). The
+    count adds up on the device; ``dropped`` reads it."""
+
+    def __init__(self, port):
+        self.mlp, self.torch = port.mlp, port.torch
+        self.total = None
+        self.assigned = 0
+        self.calls = 0
+
+    def __enter__(self):
+        inner = self.inner = self.mlp._dispatch_to_buffers
+
+        def spy(x, dest, n_dest, capacity):
+            buf, slot, kept = inner(x, dest, n_dest, capacity)
+            if self.calls % 3 == 0:
+                assert n_dest == 1 and capacity >= x.shape[0], \
+                    (n_dest, capacity, x.shape)
+                self.rows = x.shape[0]
+                self.assigned += self.rows
+            elif self.calls % 3 == 2:
+                lost = (~kept[:self.rows]).sum()
+                self.total = lost if self.total is None else self.total + lost
+            self.calls += 1
+            return buf, slot, kept
+        self.mlp._dispatch_to_buffers = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mlp._dispatch_to_buffers = self.inner
+        return False
+
+    @property
+    def dropped(self) -> int:
+        return 0 if self.total is None else int(self.total)
+
+
+@contextlib.contextmanager
+def route_recorder(port):
+    """Within the block, every call of the port's router
+    (``models.mlp.route``) keeps its float32 probabilities and top-k expert
+    ids, in call order, in the list it yields."""
+    mlp, calls = port.mlp, []
+    inner = mlp.route
+
+    def spy(router_w, m, x):
+        probs, gates, ids = inner(router_w, m, x)
+        calls.append((probs.detach(), ids.detach()))
+        return probs, gates, ids
+    mlp.route = spy
+    try:
+        yield calls
+    finally:
+        mlp.route = inner
+
+
+def route_flips(torch, card, cpu, k: int, passes: list):
+    """The card's routing against the CPU's, call by call, ``passes`` the
+    number of router calls of each forward pass in order. Within a pass a
+    flip at token t (flattened order, which is the dispatch's row order)
+    can change the expert slots of later tokens only, so the comparison
+    stops at the first flip's token: a top-k set may differ only where the
+    CPU's k-th and (k+1)-th probabilities are within ROUTE_GAP (any other
+    difference fails). After a pass with a flip nothing more is compared.
+    Returns (flips [(pass, call, token, gap)], the first flipped pass or
+    None, the token cut of each compared pass)."""
+    flips, cuts, c = [], [], 0
+    for p, n in enumerate(passes):
+        cut = None
+        for _ in range(n):
+            (_, ids_g), (probs_c, ids_c) = card[c], cpu[c]
+            lim = ids_c.shape[0] if cut is None else cut
+            g = torch.sort(ids_g[:lim].cpu(), dim=-1).values
+            h = torch.sort(ids_c[:lim], dim=-1).values
+            for t in torch.nonzero((g != h).any(-1)).flatten().tolist():
+                top = torch.topk(probs_c[t], k + 1).values
+                gap = float(top[k - 1] - top[k])
+                log(f"    routing flip: pass {p}, router call {c}, token "
+                    f"{t}: card {g[t].tolist()} cpu {h[t].tolist()}, cpu "
+                    f"gap between the k-th and (k+1)-th probability "
+                    f"{gap:.3e} (allowed up to {ROUTE_GAP:.0e})")
+                assert gap <= ROUTE_GAP, \
+                    "the card routed a token the CPU's margin does not allow"
+                flips.append((p, c, t, gap))
+                cut = t if cut is None else min(cut, t)
+                break
+            c += 1
+        cuts.append(cut)
+        if cut is not None:
+            return flips, p, cuts
+    return flips, None, cuts
+
+
+def moe_parity(port, dev, cfg, params, prompts, lengths, steps: int,
+               name: str) -> dict:
+    """``params`` in float32 on the card (kernels) and on the CPU (plain
+    versions): teacher-forced logits of ``prompts`` within LOGITS_ATOL and
+    greedy tokens (``steps`` new) identical, each held up to the first
+    routing flip ``route_flips`` allows. Returns the padding experts'
+    assignments (ids >= num_experts) counted over both runs."""
+    torch, T, E = port.torch, port.T, port.engine
+    cfg32 = cfg.replace(dtype="float32")
+    cpu = torch.device("cpu")
+    k, B, S = cfg.moe.top_k, *prompts.shape
+    n_layers = cfg.n_layers
+    logits, routes, secs = {}, {}, {}
+    where = {"card": dev, "cpu": cpu}
+    for w, d in where.items():
+        p = E.place_params(params, torch.float32, d)
+        t0 = time.perf_counter()
+        with torch.inference_mode(), route_recorder(port) as calls:
+            logits[w] = T.forward(p, cfg32, {
+                "tokens": torch.as_tensor(prompts, device=d)})[0].cpu()
+        routes[w] = calls
+        secs[w] = time.perf_counter() - t0
+        del p
+    flips, first, cuts = route_flips(torch, routes["card"], routes["cpu"], k,
+                                     [n_layers])
+    cut = B * S if cuts[0] is None else cuts[0]
+    lg = logits["card"].reshape(B * S, -1)[:cut]
+    lc = logits["cpu"].reshape(B * S, -1)[:cut]
+    tf = abs_err(lg, lc)
+    pad = sum(int((ids >= cfg.moe.num_experts).sum())
+              for r in routes.values() for _, ids in r)
+    log(f"  {name}: teacher-forced logits of {B} x {S} tokens, max |card - "
+        f"cpu| {tf:.3e} over the first {cut} tokens (atol "
+        f"{LOGITS_ATOL:.0e}); {len(flips)} routing flips; card "
+        f"{secs['card']:.1f} s, cpu {secs['cpu']:.1f} s")
+    assert tf < LOGITS_ATOL, f"{name}: teacher-forced logits differ"
+    del logits, routes
+    outs, routes = {}, {}
+    for w, d in where.items():
+        with route_recorder(port) as calls:
+            outs[w] = greedy(port, params, cfg32, prompts, steps, d, lengths)
+        routes[w] = calls
+    flips, first, _ = route_flips(torch, routes["card"], routes["cpu"], k,
+                                  [n_layers] * (steps + 1))
+    held = steps + 1 if first is None else first
+    gpu, cpu_out = outs["card"][:held], outs["cpu"][:held]
+    pad += sum(int((ids >= cfg.moe.num_experts).sum())
+               for r in routes.values() for _, ids in r)
+    if held:
+        diffs = [abs_err(a, b) for a, b in zip(gpu, cpu_out)]
+        toks_g = [s[:, -1].argmax(-1) for s in gpu]
+        toks_c = [s[:, -1].argmax(-1) for s in cpu_out]
+        same = all(torch.equal(a, b) for a, b in zip(toks_g, toks_c))
+        log(f"  {name}: greedy, {steps} new tokens: held over {held} of "
+            f"{steps + 1} passes ({len(flips)} routing flips); prefill "
+            f"logits max |card - cpu| {diffs[0]:.3e}, over the held steps "
+            f"{max(diffs):.3e}; tokens identical: {same}")
+        assert diffs[0] < LOGITS_ATOL, f"{name}: prefill logits differ"
+        assert same, f"{name}: greedy tokens differ between card and CPU"
+    else:
+        log(f"  {name}: greedy: a routing flip in the prefill, nothing held")
+    return {"flips": len(flips), "padding_assignments": pad,
+            "teacher_forced": tf}
+
+
+def moe_path(port, dev):
+    """granite-moe-1b-a400m at full size (24 layers, 32 experts top-8,
+    random weights from seed 0): streaming calibration with every expert
+    tag's Gram through the kernel, D-Rank 20% on the card, save, boot,
+    generate. Every kernel call is recorded (``recording``). Returns (cfg,
+    params, compressed params, plan, calibration batches, recorded calls,
+    seconds)."""
+    torch, T, CC, E = port.torch, port.T, port.compress, port.engine
+    Cap = port.capture
+    cfg = port.get_config(MOE)
+    n_exp = cfg.moe.padded_experts
+    secs, ingest, chunks, integ = {}, [], [], []
+    t0 = time.perf_counter()
+    params, _ = T.init_model(cfg, seed=MOE_SEED, device=dev)
+    torch.cuda.synchronize()
+    log(f"  init_model: {T.param_count(params) / 1e9:.3f} B params, "
+        f"{time.perf_counter() - t0:.1f} s")
+    calib = calib_batches(port, cfg, dev)
+    with recording(port) as calls:
+        t0 = time.perf_counter()
+        with timed(torch, Cap.StreamingCalibrator, "ingest", ingest):
+            col = CC.calibrate(Cap.to_list_params(params, cfg), cfg, calib,
+                               flush_every=FLUSH_EVERY)
+        torch.cuda.synchronize()
+        secs["calibration"] = time.perf_counter() - t0
+        grams = port.wrappers["gram_blocked"].launches
+        experts = [t for t in col.gram if "/expert" in t]
+        log(f"  streaming calibration: {len(col.gram)} Grams a batch "
+            f"({len(experts)} of them experts', capacity "
+            f"{col.count[experts[0]] // len(calib)} rows a batch), "
+            f"{grams} gram_blocked launches over {len(calib)} batches of "
+            f"{CALIB_BATCH} x {CALIB_SEQ} tokens, {secs['calibration']:.2f} "
+            f"s (ingest per batch " + ", ".join(f"{t:.3f}" for t in ingest)
+            + " s)")
+        assert len(experts) == cfg.n_layers * 2 * n_exp, len(experts)
+        assert grams == len(col.gram) * len(calib), grams
+
+        t0 = time.perf_counter()
+        with timed(torch, CC, "_decompose_chunk", chunks), \
+                timed(torch, CC.alloc, "integerize", integ):
+            comp, plan = CC.build_plan_and_params(
+                params, cfg, CC.CompressionConfig(method="drank",
+                                                  ratio=MOE_RATIO),
+                calib, collector=col, device=True)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        secs["decomposition"] = sum(chunks)
+        secs["integerize"] = sum(integ)
+        secs["allocation and assembly"] = total - sum(chunks)
+        del col
+        n_x = sum(g.mtype.startswith("x") for g in plan.groups)
+        ks = {}
+        for g in plan.groups:
+            ks.setdefault(g.mtype, []).append(g.k)
+        log(f"  D-Rank {MOE_RATIO:.0%}: achieved ratio "
+            f"{plan.summary['achieved_ratio']:.4f} (requested {MOE_RATIO}) "
+            f"over {len(plan.groups)} groups ({n_x} expert, "
+            f"{len(plan.groups) - n_x} attention); ranks by type " + ", ".join(
+                f"{t} {min(v)}..{max(v)}" for t, v in sorted(ks.items()))
+            + f"; {total:.2f} s: device decomposition "
+            f"{secs['decomposition']:.2f} s in {len(chunks)} chunks, "
+            f"allocation and assembly "
+            f"{secs['allocation and assembly']:.2f} s (integerize "
+            f"{secs['integerize']:.2f} s)")
+        assert n_x == cfg.n_layers * 3 * n_exp, n_x
+        assert len(plan.groups) - n_x == cfg.n_layers * 4
+
+        shutil.rmtree(MOE_ARTIFACT_DIR, ignore_errors=True)
+        t0 = time.perf_counter()
+        path = CC.save_plan(str(MOE_ARTIFACT_DIR), comp, plan, cfg)
+        secs["save"] = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+        scfg = E.ServeConfig(batch=GEN_BATCH,
+                             max_len=GEN_PROMPT + GEN_NEW + 1)
+        t0 = time.perf_counter()
+        booted = E.Engine.from_compressed(str(MOE_ARTIFACT_DIR), cfg, scfg,
+                                          verify=True, device=dev)
+        torch.cuda.synchronize()
+        secs["boot"] = time.perf_counter() - t0
+        assert booted.plan.to_json() == plan.to_json(), "plan changed on disk"
+        log(f"  save_plan: {nbytes / 1e6:.1f} MB, {secs['save']:.2f} s; "
+            f"from_compressed(verify=True): {secs['boot']:.2f} s")
+        prompts = np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT), dtype=np.int32)
+        t0 = time.perf_counter()
+        toks = booted.generate(prompts, GEN_NEW)
+        torch.cuda.synchronize()
+        secs["generate"] = time.perf_counter() - t0
+        toks_mem = E.Engine(comp, cfg, scfg, device=dev).generate(prompts,
+                                                                  GEN_NEW)
+        torch.cuda.synchronize()
+    counts, variants = port.counts(), port.variant_counts()
+    log(f"  generate from the artifact: {GEN_BATCH} x {GEN_PROMPT} prompt "
+        f"tokens, {GEN_NEW} new each, {secs['generate']:.2f} s; first "
+        f"tokens of row 0 {toks[0, :8].tolist()}")
+    log(f"  launches: {counts}; by variant {variants}")
+    log("  MoE compression seconds: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in secs.items()))
+    for name in TC_KERNELS:
+        assert variants[name]["wgmma"] > 0 and variants[name]["simt"] == 0, \
+            f"{name} left its tensor-core variant on the bf16 MoE path"
+    assert_gemv(variants["lowrank_gemv"], "bfloat16", "the MoE path")
+    missing = [n for n, c in counts.items()
+               if c <= 0 and n != "decode_attention_paged"]
+    assert not missing, f"kernels not launched on the MoE path: {missing}"
+    assert toks.shape == (GEN_BATCH, GEN_NEW)
+    assert ((toks >= 0) & (toks < cfg.vocab_size)).all(), "token out of range"
+    assert (toks == toks_mem).all(), \
+        "the MoE artifact's engine and the in-memory engine disagree"
+    secs["artifact_mb"] = nbytes / 1e6
+    secs["achieved_ratio"] = plan.summary["achieved_ratio"]
+    return cfg, params, comp, plan, calib, calls, secs
+
+
+def moe_batcher_path(port, dev, cfg, params, comp):
+    """The continuous batcher on the MoE artifact, bf16, batch 8, max_len
+    256, the batcher path's 24 requests: eager on the contiguous, paged
+    and paged + prefix pools (the first booted from the artifact), the
+    dropped assignments of each run counted (``DropCounter``); then the
+    contiguous and paged pools through ``AotRegistry``, every decode a
+    replay, tokens equal to the eager runs'; a profiled graph step; dense
+    against D-Rank with graphs. Returns ({run: rates}, recorded calls,
+    {run: dropped}, the graph step's window, {name: [ms/step]})."""
+    torch, E, aot = port.torch, port.engine, port.aot
+    reqs = cb_requests(cfg.vocab_size)
+    pools = {"contiguous": E.ServeConfig(batch=CB_BATCH, max_len=CB_MAX_LEN),
+             "paged": E.ServeConfig(batch=CB_BATCH, max_len=CB_MAX_LEN,
+                                    kv_block=CB_BLOCK),
+             "paged + prefix": E.ServeConfig(batch=CB_BATCH,
+                                             max_len=CB_MAX_LEN,
+                                             kv_block=CB_BLOCK,
+                                             prefix_cache=True)}
+    outs, rates, drops = {}, {}, {}
+    with recording(port) as calls:
+        for i, (name, scfg) in enumerate(pools.items()):
+            cb = (E.ContinuousBatcher.from_compressed(
+                str(MOE_ARTIFACT_DIR), cfg, scfg, verify=True, device=dev)
+                if i == 0 else E.ContinuousBatcher(comp, cfg, scfg,
+                                                   device=dev))
+            with DropCounter(port) as dc:
+                res, secs, steps = drive_batcher(port, cb, reqs)
+            assert res.status == "drained" and len(res) == CB_REQUESTS, name
+            outs[name] = {r.rid: list(r.out) for r in res}
+            drops[name] = dc.dropped
+            ntok = sum(len(o) for o in outs[name].values())
+            rates[name] = {"tokens_per_s": ntok / secs,
+                           "ms_per_step": secs / steps * 1e3}
+            log(f"  eager {name}: {ntok} tokens in {steps} steps, "
+                f"{rates[name]['tokens_per_s']:.1f} tokens/s, "
+                f"{rates[name]['ms_per_step']:.2f} ms/step; dropped "
+                f"assignments {drops[name]} of {dc.assigned}")
+            del cb
+    assert outs["contiguous"] == outs["paged"], \
+        "MoE: the contiguous and paged pools' tokens differ"
+    same = outs["paged + prefix"] == outs["contiguous"]
+    log(f"  contiguous == paged: True; paged + prefix == contiguous: {same} "
+        f"(dropped {drops['paged + prefix']} and {drops['contiguous']})")
+    if drops["paged + prefix"] == 0 and drops["contiguous"] == 0:
+        assert same, "MoE: prefix reuse changed tokens with no drop"
+    fp = port.store.artifact_fingerprint(str(MOE_ARTIFACT_DIR),
+                                         name=port.compress.ARTIFACT_NAME)
+    kept = {}
+    for name in ("contiguous", "paged"):
+        scfg = pools[name]
+        reg = aot.AotRegistry(cfg, scfg, fp)
+        cb = E.ContinuousBatcher(comp, cfg, scfg, device=dev,
+                                 executables=reg)
+        res, secs, steps, info = drive_graphs(port, cb, reqs)
+        out = {r.rid: list(r.out) for r in res}
+        ntok = sum(len(o) for o in out.values())
+        rates[name + ", graphs"] = {"tokens_per_s": ntok / secs,
+                                    "ms_per_step": secs / steps * 1e3,
+                                    "warm_s": info["warm_s"]}
+        log(f"  graphs {name}: {ntok} tokens in {steps} steps, "
+            f"{ntok / secs:.1f} tokens/s, {secs / steps * 1e3:.2f} ms/step "
+            f"(eager {rates[name]['ms_per_step']:.2f}); warm "
+            f"{info['warm_s']:.2f} s, {info['warm']['aot_compiles']} entries,"
+            f" {sum(reg.graph_bytes().values()) / 2 ** 20:.0f} MB of graphs; "
+            f"decode dispatches {info['decode_calls']}, replays "
+            f"{info['decode_replays']}")
+        assert res.status == "drained" and len(res) == CB_REQUESTS, name
+        assert out == outs[name], \
+            f"MoE {name}: the graph run's tokens differ from the eager run's"
+        assert info["decode_calls"] > 0 and \
+            info["decode_replays"] == info["decode_calls"], \
+            f"MoE {name}: a decode step did not replay its graph: {info}"
+        assert cb.stats["aot_fallbacks"] == 0, cb.stats
+        if name == "contiguous":
+            kept[name] = cb
+        else:
+            del cb, reg
+            torch.cuda.empty_cache()
+    steps = 4
+    window = graph_profile(port, kept, steps)["contiguous"]
+    log("    the graph step's longest device kernels (ms/step, launches/step):")
+    for e in sorted(on_device(window["events"]), key=dev_us,
+                    reverse=True)[:8]:
+        log(f"      {dev_us(e) / steps / 1e3:7.3f} ms "
+            f"{e.count / steps:6.0f}  {e.key[:90]}")
+    fig4 = fig4_graphs(port, dev, cfg, params, comp, kept)
+    del kept
+    torch.cuda.empty_cache()
+    return rates, calls, drops, window, fig4
+
+
+def moe_oracles(port, dev, cfg, params, calib):
+    """At MOE_ORACLE_LAYERS layers of the MoE model: the streaming Grams
+    (bf16 model) against the eager fp64 Collector, every tag, expert tags
+    included; the host fp64 decomposition against the device one (model
+    in float32), expert groups included."""
+    CC = port.compress
+    cfg2 = cfg.replace(n_layers=MOE_ORACLE_LAYERS)
+    p2 = cut_layers(port, params, MOE_ORACLE_LAYERS)
+    col = CC.calibrate(port.capture.to_list_params(p2, cfg2), cfg2, calib,
+                       flush_every=FLUSH_EVERY)
+    n_exp = sum("/expert" in t for t in col.gram)
+    log(f"  streaming against eager at {MOE_ORACLE_LAYERS} layers, "
+        f"{n_exp} expert tags:")
+    streaming_vs_eager(port, cfg2, p2, col, calib)
+    del col
+    device_vs_host(port, dev, calib, cfg2.replace(dtype="float32"), p2)
+
+
+def qwen_path(port, dev):
+    """qwen2-moe-a2.7b at full width (d_model 2048, 60 experts padded to 64,
+    top-4, d_expert 1408, 4 shared experts, MHA 16 of 128, vocab 151936),
+    depth cut to QWEN_LAYERS, seeded random factors at uniform 20% (every
+    linear and every expert): bf16 ``Engine.generate`` on a 200- and a
+    64-token prompt with every kernel call recorded and held, then the
+    float32 card-against-CPU check. No padding expert may be routed to."""
+    torch, T, E = port.torch, port.T, port.engine
+    cfg = port.get_config(QWEN_MOE).replace(n_layers=QWEN_LAYERS)
+    t0 = time.perf_counter()
+    params, _ = T.init_model(cfg, seed=QWEN_SEED, device=dev)
+    comp, ks = random_factors(port, params, cfg, MOE_RATIO, QWEN_SEED)
+    del params
+    torch.cuda.synchronize()
+    ranks = {}
+    for gid, k in ks.items():
+        ranks.setdefault(gid.split(":")[0], set()).add(k)
+    log(f"  {T.param_count(comp) / 1e9:.3f} B params ({QWEN_LAYERS} of 24 "
+        f"layers), ranks {ranks}, {time.perf_counter() - t0:.1f} s")
+    long, short = QWEN_PROMPTS
+    rng = np.random.default_rng(QWEN_SEED)
+    prompts = rng.integers(0, cfg.vocab_size, (2, long), dtype=np.int32)
+    prompts[1, short:] = 0
+    lengths = np.asarray([long, short], dtype=np.int32)
+    eng = E.Engine(comp, cfg, E.ServeConfig(batch=2), device=dev)
+    port.reset_counts()
+    with recording(port) as calls, route_recorder(port) as routes:
+        t0 = time.perf_counter()
+        toks = eng.generate(prompts, QWEN_NEW, lengths=lengths)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    counts = port.counts()
+    pad = sum(int((ids >= cfg.moe.num_experts).sum()) for _, ids in routes)
+    log(f"  bf16 generate, prompts of {long} and {short} tokens, {QWEN_NEW} "
+        f"new each: {secs:.2f} s; first tokens {toks[:, :6].tolist()}; "
+        f"launches {counts}; padding-expert assignments {pad} over "
+        f"{len(routes)} router calls")
+    assert toks.shape == (2, QWEN_NEW)
+    assert ((toks >= 0) & (toks < cfg.vocab_size)).all(), "token out of range"
+    for name in ("lowrank_gemv", "lowrank_matmul_2d", "flash_attention",
+                 "decode_attention"):
+        assert counts[name] > 0, f"{name} never launched on the qwen2 path"
+    del eng, routes
+    log(f"  the bf16 run's {len(calls)} kernel signatures against the plain "
+        f"versions:")
+    hold_recorded(port, calls, "bfloat16", "the qwen2-moe path")
+    del calls
+    res = moe_parity(port, dev, cfg, comp, prompts, lengths, QWEN_NEW_F32,
+                     "qwen2-moe float32")
+    pad += res["padding_assignments"]
+    assert pad == 0, f"{pad} assignments went to a padding expert"
+    return res
+
+
+def moe_train_step(port, dev, cfg):
+    """One float32 train step's loss and grads of the MoE model at
+    MOE_ORACLE_LAYERS layers on the card against the CPU, from the same
+    weights: loss 1e-5 relative, grads 1e-4 of each leaf's largest,
+    ``moe_aux`` finite and equal within 1e-5."""
+    torch, TS = port.torch, port.TS
+    cfg2 = cfg.replace(n_layers=MOE_ORACLE_LAYERS, dtype="float32")
+    state, _ = TS.init_train_state(cfg2, seed=1, device="cpu")
+    b = port.synthetic.ShardedLoader(port.synthetic.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=PARITY_TRAIN_SEQ,
+        global_batch=PARITY_TRAIN_ROWS)).batch(0)
+    out = {}
+    for w, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        p = port.pytree.tree_map(lambda t: t.to(d), state.params)
+        t0 = time.perf_counter()
+        loss, m, g = TS.value_and_grad(
+            p, cfg2, {k: torch.as_tensor(v, device=d) for k, v in b.items()})
+        out[w] = (float(loss), float(m["moe_aux"]), g,
+                  time.perf_counter() - t0)
+    (lc, ac, gc, sc), (lg, ag, gg, sg) = out["cpu"], out["card"]
+    errs = [rel_err(x.cpu(), y) for x, y in zip(port.pytree.leaves(gg),
+                                                 port.pytree.leaves(gc))]
+    log(f"  float32 train step, {MOE_ORACLE_LAYERS} layers, "
+        f"{PARITY_TRAIN_ROWS} x {PARITY_TRAIN_SEQ} tokens: loss card "
+        f"{lg:.7f}, cpu {lc:.7f} (rel {abs(lg - lc) / abs(lc):.2e}, "
+        f"tolerance 1e-5); moe_aux card {ag:.7f}, cpu {ac:.7f}; grads, each "
+        f"leaf relative to its largest entry, at most {max(errs):.2e} "
+        f"(tolerance 1e-4) over {len(errs)} leaves; card {sg:.2f} s, cpu "
+        f"{sc:.2f} s")
+    assert abs(lg - lc) <= 1e-5 * abs(lc), (lg, lc)
+    assert np.isfinite(ag) and abs(ag - ac) <= 1e-5, (ag, ac)
+    assert max(errs) <= 1e-4, max(errs)
+    return {"loss": abs(lg - lc) / abs(lc), "grads": max(errs),
+            "moe_aux": abs(ag - ac)}
+
+
+def moe_phases(port, dev) -> dict:
+    """The MoE path, every launch count set to 0 just before granite's
+    calibration and read after its batcher and graph runs; then the
+    checks at cut depth and qwen2-moe. Returns what ``log_moe`` prints and
+    the kernels line's ``moe_launches``."""
+    torch = port.torch
+    out = {}
+    port.reset_counts()
+    try:
+        with Phase(f"MoE path: {MOE} at full size, streaming calibration "
+                   f"with expert Grams, D-Rank 20% on the card, save, boot, "
+                   f"generate"):
+            cfg, params, comp, plan, calib, calls, out["secs"] = \
+                moe_path(port, dev)
+        with Phase("MoE batcher path: eager contiguous, paged and prefix "
+                   "pools with drops counted, graphs on contiguous and "
+                   "paged, dense against D-Rank with graphs"):
+            (out["rates"], cb_calls, out["drops"], out["window"],
+             out["fig4"]) = moe_batcher_path(port, dev, cfg, params, comp)
+    finally:
+        shutil.rmtree(MOE_ARTIFACT_DIR, ignore_errors=True)
+    out["launches"] = port.counts()
+    out["variants"] = port.variant_counts()
+    log(f"  launches on the MoE path: {out['launches']}; by variant "
+        f"{out['variants']}")
+    missing = [n for n, c in out["launches"].items() if c <= 0]
+    assert not missing, f"kernels not launched on the MoE path: {missing}"
+    with Phase("MoE path's kernel calls against the plain versions, every "
+               "variant, the first call of each operand signature"):
+        log(f"  {len(calls) + len(cb_calls)} signatures (compression and "
+            f"generate; the batcher's eager runs)")
+        hold_recorded(port, calls + cb_calls, "bfloat16", "the MoE path")
+        done = {n for n, _, _ in calls + cb_calls}
+        assert done == set(port.wrappers), done
+    del calls, cb_calls, comp
+    torch.cuda.empty_cache()
+    with Phase(f"MoE float32, card against CPU, {MOE_PARITY_LAYERS} "
+               f"layers"):
+        rng = np.random.default_rng(2)
+        prompts = rng.integers(0, cfg.vocab_size,
+                               (PARITY_BATCH, PARITY_PROMPT), dtype=np.int32)
+        out["parity"] = moe_parity(
+            port, dev, cfg.replace(n_layers=MOE_PARITY_LAYERS),
+            cut_layers(port, params, MOE_PARITY_LAYERS), prompts, None,
+            PARITY_STEPS, f"{MOE} float32")
+    with Phase(f"MoE streaming against eager and host against device, "
+               f"{MOE_ORACLE_LAYERS} layers, expert tags and groups"):
+        moe_oracles(port, dev, cfg, params, calib)
+    with Phase(f"MoE float32 train step, card against CPU, "
+               f"{MOE_ORACLE_LAYERS} layers"):
+        out["train"] = moe_train_step(port, dev, cfg)
+    del params, calib
+    torch.cuda.empty_cache()
+    with Phase(f"qwen2-moe path: {QWEN_MOE} at full width, {QWEN_LAYERS} "
+               f"layers, random factors at uniform 20%, bf16 generate, "
+               f"float32 card against CPU"):
+        out["qwen"] = qwen_path(port, dev)
+    return out
+
+
+def log_moe(moe: dict) -> None:
+    """The MoE path's summary lines."""
+    s = moe["secs"]
+    log(f"MoE {MOE}: compression seconds " + ", ".join(
+        f"{k} {v:.2f}" for k, v in s.items()
+        if k not in ("artifact_mb", "achieved_ratio"))
+        + f"; artifact {s['artifact_mb']:.1f} MB; achieved ratio "
+        f"{s['achieved_ratio']:.4f} (requested {MOE_RATIO})")
+    for name, r in moe["rates"].items():
+        log(f"MoE batcher {name}, batch {CB_BATCH}: "
+            f"{r['tokens_per_s']:.1f} tokens/s, {r['ms_per_step']:.2f} "
+            f"ms/step" + (f" (dropped {moe['drops'][name]})"
+                          if name in moe["drops"] else ""))
+    w = moe["window"]
+    log(f"MoE graph step (contiguous, batch {CB_BATCH}): device busy "
+        f"{w['busy_ms']:.3f} ms of {w['again_ms']:.3f}, idle "
+        f"{1 - w['busy_ms'] / w['again_ms']:.1%}")
+    log("MoE with graphs, bf16, batch 8, ms/step: " + ", ".join(
+        f"{k} {' / '.join(f'{v:.3f}' for v in vs)}"
+        for k, vs in moe["fig4"].items()))
+    log(f"MoE float32 card against CPU: {moe['parity']}; qwen2-moe "
+        f"{moe['qwen']}; train step {moe['train']}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2667,6 +3315,8 @@ def main() -> int:
     finally:
         shutil.rmtree(TRAIN_DIR, ignore_errors=True)
         shutil.rmtree(CLI_TRAIN_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    moe = moe_phases(port, dev)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
@@ -2706,7 +3356,8 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
-            "work": t["work"], "train_launches": train_counts[name]})
+            "work": t["work"], "train_launches": train_counts[name],
+            "moe_launches": moe["launches"][name]})
         if "simt_ms" in t:     # the variant the main path ran, the earlier
             kernels[-1].update(variant="+".join(t["variant"]),
                                launches_by_variant=variants[name],
@@ -2717,6 +3368,7 @@ def main() -> int:
             kernels[-1].update(variant="+".join(t["variant"]),
                                launches_by_variant=variants[name],
                                splitk_ms=t["splitk_ms"])
+    log_moe(moe)
     by_name = {k["name"]: k for k in kernels}
     wide = times["lowrank_gemv@64"]
     by_name["lowrank_gemv"]["rows_64"] = dict(

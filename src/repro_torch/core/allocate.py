@@ -113,9 +113,9 @@ def integerize(groups: Sequence[GroupSpec], k: Dict[str, float],
         return int(max(lo, min(g.kmax, vi if vi > 0 else lo)))
 
     out = {gid: clampk(gm[gid], v) for gid, v in k.items()}
-
-    def cost() -> int:
-        return sum(out[g] * gm[g].omega for g in out)
+    # the integer cost Σ k·omega, kept as a running total: every term is an
+    # int, so it equals a fresh sum exactly, at O(1) a step instead of O(G)
+    cost = sum(out[g] * gm[g].omega for g in out)
 
     def over_target(g: GroupSpec) -> float:
         """Relative excess of the integer rank over its float target."""
@@ -132,13 +132,15 @@ def integerize(groups: Sequence[GroupSpec], k: Dict[str, float],
         return (k[g.gid] - kg) / max(k[g.gid], 1.0)
 
     guard = 0
-    while cost() > budget and guard < 100000:
+    while cost > budget and guard < 100000:
         guard += 1
         g = max(groups, key=over_target)
         if over_target(g) is -math.inf:
             break
         kg = out[g.gid]
-        out[g.gid] = kg - min(multiple, kg - max(1, min(gm[g.gid].kmin, kg)))
+        step = min(multiple, kg - max(1, min(gm[g.gid].kmin, kg)))
+        out[g.gid] = kg - step
+        cost -= step * g.omega
     guard = 0
     while guard < 100000:
         guard += 1
@@ -148,9 +150,10 @@ def integerize(groups: Sequence[GroupSpec], k: Dict[str, float],
         g = max(cands, key=under_target)
         step = multiple if out[g.gid] + multiple <= g.kmax \
             else g.kmax - out[g.gid]
-        if step <= 0 or cost() + step * g.omega > budget:
+        if step <= 0 or cost + step * g.omega > budget:
             break
         out[g.gid] += step
+        cost += step * g.omega
     # top-up: if targets were capped (e.g. β pushed V to kmax) budget may be
     # left unspent — spend it on the relatively most-compressed groups so
     # the achieved ratio matches the requested one
@@ -159,12 +162,14 @@ def integerize(groups: Sequence[GroupSpec], k: Dict[str, float],
         guard += 1
         cands = [g for g in groups
                  if out[g.gid] < g.kmax
-                 and cost() + min(multiple, g.kmax - out[g.gid]) * g.omega
+                 and cost + min(multiple, g.kmax - out[g.gid]) * g.omega
                  <= budget]
         if not cands:
             break
         g = min(cands, key=lambda g: out[g.gid] / max(k[g.gid], 1.0))
-        out[g.gid] += min(multiple, g.kmax - out[g.gid])
+        step = min(multiple, g.kmax - out[g.gid])
+        out[g.gid] += step
+        cost += step * g.omega
     return out
 
 

@@ -25,13 +25,19 @@ and ``apply_linear`` reports ``(tag, x)`` to the active capture target
                    upper-triangular factor ``R`` (``RᵀR = G``) per tag by QR
                    updates instead of a Gram.
 
+MoE routed experts are captured separately: the dispatch buffers
+``(E, capacity, d)`` that feed the per-expert products are reported by
+``repro_torch.models.mlp._expert_ffn`` through ``add_expert_batch`` under
+``tag/in`` and ``tag/mid``, one statistic ``tag/in/expert{e}`` per expert.
+A buffer's empty rows are zeros and are counted, as in JAX: an expert's
+``count`` is the capacity times the batches, and its Gram and Σ|x| are
+those of the rows it received.
+
 The JAX package traces the streaming step under ``jax.jit`` and threads
 donated accumulators through it; the port runs the same forward pass
 eagerly under ``torch.no_grad()`` and adds into the accumulators in place.
 Not ported yet: the mesh path (row-sharded Grams, per-shard factors; ROADMAP
-Queue 1, item 11), the routed-expert capture (MoE, item 10) and the
-``obs.trace`` spans around ingest, flush and finalize (``obs`` is not
-ported).
+Queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -74,6 +80,11 @@ class Collector:
             acc["gram"] += g
             acc["absx"] += a
             self.count[tag] += x2.shape[0]
+
+    def add_expert_batch(self, tag: str, xs: torch.Tensor) -> None:
+        """xs: (E, capacity, d) dispatch buffers: one Gram per expert."""
+        for e in range(xs.shape[0]):
+            self.add(f"{tag}/expert{e}", xs[e])
 
     def to_host(self) -> None:
         """Move the device sums into the numpy dicts."""
@@ -132,6 +143,11 @@ class StreamingTape:
         else:
             kops.gram(x2, out=part["gram"])
 
+    def add_expert_batch(self, tag: str, xs: torch.Tensor) -> None:
+        """xs: (E, capacity, d) dispatch buffers: one Gram per expert."""
+        for e in range(xs.shape[0]):
+            self.add(f"{tag}/expert{e}", xs[e])
+
     def __enter__(self):
         set_capture(self)
         return self
@@ -171,6 +187,10 @@ class _ShapeProbe:
 
     def add(self, tag: str, x) -> None:
         self.dims[tag] = int(x.shape[-1])
+
+    def add_expert_batch(self, tag: str, xs) -> None:
+        for e in range(xs.shape[0]):
+            self.dims[f"{tag}/expert{e}"] = int(xs.shape[-1])
 
 
 def _to_meta(tree):
@@ -404,7 +424,7 @@ def to_stacked_params(list_params: Params, cfg: ModelConfig) -> Params:
 
 def tag_linears(list_params: Params) -> Params:
     """Returns a shallow-copied tree where every linear dict carries its
-    path as ``"_tag"``."""
+    path as ``"_tag"`` (and MoE subtrees carry a dispatch tag)."""
 
     def walk(node, path):
         if _is_linear(node):
@@ -412,7 +432,10 @@ def tag_linears(list_params: Params) -> Params:
             d["_tag"] = "/".join(map(str, path))
             return d
         if isinstance(node, dict):
-            return {k: walk(v, path + (k,)) for k, v in node.items()}
+            d = {k: walk(v, path + (k,)) for k, v in node.items()}
+            if "w_gate" in node and "router" in node:   # routed-expert subtree
+                d["_tag"] = "/".join(map(str, path))
+            return d
         if isinstance(node, list):
             return [walk(v, path + (i,)) for i, v in enumerate(node)]
         return node

@@ -17,8 +17,12 @@ the ``gram_blocked`` kernel, folded into fp64 on the host
 oracle. The decomposition runs either on the host (``device=False``, the
 precision oracle: per-group whitening, SVD and truncation in numpy float64,
 ``LINALG``) or batched on the params' device (``device=True``,
-``numerics_device``, float64 ``torch.linalg``, one call per shape
-bucket). The deploy artifact is a
+``numerics_device``, float64 ``torch.linalg``, one call per chunk of a
+shape bucket, each chunk sized to a share of the card's free memory).
+Routed MoE experts are groups of one matrix each (a slice of the layer's
+(E, d, f) stack); their factors are restacked per layer into
+{"B": (E, d, rmax), "C": (E, rmax, f)} with zero rank padding, the form
+``models.mlp`` runs. The deploy artifact is a
 list-form params tree whose linears are factorized {B, C} with a shared
 basis per group, loadable straight into the model; ``save_plan`` writes it
 as a ``pytree_v1`` artifact that either package boots.
@@ -207,17 +211,51 @@ def _get_node(tree, path):
     return node
 
 
+def _member_w(lp: Params, ref: MatrixRef) -> torch.Tensor:
+    """The member's (d_in, d_out) weight: a linear's ``w``, or one expert's
+    slice of a stacked (E, d_in, d_out) expert array."""
+    node = _get_node(lp, ref.path)
+    if ref.expert is not None:                   # stacked expert array
+        return node[ref.expert].detach()
+    return node["w"].detach()
+
+
 def _member_weight(lp: Params, ref: MatrixRef) -> np.ndarray:
-    w = _get_node(lp, ref.path)["w"]
-    return w.detach().to(device="cpu", dtype=torch.float64).numpy()
+    return _member_w(lp, ref).to(device="cpu", dtype=torch.float64).numpy()
 
 
 # ---------------------------------------------------------------------------
 # Device decomposition (numerics_device): bucket same-shaped groups, one
-# batched call per bucket
+# batched call per chunk of a bucket
 # ---------------------------------------------------------------------------
 def _member_tensor(lp: Params, ref: MatrixRef) -> torch.Tensor:
-    return _get_node(lp, ref.path)["w"].detach().float()
+    return _member_w(lp, ref).float()
+
+
+# share of the free device memory one chunk's float64 operands may take
+CHUNK_MEMORY_SHARE = 0.25
+
+
+def _group_bytes(d1: int, nd2: int, kmax: int) -> int:
+    """float64 bytes one group of a bucket holds during ``numd.decompose``:
+    W and its whitened copy and product (3·d1·nd2); the Gram and the
+    damped Cholesky's copies and factor (5·d1²); the small-side Gram, its
+    symmetrized copy and eigenvectors (3·m²); B and C at kmax."""
+    m = min(d1, nd2)
+    return 8 * (3 * d1 * nd2 + 5 * d1 * d1 + 3 * m * m
+                + kmax * (d1 + nd2))
+
+
+def _chunk_groups(n_groups: int, per_group: int, dev: torch.device) -> int:
+    """Groups a chunk of a bucket takes: as many as fit
+    ``CHUNK_MEMORY_SHARE`` of the memory free on ``dev`` now (what
+    ``mem_get_info`` reports free plus what PyTorch's allocator holds
+    unused); the whole bucket off the card."""
+    if dev.type != "cuda":
+        return n_groups
+    free, _ = torch.cuda.mem_get_info(dev)
+    free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    return max(1, min(n_groups, int(CHUNK_MEMORY_SHARE * free) // per_group))
 
 
 def _decompose_groups_device(
@@ -228,62 +266,88 @@ def _decompose_groups_device(
     """Whitened decomposition of every group at its cost cap, batched by
     shape bucket, on ``dev``. Returns gid -> (sig fp64, B
     (d1, kmax), C (kmax, n·d2)) with B/C in the ORIGINAL space on ``dev``;
-    final ranks slice columns later."""
-    def put(a: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a, dtype=np.float64), device=dev)
+    final ranks slice columns later.
 
+    A bucket runs in chunks of ``_chunk_groups`` groups, each chunk's
+    operands stacked on the host and moved to ``dev`` only when it runs
+    (MoE's expert buckets hold over a thousand groups). Each group's math
+    is its own batch member, so the chunking changes no result. An rsvd
+    bucket runs whole: its sketch is drawn for the whole batch at once."""
     buckets: Dict[Tuple, List[Group]] = {}
     for g in groups:
         buckets.setdefault((g.d_in, g.n * g.d_out, g.n, g.cost_cap),
                            []).append(g)
     out: Dict[str, Tuple] = {}
-    for (d1, nd2, n, kmax), gs in sorted(buckets.items()):
-        with trace.span("decompose_bucket", d1=d1, nd2=nd2,
-                        kmax=kmax, n_groups=len(gs)):
-            W = torch.stack([
-                torch.cat([_member_tensor(lp, m) for m in g.members], dim=1)
-                for g in gs]).to(dev)
-            kwargs: Dict = {}
-            if ccfg.method == "fwsvd":
-                # same floor as num.diag_whitener: zero Fisher rows (dead
-                # units) must not divide the basis by zero
-                kwargs["diag"] = put(np.maximum(np.stack(
-                    [fisher[g.members[0].tag] for g in gs]), 1e-8))
-            elif ccfg.method == "asvd":
-                kwargs["diag"] = put(np.stack([np.power(np.maximum(np.mean(
-                    [col.mean_abs(m.tag) for m in g.members], axis=0), 1e-8),
-                    ccfg.asvd_alpha) for g in gs]))
-            elif ccfg.method != "svd":                   # cholesky family
-                tags = [m.tag for g in gs for m in g.members]
-                if col.chol and all(t in col.chol for t in tags):
-                    kwargs["factor"] = numd.combine_factors(put(np.stack(
-                        [np.stack([col.chol[m.tag] for m in g.members])
-                         for g in gs])))
-                else:
-                    # buckets mixing whitened and plain tags fall back to
-                    # Grams, substituting RᵀR for factor-only tags
-                    kwargs["gram"] = put(np.stack(
-                        [np.sum([_gram_of(col, m.tag) for m in g.members],
-                                axis=0) for g in gs]))
-                    kwargs["damp"] = ccfg.damp
-            rsvd = int(bool(ccfg.rsvd_threshold)
-                       and min(d1, nd2) >= ccfg.rsvd_threshold)
-            sig, B, C = numd.decompose(
-                W, k=kmax, rsvd=rsvd, rsvd_oversample=ccfg.rsvd_oversample,
-                rsvd_iters=ccfg.rsvd_iters, **kwargs)
-            sig = sig.double().cpu().numpy()
-            if not np.isfinite(sig).all():
-                # a member still failing Cholesky escalation comes out
-                # as NaNs; fail as loudly as the host oracle does on
-                # non-finite Grams
-                bad = [gs[i].gid for i in range(len(gs))
-                       if not np.isfinite(sig[i]).all()]
-                raise np.linalg.LinAlgError(
-                    f"device decomposition produced non-finite spectra for "
-                    f"groups {bad} (bucket d1={d1}, n·d2={nd2}) — non-finite "
-                    f"calibration Grams or weights")
-            for i, g in enumerate(gs):
-                out[g.gid] = (sig[i], B[i], C[i])
+    for (d1, nd2, n, kmax), bucket in sorted(buckets.items()):
+        rsvd = int(bool(ccfg.rsvd_threshold)
+                   and min(d1, nd2) >= ccfg.rsvd_threshold)
+        c0 = 0
+        while c0 < len(bucket):
+            # sized at each chunk: the factors kept so far take memory too
+            size = (len(bucket) if rsvd else _chunk_groups(
+                len(bucket) - c0, _group_bytes(d1, nd2, kmax), dev))
+            out.update(_decompose_chunk(lp, bucket[c0:c0 + size], ccfg, col,
+                                        fisher, dev, (d1, nd2, kmax), rsvd))
+            c0 += size
+    return out
+
+
+def _decompose_chunk(lp: Params, gs: List[Group], ccfg: CompressionConfig,
+                     col: Optional[Collector],
+                     fisher: Optional[Dict[str, np.ndarray]],
+                     dev: torch.device, shape: Tuple[int, int, int],
+                     rsvd: int) -> Dict[str, Tuple]:
+    """One batched ``numd.decompose`` over the groups ``gs`` of a bucket."""
+    d1, nd2, kmax = shape
+
+    def put(a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, dtype=np.float64), device=dev)
+
+    out: Dict[str, Tuple] = {}
+    with trace.span("decompose_bucket", d1=d1, nd2=nd2,
+                    kmax=kmax, n_groups=len(gs)):
+        W = torch.stack([
+            torch.cat([_member_tensor(lp, m) for m in g.members], dim=1)
+            for g in gs]).to(dev)
+        kwargs: Dict = {}
+        if ccfg.method == "fwsvd":
+            # same floor as num.diag_whitener: zero Fisher rows (dead
+            # units) must not divide the basis by zero
+            kwargs["diag"] = put(np.maximum(np.stack(
+                [fisher[g.members[0].tag] for g in gs]), 1e-8))
+        elif ccfg.method == "asvd":
+            kwargs["diag"] = put(np.stack([np.power(np.maximum(np.mean(
+                [col.mean_abs(m.tag) for m in g.members], axis=0), 1e-8),
+                ccfg.asvd_alpha) for g in gs]))
+        elif ccfg.method != "svd":                   # cholesky family
+            tags = [m.tag for g in gs for m in g.members]
+            if col.chol and all(t in col.chol for t in tags):
+                kwargs["factor"] = numd.combine_factors(put(np.stack(
+                    [np.stack([col.chol[m.tag] for m in g.members])
+                     for g in gs])))
+            else:
+                # buckets mixing whitened and plain tags fall back to
+                # Grams, substituting RᵀR for factor-only tags
+                kwargs["gram"] = put(np.stack(
+                    [np.sum([_gram_of(col, m.tag) for m in g.members],
+                            axis=0) for g in gs]))
+                kwargs["damp"] = ccfg.damp
+        sig, B, C = numd.decompose(
+            W, k=kmax, rsvd=rsvd, rsvd_oversample=ccfg.rsvd_oversample,
+            rsvd_iters=ccfg.rsvd_iters, **kwargs)
+        sig = sig.double().cpu().numpy()
+        if not np.isfinite(sig).all():
+            # a member still failing Cholesky escalation comes out
+            # as NaNs; fail as loudly as the host oracle does on
+            # non-finite Grams
+            bad = [gs[i].gid for i in range(len(gs))
+                   if not np.isfinite(sig[i]).all()]
+            raise np.linalg.LinAlgError(
+                f"device decomposition produced non-finite spectra for "
+                f"groups {bad} (bucket d1={d1}, n·d2={nd2}) — non-finite "
+                f"calibration Grams or weights")
+        for i, g in enumerate(gs):
+            out[g.gid] = (sig[i], B[i], C[i])
     return out
 
 
@@ -417,6 +481,7 @@ def build_plan_and_params(
     new_lp = pytree.tree_map(lambda x: x, lp)  # new containers
     pdt = T.dtype_of(cfg.param_dtype)
     results: List[GroupResult] = []
+    expert_factors: Dict[Tuple, Dict[int, Tuple]] = {}
 
     for g, gs in zip(groups, gspecs):
         k = ks[g.gid]
@@ -431,6 +496,9 @@ def build_plan_and_params(
         for i, m in enumerate(g.members):
             Ci = C[:, i * g.d_out:(i + 1) * g.d_out].to(
                 device=dev, dtype=pdt).contiguous()
+            if m.expert is not None:
+                expert_factors.setdefault(m.path, {})[m.expert] = (Bt, Ci)
+                continue
             node = _get_node(new_lp, m.path)
             new_node = {"B": Bt, "C": Ci}
             if "b" in node:
@@ -444,6 +512,18 @@ def build_plan_and_params(
             d_in=g.d_in, d_out=g.d_out, n=g.n, omega=g.omega,
             reff=gs.reff, k=k, kmax=gs.kmax,
             sigma_head=[float(s) for s in sig[:8]]))
+
+    # routed experts: restack with zero rank padding (exact); experts
+    # without factors keep zeros
+    for path, factors in expert_factors.items():
+        E, d_in, d_out = _get_node(lp, path).shape
+        rmax = max(f[0].shape[1] for f in factors.values())
+        Bs = torch.zeros((E, d_in, rmax), dtype=pdt, device=dev)
+        Cs = torch.zeros((E, rmax, d_out), dtype=pdt, device=dev)
+        for e, (Be, Ce) in factors.items():
+            Bs[e, :, :Be.shape[1]] = Be
+            Cs[e, :Ce.shape[0]] = Ce
+        _get_node(new_lp, path[:-1])[path[-1]] = {"B": Bs, "C": Cs}
 
     summary = alloc.allocation_summary(gspecs, ks)
     plan = Plan(config=ccfg, groups=results, summary=summary)

@@ -1,17 +1,48 @@
-"""Dense FFN, SwiGLU / GeGLU / GeLU (counterpart of the dense half of
-``repro/models/mlp.py``). Mixture-of-Experts comes with its model
-families."""
+"""Dense FFN (SwiGLU / GeGLU / GeLU) and Mixture-of-Experts (counterpart of
+``repro/models/mlp.py``).
+
+MoE keeps the JAX layer's routing and capacity semantics exactly:
+
+  * the router's logits in x's dtype, softmax in float32 over the padded
+    expert axis (padding experts masked at -1e30), top-k, gates
+    renormalised with +1e-9 and cast back to x's dtype;
+  * each token's row repeated k times in top-k order and scattered into
+    fixed-capacity buffers; a row's slot within its destination is its rank
+    by a cumulative sum over a one-hot, so row order decides which
+    assignments are dropped once a buffer is full, and a dropped row
+    contributes zero (GShard capacity);
+  * a second-level dispatch of the received rows into (E, C2, D) per-expert
+    buffers, the operands of the batched expert products; the local expert
+    id rides along in x's dtype (exact in bf16 below 256), and the buffer's
+    empty rows, whose id reads 0, take expert 0's spare capacity as in JAX.
+
+Capacities are Python ints computed from shapes and the dispatch is
+gathers and scatters into a sentinel row (``n·cap + 1`` rows, the last
+dropped), so nothing here reads the device on the host: a decode step with
+MoE layers captures into a CUDA graph. Routing, dispatch and the expert
+products are ``torch`` ops, as they are ``jnp`` ops outside Pallas in the
+JAX package.
+
+Only the single-device body (expert parallelism 1) is ported: the
+expert-parallel mesh path (``shard_map`` with ``all_to_all`` over the
+``model`` axis, ep > 1) comes with the port's mesh, ROADMAP Queue 1, item
+11.
+"""
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.config import ModelConfig
-from repro_torch.models.params import Builder, apply_linear
+from repro_torch.config import ModelConfig, MoEConfig
+from repro_torch.models.params import Builder, apply_linear, get_capture
 
 
+# ---------------------------------------------------------------------------
+# Dense FFN
+# ---------------------------------------------------------------------------
 def init_mlp(b: Builder, cfg: ModelConfig, d_ff: int,
              stack: Tuple[int, ...] = ()) -> None:
     out_scale = 0.02 / max(1, cfg.n_layers) ** 0.5
@@ -38,3 +69,179 @@ def apply_mlp(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     else:
         h = _gelu(apply_linear(p["w_up"], x))
     return apply_linear(p["w_down"], h)
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+def init_moe(b: Builder, cfg: ModelConfig,
+             stack: Tuple[int, ...] = ()) -> None:
+    m = cfg.moe
+    E = m.padded_experts
+    sub = b.sub("moe")
+    sub.linear("router", cfg.d_model, E, ("fsdp", None), stack)
+    st_axes = (None,) * len(stack)
+    # expert weights: (E, d, f) stacked
+    sub.normal("w_gate", (*stack, E, cfg.d_model, m.d_expert),
+               (*st_axes, "experts", "fsdp", None))
+    sub.normal("w_up", (*stack, E, cfg.d_model, m.d_expert),
+               (*st_axes, "experts", "fsdp", None))
+    sub.normal("w_down", (*stack, E, m.d_expert, cfg.d_model),
+               (*st_axes, "experts", None, "fsdp"),
+               scale=0.02 / max(1, cfg.n_layers) ** 0.5)
+    if m.num_shared:
+        shared = b.sub("moe_shared")
+        d_sh = m.d_shared * m.num_shared
+        shared.linear("w_gate", cfg.d_model, d_sh, ("fsdp", "mlp"), stack)
+        shared.linear("w_up", cfg.d_model, d_sh, ("fsdp", "mlp"), stack)
+        shared.linear("w_down", d_sh, cfg.d_model, ("mlp", "fsdp"), stack)
+        shared.linear("shared_gate", cfg.d_model, 1, ("fsdp", None), stack)
+
+
+def capacity(rows: int, n_dest: int, factor: float) -> int:
+    """Rows a destination's buffer holds: ``ceil(rows / n_dest · factor)``
+    rounded up to a multiple of 8, at least 8."""
+    cap = int(math.ceil(rows / n_dest * factor))
+    return max(8, -(-cap // 8) * 8)
+
+
+def _dispatch_to_buffers(x: torch.Tensor, dest: torch.Tensor, n_dest: int,
+                         capacity: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Scatter rows of x (N, D) into (n_dest, capacity, D) buffers.
+
+    dest: (N,) int destination id per row (>= n_dest means 'drop').
+    Returns (buffers, slot_of_row (N,), kept_mask (N,)). Rows beyond a
+    destination's capacity are dropped (GShard capacity semantics)."""
+    N, D = x.shape
+    onehot = (dest[:, None] == torch.arange(
+        n_dest, device=dest.device)).to(torch.int32)        # (N, n_dest)
+    pos_in_dest = torch.cumsum(onehot, dim=0) - onehot       # rank within dest
+    slot = torch.sum(pos_in_dest * onehot, dim=1)            # (N,)
+    kept = (slot < capacity) & (dest < n_dest)
+    flat_idx = torch.where(kept, dest * capacity + slot,
+                           torch.full_like(slot, n_dest * capacity))
+    # every dropped row lands on the sentinel row, with zeros
+    rows = torch.where(kept[:, None], x, torch.zeros_like(x))
+    buf = x.new_zeros((n_dest * capacity + 1, D)).index_copy(
+        0, flat_idx.long(), rows)
+    return buf[:-1].reshape(n_dest, capacity, D), slot, kept
+
+
+def _undispatch(buffers: torch.Tensor, dest: torch.Tensor, slot: torch.Tensor,
+                kept: torch.Tensor) -> torch.Tensor:
+    """Gather rows back: inverse of _dispatch_to_buffers."""
+    n_dest, capacity, D = buffers.shape
+    flat = buffers.reshape(n_dest * capacity, D)
+    idx = torch.clamp(dest * capacity + slot, 0, n_dest * capacity - 1)
+    rows = flat[idx.long()]
+    return torch.where(kept[:, None], rows, torch.zeros_like(rows))
+
+
+def _expert_mm(w, xs: torch.Tensor) -> torch.Tensor:
+    """Per-expert batched matmul. w: (E, D, F) dense tensor OR factorized
+    {"B": (E, D, R), "C": (E, R, F)} (D-Rank deploy form, rank-padded);
+    the rank-space product is rounded to xs's dtype before ``@ C``."""
+    if isinstance(w, dict):
+        t = torch.bmm(xs, w["B"].to(xs.dtype))
+        return torch.bmm(t, w["C"].to(xs.dtype))
+    return torch.bmm(xs, w.to(xs.dtype))
+
+
+def _expert_ffn(w_gate, w_up, w_down, xs: torch.Tensor,
+                tag: Optional[str] = None) -> torch.Tensor:
+    """xs: (E, C2, D); weights (E, D, F)/(E, F, D). With a capture target
+    active, the buffers are reported as ``tag + "/in"`` and the hidden
+    activations as ``tag + "/mid"`` (one statistic per expert)."""
+    cap = get_capture()
+    if cap is not None and tag:
+        cap.add_expert_batch(tag + "/in", xs)
+    h = F.silu(_expert_mm(w_gate, xs)) * _expert_mm(w_up, xs)
+    if cap is not None and tag:
+        cap.add_expert_batch(tag + "/mid", h)
+    return _expert_mm(w_down, h)
+
+
+def route(router_w: torch.Tensor, m: MoEConfig, x: torch.Tensor
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The router: logits in x's dtype, padding experts masked at -1e30,
+    softmax in float32, top-k, gates renormalised with +1e-9. x: (T, D).
+    Returns (probs (T, E) float32, gates (T, k) float32, expert ids (T,
+    k))."""
+    E = m.padded_experts
+    logits = x @ router_w.to(x.dtype)                         # (T, E)
+    if m.num_experts < E:                                     # mask padding
+        pad = torch.arange(E, device=x.device) >= m.num_experts
+        logits = torch.where(pad[None, :],
+                             torch.full_like(logits, -1e30), logits)
+    probs = torch.softmax(logits.float(), dim=-1)
+    gate_vals, expert_ids = torch.topk(probs, m.top_k, dim=-1)
+    gate_vals = gate_vals / (torch.sum(gate_vals, -1, keepdim=True) + 1e-9)
+    return probs, gate_vals, expert_ids
+
+
+def _moe_local(p: Dict, m: MoEConfig, x: torch.Tensor,
+               tag: Optional[str] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MoE body at expert parallelism 1. x: (T, D) tokens. Returns (out,
+    aux_loss). The first-level dispatch (to the one shard) and its meta
+    buffer are kept as in JAX: they fix the received rows' order and the
+    zero rows that reach the second level."""
+    T, D = x.shape
+    E = m.padded_experts
+    ep, e_local = 1, E
+    k = m.top_k
+
+    probs, gate_vals, expert_ids = route(p["router"], m, x)
+
+    # load-balancing aux loss (Switch-style) over real experts
+    me = torch.mean(probs[:, :m.num_experts], dim=0)
+    chosen = (expert_ids[..., None] == torch.arange(
+        E, device=x.device)).float().sum(1)                   # (T, E)
+    ce = torch.mean(chosen[:, :m.num_experts], dim=0)
+    aux = m.num_experts * torch.sum(me * ce)
+
+    # ---- first-level dispatch (one shard) ---------------------------------
+    xs = torch.repeat_interleave(x, k, dim=0)                 # (T*k, D)
+    eids = expert_ids.reshape(-1)                             # (T*k,)
+    gates = gate_vals.reshape(-1).to(x.dtype)
+    cap1 = capacity(T * k, ep, m.capacity_factor)
+    dest_shard = torch.div(eids, e_local, rounding_mode="floor")
+    send, slot1, kept1 = _dispatch_to_buffers(xs, dest_shard, ep, cap1)
+    send_meta = torch.stack([(eids % e_local).to(x.dtype),
+                             torch.zeros_like(gates)], dim=-1)
+    meta_buf, _, _ = _dispatch_to_buffers(send_meta, dest_shard, ep, cap1)
+    recv = send.reshape(ep * cap1, D)
+    local_eid = meta_buf.reshape(ep * cap1, 2)[:, 0].to(torch.int32)
+
+    # ---- second-level dispatch: per-expert batched GEMM --------------------
+    cap2 = capacity(ep * cap1, e_local, m.capacity_factor)
+    ebuf, slot2, kept2 = _dispatch_to_buffers(recv, local_eid, e_local, cap2)
+    eout = _expert_ffn(p["w_gate"], p["w_up"], p["w_down"], ebuf, tag=tag)
+    back = _undispatch(eout, local_eid, slot2, kept2)         # (ep*cap1, D)
+
+    # ---- return trip ------------------------------------------------------
+    back = back.reshape(ep, cap1, D)
+    rows = _undispatch(back, dest_shard, slot1, kept1)        # (T*k, D)
+    out = torch.sum((rows * gates[:, None]).reshape(T, k, D), dim=1)
+    return out, aux
+
+
+def apply_moe(p: Dict, cfg: ModelConfig,
+              x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (out, aux_loss). ``p`` is a layer's tree holding
+    ``moe`` (and ``moe_shared`` when the config has shared experts)."""
+    m = cfg.moe
+    B, S, D = x.shape
+    moe_p = p["moe"]
+    pp = {"router": moe_p["router"]["w"],
+          **{k: moe_p[k] for k in ("w_gate", "w_up", "w_down")}}
+    out, aux = _moe_local(pp, m, x.reshape(-1, D), tag=moe_p.get("_tag"))
+    out = out.reshape(B, S, D)
+    if m.num_shared:
+        sh = p["moe_shared"]
+        g = F.silu(apply_linear(sh["w_gate"], x)) * apply_linear(sh["w_up"], x)
+        shared_out = apply_linear(sh["w_down"], g)
+        sgate = torch.sigmoid(apply_linear(sh["shared_gate"], x))
+        out = out + sgate * shared_out
+    return out, aux

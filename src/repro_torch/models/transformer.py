@@ -14,11 +14,13 @@ copies). Where the JAX package scans a stacked run (``cfg.scan_layers``),
 JAX.
 
 This port serves the ``attn`` and ``swa`` kinds of decoder-only models,
-with the contiguous per-slot KV cache (``init_cache``) or, for pure
-``attn`` stacks, the paged block arena (``init_cache_paged``, read through
-a block table in ``decode_step(table=)`` and ``prefill_ext``). The
-recurrent kinds, MoE, encoder-decoder wiring and M-RoPE come with their
-model families (ROADMAP Queue 1, item 10).
+with a dense FFN or a Mixture-of-Experts layer (``models.mlp.apply_moe``,
+expert parallelism 1), with the contiguous per-slot KV cache
+(``init_cache``) or, for pure ``attn`` stacks, the paged block arena
+(``init_cache_paged``, read through a block table in
+``decode_step(table=)`` and ``prefill_ext``). The recurrent kinds,
+encoder-decoder wiring and M-RoPE come with their model families (ROADMAP
+Queue 1, item 10).
 
 Batch dictionary convention: ``tokens`` (B, S) int, optional ``positions``
 (B, S) int and, for prefill, ``lengths`` (B,) int; ``prefill_ext`` also
@@ -41,7 +43,7 @@ from repro_torch.models.attention import (attend_decode, attend_full,
                                           attend_prefill, attend_prefill_ext,
                                           cache_write_index, init_attention,
                                           init_kv_cache, paged_write_index)
-from repro_torch.models.mlp import apply_mlp, init_mlp
+from repro_torch.models.mlp import apply_mlp, apply_moe, init_mlp, init_moe
 from repro_torch.models.params import (Builder, Params, apply_linear,
                                        rms_norm, softcap)
 
@@ -55,12 +57,11 @@ def dtype_of(name: str) -> torch.dtype:
 
 def check_supported(cfg: ModelConfig) -> None:
     kinds = set(cfg.layer_kinds())
-    if (not kinds <= set(KINDS) or cfg.moe.num_experts
-            or cfg.is_encoder_decoder or cfg.rope_kind == "mrope"
-            or cfg.frontend):
+    if (not kinds <= set(KINDS) or cfg.is_encoder_decoder
+            or cfg.rope_kind == "mrope" or cfg.frontend):
         raise NotImplementedError(
-            f"{cfg.name}: only decoder-only attn/swa models with dense FFNs "
-            f"are ported so far (ROADMAP Queue 1, item 10)")
+            f"{cfg.name}: only decoder-only attn/swa models with dense or "
+            f"MoE FFNs are ported so far (ROADMAP Queue 1, item 10)")
 
 
 # ---------------------------------------------------------------------------
@@ -72,7 +73,9 @@ def _init_block(b: Builder, cfg: ModelConfig, n: int) -> None:
     b.rmsnorm("ln1", cfg.d_model, stack)
     init_attention(b.sub("attn"), cfg, stack)
     b.rmsnorm("ln2", cfg.d_model, stack)
-    if cfg.d_ff:
+    if cfg.moe.num_experts:
+        init_moe(b, cfg, stack)
+    elif cfg.d_ff:
         init_mlp(b.sub("mlp"), cfg, cfg.d_ff, stack)
 
 
@@ -144,15 +147,26 @@ def _kind_window(cfg: ModelConfig, kind: str) -> int:
 # ---------------------------------------------------------------------------
 # Full-sequence block application (train / eval)
 # ---------------------------------------------------------------------------
+def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """x plus the layer's FFN (MoE or dense) of ``ln2(x)``. Returns (x,
+    the MoE aux loss, or None for a dense layer)."""
+    if "moe" in p:
+        out, aux = apply_moe(p, cfg, rms_norm(p["ln2"], x, cfg.norm_eps))
+        return x + out, aux
+    if "mlp" in p:
+        x = x + apply_mlp(p["mlp"], cfg, rms_norm(p["ln2"], x, cfg.norm_eps))
+    return x, None
+
+
 def _block_fwd(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
-               angles: Optional[torch.Tensor], causal: bool) -> torch.Tensor:
+               angles: Optional[torch.Tensor], causal: bool
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Returns (x, moe_aux or None)."""
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
     x = x + attend_full(p["attn"], cfg, h, angles, causal=causal,
                         window=_kind_window(cfg, kind))
-    if "mlp" in p:
-        h = rms_norm(p["ln2"], x, cfg.norm_eps)
-        x = x + apply_mlp(p["mlp"], cfg, h)
-    return x
+    return _ffn(p, cfg, x)
 
 
 # "dots": keep the matmul outputs through the rematerialized block (JAX's
@@ -167,9 +181,11 @@ def _dots_saveable(ctx, op, *args, **kwargs):
 
 
 def _run_layers(run_p: Any, n: int, x: torch.Tensor, body,
-                cfg: ModelConfig) -> torch.Tensor:
+                cfg: ModelConfig, aux: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply a run, list (compressed deploy) or stacked form.
-    `body(p_layer, x) -> x`. With gradients on, a stacked run of a scanned
+    `body(p_layer, x) -> (x, moe aux or None)`; returns (x, ``aux`` plus
+    the run's MoE aux losses). With gradients on, a stacked run of a scanned
     config rematerializes each layer per ``cfg.remat``
     ("block"/"full": keep only the layer's input; "dots": keep the matmul
     outputs too)."""
@@ -182,11 +198,13 @@ def _run_layers(run_p: Any, n: int, x: torch.Tensor, body,
     for pl in _layers(run_p, n):
         if remat:
             # the model draws no random numbers, so no RNG state to keep
-            x = ckpt.checkpoint(body, pl, x, use_reentrant=False,
-                                preserve_rng_state=False, **kw)
+            x, a = ckpt.checkpoint(body, pl, x, use_reentrant=False,
+                                   preserve_rng_state=False, **kw)
         else:
-            x = body(pl, x)
-    return x
+            x, a = body(pl, x)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -235,14 +253,15 @@ def forward(params: Params, cfg: ModelConfig,
     dev = _params_device(params)
     x = embed_tokens(params, cfg, _tokens(batch, dev))
     positions = _default_positions(cfg, batch, dev)
+    aux = torch.zeros((), device=dev)
     for r, (kind, n) in enumerate(cfg.layer_runs()):
         angles = _angles_for(cfg, kind, positions)
-        x = _run_layers(
+        x, aux = _run_layers(
             params["decoder"][f"run{r}"], n, x,
             lambda pl, xx, kind=kind, angles=angles: _block_fwd(
-                kind, cfg, pl, xx, angles, causal=True), cfg)
+                kind, cfg, pl, xx, angles, causal=True), cfg, aux)
     logits = lm_logits(params, cfg, x)
-    return logits, {"moe_aux": torch.zeros((), device=dev)}
+    return logits, {"moe_aux": aux}
 
 
 def lm_loss(params: Params, cfg: ModelConfig,
@@ -250,9 +269,10 @@ def lm_loss(params: Params, cfg: ModelConfig,
     """Next-token CE. If batch has explicit `labels`, logits align 1:1 with
     them; otherwise labels are tokens shifted left by one (the last
     position padded with -1, masked). ``loss_mask`` multiplies the mask.
-    Returns (loss, metrics); the metrics are detached and stay on the
-    device."""
-    logits, _ = forward(params, cfg, batch)
+    An MoE model adds ``aux_loss_weight · moe_aux / n_layers`` and reports
+    ``metrics["moe_aux"]``. Returns (loss, metrics); the metrics are
+    detached and stay on the device."""
+    logits, aux = forward(params, cfg, batch)
     dev = logits.device
     if "labels" in batch:
         labels = torch.as_tensor(batch["labels"], device=dev).long()
@@ -277,6 +297,10 @@ def lm_loss(params: Params, cfg: ModelConfig,
             "accuracy": acc.sum() / denom,
             "tokens": mask.sum(),
         }
+    if cfg.moe.num_experts:
+        loss = loss + cfg.moe.aux_loss_weight * aux["moe_aux"] / max(
+            1, cfg.n_layers)
+        metrics["moe_aux"] = aux["moe_aux"].detach()
     return loss, metrics
 
 
@@ -335,11 +359,7 @@ def _block_decode(kind: str, cfg: ModelConfig, p: Params, kv: Dict,
     out, _ = attend_decode(p["attn"], cfg, h, pos, kv, angles,
                            window=_kind_window(cfg, kind), table=table,
                            write_index=write_index)
-    x = x + out
-    if "mlp" in p:
-        h = rms_norm(p["ln2"], x, cfg.norm_eps)
-        x = x + apply_mlp(p["mlp"], cfg, h)
-    return x
+    return _ffn(p, cfg, x + out)[0]
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
@@ -407,10 +427,7 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict,
             out, kv = attend_prefill(pl["attn"], cfg, h, angles, causal=True,
                                      window=win, max_len=max_len,
                                      lengths=lengths)
-            x = x + out
-            if "mlp" in pl:
-                h = rms_norm(pl["ln2"], x, cfg.norm_eps)
-                x = x + apply_mlp(pl["mlp"], cfg, h)
+            x, _ = _ffn(pl, cfg, x + out)
             ks.append(kv["k"])
             vs.append(kv["v"])
         runs[f"run{r}"] = {"kv": {"k": torch.stack(ks),
@@ -466,10 +483,7 @@ def prefill_ext(params: Params, cfg: ModelConfig, batch: Dict,
                 pl["attn"], cfg, h, angles,
                 {"k": arena_kv["k"][i], "v": arena_kv["v"][i]}, table,
                 starts, lengths)
-            x = x + out
-            if "mlp" in pl:
-                h = rms_norm(pl["ln2"], x, cfg.norm_eps)
-                x = x + apply_mlp(pl["mlp"], cfg, h)
+            x, _ = _ffn(pl, cfg, x + out)
             ks.append(kv["k"])
             vs.append(kv["v"])
         runs[f"run{r}"] = {"kv": {"k": torch.stack(ks),

@@ -24,8 +24,9 @@ Departures from the JAX engine, all deterministic:
   functions), where JAX returns a new cache from a functional
   ``.at[].set``; the batcher's prefill (and so the poison probe) still
   builds a fresh cache and never touches the pool;
-* the linear weights and the embedding are cast to the compute dtype once,
-  at construction, where JAX casts them inside every ``apply_linear`` call.
+* the linear weights, the MoE expert stacks and the embedding are cast to
+  the compute dtype once, at construction, where JAX casts them inside
+  every ``apply_linear`` and expert product.
   The cast is the same rounding either way; doing it once keeps a decode
   step from reading float32 weights only to round them again. Norm scales
   stay as they are, as JAX reads them;
@@ -55,8 +56,11 @@ from repro_torch.obs import trace
 from repro_torch.serve import admission as adm
 from repro_torch.serve import aot as aotlib
 
-# leaves cast to the compute dtype at construction
-_CAST_KEYS = frozenset({"w", "B", "C", "b", "embed", "lora_A", "lora_B"})
+# leaves cast to the compute dtype at construction; ``w_gate``, ``w_up`` and
+# ``w_down`` name tensors only in an MoE layer's dense (E, d, f) expert
+# stacks (elsewhere they are linear dicts, walked into)
+_CAST_KEYS = frozenset({"w", "B", "C", "b", "embed", "lora_A", "lora_B",
+                        "w_gate", "w_up", "w_down"})
 
 
 @dataclass(frozen=True)
@@ -115,9 +119,9 @@ class DrainResult(list):
 
 def place_params(params: Params, dtype: torch.dtype,
                  device: torch.device) -> Params:
-    """Params on ``device`` with the linear weights and the embedding in
-    ``dtype``. Tensors shared between layers (a group's shared basis) stay
-    shared."""
+    """Params on ``device`` with the linear weights, the MoE expert stacks
+    and the embedding in ``dtype``. Tensors shared between layers (a
+    group's shared basis) stay shared."""
     memo: Dict[int, torch.Tensor] = {}
 
     def walk(node, key=None):
