@@ -161,6 +161,32 @@ What it does, in order, printing the seconds of each phase:
    ``generate`` on a 200- and a 64-token prompt, every kernel call held,
    float32 card against CPU, and no assignment to a padding expert.
    Every kernel must have launched on the MoE path.
+11. the recurrent families, each after the earlier paths' memory is
+   freed and with the counts set to 0 just before its calibration and
+   read after its batcher runs: hymba-1.5b (32 layers, d_model 1600, 25
+   heads over 5 KV of 64 beside a Mamba-2 head, d_ff 5504, window 1024 on
+   29 layers) and xlstm-350m (24 layers, d_model 1024, 21 mLSTM layers of
+   4 heads of 512, sLSTM at layers 7, 15 and 23 with a 1365-wide FFN) at
+   full size, random weights from seed 0: streaming calibration, D-Rank
+   20% on the card, ``save_plan``, ``from_compressed(verify=True)``,
+   ``generate`` equal to an in-memory ``Engine``'s tokens (hymba also one
+   1200-token prompt, past its window); the batcher through exact-length
+   admission (one single-row prefill per request at its prompt's length)
+   on 2b's 24 requests, eager from the artifact and through
+   ``AotRegistry`` (tokens equal, every decode a replay, the warm set
+   JAX's, one prefill graph per distinct prompt length), one NaN fault
+   plan on row 1 (the quarantined slot's every state leaf zero after its
+   purge, every request the clean run's tokens), a profiled graph step,
+   dense against D-Rank decode steps with graphs; every launch of a
+   kernel with variants counted by operand widths and the variant its
+   wrapper counted (``census``: xLSTM's 1365-wide FFN takes ``splitk``
+   and ``simt``/``split``), its operands 16-byte aligned; every
+   kernel call held against its plain version; xLSTM's sLSTM loop's share
+   of a prefill; float32 card against CPU on the D-Rank model cut to 4
+   (hymba) or 8 (xlstm) layers; streaming against eager, host against
+   device at 1 layer (hymba's first, global) and 2 (xlstm, with an sLSTM
+   period of 2); a float32 train step at 4 layers (hymba: g, h, g, g) and
+   2 (xlstm).
 
 The build phase logs the registers and spills of the tensor-core, gemv
 and chunked entry points and the clusters the card holds at once, and
@@ -174,7 +200,8 @@ the variant the main path ran and the earlier variant's time, ``simt_ms``
 or, for the gemv, ``splitk_ms`` and its 64-row times, ``rows_64``; the 2-D
 product also its two-launch variant's, ``split_ms``; every kernel its
 launches on the training path, ``train_launches``, and on the MoE path,
-``moe_launches``); the last
+``moe_launches``, and on the recurrent paths, ``hymba_launches`` and
+``xlstm_launches``); the last
 is ``{"ok": true, "device": {...}}``. Any failure raises, so the script
 exits non-zero and prints no result; so it does with no CUDA device, or
 without the repository's ``src/repro_torch`` beside it.
@@ -182,6 +209,7 @@ without the repository's ``src/repro_torch`` beside it.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import re
 import shutil
@@ -274,6 +302,31 @@ MOE_PARITY_LAYERS, MOE_ORACLE_LAYERS, ROUTE_GAP = 4, 2, 1e-6
 MOE_ARTIFACT_DIR = ROOT / "build" / "chip_smoke_moe_artifact"
 QWEN_MOE, QWEN_LAYERS, QWEN_SEED = "qwen2-moe-a2.7b", 2, 6
 QWEN_PROMPTS, QWEN_NEW, QWEN_NEW_F32 = (200, 64), 16, 8
+# the recurrent families at full size (random weights, seed 0): hymba-1.5b
+# (attention and Mamba-2 heads in parallel) and xlstm-350m (mLSTM and
+# sLSTM) through the main path's steps and the batcher's exact-length
+# admission, eager and with graphs; hymba also one prompt past its window.
+# Cut in depth only for the CPU and the host oracle: the float32 card
+# against CPU at REC_PARITY_LAYERS of the D-Rank model; streaming against
+# eager and host against device at REC_ORACLE_CUT (hymba's one global
+# layer: its host fp64 oracle took 43.9 s at 2 layers; xLSTM's 2 layers
+# with an sLSTM period of 2, so that they hold one); a train step at
+# REC_TRAIN_CUT (hymba's 4 layers g, h, g, g: its schedule puts a global
+# layer first, in the middle and last, so fewer than 4 hold no windowed
+# layer)
+HYMBA, XLSTM = "hymba-1.5b", "xlstm-350m"
+REC_SEED, REC_RATIO, REC_PARITY_STEPS = 0, 0.2, 8
+REC_LONG, REC_LONG_NEW = 1200, 16
+REC_PARITY_LAYERS = {HYMBA: 4, XLSTM: 8}
+REC_ORACLE_CUT = {HYMBA: dict(n_layers=1),
+                  XLSTM: dict(n_layers=2, mlstm_every_slstm=2)}
+REC_TRAIN_CUT = {HYMBA: dict(n_layers=4), XLSTM: REC_ORACLE_CUT[XLSTM]}
+REC_ARTIFACT_DIR = ROOT / "build" / "chip_smoke_recurrent_artifact"
+# the kernels each family's path must launch (xLSTM has no attention)
+REC_KERNELS = {HYMBA: ("lowrank_gemv", "lowrank_matmul_2d",
+                       "flash_attention", "decode_attention",
+                       "gram_blocked"),
+               XLSTM: ("lowrank_gemv", "lowrank_matmul_2d", "gram_blocked")}
 # the host calls that put work on the device: kernel launches, and a CUDA
 # graph's launch (one a replay)
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
@@ -331,7 +384,7 @@ class Port:
         from repro_torch.ckpt import store
         from repro_torch import pytree
         from repro_torch.launch import serve as launch
-        from repro_torch.models import mlp, transformer
+        from repro_torch.models import mlp, ssm, transformer
         from repro_torch.optim import adamw
         from repro_torch.serve import admission, aot, api, engine
         from repro_torch.train import lora, loop
@@ -344,7 +397,8 @@ class Port:
         self.capture, self.compress = capture, compress
         self.synthetic = synthetic
         self.build, self.ops, self.ref = _build, ops, ref
-        self.T, self.engine, self.mlp = transformer, engine, mlp
+        self.T, self.engine, self.mlp, self.ssm = (transformer, engine,
+                                                   mlp, ssm)
         self.faultinject, self.admission = faultinject, admission
         self.lm, self.gm, self.fa, self.da = lm, gm, fa, da
         self.wrappers = {"lowrank_gemv": lm.lowrank_gemv,
@@ -1027,6 +1081,51 @@ def fig4_graphs(port, dev, cfg, params, comp, kept):
         log(f"  {name:9s} graphs, batch {CB_BATCH}: {secs / steps * 1e3:.3f}"
             f" ms/step, {sum(len(o) for o in out.values()) / secs:.1f} "
             f"tokens/s")
+    del dense
+    torch.cuda.empty_cache()
+    return res_ms
+
+
+def fig4_decode(port, dev, cfg, params, kept, steps: int = 16):
+    """Dense against D-Rank decode with graphs at batch 8, bf16,
+    contiguous pool, in turns (dense, D-Rank, D-Rank, dense) on one warmed
+    batcher each: the batcher path's first 8 requests admitted (two
+    steps, each admission an exact-length prefill graph), then ``steps``
+    decode steps on the host clock between syncs, then the rest drained;
+    so the decode step alone is timed, not a new prompt length's capture.
+    Returns {name: [ms/step, ...]}."""
+    torch, E, aot = port.torch, port.engine, port.aot
+    scfg = E.ServeConfig(batch=CB_BATCH, max_len=CB_MAX_LEN)
+    dense = E.ContinuousBatcher(
+        params, cfg, scfg, device=dev,
+        executables=aot.AotRegistry(cfg, scfg,
+                                    aot.live_fingerprint(params, cfg)))
+    dense.warm_executables()
+    engines = {"dense": dense, "drank-20%": kept["contiguous"]}
+    reqs = cb_requests(cfg.vocab_size)[:CB_BATCH]
+    res_ms, toks = {}, {}
+    for name in ("dense", "drank-20%", "drank-20%", "dense"):
+        cb = engines[name]
+        cb.done.clear()
+        for rid, t in reqs:
+            cb.submit(E.Request(rid=rid, tokens=t.copy(), n_new=CB_NEW))
+        cb.step()
+        cb.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            cb.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / steps * 1e3
+        res = cb.run_until_drained(watchdog_s=120.0)
+        assert res.status == "drained" and len(res) == CB_BATCH, name
+        out = {r.rid: list(r.out) for r in res}
+        assert toks.setdefault(name, out) == out, \
+            f"{name}: two graph runs of one batcher disagree"
+        res_ms.setdefault(name, []).append(ms)
+        log(f"  {name:9s} graphs, batch {CB_BATCH}, {steps} decode steps: "
+            f"{ms:.3f} ms/step")
+    cb.done.clear()
     del dense
     torch.cuda.empty_cache()
     return res_ms
@@ -1873,9 +1972,10 @@ PATH_WRAPPERS = {"lowrank_gemv": "lowrank_gemv",
 @contextlib.contextmanager
 def recording(port):
     """Within the block each kernel wrapper the model calls through ``ops``
-    keeps a copy of its operands at the first call of each signature (the
-    operands' shapes and dtypes and the keyword arguments), in the list it
-    yields as (kernel, args, kwargs)."""
+    keeps a copy of its operands (the low-rank products' weights by
+    reference) at the first call of each signature (the operands' shapes
+    and dtypes and the keyword arguments), in the list it yields as
+    (kernel, args, kwargs)."""
     torch = port.torch
     calls, seen, saved = [], set(), {}
 
@@ -1887,8 +1987,15 @@ def recording(port):
                    tuple(sorted(kwargs.items())))
             if key not in seen:
                 seen.add(key)
-                calls.append((name, [None if a is None else a.clone()
-                                     for a in args], dict(kwargs)))
+                # a low-rank product's B and C are weights, never written
+                # after load: kept by reference (a clone of each per row
+                # count held ~50 GB on hymba's exact-length prefills)
+                keep = (1, 2) if name in ("lowrank_gemv",
+                                          "lowrank_matmul_2d") else ()
+                calls.append((name, [None if a is None else
+                                     a if i in keep else a.clone()
+                                     for i, a in enumerate(args)],
+                              dict(kwargs)))
             return fn(*args, **kwargs)
         return wrapper
     for name, attr in PATH_WRAPPERS.items():
@@ -2455,7 +2562,7 @@ def train_path(port, dev):
                flash_per_step=flash_step, busy_ms=busy,
                launches_per_step=launches)
 
-    # (c) float32, card against CPU: one train step of a 4-layer SmolLM
+    # (c) float32, card against CPU: one train step of a 2-layer SmolLM
     # from the same weights, TF32 off, at lr 1e-3 from its first step. The
     # step's two halves are held apart, each leaf relative to its largest
     # entry: the grads of lm_loss, and the params that the card's AdamW
@@ -3105,39 +3212,10 @@ def qwen_path(port, dev):
 
 
 def moe_train_step(port, dev, cfg):
-    """One float32 train step's loss and grads of the MoE model at
-    MOE_ORACLE_LAYERS layers on the card against the CPU, from the same
-    weights: loss 1e-5 relative, grads 1e-4 of each leaf's largest,
-    ``moe_aux`` finite and equal within 1e-5."""
-    torch, TS = port.torch, port.TS
-    cfg2 = cfg.replace(n_layers=MOE_ORACLE_LAYERS, dtype="float32")
-    state, _ = TS.init_train_state(cfg2, seed=1, device="cpu")
-    b = port.synthetic.ShardedLoader(port.synthetic.DataConfig(
-        vocab_size=cfg.vocab_size, seq_len=PARITY_TRAIN_SEQ,
-        global_batch=PARITY_TRAIN_ROWS)).batch(0)
-    out = {}
-    for w, d in (("cpu", torch.device("cpu")), ("card", dev)):
-        p = port.pytree.tree_map(lambda t: t.to(d), state.params)
-        t0 = time.perf_counter()
-        loss, m, g = TS.value_and_grad(
-            p, cfg2, {k: torch.as_tensor(v, device=d) for k, v in b.items()})
-        out[w] = (float(loss), float(m["moe_aux"]), g,
-                  time.perf_counter() - t0)
-    (lc, ac, gc, sc), (lg, ag, gg, sg) = out["cpu"], out["card"]
-    errs = [rel_err(x.cpu(), y) for x, y in zip(port.pytree.leaves(gg),
-                                                 port.pytree.leaves(gc))]
-    log(f"  float32 train step, {MOE_ORACLE_LAYERS} layers, "
-        f"{PARITY_TRAIN_ROWS} x {PARITY_TRAIN_SEQ} tokens: loss card "
-        f"{lg:.7f}, cpu {lc:.7f} (rel {abs(lg - lc) / abs(lc):.2e}, "
-        f"tolerance 1e-5); moe_aux card {ag:.7f}, cpu {ac:.7f}; grads, each "
-        f"leaf relative to its largest entry, at most {max(errs):.2e} "
-        f"(tolerance 1e-4) over {len(errs)} leaves; card {sg:.2f} s, cpu "
-        f"{sc:.2f} s")
-    assert abs(lg - lc) <= 1e-5 * abs(lc), (lg, lc)
-    assert np.isfinite(ag) and abs(ag - ac) <= 1e-5, (ag, ac)
-    assert max(errs) <= 1e-4, max(errs)
-    return {"loss": abs(lg - lc) / abs(lc), "grads": max(errs),
-            "moe_aux": abs(ag - ac)}
+    """One float32 train step of the MoE model at MOE_ORACLE_LAYERS
+    layers on the card against the CPU (``train_step_parity``)."""
+    return train_step_parity(
+        port, dev, cfg.replace(n_layers=MOE_ORACLE_LAYERS), MOE)
 
 
 def moe_phases(port, dev) -> dict:
@@ -3222,6 +3300,494 @@ def log_moe(moe: dict) -> None:
         for k, vs in moe["fig4"].items()))
     log(f"MoE float32 card against CPU: {moe['parity']}; qwen2-moe "
         f"{moe['qwen']}; train step {moe['train']}")
+
+
+# ---------------------------------------------------------------------------
+# The recurrent families: hymba-1.5b and xlstm-350m at full size
+# ---------------------------------------------------------------------------
+def cut_depth(port, params, cfg, **cut):
+    """``cfg`` cut by ``cut`` (its depth and, for xLSTM, the sLSTM period)
+    and list-form params for it: each layer of the cut config takes the
+    next unused layer of its kind from ``params`` (either run form), in
+    model order. Returns (cut cfg, list-form params)."""
+    cfg2 = cfg.replace(**cut)
+    lp = port.capture.to_list_params(params, cfg)
+    layers = {}
+    for r, (kind, _) in enumerate(cfg.layer_runs()):
+        layers.setdefault(kind, []).extend(lp["decoder"][f"run{r}"])
+    runs = {f"run{r}": [layers[kind].pop(0) for _ in range(n)]
+            for r, (kind, n) in enumerate(cfg2.layer_runs())}
+    return cfg2, dict(lp, decoder=runs)
+
+
+def _widths(name, args, kw) -> tuple:
+    """The operand widths a launch of ``name`` is counted by: (K, N) of a
+    low-rank product, (heads, KV heads, head_dim, window) of flash, the
+    Gram's width."""
+    if name in ("lowrank_gemv", "lowrank_matmul_2d"):
+        return (args[0].shape[1], args[2].shape[1])
+    if name == "flash_attention":
+        q, k = args[0], args[1]
+        return (q.shape[2], k.shape[2], q.shape[3], kw.get("window", 0))
+    return (args[0].shape[1],)
+
+
+@contextlib.contextmanager
+def census(port):
+    """Within the block every launch of a kernel with variants that the
+    model reaches through ``ops`` is counted by (kernel, operand widths,
+    variant), the variant read from the kernel wrapper's own per-variant
+    launch count across the call, in the dict the block yields
+    (``"counts"``); ``"unaligned"`` lists each launch with a tensor
+    operand off 16-byte alignment."""
+    out = {"counts": {}, "unaligned": []}
+    saved = {}
+
+    def spy(name, fn):
+        counts = port.wrappers[name].launches_by_variant
+
+        def wrapper(*args, **kwargs):
+            before = dict(counts)
+            res = fn(*args, **kwargs)
+            for var, n in counts.items():
+                if n > before[var]:
+                    key = (name, _widths(name, args, kwargs), var)
+                    out["counts"][key] = (out["counts"].get(key, 0)
+                                          + n - before[var])
+                    if any(a.data_ptr() % 16 for a in args
+                           if isinstance(a, port.torch.Tensor)):
+                        out["unaligned"].append(key)
+            return res
+        return wrapper
+    for name in ("lowrank_gemv", "lowrank_matmul_2d", "flash_attention",
+                 "gram_blocked"):
+        attr = PATH_WRAPPERS[name]
+        saved[attr] = getattr(port.ops, attr)
+        setattr(port.ops, attr, spy(name, saved[attr]))
+    try:
+        yield out
+    finally:
+        for attr, fn in saved.items():
+            setattr(port.ops, attr, fn)
+
+
+def log_census(cens: dict, where: str) -> None:
+    """Prints the launches of each (kernel, variant) in ``cens`` by operand
+    widths (per path and per shape: xLSTM's 1365-wide FFN, a bf16 shape
+    the tensor-core or two-launch design cannot take, shows which of
+    ``splitk``, ``simt`` or ``split`` it took), and holds every launch's
+    operands to 16-byte alignment."""
+    by = {}
+    for (name, shape, var), n in sorted(cens["counts"].items(),
+                                        key=lambda kv: str(kv[0])):
+        by.setdefault(name, {}).setdefault(var, {})[shape] = n
+    for name, vs in by.items():
+        log(f"  {where}: {name} launches by variant and operand widths: "
+            + "; ".join(f"{v} " + ", ".join(f"{s} {n}" for s, n in
+                                            sorted(sh.items()))
+                        for v, sh in vs.items()))
+    assert not cens["unaligned"], \
+        f"{where}: launches with an operand off 16-byte alignment: " \
+        f"{cens['unaligned'][:8]}"
+
+
+def recurrent_compress(port, dev, arch):
+    """``arch`` at full size, random weights from REC_SEED: streaming
+    calibration with its Grams through ``gram_blocked`` (one fp64 host
+    fold, at the end: hymba's 385 Grams a batch are ~21 GB of float64 a
+    fold, 10-14 s each on the card's host), D-Rank
+    REC_RATIO on the card, ``save_plan``, ``from_compressed(verify=True)``
+    and ``generate`` on GEN_BATCH prompts of GEN_PROMPT tokens, equal to an
+    in-memory ``Engine``'s tokens; hymba also one REC_LONG-token prompt,
+    past its 1024-token window. Returns (cfg, dense params, compressed
+    params, plan, calibration batches, seconds and sizes)."""
+    torch, T, CC, E = port.torch, port.T, port.compress, port.engine
+    Cap = port.capture
+    cfg = port.get_config(arch)
+    secs, ingest, dec = {}, [], []
+    t0 = time.perf_counter()
+    params, _ = T.init_model(cfg, seed=REC_SEED, device=dev)
+    torch.cuda.synchronize()
+    log(f"  init_model: {T.param_count(params) / 1e9:.3f} B params, runs "
+        f"{cfg.layer_runs()}, {time.perf_counter() - t0:.1f} s")
+    calib = calib_batches(port, cfg, dev)
+    t0 = time.perf_counter()
+    with timed(torch, Cap.StreamingCalibrator, "ingest", ingest):
+        col = CC.calibrate(Cap.to_list_params(params, cfg), cfg, calib,
+                           flush_every=len(calib))
+    torch.cuda.synchronize()
+    secs["calibration"] = time.perf_counter() - t0
+    widths = sorted({g.shape[0] for g in col.gram.values()})
+    log(f"  streaming calibration: {len(col.gram)} Grams a batch (widths "
+        f"{widths}), one fp64 host fold at the end (the main path folds "
+        f"mid-stream), {secs['calibration']:.2f} s (ingest per batch "
+        + ", ".join(f"{t:.3f}" for t in ingest) + " s)")
+    t0 = time.perf_counter()
+    with timed(torch, CC, "_decompose_groups_device", dec):
+        comp, plan = CC.build_plan_and_params(
+            params, cfg, CC.CompressionConfig(method="drank",
+                                              ratio=REC_RATIO),
+            calib, collector=col, device=True)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    secs["decomposition"] = sum(dec)
+    secs["allocation and assembly"] = total - sum(dec)
+    del col
+    ks = {}
+    for g in plan.groups:
+        ks.setdefault(g.mtype, []).append(g.k)
+    log(f"  D-Rank {REC_RATIO:.0%}: achieved ratio "
+        f"{plan.summary['achieved_ratio']:.4f} over {len(plan.groups)} "
+        f"groups; ranks by type " + ", ".join(
+            f"{t} {min(v)}..{max(v)} ({len(v)})" for t, v in
+            sorted(ks.items())) + f"; {total:.2f} s: device decomposition "
+        f"{secs['decomposition']:.2f} s, allocation and assembly "
+        f"{secs['allocation and assembly']:.2f} s")
+    if arch == HYMBA:       # GQA: group size 1, 11 groups a layer
+        assert len(plan.groups) == 11 * cfg.n_layers, len(plan.groups)
+        assert set(ks) == {"q", "k", "v", "o", "gate", "up", "down",
+                           "ssm_in", "ssm_z", "ssm_bc", "ssm_out"}, set(ks)
+    else:
+        assert set(ks) == {"mup", "mgate", "mq", "mk", "mdown", "lin",
+                           "lfgate", "lfup", "lfdown"}, set(ks)
+    shutil.rmtree(REC_ARTIFACT_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    path = CC.save_plan(str(REC_ARTIFACT_DIR), comp, plan, cfg)
+    secs["save"] = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+    scfg = E.ServeConfig(batch=GEN_BATCH, max_len=GEN_PROMPT + GEN_NEW + 1)
+    t0 = time.perf_counter()
+    booted = E.Engine.from_compressed(str(REC_ARTIFACT_DIR), cfg, scfg,
+                                      verify=True, device=dev)
+    torch.cuda.synchronize()
+    secs["boot"] = time.perf_counter() - t0
+    assert booted.plan.to_json() == plan.to_json(), "plan changed on disk"
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT), dtype=np.int32)
+    t0 = time.perf_counter()
+    toks = booted.generate(prompts, GEN_NEW)
+    torch.cuda.synchronize()
+    secs["generate"] = time.perf_counter() - t0
+    toks_mem = E.Engine(comp, cfg, scfg, device=dev).generate(prompts,
+                                                              GEN_NEW)
+    log(f"  save_plan: {nbytes / 1e6:.1f} MB, {secs['save']:.2f} s; "
+        f"from_compressed(verify=True): {secs['boot']:.2f} s; generate "
+        f"{GEN_BATCH} x {GEN_PROMPT} + {GEN_NEW}: {secs['generate']:.2f} s;"
+        f" first tokens of row 0 {toks[0, :8].tolist()}")
+    assert toks.shape == (GEN_BATCH, GEN_NEW)
+    assert ((toks >= 0) & (toks < cfg.vocab_size)).all(), "token out of range"
+    assert (toks == toks_mem).all(), \
+        f"{arch}: the artifact's engine and the in-memory engine disagree"
+    if arch == HYMBA:
+        long = np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (1, REC_LONG), dtype=np.int32)
+        t0 = time.perf_counter()
+        ltoks = booted.generate(long, REC_LONG_NEW)
+        torch.cuda.synchronize()
+        secs["generate, long prompt"] = time.perf_counter() - t0
+        with torch.inference_mode():
+            logits, cache = T.prefill(booted.params, cfg, {
+                "tokens": torch.as_tensor(long, device=dev)},
+                max_len=REC_LONG + 1)
+        rings = sum(n for k, n in cfg.layer_runs() if k == "hymba")
+        log(f"  one {REC_LONG}-token prompt, {REC_LONG_NEW} new (past the "
+            f"{cfg.sliding_window}-token window: {rings} layers' rings "
+            f"wrap): {secs['generate, long prompt']:.2f} s, tokens "
+            f"{ltoks[0, :8].tolist()}")
+        assert torch.isfinite(logits).all(), "non-finite long-prompt logits"
+        assert ((ltoks >= 0) & (ltoks < cfg.vocab_size)).all()
+        del cache
+    del booted
+    secs["artifact_mb"] = nbytes / 1e6
+    secs["achieved_ratio"] = plan.summary["achieved_ratio"]
+    return cfg, params, comp, plan, calib, secs
+
+
+def recurrent_batcher(port, dev, cfg, params, comp):
+    """The continuous batcher on the artifact through exact-length
+    admission (one single-row prefill per request at its prompt's
+    length), bf16, batch 8, max_len 256, the batcher path's 24 requests:
+    eager, booted from the artifact; then through ``AotRegistry``: tokens
+    equal, every decode a replay, the warm set JAX's (decode and purge),
+    one prefill graph per distinct prompt length and one decode entry;
+    then one NaN fault plan on row 1 on that graph batcher: the
+    quarantined slot's every state leaf reads zero right after its purge
+    and every request gets the clean run's tokens; a profiled graph step;
+    dense against D-Rank decode steps with graphs (``fig4_decode``).
+    Returns a summary dict."""
+    torch, E, aot, FI = port.torch, port.engine, port.aot, port.faultinject
+    reqs = cb_requests(cfg.vocab_size)
+    n_lens = len({len(t) for _, t in reqs})
+    scfg = E.ServeConfig(batch=CB_BATCH, max_len=CB_MAX_LEN)
+    out = {}
+    # the artifact was verified by the Engine's boot; no second rehash
+    cb = E.ContinuousBatcher.from_compressed(str(REC_ARTIFACT_DIR), cfg,
+                                             scfg, device=dev)
+    assert not cb.bucketed
+    res, secs, steps = drive_batcher(port, cb, reqs)
+    assert res.status == "drained" and len(res) == CB_REQUESTS
+    eager = {r.rid: list(r.out) for r in res}
+    ntok = sum(len(o) for o in eager.values())
+    out["eager"] = {"tokens_per_s": ntok / secs,
+                    "ms_per_step": secs / steps * 1e3}
+    log(f"  eager: {ntok} tokens in {steps} steps, {ntok / secs:.1f} "
+        f"tokens/s, {secs / steps * 1e3:.2f} ms/step; stats {cb.stats}")
+    assert cb.stats["prefill_retraces"] == n_lens, (cb.stats, n_lens)
+    assert cb.stats["decode_retraces"] == 1, cb.stats
+    del cb
+    fp = port.store.artifact_fingerprint(str(REC_ARTIFACT_DIR),
+                                         name=port.compress.ARTIFACT_NAME)
+    reg = aot.AotRegistry(cfg, scfg, fp)
+    cb = E.ContinuousBatcher(comp, cfg, scfg, device=dev, executables=reg)
+    with timed(torch, reg, "_capture", []) as caps:
+        res, secs, steps, info = drive_graphs(port, cb, reqs)
+    graphs = {r.rid: list(r.out) for r in res}
+    ntok = sum(len(o) for o in graphs.values())
+    roles = [role for role, _ in reg.entries()]
+    pbytes = sum(b for (role, _), b in reg.graph_bytes().items()
+                 if role == "prefill")
+    out["graphs"] = {"tokens_per_s": ntok / secs,
+                     "ms_per_step": secs / steps * 1e3,
+                     "warm_s": info["warm_s"],
+                     "prefill_graphs": roles.count("prefill"),
+                     "prefill_graph_mb": pbytes / 2 ** 20,
+                     "capture_s": sum(caps)}
+    log(f"  graphs: {ntok} tokens in {steps} steps, {ntok / secs:.1f} "
+        f"tokens/s, {secs / steps * 1e3:.2f} ms/step (eager "
+        f"{out['eager']['ms_per_step']:.2f}, captures of the exact "
+        f"prefills included); warm {info['warm_s']:.2f} s, "
+        f"{info['warm']['aot_compiles']} entries; after the drain "
+        f"{len(roles)} entries: {roles.count('prefill')} exact prefills "
+        f"({n_lens} distinct prompt lengths), {roles.count('decode')} "
+        f"decode; the exact prefills' graphs {pbytes / 2 ** 20:.0f} MB, all "
+        f"graphs {sum(reg.graph_bytes().values()) / 2 ** 20:.0f} MB; "
+        f"{len(caps)} captures (each with its first, eager call) "
+        f"{sum(caps):.2f} s, median {np.median(caps):.3f} s; decode "
+        f"dispatches {info['decode_calls']}, replays "
+        f"{info['decode_replays']}")
+    assert res.status == "drained" and len(res) == CB_REQUESTS
+    assert graphs == eager, "the graph run's tokens differ from the eager's"
+    assert reg.entries()[:info["warm"]["aot_compiles"]] == \
+        [("decode", (0,)), ("purge", ())], reg.entries()
+    assert roles.count("prefill") == n_lens and roles.count("decode") == 1
+    assert info["decode_calls"] > 0 and \
+        info["decode_replays"] == info["decode_calls"], info
+    assert cb.stats["aot_fallbacks"] == 0, cb.stats
+
+    purged, inner = [], aot.purge_rows
+
+    def spy(pool, rows):
+        res = inner(pool, rows)
+        for r in np.asarray(rows):
+            if r < pool["pos"].shape[0]:
+                purged.append((int(r), max(
+                    float(t[:, r].abs().max())
+                    for t in port.pytree.tensors(pool["runs"])),
+                    int(pool["pos"][r])))
+        return res
+    cb.done.clear()
+    cb.faults = FI.FaultPlan(nan_decode_step=cb._step_idx + 3, nan_rows=(1,))
+    aot.purge_rows = spy
+    try:
+        res, secs, steps = drive_batcher(port, cb, reqs)
+    finally:
+        aot.purge_rows = inner
+    chaos = {r.rid: list(r.out) for r in res}
+    log(f"  NaN fault plan on row 1 (graphs): {res.status}, fired "
+        f"{cb.faults.fired}, purged (row, max |state|, pos) {purged}, "
+        f"{len(res.failed)} failed; tokens equal to the clean run's: "
+        f"{chaos == eager}")
+    assert res.status == "drained" and cb.faults.fired and purged
+    assert all(m == 0.0 and pos == -1 for _, m, pos in purged), purged
+    assert chaos == eager, "a fault-plan run's tokens differ from the clean"
+    cb.faults = None
+    cb.done.clear()
+    kept = {"contiguous": cb}
+    steps = 4
+    out["window"] = graph_profile(port, kept, steps)["contiguous"]
+    log("    the graph step's longest device kernels (ms/step, "
+        "launches/step):")
+    for e in sorted(on_device(out["window"]["events"]), key=dev_us,
+                    reverse=True)[:8]:
+        log(f"      {dev_us(e) / steps / 1e3:7.3f} ms "
+            f"{e.count / steps:6.0f}  {e.key[:90]}")
+    out["fig4"] = fig4_decode(port, dev, cfg, params, kept)
+    del kept, cb, reg
+    torch.cuda.empty_cache()
+    return out
+
+
+def slstm_share(port, dev, cfg, comp):
+    """The sLSTM loop's share of one eager bf16 prefill of the longest
+    batcher prompt (one row): the host clock after a sync around the
+    prefill and around each ``apply_slstm`` call inside it."""
+    torch, T, E = port.torch, port.T, port.engine
+    p = E.place_params(comp, T.dtype_of(cfg.dtype), dev)
+    n = max(len(t) for _, t in cb_requests(cfg.vocab_size))
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, n), dtype=np.int32), device=dev)
+    inner, total = [], []
+    with torch.inference_mode():
+        T.prefill(p, cfg, {"tokens": toks}, max_len=CB_MAX_LEN)   # warm
+        with timed(torch, port.ssm, "apply_slstm", inner), \
+                timed(torch, T, "prefill", total):
+            T.prefill(p, cfg, {"tokens": toks}, max_len=CB_MAX_LEN)
+    share = sum(inner) / total[0]
+    log(f"  one eager bf16 prefill of {n} tokens: {total[0] * 1e3:.2f} ms, "
+        f"the {len(inner)} sLSTM layers' loops {sum(inner) * 1e3:.2f} ms "
+        f"({share:.1%})")
+    del p
+    return {"prefill_ms": total[0] * 1e3, "slstm_ms": sum(inner) * 1e3,
+            "share": share}
+
+
+def train_step_parity(port, dev, cfg2, name: str) -> dict:
+    """One float32 train step's loss and grads of ``cfg2`` (seeded
+    weights) on the card against the CPU: loss 1e-5 relative, grads 1e-4
+    of each leaf's largest; an MoE model's ``moe_aux`` finite and equal
+    within 1e-5."""
+    torch, TS = port.torch, port.TS
+    cfg2 = cfg2.replace(dtype="float32")
+    state, _ = TS.init_train_state(cfg2, seed=1, device="cpu")
+    b = port.synthetic.ShardedLoader(port.synthetic.DataConfig(
+        vocab_size=cfg2.vocab_size, seq_len=PARITY_TRAIN_SEQ,
+        global_batch=PARITY_TRAIN_ROWS)).batch(0)
+    out = {}
+    for w, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        p = port.pytree.tree_map(lambda t: t.to(d), state.params)
+        t0 = time.perf_counter()
+        loss, m, g = TS.value_and_grad(
+            p, cfg2, {k: torch.as_tensor(v, device=d) for k, v in b.items()})
+        out[w] = (float(loss), float(m.get("moe_aux", 0.0)), g,
+                  time.perf_counter() - t0)
+    (lc, ac, gc, sc), (lg, ag, gg, sg) = out["cpu"], out["card"]
+    errs = [rel_err(x.cpu(), y) for x, y in zip(port.pytree.leaves(gg),
+                                                 port.pytree.leaves(gc))]
+    log(f"  {name} float32 train step, {cfg2.n_layers} layers "
+        f"{cfg2.layer_runs()}, {PARITY_TRAIN_ROWS} x {PARITY_TRAIN_SEQ} "
+        f"tokens: loss card {lg:.7f}, cpu {lc:.7f} (rel "
+        f"{abs(lg - lc) / abs(lc):.2e}, tolerance 1e-5); grads, each leaf "
+        f"relative to its largest entry, at most {max(errs):.2e} (tolerance "
+        f"1e-4) over {len(errs)} leaves; card {sg:.2f} s, cpu {sc:.2f} s"
+        + (f"; moe_aux card {ag:.7f}, cpu {ac:.7f}" if cfg2.moe.num_experts
+           else ""))
+    assert abs(lg - lc) <= 1e-5 * abs(lc), (lg, lc)
+    assert max(errs) <= 1e-4, max(errs)
+    res = {"loss": abs(lg - lc) / abs(lc), "grads": max(errs)}
+    if cfg2.moe.num_experts:
+        assert np.isfinite(ag) and abs(ag - ac) <= 1e-5, (ag, ac)
+        res["moe_aux"] = abs(ag - ac)
+    return res
+
+
+def recurrent_phases(port, dev, arch) -> dict:
+    """One recurrent family's path, every launch count set to 0 just
+    before its calibration and read after its batcher and graph runs;
+    then every recorded kernel call held against its plain version, the
+    float32 card against the CPU at REC_PARITY_LAYERS, streaming against
+    eager Grams and host against device decomposition at the
+    REC_ORACLE_CUT and a float32 train step at the REC_TRAIN_CUT.
+    Returns the summary and the kernels line's launches."""
+    torch = port.torch
+    out = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"== {arch}: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+        f"allocated on the card before the path")
+    port.reset_counts()
+    try:
+        with recording(port) as calls, census(port) as cens:
+            with Phase(f"{arch} at full size: streaming calibration, "
+                       f"D-Rank 20% on the card, save, boot, generate"):
+                cfg, params, comp, plan, calib, out["secs"] = \
+                    recurrent_compress(port, dev, arch)
+            with Phase(f"{arch} batcher: exact-length admission, eager and "
+                       f"with graphs, a NaN fault plan, dense against "
+                       f"D-Rank with graphs"):
+                out.update(recurrent_batcher(port, dev, cfg, params, comp))
+    finally:
+        shutil.rmtree(REC_ARTIFACT_DIR, ignore_errors=True)
+    out["launches"] = port.counts()
+    out["variants"] = port.variant_counts()
+    log(f"  launches on the {arch} path: {out['launches']}; by variant "
+        f"{out['variants']}")
+    log_census(cens, f"the {arch} path")
+    missing = [n for n in REC_KERNELS[arch] if out["launches"][n] <= 0]
+    assert not missing, f"kernels not launched on the {arch} path: {missing}"
+    if arch == XLSTM:
+        with Phase(f"{arch}: the sLSTM loop's share of a prefill"):
+            out["slstm"] = slstm_share(port, dev, cfg, comp)
+    with Phase(f"{arch}: the path's kernel calls against the plain "
+               f"versions, every variant, the first call of each operand "
+               f"signature"):
+        log(f"  {len(calls)} signatures")
+        hold_recorded(port, calls, "bfloat16", f"the {arch} path")
+    del calls
+    torch.cuda.empty_cache()
+    n = REC_PARITY_LAYERS[arch]
+    with Phase(f"{arch} float32, card against CPU, {n} layers of the D-Rank "
+               f"model"), recording(port) as calls32:
+        cfg_p, lp = cut_depth(port, comp, cfg, n_layers=n)
+        cfg_p = cfg_p.replace(dtype="float32")
+        prompts = np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (PARITY_BATCH, PARITY_PROMPT), dtype=np.int32)
+        log(f"  runs {cfg_p.layer_runs()}")
+        gpu = greedy(port, lp, cfg_p, prompts, REC_PARITY_STEPS, dev)
+        cpu = greedy(port, lp, cfg_p, prompts, REC_PARITY_STEPS,
+                     torch.device("cpu"))
+        compare_greedy(torch, gpu, cpu)
+        out["parity"] = max(abs_err(a, b) for a, b in zip(gpu, cpu))
+        log(f"  the float32 card run's {len(calls32)} kernel signatures "
+            f"against the plain versions:")
+        hold_recorded(port, calls32, "float32", f"the {arch} float32 path")
+    del comp, calls32, lp
+    torch.cuda.empty_cache()
+    cut = REC_ORACLE_CUT[arch]
+    with Phase(f"{arch} streaming against eager and host against device, "
+               f"{cut}"):
+        cfg2, p2 = cut_depth(port, params, cfg, **cut)
+        col = port.compress.calibrate(p2, cfg2, calib,
+                                      flush_every=FLUSH_EVERY)
+        log(f"  runs {cfg2.layer_runs()}")
+        streaming_vs_eager(port, cfg2, p2, col, calib)
+        del col
+        out["oracle_s"] = device_vs_host(port, dev, calib,
+                                         cfg2.replace(dtype="float32"), p2)
+    del params, calib, p2
+    torch.cuda.empty_cache()
+    cut = REC_TRAIN_CUT[arch]
+    with Phase(f"{arch} float32 train step, card against CPU, {cut}"):
+        out["train"] = train_step_parity(port, dev, cfg.replace(**cut), arch)
+    return out
+
+
+def log_recurrent(arch: str, r: dict) -> None:
+    """A recurrent family's summary lines."""
+    s = r["secs"]
+    log(f"{arch}: compression seconds " + ", ".join(
+        f"{k} {v:.2f}" for k, v in s.items()
+        if k not in ("artifact_mb", "achieved_ratio"))
+        + f"; artifact {s['artifact_mb']:.1f} MB; achieved ratio "
+        f"{s['achieved_ratio']:.4f} (requested {REC_RATIO})")
+    g = r["graphs"]
+    log(f"{arch} batcher, batch {CB_BATCH}, exact-length admission: eager "
+        f"{r['eager']['ms_per_step']:.2f} ms/step, "
+        f"{r['eager']['tokens_per_s']:.1f} tokens/s; graphs "
+        f"{g['ms_per_step']:.2f} ms/step, {g['tokens_per_s']:.1f} tokens/s "
+        f"(warm {g['warm_s']:.2f} s; {g['prefill_graphs']} exact-prefill "
+        f"graphs, {g['prefill_graph_mb']:.0f} MB; captures "
+        f"{g['capture_s']:.2f} s, inside the first drain)")
+    w = r["window"]
+    log(f"{arch} graph step (contiguous, batch {CB_BATCH}): device busy "
+        f"{w['busy_ms']:.3f} ms of {w['again_ms']:.3f}, idle "
+        f"{1 - w['busy_ms'] / w['again_ms']:.1%}")
+    log(f"{arch} with graphs, bf16, batch 8, ms/step: " + ", ".join(
+        f"{k} {' / '.join(f'{v:.3f}' for v in vs)}"
+        for k, vs in r["fig4"].items()))
+    log(f"{arch}: launches by variant {r['variants']}; float32 card against "
+        f"CPU max |logits| {r['parity']:.3e}; train step {r['train']}"
+        + (f"; sLSTM loop {r['slstm']['share']:.1%} of a prefill"
+           if "slstm" in r else ""))
 
 
 def main() -> int:
@@ -3317,6 +3883,11 @@ def main() -> int:
         shutil.rmtree(CLI_TRAIN_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
     moe = moe_phases(port, dev)
+    torch.cuda.empty_cache()
+    rec = {}
+    for arch in (HYMBA, XLSTM):
+        rec[arch] = recurrent_phases(port, dev, arch)
+        torch.cuda.empty_cache()
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
@@ -3357,7 +3928,9 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
             "work": t["work"], "train_launches": train_counts[name],
-            "moe_launches": moe["launches"][name]})
+            "moe_launches": moe["launches"][name],
+            "hymba_launches": rec[HYMBA]["launches"][name],
+            "xlstm_launches": rec[XLSTM]["launches"][name]})
         if "simt_ms" in t:     # the variant the main path ran, the earlier
             kernels[-1].update(variant="+".join(t["variant"]),
                                launches_by_variant=variants[name],
@@ -3369,6 +3942,8 @@ def main() -> int:
                                launches_by_variant=variants[name],
                                splitk_ms=t["splitk_ms"])
     log_moe(moe)
+    for arch, r in rec.items():
+        log_recurrent(arch, r)
     by_name = {k["name"]: k for k in kernels}
     wide = times["lowrank_gemv@64"]
     by_name["lowrank_gemv"]["rows_64"] = dict(

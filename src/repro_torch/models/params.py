@@ -81,6 +81,13 @@ class Builder:
                                        device=self.device)
         self.specs[name] = tuple(axes)
 
+    def const(self, name, value: torch.Tensor, axes):
+        """A fixed initial value (a gate bias, an SSM's decay rates), in
+        its own storage."""
+        self.params[name] = value.to(device=self.device,
+                                     dtype=self.param_dtype).clone()
+        self.specs[name] = tuple(axes)
+
     # -- composite helpers --------------------------------------------------
     def linear(self, name: str, d_in: int, d_out: int,
                axes: Tuple[Optional[str], Optional[str]],

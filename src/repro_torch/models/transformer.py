@@ -13,14 +13,18 @@ copies). Where the JAX package scans a stacked run (``cfg.scan_layers``),
 (``torch.utils.checkpoint``); list-form and unrolled runs never are, as in
 JAX.
 
-This port serves the ``attn`` and ``swa`` kinds of decoder-only models,
-with a dense FFN or a Mixture-of-Experts layer (``models.mlp.apply_moe``,
-expert parallelism 1), with the contiguous per-slot KV cache
-(``init_cache``) or, for pure ``attn`` stacks, the paged block arena
-(``init_cache_paged``, read through a block table in
-``decode_step(table=)`` and ``prefill_ext``). The recurrent kinds,
-encoder-decoder wiring and M-RoPE come with their model families (ROADMAP
-Queue 1, item 10).
+This port serves decoder-only models of every layer kind the JAX package
+has: ``attn`` and ``swa`` with a dense FFN or a Mixture-of-Experts layer
+(``models.mlp.apply_moe``, expert parallelism 1); Hymba's ``hymba`` and
+``hymba_g`` (attention and a Mamba-2 head in parallel, ``models.mamba``);
+xLSTM's ``mlstm`` and ``slstm`` (``models.ssm``). The cache is the
+contiguous per-slot pool (``init_cache``): k/v per attention layer and the
+recurrent state of the other kinds, every leaf stacked per run and updated
+in place by ``decode_step``. Pure ``attn`` stacks also have the paged block
+arena (``init_cache_paged``, read through a block table in
+``decode_step(table=)`` and ``prefill_ext``); recurrent kinds have no paged
+layout, in JAX as here. Encoder-decoder wiring and M-RoPE come with their
+model families (ROADMAP Queue 1, item 10).
 
 Batch dictionary convention: ``tokens`` (B, S) int, optional ``positions``
 (B, S) int and, for prefill, ``lengths`` (B,) int; ``prefill_ext`` also
@@ -38,7 +42,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch import pytree
 from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import rotary
+from repro_torch.models import mamba, rotary, ssm
 from repro_torch.models.attention import (attend_decode, attend_full,
                                           attend_prefill, attend_prefill_ext,
                                           cache_write_index, init_attention,
@@ -47,7 +51,11 @@ from repro_torch.models.mlp import apply_mlp, apply_moe, init_mlp, init_moe
 from repro_torch.models.params import (Builder, Params, apply_linear,
                                        rms_norm, softcap)
 
-KINDS = ("attn", "swa")
+KINDS = ("attn", "swa", "hymba", "hymba_g", "mlstm", "slstm")
+# kinds whose layers carry recurrent state: prompts cannot be right-padded
+RECURRENT = ("hymba", "hymba_g", "mlstm", "slstm")
+# kinds with an attention sub-block and its k/v cache
+_ATTN = ("attn", "swa", "hymba", "hymba_g")
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -60,23 +68,39 @@ def check_supported(cfg: ModelConfig) -> None:
     if (not kinds <= set(KINDS) or cfg.is_encoder_decoder
             or cfg.rope_kind == "mrope" or cfg.frontend):
         raise NotImplementedError(
-            f"{cfg.name}: only decoder-only attn/swa models with dense or "
-            f"MoE FFNs are ported so far (ROADMAP Queue 1, item 10)")
+            f"{cfg.name}: encoder-decoder models, M-RoPE and frontends are "
+            f"not ported yet (ROADMAP Queue 1, item 10)")
+
+
+def is_recurrent(cfg: ModelConfig) -> bool:
+    """Whether any layer carries recurrent state (right padding of a prompt
+    would run through it)."""
+    return any(k in RECURRENT for k in cfg.layer_kinds())
 
 
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
-def _init_block(b: Builder, cfg: ModelConfig, n: int) -> None:
-    """One run of `n` layers (stacked along leading dim)."""
+def _init_block(b: Builder, cfg: ModelConfig, kind: str, n: int) -> None:
+    """One run of `n` layers of `kind` (stacked along leading dim)."""
     stack = (n,)
     b.rmsnorm("ln1", cfg.d_model, stack)
-    init_attention(b.sub("attn"), cfg, stack)
-    b.rmsnorm("ln2", cfg.d_model, stack)
-    if cfg.moe.num_experts:
-        init_moe(b, cfg, stack)
-    elif cfg.d_ff:
-        init_mlp(b.sub("mlp"), cfg, cfg.d_ff, stack)
+    if kind in _ATTN:
+        init_attention(b.sub("attn"), cfg, stack)
+    if kind in ("hymba", "hymba_g"):
+        mamba.init_ssm(b.sub("ssm"), cfg, stack)
+        mamba.init_hymba_combine(b, cfg, stack)
+    if kind == "mlstm":
+        ssm.init_mlstm(b.sub("mlstm"), cfg, stack)
+    if kind == "slstm":
+        ssm.init_slstm(b.sub("slstm"), cfg, stack)
+    # FFN (attention-ish kinds only; the xLSTM kinds carry their own)
+    if kind in _ATTN:
+        b.rmsnorm("ln2", cfg.d_model, stack)
+        if cfg.moe.num_experts:
+            init_moe(b, cfg, stack)
+        elif cfg.d_ff:
+            init_mlp(b.sub("mlp"), cfg, cfg.d_ff, stack)
 
 
 def init_model(cfg: ModelConfig, seed: int = 0,
@@ -93,8 +117,8 @@ def init_model(cfg: ModelConfig, seed: int = 0,
     b.normal("embed", (cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
              scale=1.0 / cfg.d_model ** 0.5)
     dec = b.sub("decoder")
-    for r, (_kind, n) in enumerate(cfg.layer_runs()):
-        _init_block(dec.sub(f"run{r}"), cfg, n)
+    for r, (kind, n) in enumerate(cfg.layer_runs()):
+        _init_block(dec.sub(f"run{r}"), cfg, kind, n)
     b.rmsnorm("final_norm", cfg.d_model)
     if not cfg.tie_embeddings:
         b.linear("lm_head", cfg.d_model, cfg.vocab_size, ("embed", "vocab"))
@@ -106,13 +130,21 @@ def param_count(params: Params) -> int:
 
 
 def tree_index(tree, i: int):
-    """Layer i of a stacked run: every tensor leaf indexed on its leading
-    axis (a view); other leaves (capture tags) pass through."""
+    """Layer i of a stacked run (params or cache): every tensor leaf
+    indexed on its leading axis (a view); other leaves (capture tags) pass
+    through."""
     if isinstance(tree, dict):
         return {k: tree_index(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_index(v, i) for v in tree))
     if isinstance(tree, torch.Tensor):
         return tree[i]
     return tree
+
+
+def _stack_trees(trees):
+    """Per-layer trees stacked along a new leading axis."""
+    return pytree.tree_map(lambda *a: torch.stack(a), *trees)
 
 
 def _layers(run_p: Any, n: int):
@@ -149,8 +181,9 @@ def _kind_window(cfg: ModelConfig, kind: str) -> int:
 # ---------------------------------------------------------------------------
 def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """x plus the layer's FFN (MoE or dense) of ``ln2(x)``. Returns (x,
-    the MoE aux loss, or None for a dense layer)."""
+    """x plus the layer's FFN (MoE or dense) of ``ln2(x)``; x itself for a
+    layer without one (the xLSTM kinds). Returns (x, the MoE aux loss, or
+    None for a layer without MoE)."""
     if "moe" in p:
         out, aux = apply_moe(p, cfg, rms_norm(p["ln2"], x, cfg.norm_eps))
         return x + out, aux
@@ -164,8 +197,18 @@ def _block_fwd(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Returns (x, moe_aux or None)."""
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
-    x = x + attend_full(p["attn"], cfg, h, angles, causal=causal,
-                        window=_kind_window(cfg, kind))
+    win = _kind_window(cfg, kind)
+    if kind in ("attn", "swa"):
+        x = x + attend_full(p["attn"], cfg, h, angles, causal=causal,
+                            window=win)
+    elif kind in ("hymba", "hymba_g"):
+        a = attend_full(p["attn"], cfg, h, angles, causal=causal, window=win)
+        s = mamba.apply_ssm(p["ssm"], cfg, h)
+        x = x + mamba.hymba_combine(p, cfg, a, s)
+    elif kind == "mlstm":
+        x = x + ssm.apply_mlstm(p["mlstm"], cfg, h)
+    elif kind == "slstm":
+        x = x + ssm.apply_slstm(p["slstm"], cfg, h)
     return _ffn(p, cfg, x)
 
 
@@ -309,17 +352,35 @@ def lm_loss(params: Params, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceLike = None) -> Dict:
-    """Cache tree: per-run stacked caches + per-sequence positions. Every
-    slot starts dead (pos = -1)."""
+    """Cache tree: per-run stacked caches + per-sequence positions, in the
+    JAX package's layout: ``kv`` for the attention kinds, ``ssm`` (a
+    ``ScanState`` and the conv history) beside it for Hymba's, ``mlstm``
+    and ``slstm`` for xLSTM's; every leaf (n, batch, ...), each in its own
+    storage. Every slot starts dead (pos = -1)."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
+
+    def stacked(tree, n):
+        return pytree.tree_map(
+            lambda t: t[None].repeat(n, *([1] * t.dim())), tree)
+
     runs: Dict[str, Any] = {}
     for r, (kind, n) in enumerate(cfg.layer_runs()):
-        win = _kind_window(cfg, kind)
-        kv = init_kv_cache(cfg, batch, max_len, win, dtype, dev)
-        runs[f"run{r}"] = {"kv": {k: t[None].repeat(n, 1, 1, 1, 1)
-                                  for k, t in kv.items()}}
+        entry: Dict[str, Any] = {}
+        if kind in _ATTN:
+            entry["kv"] = stacked(init_kv_cache(
+                cfg, batch, max_len, _kind_window(cfg, kind), dtype, dev), n)
+        if kind in ("hymba", "hymba_g"):
+            entry["ssm"] = stacked(
+                mamba.init_ssm_cache(cfg, batch, dtype, dev), n)
+        if kind == "mlstm":
+            entry["mlstm"] = stacked(
+                ssm.init_mlstm_cache(cfg, batch, dtype, dev), n)
+        if kind == "slstm":
+            entry["slstm"] = stacked(
+                ssm.init_slstm_cache(cfg, batch, dtype, dev), n)
+        runs[f"run{r}"] = entry
     return {"runs": runs,
             "pos": torch.full((batch,), -1, dtype=torch.int32, device=dev)}
 
@@ -350,16 +411,41 @@ def init_cache_paged(cfg: ModelConfig, batch: int, blocks: int,
             "pos": torch.full((batch,), -1, dtype=torch.int32, device=dev)}
 
 
-def _block_decode(kind: str, cfg: ModelConfig, p: Params, kv: Dict,
+def _block_decode(kind: str, cfg: ModelConfig, p: Params, cache: Dict,
                   x: torch.Tensor, pos: torch.Tensor,
                   angles: Optional[torch.Tensor],
                   table: Optional[torch.Tensor] = None,
                   write_index=None) -> torch.Tensor:
+    """One layer's decode step. ``cache`` is the layer's view of the pool:
+    the attention writes its k/v there in place, and each recurrent state
+    leaf is overwritten in place (``copy_``) with its new value, so a
+    captured graph that binds the pool reads and writes the pool's own
+    tensors."""
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
-    out, _ = attend_decode(p["attn"], cfg, h, pos, kv, angles,
-                           window=_kind_window(cfg, kind), table=table,
-                           write_index=write_index)
-    return _ffn(p, cfg, x + out)[0]
+    win = _kind_window(cfg, kind)
+    new: Dict[str, Any] = {}
+    if kind in _ATTN:
+        a, _ = attend_decode(p["attn"], cfg, h, pos, cache["kv"], angles,
+                             window=win, table=table,
+                             write_index=write_index)
+    if kind in ("attn", "swa"):
+        x = x + a
+    elif kind in ("hymba", "hymba_g"):
+        s, new["ssm"] = mamba.decode_ssm(p["ssm"], cfg, h, cache["ssm"])
+        x = x + mamba.hymba_combine(p, cfg, a, s)
+    elif kind == "mlstm":
+        out, new["mlstm"] = ssm.decode_mlstm(p["mlstm"], cfg, h,
+                                             cache["mlstm"])
+        x = x + out
+    elif kind == "slstm":
+        out, new["slstm"] = ssm.decode_slstm(p["slstm"], cfg, h,
+                                             cache["slstm"])
+        x = x + out
+    for name, tree in new.items():
+        for dst, src in zip(pytree.tensors(cache[name]),
+                            pytree.tensors(tree)):
+            dst.copy_(src)
+    return _ffn(p, cfg, x)[0]
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
@@ -367,13 +453,15 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
                 positions: Optional[torch.Tensor] = None,
                 table: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, Dict]:
-    """One new token per sequence. tokens (B,1) int. The KV cache and
-    ``cache["pos"]`` are updated in place: dead slots (pos = -1) stay dead,
-    live slots advance. Nothing here reads the device on the host, so a
-    step captures into a CUDA graph. With ``table`` (B, NB) int32 the cache
-    is a paged arena (``init_cache_paged``) and every KV read and write
-    goes through the table; dead slots write nothing. Returns (logits
-    (B,1,V), cache)."""
+    """One new token per sequence. tokens (B,1) int. The cache (k/v and
+    every recurrent state leaf) and ``cache["pos"]`` are updated in place:
+    dead slots (pos = -1) stay dead, live slots advance. As in JAX every
+    row is decoded, so a dead row's recurrent state evolves; admission
+    overwrites a slot's every leaf and purge zeroes them. Nothing here
+    reads the device on the host, so a step captures into a CUDA graph.
+    With ``table`` (B, NB) int32 the cache is a paged arena
+    (``init_cache_paged``) and every KV read and write goes through the
+    table; dead slots write nothing. Returns (logits (B,1,V), cache)."""
     dev = _params_device(params)
     pos = cache["pos"]
     x = embed_tokens(params, cfg, tokens)
@@ -382,15 +470,17 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
         table = table.to(device=dev, dtype=torch.int32)
     for r, (kind, n) in enumerate(cfg.layer_runs()):
         angles = _angles_for(cfg, kind, rp)
-        kv = cache["runs"][f"run{r}"]["kv"]
-        win = _kind_window(cfg, kind)
-        # where this step writes: computed once for all layers of the run
-        wi = (paged_write_index(pos, table, kv["k"].shape[2])
-              if table is not None else
-              cache_write_index(pos, kv["k"].shape[2], win))
+        run_c = cache["runs"][f"run{r}"]
+        wi = None
+        if kind in _ATTN:
+            kv = run_c["kv"]
+            win = _kind_window(cfg, kind)
+            # where this step writes: computed once for all layers of the run
+            wi = (paged_write_index(pos, table, kv["k"].shape[2])
+                  if table is not None else
+                  cache_write_index(pos, kv["k"].shape[2], win))
         for i, pl in enumerate(_layers(params["decoder"][f"run{r}"], n)):
-            x = _block_decode(kind, cfg, pl,
-                              {"k": kv["k"][i], "v": kv["v"][i]}, x, pos,
+            x = _block_decode(kind, cfg, pl, tree_index(run_c, i), x, pos,
                               angles, table, wi)
     logits = lm_logits(params, cfg, x)
     pos.copy_(torch.where(pos >= 0, pos + 1, pos))
@@ -400,6 +490,35 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
 # ---------------------------------------------------------------------------
 # Prefill (full sequence -> cache)
 # ---------------------------------------------------------------------------
+def _block_prefill(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
+                   angles: Optional[torch.Tensor], max_len: int,
+                   lengths: Optional[torch.Tensor]
+                   ) -> Tuple[torch.Tensor, Dict]:
+    """One layer of the prefill: (x, the layer's cache)."""
+    cache: Dict[str, Any] = {}
+    h = rms_norm(p["ln1"], x, cfg.norm_eps)
+    win = _kind_window(cfg, kind)
+    if kind in _ATTN:
+        a, cache["kv"] = attend_prefill(p["attn"], cfg, h, angles,
+                                        causal=True, window=win,
+                                        max_len=max_len, lengths=lengths)
+    if kind in ("attn", "swa"):
+        x = x + a
+    elif kind in ("hymba", "hymba_g"):
+        s, cache["ssm"] = mamba.apply_ssm(p["ssm"], cfg, h,
+                                          return_cache=True)
+        x = x + mamba.hymba_combine(p, cfg, a, s)
+    elif kind == "mlstm":
+        out, cache["mlstm"] = ssm.apply_mlstm(p["mlstm"], cfg, h,
+                                              return_cache=True)
+        x = x + out
+    elif kind == "slstm":
+        out, cache["slstm"] = ssm.apply_slstm(p["slstm"], cfg, h,
+                                              return_cache=True)
+        x = x + out
+    return _ffn(p, cfg, x)[0], cache
+
+
 def prefill(params: Params, cfg: ModelConfig, batch: Dict,
             max_len: int) -> Tuple[torch.Tensor, Dict]:
     """Process the prompt, build the decode cache. Returns (logits of the
@@ -408,7 +527,10 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict,
     ``batch["lengths"]`` (B,) int, optional: per-row live prompt lengths
     when prompts are right-padded to a common length; cache slots past a
     row's length are zeroed, the logits are each row's last LIVE position,
-    and cache ``pos`` starts at the per-row length."""
+    and cache ``pos`` starts at the per-row length. Recurrent kinds carry
+    their state through padded steps, so callers pass ``lengths`` for
+    pure attention stacks only (the batcher admits recurrent stacks at
+    each prompt's exact length)."""
     check_supported(cfg)
     dev = _params_device(params)
     lengths = batch.get("lengths")
@@ -420,18 +542,11 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict,
     runs: Dict[str, Any] = {}
     for r, (kind, n) in enumerate(cfg.layer_runs()):
         angles = _angles_for(cfg, kind, positions)
-        win = _kind_window(cfg, kind)
-        ks, vs = [], []
+        caches = []
         for pl in _layers(params["decoder"][f"run{r}"], n):
-            h = rms_norm(pl["ln1"], x, cfg.norm_eps)
-            out, kv = attend_prefill(pl["attn"], cfg, h, angles, causal=True,
-                                     window=win, max_len=max_len,
-                                     lengths=lengths)
-            x, _ = _ffn(pl, cfg, x + out)
-            ks.append(kv["k"])
-            vs.append(kv["v"])
-        runs[f"run{r}"] = {"kv": {"k": torch.stack(ks),
-                                  "v": torch.stack(vs)}}
+            x, c = _block_prefill(kind, cfg, pl, x, angles, max_len, lengths)
+            caches.append(c)
+        runs[f"run{r}"] = _stack_trees(caches)
     if lengths is None:
         x_last = x[:, -1:]
         pos0 = torch.full((B,), S, dtype=torch.int32, device=dev)

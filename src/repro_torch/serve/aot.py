@@ -102,14 +102,17 @@ RETRACE_KEYS = ("prefill_retraces", "decode_retraces", "scatter_retraces")
 # ---------------------------------------------------------------------------
 # Cache-row functions
 # ---------------------------------------------------------------------------
-def _kv_pairs(pool: Dict, src: Optional[Dict] = None
-              ) -> Iterator[tuple]:
-    """(pool leaf, src leaf) for every k/v leaf of every run; leaves carry
-    a leading stacked-layer axis, so the batch (or arena block) axis is 1."""
+def _row_leaves(pool: Dict, src: Optional[Dict] = None
+                ) -> Iterator[tuple]:
+    """(pool leaf, src leaf) for every cache leaf of every run, as JAX's
+    ``tree.map`` over ``runs`` walks them: k/v and every recurrent state
+    leaf (``ssm``, ``mlstm``, ``slstm``; a paged arena, pure attention,
+    holds only k/v). Each carries a leading stacked-layer axis, so the
+    batch (or arena block) axis is 1."""
     for r, run in pool["runs"].items():
-        for name, leaf in run["kv"].items():
-            yield leaf, (None if src is None
-                         else src["runs"][r]["kv"][name])
+        dst = pytree.tensors(run)
+        yield from zip(dst, pytree.tensors(src["runs"][r]) if src is not None
+                       else [None] * len(dst))
 
 
 def _host(a) -> np.ndarray:
@@ -122,8 +125,10 @@ def _dev_index(a: np.ndarray, device) -> torch.Tensor:
 
 
 def scatter_rows(pool: Dict, src: Dict, slots) -> Dict:
-    """One whole-pool update: row j of every ``src`` cache leaf lands in row
-    slots[j] of the pool, its ``pos`` too. A slot >= the pool's batch is
+    """One whole-pool update: row j of every ``src`` cache leaf (k/v and
+    recurrent state alike) lands in row slots[j] of the pool, its ``pos``
+    too, so a new tenant starts from its own prefill's state. A slot >=
+    the pool's batch is
     padding and is dropped (filtered out here)."""
     nrows = pool["pos"].shape[0]
     slots = _host(slots)
@@ -132,24 +137,25 @@ def scatter_rows(pool: Dict, src: Dict, slots) -> Dict:
         return pool
     dev = pool["pos"].device
     dst, j = _dev_index(slots[keep], dev), _dev_index(keep, dev)
-    for pool_l, src_l in _kv_pairs(pool, src):
+    for pool_l, src_l in _row_leaves(pool, src):
         pool_l[:, dst] = src_l[:, j].to(device=dev, dtype=pool_l.dtype)
     pool["pos"][dst] = src["pos"].to(device=dev, dtype=torch.int32)[j]
     return pool
 
 
 def purge_rows(pool: Dict, rows) -> Dict:
-    """Zero the cache rows of quarantined slots and mark them dead (pos =
-    -1), so a later tenant, or a masked dead region, can never read
-    poisoned state (0·NaN leaks through attention: masking is not
-    enough). Rows >= batch are padding (dropped)."""
+    """Zero the cache rows of quarantined slots, every leaf (k/v and
+    recurrent state), and mark them dead (pos = -1), so a later tenant, or
+    a masked dead region, can never read poisoned state (0·NaN leaks
+    through attention: masking is not enough). Rows >= batch are padding
+    (dropped)."""
     nrows = pool["pos"].shape[0]
     rows = _host(rows)
     rows = rows[rows < nrows]
     if rows.size == 0:
         return pool
     idx = _dev_index(rows, pool["pos"].device)
-    for leaf, _ in _kv_pairs(pool):
+    for leaf, _ in _row_leaves(pool):
         leaf[:, idx] = 0
     pool["pos"][idx] = -1
     return pool
@@ -167,9 +173,9 @@ def scatter_paged(pool: Dict, src: Dict, slots, table, starts) -> Dict:
     table = _host(table)
     slots, starts = _host(slots), _host(starts)
     nrows, NB = table.shape
-    k0 = next(_kv_pairs(pool))[0]
+    k0 = next(_row_leaves(pool))[0]
     P, bk = k0.shape[1], k0.shape[2]
-    S = next(_kv_pairs(src))[0].shape[2]
+    S = next(_row_leaves(src))[0].shape[2]
     src_pos = _host(src["pos"])
     i = np.arange(S)[None, :]
     absp = starts[:, None] + i                            # (B, S)
@@ -185,7 +191,7 @@ def scatter_paged(pool: Dict, src: Dict, slots, table, starts) -> Dict:
         pb = _dev_index(tb[jj, ii], dev)
         off = _dev_index(absp[jj, ii] % bk, dev)
         j_d, i_d = _dev_index(jj, dev), _dev_index(ii, dev)
-        for pool_l, src_l in _kv_pairs(pool, src):
+        for pool_l, src_l in _row_leaves(pool, src):
             pool_l[:, pb, off] = src_l[:, j_d, i_d].to(device=dev,
                                                        dtype=pool_l.dtype)
     keep = np.nonzero(slots < pool["pos"].shape[0])[0]
@@ -202,14 +208,14 @@ def purge_paged(pool: Dict, rows, blocks) -> Dict:
     the listed slot rows dead (pos = -1), which drops their decode writes
     and zeroes their outputs. Out-of-range rows and blocks are padding;
     block 0 is never written."""
-    k0 = next(_kv_pairs(pool))[0]
+    k0 = next(_row_leaves(pool))[0]
     P = k0.shape[1]
     blocks = _host(blocks)
     blocks = blocks[(blocks > 0) & (blocks < P)]
     dev = pool["pos"].device
     if blocks.size:
         idx = _dev_index(blocks, dev)
-        for leaf, _ in _kv_pairs(pool):
+        for leaf, _ in _row_leaves(pool):
             leaf[:, idx] = 0
     rows = _host(rows)
     rows = rows[rows < pool["pos"].shape[0]]
@@ -226,7 +232,7 @@ def copy_blocks(pool: Dict, src, dst) -> Dict:
     padding and are dropped. Every source block is read (gathered into a
     new tensor) before any destination is written, as in JAX's
     ``leaf.at[:, dst].set(leaf[:, src])``."""
-    k0 = next(_kv_pairs(pool))[0]
+    k0 = next(_row_leaves(pool))[0]
     P = k0.shape[1]
     src, dst = _host(src), _host(dst)
     keep = (src < P) & (dst > 0) & (dst < P)
@@ -234,7 +240,7 @@ def copy_blocks(pool: Dict, src, dst) -> Dict:
         return pool
     dev = pool["pos"].device
     s, d = _dev_index(src[keep], dev), _dev_index(dst[keep], dev)
-    for leaf, _ in _kv_pairs(pool):
+    for leaf, _ in _row_leaves(pool):
         leaf[:, d] = leaf[:, s]
     return pool
 
@@ -612,7 +618,7 @@ class AotRegistry:
 
     @torch.inference_mode()
     def scatter_paged(self, pool, src, slots, table, starts):
-        width = next(_kv_pairs(src))[0].shape[2]
+        width = next(_row_leaves(src))[0].shape[2]
         self._eager_entry(ROLE_SCATTER_PAGED,
                           (int(src["pos"].shape[0]), int(width)))
         return scatter_paged(pool, src, slots, table, starts)

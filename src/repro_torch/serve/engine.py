@@ -229,7 +229,14 @@ class Engine:
                  lengths: Optional[np.ndarray] = None) -> np.ndarray:
         """prompts: (B, S) int; ``lengths`` (B,) int, optional: row b's
         prompt is its first lengths[b] tokens (right-padded), as
-        ``T.prefill`` takes them. Returns (B, n_new) int32."""
+        ``T.prefill`` takes them; a stack with recurrent layers refuses it
+        (the padding would run through the state). Returns (B, n_new)
+        int32."""
+        if lengths is not None and T.is_recurrent(self.cfg):
+            raise ValueError(
+                f"{self.cfg.name}: generate(lengths=...) right-pads prompts, "
+                f"which corrupts recurrent state; pass equal-length prompts "
+                f"(or serve through the ContinuousBatcher)")
         tokens = torch.as_tensor(np.asarray(prompts), device=self.device)
         max_len = tokens.shape[1] + n_new + 1
         batch = {"tokens": tokens}
@@ -308,9 +315,11 @@ class ContinuousBatcher:
     ``stats``; the bucketing invariant (≤ ⌈log2(max_len)⌉ prefill
     signatures, 1 decode signature per rung) is asserted in tests.
 
-    Architectures with recurrent state take the JAX package's exact-length
-    admission path, which is not ported (no such family is: ROADMAP
-    Queue 1, item 10).
+    Architectures with recurrent state (Hymba, xLSTM) cannot be
+    right-padded: they take the exact-length path, one single-row prefill
+    per request at its prompt's exact length (one prefill signature per
+    distinct length) scattered into its slot, every state leaf included.
+    Such stacks have no paged pool (``kv_block > 0`` raises).
     """
 
     @classmethod
@@ -598,12 +607,33 @@ class ContinuousBatcher:
             self._quarantine([admit[j] for j in bad], ambiguous)
 
     def _admit_exact(self, req: Request, slot: int) -> None:
-        """Exact-length single-row admission: the JAX package's path for
-        recurrent-state and encoder-decoder stacks, none of which the port
-        has yet."""
-        raise NotImplementedError(
-            "exact-length admission serves recurrent and encoder-decoder "
-            "stacks, which are not ported yet (ROADMAP Queue 1, item 10)")
+        """Exact-length single-row admission (recurrent-state stacks): a
+        one-row prefill at the prompt's own length, scattered into the
+        slot, then the finite guard on its logits (a poisoned row is
+        purged and quarantined) and the first token."""
+        with trace.span("prefill", exact=len(req.tokens),
+                        level=self.level):
+            logits, c1 = self.exec.prefill(
+                self._params_now(),
+                {"tokens": np.asarray(req.tokens, dtype=np.int32)[None, :]},
+                level=self.level)
+            self.cache = self.exec.scatter(
+                self.cache, c1, np.asarray([slot], dtype=np.int32))
+        last = self._last_logits(logits)
+        self._poison_rid_rows([req], last)
+        if not np.isfinite(last[0]).all():
+            self._purge_slots([slot])
+            self._quarantine([req], ambiguous=False)
+            return
+        t = int(last[0].argmax())
+        req.out.append(t)
+        self._emit_token(req, t)
+        now = time.perf_counter()
+        req.t_first = req.t_first or now
+        self._metrics.observe_ttft(now - req.t_submit)
+        self.tokens[slot, 0] = t
+        self.slots[slot] = req
+        self._progress += 1
 
     # ---- paged admission (DESIGN.md §5.7) --------------------------------
     def _table_device(self) -> torch.Tensor:
@@ -824,9 +854,10 @@ class ContinuousBatcher:
 
     def _probe(self, reqs: List[Request]) -> np.ndarray:
         """Replay each suspect's (prompt + emitted tokens) in isolation, in
-        one bucketed prefill that builds a fresh cache and never touches
-        the pool, and report per-row finiteness. Reuses the admission
-        prefill signatures."""
+        one bucketed prefill (a recurrent stack: one exact-length prefill
+        per suspect) that builds a fresh cache and never touches the pool,
+        and report per-row finiteness. Reuses the admission prefill
+        signatures."""
         self._metrics.bump("poison_probes")
         trace.instant("poison_probe", rids=[r.rid for r in reqs])
         seqs = []
@@ -835,6 +866,16 @@ class ContinuousBatcher:
             s = np.concatenate([np.asarray(r.tokens, dtype=np.int32),
                                 np.asarray(r.out, dtype=np.int32)])
             seqs.append(s[-keep:])
+        if not self.bucketed:
+            verdict = np.zeros((len(reqs),), dtype=bool)
+            for j, s in enumerate(seqs):
+                logits, _ = self.exec.prefill(
+                    self._params_now(), {"tokens": s[None, :]},
+                    level=self.level)
+                last = self._last_logits(logits)
+                self._poison_rid_rows([reqs[j]], last)
+                verdict[j] = bool(np.isfinite(last[0]).all())
+            return verdict
         B = self.scfg.batch
         Sb = _bucket_len(max(len(s) for s in seqs), self.scfg.max_len)
         toks = np.zeros((B, Sb), dtype=np.int32)

@@ -67,12 +67,16 @@ def _microbatch(batch: Dict, n: int, i: int) -> Dict:
 def value_and_grad_of(fn, tree):
     """``fn(tree) -> (loss, aux)``, differentiated with respect to every
     tensor leaf of ``tree`` (each occurrence its own leaf, as ``jax.grad``
-    sees a tree). Returns (loss, aux, grads shaped like ``tree``)."""
+    sees a tree). A leaf the loss does not read (Hymba's SSM ``head_norm``,
+    in JAX as here) gets zeros, as ``jax.grad`` gives it. Returns (loss,
+    aux, grads shaped like ``tree``)."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_() for t in pytree.leaves(tree)]
         loss, aux = fn(pytree.unflatten(tree, leaves))
-        grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), aux, pytree.unflatten(tree, list(grads))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for t, g in zip(leaves, grads)]
+    return loss.detach(), aux, pytree.unflatten(tree, grads)
 
 
 def value_and_grad(params: Params, cfg: ModelConfig, batch: Dict):

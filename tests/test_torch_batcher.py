@@ -377,8 +377,16 @@ def test_watchdog_timeout_and_unported_exact_admission():
     assert res.status == "stalled" and len(res.undrained) == 6
     cb, res = run("port", tp, CONTIG, uniform_requests(), max_steps=2)
     assert res.status == "timeout" and res.undrained
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cb._admit_exact(None, 0)
+    # exact-length admission, once a stub, is ported (the recurrent
+    # stacks' path, tests/test_torch_recurrent_serve.py); on an attention
+    # stack it admits one row at its exact length into the given slot
+    cb = E.ContinuousBatcher(tp, CFG, E.ServeConfig(**CONTIG), device="cpu")
+    req = E.Request(rid=0, tokens=uniform_requests()[0][1], n_new=1)
+    cb._admit_exact(req, 2)
+    first = E.Engine(tp, CFG, E.ServeConfig(), device="cpu").generate(
+        req.tokens[None], 1)[0, 0]
+    assert cb.slots[2] is req and req.out == [first]
+    assert cb.cache["pos"].tolist() == [-1, -1, len(req.tokens), -1]
     with pytest.raises(ValueError, match="prefix_cache requires"):
         E.ContinuousBatcher(tp, CFG, E.ServeConfig(batch=2, max_len=64,
                                                    prefix_cache=True),
