@@ -80,7 +80,9 @@ What it does, in order, printing the seconds of each phase:
 5. every kernel against its plain PyTorch version on the card, at the main
    path's shapes (the plan's ranks, the calibration's activations) and
    ragged ones, the dense configs' ranks 1585-3018 at 65, 512 and 2048
-   rows, every head_dim the attention kernels take, decode lengths within
+   rows, every head_dim the attention kernels take (and flash
+   non-causal at 200 and 300 rows, hd 64 and 128: an encoder's), decode
+   lengths within
    one 32-row chunk and across many, in bfloat16 and float32, each variant
    of ``lowrank_gemv`` (the two-launch weight stream, "mma" in bf16 and
    "fma" in float32, and the earlier "splitk"; at 1, 8 and 64 rows, with
@@ -134,10 +136,11 @@ What it does, in order, printing the seconds of each phase:
    must have launched.
 10. the MoE path, after the earlier paths' memory is freed, with the
    counts set to 0 just before granite's calibration and read after its
-   graph runs: granite-moe-1b-a400m at full size (24 layers, d_model
-   1024, 32 experts top-8, d_expert 512, vocab 49155, tied; random
-   weights, seed 0): streaming calibration as in 2 with every expert's
-   Gram (1632 a batch, 1536 of them the experts' 400-row capacity
+   graph runs: granite-moe-1b-a400m at full width (d_model 1024, 32
+   experts top-8, d_expert 512, vocab 49155, tied), depth cut to 12 of its
+   24 identical MoE layers (random weights, seed 0): streaming calibration
+   as in 2 with every expert's Gram (816 a batch, 768 of them the experts'
+   400-row capacity
    buffers) through ``gram_blocked``; D-Rank 20% on the card (2304 expert
    and 96 attention groups, the expert buckets in chunks sized to the
    card's free memory); ``save_plan``; ``from_compressed(verify=True)``;
@@ -163,11 +166,12 @@ What it does, in order, printing the seconds of each phase:
    Every kernel must have launched on the MoE path.
 11. the recurrent families, each after the earlier paths' memory is
    freed and with the counts set to 0 just before its calibration and
-   read after its batcher runs: hymba-1.5b (32 layers, d_model 1600, 25
-   heads over 5 KV of 64 beside a Mamba-2 head, d_ff 5504, window 1024 on
-   29 layers) and xlstm-350m (24 layers, d_model 1024, 21 mLSTM layers of
-   4 heads of 512, sLSTM at layers 7, 15 and 23 with a 1365-wide FFN) at
-   full size, random weights from seed 0: streaming calibration, D-Rank
+   read after its batcher runs: hymba-1.5b at full width (d_model 1600, 25
+   heads over 5 KV of 64 beside a Mamba-2 head, d_ff 5504, window 1024),
+   depth cut to 16 of its 32 layers (global at 0, 8 and 15, the 13 others
+   windowed), and xlstm-350m at full size (24 layers, d_model 1024, 21
+   mLSTM layers of 4 heads of 512, sLSTM at layers 7, 15 and 23 with a
+   1365-wide FFN), random weights from seed 0: streaming calibration, D-Rank
    20% on the card, ``save_plan``, ``from_compressed(verify=True)``,
    ``generate`` equal to an in-memory ``Engine``'s tokens (hymba also one
    1200-token prompt, past its window); the batcher through exact-length
@@ -187,6 +191,45 @@ What it does, in order, printing the seconds of each phase:
    device at 1 layer (hymba's first, global) and 2 (xlstm, with an sLSTM
    period of 2); a float32 train step at 4 layers (hymba: g, h, g, g) and
    2 (xlstm).
+12. the encoder-decoder path, after the earlier paths' memory is freed,
+   with the counts set to 0 just before its calibration and read after
+   its last bf16 run: seamless-m4t-medium at full size (12 encoder and 12
+   decoder layers, d_model 1024, 16 heads of 64, GELU d_ff 4096, vocab
+   256206; random weights, seed 0), its encoder fed seeded 0.02·N(0, 1)
+   frames (the audio stub): streaming calibration on 2's 16 samples, each
+   with 300 frames, every encoder, decoder and cross Gram through
+   ``gram_blocked`` (the cross wk/wv over the encoder's rows); D-Rank 20%
+   on the card (126 groups of 16 types); ``save_plan``;
+   ``from_compressed(verify=True)``; ``generate`` on 8 prompts of 64
+   tokens with 200 frames each, equal to an in-memory ``Engine``'s
+   tokens; dense against D-Rank ``measure_decode_throughput`` at batch 8;
+   the batcher's ``ValueError`` for the model. The encoder's non-causal
+   flash launches are counted apart and must be > 0, the paged kernel's
+   count 0. Every kernel call of the path (non-causal flash included) is
+   held to its plain version through every variant; then float32 card
+   against CPU on the D-Rank model cut to 2 + 2 layers (teacher-forced
+   logits within atol 2e-3, 8 greedy tokens identical, its kernel calls
+   held too); streaming against eager Grams and host against device
+   decomposition at 1 + 1 layers, every tag and group type; a float32
+   train step at 1 + 1 layers against the CPU;
+13. the M-RoPE path: qwen2-vl-72b at full width (d_model 8192, 64 heads
+   over 8 KV heads of 128, SwiGLU d_ff 29568, vocab 152064, M-RoPE
+   sections (16, 24, 24), qkv bias), depth cut to 2 of its 80 layers,
+   random weights from seed 7 with the qkv biases set to seeded
+   0.02·N(0, 1) values and every linear replaced by seeded random factors
+   at uniform 20% (ranks 3276, 728 and 5131; each bias kept), with the
+   counts set to 0 just before its bf16 runs and read just after: a
+   vision-stub prefill of one row (8 text tokens, 16 x 16 seeded patch
+   embeddings at one t with h and w along the grid, 64 text tokens: 328
+   explicit (3, 1, 328) positions) and 16 decode steps; ``generate`` on a
+   200-token prompt; the batcher on 2b's 24 requests, contiguous and paged
+   eager (identical tokens) and contiguous through ``AotRegistry`` (tokens
+   equal, the warm set JAX's, every decode a replay); prefix reuse
+   refused. gemv, the 2-D product (``split`` > 0, no bf16 ``simt``),
+   flash, decode and paged decode must have launched, every gemv the
+   two-launch kernel; every kernel call held to its plain version; then
+   the vision-stub row in float32 on the card against the CPU (logits
+   within atol 2e-3, 8 greedy tokens identical).
 
 The build phase logs the registers and spills of the tensor-core, gemv
 and chunked entry points and the clusters the card holds at once, and
@@ -201,7 +244,8 @@ or, for the gemv, ``splitk_ms`` and its 64-row times, ``rows_64``; the 2-D
 product also its two-launch variant's, ``split_ms``; every kernel its
 launches on the training path, ``train_launches``, and on the MoE path,
 ``moe_launches``, and on the recurrent paths, ``hymba_launches`` and
-``xlstm_launches``); the last
+``xlstm_launches``, and on the encoder-decoder and M-RoPE paths,
+``seamless_launches`` and ``qwen2vl_launches``); the last
 is ``{"ok": true, "device": {...}}``. Any failure raises, so the script
 exits non-zero and prints no result; so it does with no CUDA device, or
 without the repository's ``src/repro_torch`` beside it.
@@ -290,7 +334,7 @@ CLI_TRAIN_DIR = ROOT / "build" / "chip_smoke_cli_train"
 # kernels the training path runs: flash in every step, the 2-D product in
 # perplexity and LoRA on the compressed models, the Gram in calibration
 TRAIN_KERNELS = ("flash_attention", "lowrank_matmul_2d", "gram_blocked")
-# the MoE path: granite-moe-1b-a400m at full size (calibration, D-Rank
+# the MoE path: granite-moe-1b-a400m at MOE_LAYERS (calibration, D-Rank
 # 20% on the card, artifact, generate, the batcher eager and with graphs);
 # the float32 card-vs-CPU check at 4 layers; host-vs-device,
 # streaming-vs-eager and the train step at 2; qwen2-moe-a2.7b at full
@@ -298,11 +342,14 @@ TRAIN_KERNELS = ("flash_attention", "lowrank_matmul_2d", "gram_blocked")
 # between card and CPU is allowed where the CPU's k-th and (k+1)-th
 # probabilities are within ROUTE_GAP
 MOE, MOE_SEED, MOE_RATIO = "granite-moe-1b-a400m", 0, 0.2
+# granite's depth on the MoE path, cut from 24 to make room for the later
+# paths in the run's time (the 24 layers are identical MoE layers)
+MOE_LAYERS = 12
 MOE_PARITY_LAYERS, MOE_ORACLE_LAYERS, ROUTE_GAP = 4, 2, 1e-6
 MOE_ARTIFACT_DIR = ROOT / "build" / "chip_smoke_moe_artifact"
 QWEN_MOE, QWEN_LAYERS, QWEN_SEED = "qwen2-moe-a2.7b", 2, 6
 QWEN_PROMPTS, QWEN_NEW, QWEN_NEW_F32 = (200, 64), 16, 8
-# the recurrent families at full size (random weights, seed 0): hymba-1.5b
+# the recurrent families (random weights, seed 0; hymba at REC_DEPTH): hymba-1.5b
 # (attention and Mamba-2 heads in parallel) and xlstm-350m (mLSTM and
 # sLSTM) through the main path's steps and the batcher's exact-length
 # admission, eager and with graphs; hymba also one prompt past its window.
@@ -316,12 +363,43 @@ QWEN_PROMPTS, QWEN_NEW, QWEN_NEW_F32 = (200, 64), 16, 8
 # layer)
 HYMBA, XLSTM = "hymba-1.5b", "xlstm-350m"
 REC_SEED, REC_RATIO, REC_PARITY_STEPS = 0, 0.2, 8
+# hymba's depth, cut from 32 to make room for the later paths in the run's
+# time: its schedule keeps a global layer first, in the middle (8) and last
+REC_DEPTH = {HYMBA: dict(n_layers=16), XLSTM: {}}
 REC_LONG, REC_LONG_NEW = 1200, 16
 REC_PARITY_LAYERS = {HYMBA: 4, XLSTM: 8}
 REC_ORACLE_CUT = {HYMBA: dict(n_layers=1),
                   XLSTM: dict(n_layers=2, mlstm_every_slstm=2)}
 REC_TRAIN_CUT = {HYMBA: dict(n_layers=4), XLSTM: REC_ORACLE_CUT[XLSTM]}
 REC_ARTIFACT_DIR = ROOT / "build" / "chip_smoke_recurrent_artifact"
+# encoder-decoder: seamless-m4t-medium at full size (random weights, seed
+# 0; its encoder fed seeded frames, the audio stub): calibration frames a
+# sample, generate frames a prompt; float32 card vs CPU at ENC_PARITY_CUT,
+# oracles and a train step at ENC_ORACLE_CUT (126 D-Rank groups at full
+# size, every type at 1 + 1 layers)
+SEAMLESS, ENC_SEED, ENC_RATIO = "seamless-m4t-medium", 0, 0.2
+ENC_CALIB_FRAMES, ENC_GEN_FRAMES, ENC_GROUPS = 300, 200, 126
+ENC_TYPES = {"q", "k", "v", "o", "cq", "ck", "cv", "co", "up", "down",
+             "eq", "ek", "ev", "eo", "eup", "edown"}
+ENC_PARITY_CUT = dict(n_layers=2, n_encoder_layers=2)
+ENC_ORACLE_CUT = dict(n_layers=1, n_encoder_layers=1)
+ENC_PARITY_STEPS = 8
+ENC_ARTIFACT_DIR = ROOT / "build" / "chip_smoke_encdec_artifact"
+ENC_KERNELS = ("lowrank_gemv", "lowrank_matmul_2d", "flash_attention",
+               "decode_attention", "gram_blocked")
+# M-RoPE: qwen2-vl-72b at full width, depth 80 -> VL_LAYERS, seeded random
+# factors at uniform 20%, qkv biases seeded; a vision-stub row of VL_TEXT[0]
+# text tokens, a VL_GRID of patches at one t, then VL_TEXT[1] text tokens
+QWEN_VL, VL_LAYERS, VL_SEED, VL_RATIO = "qwen2-vl-72b", 2, 7, 0.2
+VL_TEXT, VL_GRID, VL_NEW, VL_NEW_F32, VL_PROMPT = (8, 64), (16, 16), 16, 8, 200
+# its dense size at VL_LAYERS layers and uniform_allocate's 20% ranks:
+# floor(0.8·8192·8192/16384) for wq/wo, with K 8192 and N 1024 for wk/wv,
+# with 8192 and 29568 for the MLP
+VL_PARAMS = 4_246_794_240
+VL_RANKS = {"q": {3276}, "o": {3276}, "k": {728}, "v": {728},
+            "gate": {5131}, "up": {5131}, "down": {5131}}
+VL_KERNELS = ("lowrank_gemv", "lowrank_matmul_2d", "flash_attention",
+              "decode_attention", "decode_attention_paged")
 # the kernels each family's path must launch (xLSTM has no attention)
 REC_KERNELS = {HYMBA: ("lowrank_gemv", "lowrank_matmul_2d",
                        "flash_attention", "decode_attention",
@@ -427,7 +505,7 @@ class Port:
 
 def linears(params):
     """Every factorized linear {B, C} of a list-form params tree, in model
-    order."""
+    order: the decoder's, then an encoder-decoder model's encoder's."""
     out = []
 
     def walk(node):
@@ -441,6 +519,7 @@ def linears(params):
             for v in node:
                 walk(v)
     walk(params["decoder"])
+    walk(params.get("encoder", {}))
     return out
 
 
@@ -462,7 +541,7 @@ def abs_err(a, b) -> float:
     return float((a.detach().float() - b.detach().float()).abs().max())
 
 
-def device_ms(torch, fn, reps: int = 5) -> float:
+def device_ms(torch, fn, reps: int = 3) -> float:
     """Device time of ``fn`` in ms, median of ``reps`` runs. A sleep kernel
     holds the stream while the host enqueues ``fn``'s launches, so the
     events time the device's work and not the host's launch rate."""
@@ -601,13 +680,26 @@ def build_kernels(port) -> None:
         "the Python mirror of the decode chunk disagrees with the CUDA source"
 
 
-def calib_batches(port, cfg, dev):
+def stub_embeds(shape, seed: int) -> np.ndarray:
+    """Seeded 0.02·N(0, 1) float32 frontend embeddings: the audio stub's
+    encoder frames, the vision stub's patches (``tests/conftest.py``)."""
+    return (0.02 * np.random.default_rng(seed).standard_normal(shape)
+            ).astype(np.float32)
+
+
+def calib_batches(port, cfg, dev, enc_frames: int = 0):
+    """The synthetic calibration batches; with ``enc_frames``, each also
+    carries seeded ``enc_embeds`` of that many frames a sample."""
     dcfg = port.synthetic.DataConfig(vocab_size=cfg.vocab_size,
                                      seq_len=CALIB_SEQ,
                                      global_batch=CALIB_BATCH)
-    return [{"tokens": port.torch.as_tensor(b["tokens"], device=dev)}
-            for b in port.synthetic.calibration_batches(
-                dcfg, CALIB_SAMPLES, CALIB_BATCH)]
+    out = [{"tokens": port.torch.as_tensor(b["tokens"], device=dev)}
+           for b in port.synthetic.calibration_batches(
+               dcfg, CALIB_SAMPLES, CALIB_BATCH)]
+    for i, b in enumerate(out if enc_frames else ()):
+        b["enc_embeds"] = port.torch.as_tensor(stub_embeds(
+            (CALIB_BATCH, enc_frames, cfg.d_model), 100 + i), device=dev)
+    return out
 
 
 def main_path(port, dev):
@@ -1244,10 +1336,11 @@ def streaming_vs_eager(port, cfg, params, col, calib):
         "streaming statistics disagree with the eager fp64 oracle"
 
 
-def device_vs_host(port, dev, calib, cfg=None, params=None):
+def device_vs_host(port, dev, calib, cfg=None, params=None, types=None):
     """Host fp64 decomposition (the oracle) against the device one at full
     width, model in float32: SmolLM at ORACLE_LAYERS layers, or ``cfg``
-    and its ``params``. Returns {path: seconds}."""
+    and its ``params``; ``types``: the group types the plan must hold.
+    Returns {path: seconds}."""
     torch, T, CC = port.torch, port.T, port.compress
     if cfg is None:
         cfg = port.get_config(ARCH).replace(n_layers=ORACLE_LAYERS,
@@ -1263,6 +1356,9 @@ def device_vs_host(port, dev, calib, cfg=None, params=None):
         torch.cuda.synchronize()
         secs["device" if device else "host"] = time.perf_counter() - t0
     (lp_h, plan_h), (lp_d, plan_d) = out[False], out[True]
+    if types is not None:
+        assert {g.mtype for g in plan_h.groups} == types, \
+            {g.mtype for g in plan_h.groups}
     ks_h = {g.gid: g.k for g in plan_h.groups}
     ks_d = {g.gid: g.k for g in plan_d.groups}
     flips = {g: (ks_h[g], ks_d[g]) for g in ks_h if ks_h[g] != ks_d.get(g)}
@@ -1380,6 +1476,12 @@ def check_kernels(port, dev, comp):
             (1, 130, 6, 3, hd, False, 0, 0.0),
             (2, 64, 6, 2, hd, True, 0, 30.0))]
         others.append((1, 300, 32, 8, 128, True, 0, 0.0))
+        # non-causal (an encoder's) at seamless's frame counts, ragged
+        # against every tile: every key tile of every query tile is read
+        others += [(2, 200, 16, 16, 64, False, 0, 0.0),
+                   (1, 300, 16, 16, 64, False, 0, 0.0),
+                   (1, 200, 8, 2, 128, False, 0, 0.0),
+                   (2, 300, 8, 8, 128, False, 0, 0.0)]
         for Bb, S, H, KVh, hd, causal, window, cap in others + [
                 (2, 64, 15, 5, 64, True, 0, 0.0),
                 (2, 128, 15, 5, 64, True, 48, 0.0),
@@ -1904,8 +2006,9 @@ def random_factors(port, params, cfg, ratio: float, seed: int):
                             dtype=wd.dtype) * k ** -0.5
             C = torch.randn((k, m.d_out), generator=gen, device=wd.device,
                             dtype=wd.dtype) * wd.float().std()
-            if m.expert is None:
-                parent[m.path[-1]] = {"B": B, "C": C}
+            if m.expert is None:      # a bias (qwen2-vl's q/k/v) stays
+                parent[m.path[-1]] = dict({"B": B, "C": C}, **{
+                    k: v for k, v in node.items() if k == "b"})
             else:
                 experts.setdefault(m.path, (parent, {}))[1][m.expert] = (B, C)
     for path, (parent, fs) in experts.items():
@@ -1920,15 +2023,22 @@ def random_factors(port, params, cfg, ratio: float, seed: int):
     return lp, ks
 
 
-def greedy(port, params, cfg, prompts, steps: int, device, lengths=None):
+def greedy(port, params, cfg, prompts, steps: int, device, lengths=None,
+           extra=None):
     """Prefill ``prompts`` (right-padded to a common length when
-    ``lengths`` is given) and ``steps`` greedy decode steps on ``device``
-    in ``cfg``'s dtype. Returns the logits of every step on the CPU."""
+    ``lengths`` is given; with ``extra``'s arrays in the batch too: an
+    encoder input, or ``embeds`` and ``positions`` in place of the tokens)
+    and ``steps`` greedy decode steps on ``device`` in ``cfg``'s dtype.
+    Returns the logits of every step on the CPU."""
     torch, T = port.torch, port.T
     p = port.engine.place_params(params, T.dtype_of(cfg.dtype), device)
     batch = {"tokens": torch.as_tensor(prompts, device=device)}
     if lengths is not None:
         batch["lengths"] = torch.as_tensor(lengths, device=device)
+    for k, v in (extra or {}).items():
+        batch[k] = torch.as_tensor(v, device=device)
+    if "embeds" in batch:
+        del batch["tokens"]
     with torch.inference_mode():
         logits, cache = T.prefill(p, cfg, batch,
                                   max_len=prompts.shape[1] + steps + 1)
@@ -2173,13 +2283,14 @@ def gemma_path(port, dev):
 
 
 def throughput(port, dev, cfg, params, comp):
-    """Decode tokens/s of the dense and the D-Rank model, in turns."""
+    """Decode tokens/s of the dense and the D-Rank model, one after the
+    other at each batch (one run each: the timing repeats no check)."""
     E = port.engine
     res = {}
     engines = {"dense": E.Engine(params, cfg, E.ServeConfig(), device=dev),
                "drank-20%": E.Engine(comp, cfg, E.ServeConfig(), device=dev)}
     for batch in (8, 64):
-        for name in ("dense", "drank-20%", "drank-20%", "dense"):
+        for name in ("dense", "drank-20%"):
             m = engines[name].measure_decode_throughput(
                 batch=batch, prompt_len=128, n_new=64)
             res.setdefault((name, batch), []).append(m)
@@ -2766,8 +2877,8 @@ def train_path(port, dev):
 
 
 # ---------------------------------------------------------------------------
-# The MoE path: granite-moe-1b-a400m at full size, qwen2-moe-a2.7b at full
-# width
+# The MoE path: granite-moe-1b-a400m at full width (MOE_LAYERS),
+# qwen2-moe-a2.7b at full width
 # ---------------------------------------------------------------------------
 class DropCounter:
     """Within the block, counts the top-k assignments the MoE layers'
@@ -2935,15 +3046,15 @@ def moe_parity(port, dev, cfg, params, prompts, lengths, steps: int,
 
 
 def moe_path(port, dev):
-    """granite-moe-1b-a400m at full size (24 layers, 32 experts top-8,
-    random weights from seed 0): streaming calibration with every expert
+    """granite-moe-1b-a400m at full width, MOE_LAYERS of its 24 layers (32
+    experts top-8, random weights from seed 0): streaming calibration with every expert
     tag's Gram through the kernel, D-Rank 20% on the card, save, boot,
     generate. Every kernel call is recorded (``recording``). Returns (cfg,
     params, compressed params, plan, calibration batches, recorded calls,
     seconds)."""
     torch, T, CC, E = port.torch, port.T, port.compress, port.engine
     Cap = port.capture
-    cfg = port.get_config(MOE)
+    cfg = port.get_config(MOE).replace(n_layers=MOE_LAYERS)
     n_exp = cfg.moe.padded_experts
     secs, ingest, chunks, integ = {}, [], [], []
     t0 = time.perf_counter()
@@ -3227,7 +3338,8 @@ def moe_phases(port, dev) -> dict:
     out = {}
     port.reset_counts()
     try:
-        with Phase(f"MoE path: {MOE} at full size, streaming calibration "
+        with Phase(f"MoE path: {MOE} at {MOE_LAYERS} layers, streaming "
+                   f"calibration "
                    f"with expert Grams, D-Rank 20% on the card, save, boot, "
                    f"generate"):
             cfg, params, comp, plan, calib, calls, out["secs"] = \
@@ -3303,32 +3415,42 @@ def log_moe(moe: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# The recurrent families: hymba-1.5b and xlstm-350m at full size
+# The recurrent families: hymba-1.5b (full width, REC_DEPTH) and xlstm-350m
 # ---------------------------------------------------------------------------
 def cut_depth(port, params, cfg, **cut):
-    """``cfg`` cut by ``cut`` (its depth and, for xLSTM, the sLSTM period)
-    and list-form params for it: each layer of the cut config takes the
-    next unused layer of its kind from ``params`` (either run form), in
-    model order. Returns (cut cfg, list-form params)."""
+    """``cfg`` cut by ``cut`` (its depth, an encoder-decoder model's
+    encoder depth and, for xLSTM, the sLSTM period) and list-form params
+    for it: each layer of the cut config takes the next unused layer of
+    its kind from ``params`` (either run form), in model order, in the
+    decoder and the encoder. Returns (cut cfg, list-form params)."""
     cfg2 = cfg.replace(**cut)
-    lp = port.capture.to_list_params(params, cfg)
-    layers = {}
-    for r, (kind, _) in enumerate(cfg.layer_runs()):
-        layers.setdefault(kind, []).extend(lp["decoder"][f"run{r}"])
-    runs = {f"run{r}": [layers[kind].pop(0) for _ in range(n)]
-            for r, (kind, n) in enumerate(cfg2.layer_runs())}
-    return cfg2, dict(lp, decoder=runs)
+    lp = dict(port.capture.to_list_params(params, cfg))
+    stacks = [("decoder", cfg, cfg2)]
+    if cfg.is_encoder_decoder:
+        stacks.append(("encoder", port.T.encoder_config(cfg),
+                       port.T.encoder_config(cfg2)))
+    for name, c, c2 in stacks:
+        layers = {}
+        for r, (kind, _) in enumerate(c.layer_runs()):
+            layers.setdefault(kind, []).extend(lp[name][f"run{r}"])
+        keep = {k: v for k, v in lp[name].items()
+                if not k.startswith("run")}       # the encoder's enc_norm
+        lp[name] = dict(keep, **{
+            f"run{r}": [layers[kind].pop(0) for _ in range(n)]
+            for r, (kind, n) in enumerate(c2.layer_runs())})
+    return cfg2, lp
 
 
 def _widths(name, args, kw) -> tuple:
     """The operand widths a launch of ``name`` is counted by: (K, N) of a
-    low-rank product, (heads, KV heads, head_dim, window) of flash, the
-    Gram's width."""
+    low-rank product, (heads, KV heads, head_dim, window, causal) of flash,
+    the Gram's width."""
     if name in ("lowrank_gemv", "lowrank_matmul_2d"):
         return (args[0].shape[1], args[2].shape[1])
     if name == "flash_attention":
         q, k = args[0], args[1]
-        return (q.shape[2], k.shape[2], q.shape[3], kw.get("window", 0))
+        return (q.shape[2], k.shape[2], q.shape[3], kw.get("window", 0),
+                kw.get("causal", True))
     return (args[0].shape[1],)
 
 
@@ -3392,10 +3514,10 @@ def log_census(cens: dict, where: str) -> None:
 
 
 def recurrent_compress(port, dev, arch):
-    """``arch`` at full size, random weights from REC_SEED: streaming
-    calibration with its Grams through ``gram_blocked`` (one fp64 host
-    fold, at the end: hymba's 385 Grams a batch are ~21 GB of float64 a
-    fold, 10-14 s each on the card's host), D-Rank
+    """``arch`` at full width and REC_DEPTH, random weights from REC_SEED:
+    streaming calibration with its Grams through ``gram_blocked`` (one
+    fp64 host fold, at the end: at 32 layers hymba's 385 Grams a batch
+    were ~21 GB of float64 a fold, 10-14 s each on the card's host), D-Rank
     REC_RATIO on the card, ``save_plan``, ``from_compressed(verify=True)``
     and ``generate`` on GEN_BATCH prompts of GEN_PROMPT tokens, equal to an
     in-memory ``Engine``'s tokens; hymba also one REC_LONG-token prompt,
@@ -3403,7 +3525,7 @@ def recurrent_compress(port, dev, arch):
     params, plan, calibration batches, seconds and sizes)."""
     torch, T, CC, E = port.torch, port.T, port.compress, port.engine
     Cap = port.capture
-    cfg = port.get_config(arch)
+    cfg = port.get_config(arch).replace(**REC_DEPTH[arch])
     secs, ingest, dec = {}, [], []
     t0 = time.perf_counter()
     params, _ = T.init_model(cfg, seed=REC_SEED, device=dev)
@@ -3652,6 +3774,9 @@ def train_step_parity(port, dev, cfg2, name: str) -> dict:
     b = port.synthetic.ShardedLoader(port.synthetic.DataConfig(
         vocab_size=cfg2.vocab_size, seq_len=PARITY_TRAIN_SEQ,
         global_batch=PARITY_TRAIN_ROWS)).batch(0)
+    if cfg2.is_encoder_decoder:     # the audio stub feeds the encoder
+        b["enc_embeds"] = stub_embeds((PARITY_TRAIN_ROWS, PARITY_TRAIN_SEQ,
+                                       cfg2.d_model), 1)
     out = {}
     for w, d in (("cpu", torch.device("cpu")), ("card", dev)):
         p = port.pytree.tree_map(lambda t: t.to(d), state.params)
@@ -3697,7 +3822,9 @@ def recurrent_phases(port, dev, arch) -> dict:
     port.reset_counts()
     try:
         with recording(port) as calls, census(port) as cens:
-            with Phase(f"{arch} at full size: streaming calibration, "
+            depth = REC_DEPTH[arch].get("n_layers",
+                                        port.get_config(arch).n_layers)
+            with Phase(f"{arch} at {depth} layers: streaming calibration, "
                        f"D-Rank 20% on the card, save, boot, generate"):
                 cfg, params, comp, plan, calib, out["secs"] = \
                     recurrent_compress(port, dev, arch)
@@ -3788,6 +3915,487 @@ def log_recurrent(arch: str, r: dict) -> None:
         f"CPU max |logits| {r['parity']:.3e}; train step {r['train']}"
         + (f"; sLSTM loop {r['slstm']['share']:.1%} of a prefill"
            if "slstm" in r else ""))
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder (seamless-m4t-medium) and M-RoPE (qwen2-vl-72b)
+# ---------------------------------------------------------------------------
+def seamless_compress(port, dev):
+    """seamless-m4t-medium at full size, random weights from ENC_SEED:
+    streaming calibration (each sample ENC_CALIB_FRAMES seeded encoder
+    frames; every encoder, decoder and cross Gram through ``gram_blocked``,
+    folded into fp64 every FLUSH_EVERY batches as on the main path), D-Rank
+    ENC_RATIO on the card, ``save_plan``, ``from_compressed(verify=True)``
+    and ``generate`` on GEN_BATCH prompts of GEN_PROMPT tokens with
+    ENC_GEN_FRAMES frames each, equal to an in-memory ``Engine``'s tokens.
+    Returns (cfg, dense params, compressed params, calibration batches,
+    seconds and sizes)."""
+    torch, T, CC, E = port.torch, port.T, port.compress, port.engine
+    Cap = port.capture
+    cfg = port.get_config(SEAMLESS)
+    secs, ingest, dec = {}, [], []
+    t0 = time.perf_counter()
+    params, _ = T.init_model(cfg, seed=ENC_SEED, device=dev)
+    torch.cuda.synchronize()
+    log(f"  init_model: {T.param_count(params):,} params, "
+        f"{cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder layers, "
+        f"{time.perf_counter() - t0:.1f} s")
+    calib = calib_batches(port, cfg, dev, ENC_CALIB_FRAMES)
+    t0 = time.perf_counter()
+    with timed(torch, Cap.StreamingCalibrator, "ingest", ingest):
+        col = CC.calibrate(Cap.to_list_params(params, cfg), cfg, calib,
+                           flush_every=FLUSH_EVERY)
+    torch.cuda.synchronize()
+    secs["calibration"] = time.perf_counter() - t0
+    rows = {t: col.count[t] for t in ("encoder/run0/0/attn/wq",
+                                      "decoder/run0/0/attn/wq",
+                                      "decoder/run0/0/cross/wk")}
+    log(f"  streaming calibration: {len(col.gram)} Grams a batch, rows "
+        f"{rows}, fp64 host fold every {FLUSH_EVERY} batches, "
+        f"{secs['calibration']:.2f} s (ingest per batch "
+        + ", ".join(f"{t:.3f}" for t in ingest) + " s)")
+    assert col.count["decoder/run0/0/cross/wk"] == \
+        len(calib) * CALIB_BATCH * ENC_CALIB_FRAMES, col.count
+    assert any(t.startswith("encoder/") for t in col.gram)
+    t0 = time.perf_counter()
+    with timed(torch, CC, "_decompose_groups_device", dec):
+        comp, plan = CC.build_plan_and_params(
+            params, cfg, CC.CompressionConfig(method="drank",
+                                              ratio=ENC_RATIO),
+            calib, collector=col, device=True)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    secs["decomposition"] = sum(dec)
+    secs["allocation and assembly"] = total - sum(dec)
+    del col
+    ks = {}
+    for g in plan.groups:
+        ks.setdefault(g.mtype, []).append(g.k)
+    log(f"  D-Rank {ENC_RATIO:.0%}: achieved ratio "
+        f"{plan.summary['achieved_ratio']:.4f} over {len(plan.groups)} "
+        f"groups; ranks by type " + ", ".join(
+            f"{t} {min(v)}..{max(v)} ({len(v)})" for t, v in
+            sorted(ks.items())) + f"; {total:.2f} s: device decomposition "
+        f"{secs['decomposition']:.2f} s")
+    assert len(plan.groups) == ENC_GROUPS and set(ks) == ENC_TYPES, ks
+    shutil.rmtree(ENC_ARTIFACT_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    path = CC.save_plan(str(ENC_ARTIFACT_DIR), comp, plan, cfg)
+    secs["save"] = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+    scfg = E.ServeConfig(batch=GEN_BATCH, max_len=GEN_PROMPT + GEN_NEW + 1)
+    t0 = time.perf_counter()
+    booted = E.Engine.from_compressed(str(ENC_ARTIFACT_DIR), cfg, scfg,
+                                      verify=True, device=dev)
+    torch.cuda.synchronize()
+    secs["boot"] = time.perf_counter() - t0
+    assert booted.plan.to_json() == plan.to_json(), "plan changed on disk"
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT), dtype=np.int32)
+    enc = stub_embeds((GEN_BATCH, ENC_GEN_FRAMES, cfg.d_model), 2)
+    t0 = time.perf_counter()
+    toks = booted.generate(prompts, GEN_NEW, enc_embeds=enc)
+    torch.cuda.synchronize()
+    secs["generate"] = time.perf_counter() - t0
+    toks_mem = E.Engine(comp, cfg, scfg, device=dev).generate(
+        prompts, GEN_NEW, enc_embeds=enc)
+    log(f"  save_plan: {nbytes / 1e6:.1f} MB, {secs['save']:.2f} s; "
+        f"from_compressed(verify=True): {secs['boot']:.2f} s; generate "
+        f"{GEN_BATCH} x {GEN_PROMPT} + {GEN_NEW}, {ENC_GEN_FRAMES} encoder "
+        f"frames each: {secs['generate']:.2f} s; first tokens of row 0 "
+        f"{toks[0, :8].tolist()}")
+    assert toks.shape == (GEN_BATCH, GEN_NEW)
+    assert ((toks >= 0) & (toks < cfg.vocab_size)).all(), "token out of range"
+    assert (toks == toks_mem).all(), \
+        "seamless: the artifact's engine and the in-memory engine disagree"
+    del booted
+    secs["artifact_mb"] = nbytes / 1e6
+    secs["achieved_ratio"] = plan.summary["achieved_ratio"]
+    return cfg, params, comp, calib, secs
+
+
+def seamless_serve(port, dev, cfg, params, comp):
+    """Decode throughput, dense against D-Rank (``Engine.
+    measure_decode_throughput`` at batch 8, prompt 128, 64 new tokens; the
+    encoder reads zero frames, as in JAX); and the batcher's refusal of an
+    encoder-decoder model. Returns {name: rates}."""
+    E = port.engine
+    res = {}
+    for name, p in (("dense", params), ("drank-20%", comp)):
+        eng = E.Engine(p, cfg, E.ServeConfig(), device=dev)
+        res[name] = eng.measure_decode_throughput(batch=8, prompt_len=128,
+                                                  n_new=64)
+        log(f"  {name:9s} batch 8: {res[name]['tokens_per_s']:9.1f} "
+            f"tokens/s, {res[name]['ms_per_step']:.3f} ms/step")
+        del eng
+    try:
+        E.ContinuousBatcher(comp, cfg, E.ServeConfig(
+            batch=CB_BATCH, max_len=CB_MAX_LEN), device=dev)
+    except ValueError as e:
+        log(f"  the batcher refuses it: {e}")
+    else:
+        raise AssertionError("the batcher took an encoder-decoder model")
+    return res
+
+
+def seamless_phases(port, dev) -> dict:
+    """The encoder-decoder path: every launch count set to 0 just before
+    seamless's calibration and read after its decode throughput; every
+    recorded kernel call held against its plain version; float32 card
+    against CPU at ENC_PARITY_CUT; streaming against eager Grams, host
+    against device decomposition and a float32 train step at
+    ENC_ORACLE_CUT. Returns the summary and the kernels line's
+    launches."""
+    torch = port.torch
+    out = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"== {SEAMLESS}: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+        f"allocated on the card before the path")
+    port.reset_counts()
+    try:
+        with recording(port) as calls, census(port) as cens:
+            with Phase(f"{SEAMLESS} at full size: streaming calibration "
+                       f"with encoder frames, D-Rank 20% on the card (encoder,"
+                       f" decoder and cross-attention), save, boot, "
+                       f"generate"):
+                cfg, params, comp, calib, out["secs"] = \
+                    seamless_compress(port, dev)
+            with Phase(f"{SEAMLESS}: decode throughput, dense against "
+                       f"D-Rank; the batcher refuses it"):
+                out["tput"] = seamless_serve(port, dev, cfg, params, comp)
+    finally:
+        shutil.rmtree(ENC_ARTIFACT_DIR, ignore_errors=True)
+    out["launches"] = port.counts()
+    out["variants"] = port.variant_counts()
+    out["noncausal"] = sum(n for (name, w, _), n in cens["counts"].items()
+                           if name == "flash_attention" and not w[-1])
+    log(f"  launches on the {SEAMLESS} path: {out['launches']}, of them "
+        f"non-causal flash (the encoder's) {out['noncausal']}; by variant "
+        f"{out['variants']}")
+    log_census(cens, f"the {SEAMLESS} path")
+    missing = [n for n in ENC_KERNELS if out["launches"][n] <= 0]
+    assert not missing, f"kernels not launched on the seamless path: {missing}"
+    assert out["noncausal"] > 0, "no non-causal flash launch"
+    assert out["launches"]["decode_attention_paged"] == 0
+    assert_gemv(out["variants"]["lowrank_gemv"], "bfloat16",
+                "the seamless path")
+    for name in TC_KERNELS:
+        assert out["variants"][name]["simt"] == 0, \
+            f"a bf16 {name} launch took simt on the seamless path"
+    with Phase(f"{SEAMLESS}: the path's kernel calls against the plain "
+               f"versions, every variant, the first call of each operand "
+               f"signature"):
+        nc_calls = sum(1 for n, _, kw in calls
+                       if n == "flash_attention" and not kw.get("causal"))
+        log(f"  {len(calls)} signatures, {nc_calls} of them non-causal flash")
+        assert nc_calls > 0
+        hold_recorded(port, calls, "bfloat16", f"the {SEAMLESS} path")
+    del calls
+    torch.cuda.empty_cache()
+    with Phase(f"{SEAMLESS} float32, card against CPU, {ENC_PARITY_CUT} of "
+               f"the D-Rank model"), recording(port) as calls32:
+        out["parity"] = encdec_parity(port, dev, cfg, comp)
+        log(f"  the float32 card run's {len(calls32)} kernel signatures "
+            f"against the plain versions:")
+        hold_recorded(port, calls32, "float32", f"the {SEAMLESS} float32 "
+                      f"path")
+    del comp, calls32
+    torch.cuda.empty_cache()
+    with Phase(f"{SEAMLESS} streaming against eager and host against "
+               f"device, {ENC_ORACLE_CUT}"):
+        cfg2, p2 = cut_depth(port, params, cfg, **ENC_ORACLE_CUT)
+        col = port.compress.calibrate(p2, cfg2, calib,
+                                      flush_every=FLUSH_EVERY)
+        streaming_vs_eager(port, cfg2, p2, col, calib)
+        del col
+        out["oracle_s"] = device_vs_host(port, dev, calib,
+                                         cfg2.replace(dtype="float32"), p2,
+                                         ENC_TYPES)
+    del params, calib, p2
+    torch.cuda.empty_cache()
+    with Phase(f"{SEAMLESS} float32 train step, card against CPU, "
+               f"{ENC_ORACLE_CUT}"):
+        out["train"] = train_step_parity(
+            port, dev, cfg.replace(**ENC_ORACLE_CUT), SEAMLESS)
+    return out
+
+
+def encdec_parity(port, dev, cfg, comp) -> float:
+    """The D-Rank seamless model cut to ENC_PARITY_CUT in float32 on the
+    card and on the CPU, on PARITY_BATCH prompts with ENC_GEN_FRAMES
+    frames each: teacher-forced logits within LOGITS_ATOL and greedy
+    tokens (ENC_PARITY_STEPS new) identical. Returns the largest logits
+    difference."""
+    torch, T, E = port.torch, port.T, port.engine
+    cfg_p, lp = cut_depth(port, comp, cfg, **ENC_PARITY_CUT)
+    cfg_p = cfg_p.replace(dtype="float32")
+    prompts = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (PARITY_BATCH, PARITY_PROMPT), dtype=np.int32)
+    enc = stub_embeds((PARITY_BATCH, ENC_GEN_FRAMES, cfg.d_model), 3)
+    tf = {}
+    for w, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        p = E.place_params(lp, torch.float32, d)
+        with torch.inference_mode():
+            tf[w] = T.forward(p, cfg_p, {
+                "tokens": torch.as_tensor(prompts, device=d),
+                "enc_embeds": torch.as_tensor(enc, device=d)})[0].cpu()
+        del p
+    err = abs_err(tf["card"], tf["cpu"])
+    log(f"  teacher-forced logits of {PARITY_BATCH} x {PARITY_PROMPT} "
+        f"tokens, max |card - cpu| {err:.3e} (atol {LOGITS_ATOL:.0e})")
+    assert err < LOGITS_ATOL, "seamless: teacher-forced logits differ"
+    gpu = greedy(port, lp, cfg_p, prompts, ENC_PARITY_STEPS, dev,
+                 extra={"enc_embeds": enc})
+    cpu = greedy(port, lp, cfg_p, prompts, ENC_PARITY_STEPS,
+                 torch.device("cpu"), extra={"enc_embeds": enc})
+    compare_greedy(torch, gpu, cpu)
+    return max([err] + [abs_err(a, b) for a, b in zip(gpu, cpu)])
+
+
+def vision_row(port, cfg, embed):
+    """The vision-stub row: VL_TEXT[0] text tokens at t = h = w = 0..,
+    a VL_GRID of seeded patch embeddings at t = VL_TEXT[0] with h and w
+    along the grid, then VL_TEXT[1] text tokens from the next free
+    position on (t = h = w). ``embed``: the embedding table whose rows
+    the text tokens take. Returns (embeds (1, S, D) in ``embed``'s dtype,
+    positions (3, 1, S) int32) on ``embed``'s device."""
+    torch = port.torch
+    n0, n1 = VL_TEXT
+    gh, gw = VL_GRID
+    toks = np.random.default_rng(VL_SEED).integers(
+        0, cfg.vocab_size, n0 + n1, dtype=np.int32)
+    rows = embed[torch.as_tensor(toks, device=embed.device).long()]
+    patches = torch.as_tensor(stub_embeds((gh * gw, cfg.d_model), VL_SEED),
+                              device=embed.device).to(embed.dtype)
+    embeds = torch.cat([rows[:n0], patches, rows[n0:]])[None]
+    t = list(range(n0)) + [n0] * (gh * gw)
+    h = list(range(n0)) + [n0 + i for i in range(gh) for _ in range(gw)]
+    w = list(range(n0)) + [n0 + j for _ in range(gh) for j in range(gw)]
+    start = n0 + max(gh, gw)
+    tail = list(range(start, start + n1))
+    pos = np.asarray([t + tail, h + tail, w + tail], dtype=np.int32)
+    return embeds, torch.as_tensor(pos[:, None], device=embed.device)
+
+
+def vision_greedy(port, params, cfg, steps: int, device):
+    """The vision-stub row's prefill (explicit (3, 1, S) positions) and
+    ``steps`` greedy decode steps (positions: the cache index, as in JAX)
+    on ``device`` in ``cfg``'s dtype. Returns every step's logits on the
+    CPU."""
+    torch, T = port.torch, port.T
+    p = port.engine.place_params(params, T.dtype_of(cfg.dtype), device)
+    embeds, pos = vision_row(port, cfg, p["embed"])
+    out = []
+    with torch.inference_mode():
+        logits, cache = T.prefill(p, cfg, {"embeds": embeds,
+                                           "positions": pos},
+                                  max_len=embeds.shape[1] + steps + 1)
+        out.append(logits.float().cpu())
+        for _ in range(steps):
+            tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
+            logits, cache = T.decode_step(p, cfg, cache, tok)
+            out.append(logits.float().cpu())
+    return out
+
+
+def qwen2vl_batcher(port, dev, cfg, comp) -> dict:
+    """The batcher on the batcher path's 24 requests, bf16, batch 8,
+    max_len 256: eager on the contiguous and the paged pool (identical
+    tokens), then the contiguous pool through ``AotRegistry`` (tokens
+    equal, the warm set JAX's, every decode a replay); prefix reuse
+    refused under M-RoPE. Returns {run: rates}."""
+    torch, E, aot = port.torch, port.engine, port.aot
+    reqs = cb_requests(cfg.vocab_size)
+    contig = E.ServeConfig(batch=CB_BATCH, max_len=CB_MAX_LEN)
+    paged = E.ServeConfig(batch=CB_BATCH, max_len=CB_MAX_LEN,
+                          kv_block=CB_BLOCK)
+    rates, outs = {}, {}
+    for name, scfg in (("eager contiguous", contig),
+                       ("eager paged", paged)):
+        cb = E.ContinuousBatcher(comp, cfg, scfg, device=dev)
+        res, secs, steps = drive_batcher(port, cb, reqs)
+        assert res.status == "drained" and len(res) == CB_REQUESTS, name
+        outs[name] = {r.rid: list(r.out) for r in res}
+        ntok = sum(len(o) for o in outs[name].values())
+        rates[name] = {"tokens_per_s": ntok / secs,
+                       "ms_per_step": secs / steps * 1e3}
+        log(f"  {name}: {ntok} tokens in {steps} steps, "
+            f"{ntok / secs:.1f} tokens/s, {secs / steps * 1e3:.2f} ms/step; "
+            f"stats {cb.stats}")
+        del cb
+        torch.cuda.empty_cache()
+    assert outs["eager paged"] == outs["eager contiguous"], \
+        "qwen2-vl: the paged pool's tokens differ from the contiguous"
+    reg = aot.AotRegistry(cfg, contig, aot.live_fingerprint(comp, cfg))
+    cb = E.ContinuousBatcher(comp, cfg, contig, device=dev, executables=reg)
+    res, secs, steps, info = drive_graphs(port, cb, reqs)
+    out = {r.rid: list(r.out) for r in res}
+    ntok = sum(len(o) for o in out.values())
+    rates["graphs contiguous"] = {"tokens_per_s": ntok / secs,
+                                  "ms_per_step": secs / steps * 1e3,
+                                  "warm_s": info["warm_s"]}
+    warm_n, want = info["warm"]["aot_compiles"], warm_set_size(
+        len(cb.ladder), False, CB_MAX_LEN)
+    late = reg.entries()[warm_n:]
+    log(f"  graphs contiguous: {ntok} tokens in {steps} steps, "
+        f"{ntok / secs:.1f} tokens/s, {secs / steps * 1e3:.2f} ms/step; warm "
+        f"{info['warm_s']:.2f} s, {warm_n} entries (JAX's warm set: "
+        f"{want}), {sum(reg.graph_bytes().values()) / 2 ** 20:.0f} MB; "
+        f"late {late}; decode dispatches {info['decode_calls']}, replays "
+        f"{info['decode_replays']}")
+    assert res.status == "drained" and len(res) == CB_REQUESTS
+    assert out == outs["eager contiguous"], \
+        "qwen2-vl: the graph run's tokens differ from the eager run's"
+    assert warm_n == want and not late, (warm_n, want, late)
+    assert cb.stats["aot_fallbacks"] == 0, cb.stats
+    assert info["decode_calls"] > 0 and \
+        info["decode_replays"] == info["decode_calls"], info
+    del cb, reg
+    torch.cuda.empty_cache()
+    try:
+        E.ContinuousBatcher(comp, cfg, E.ServeConfig(
+            batch=CB_BATCH, max_len=CB_MAX_LEN, kv_block=CB_BLOCK,
+            prefix_cache=True), device=dev)
+    except ValueError as e:
+        log(f"  prefix reuse refused: {e}")
+    else:
+        raise AssertionError("qwen2-vl: prefix reuse was taken")
+    return rates
+
+
+def qwen2vl_phases(port, dev) -> dict:
+    """qwen2-vl-72b at full width, depth cut to VL_LAYERS, random weights
+    from VL_SEED, the qkv biases seeded, every linear replaced by seeded
+    random factors at uniform VL_RATIO (the biases kept), with every launch
+    count set to 0 just before its bf16 runs and read just after: the
+    vision-stub prefill and VL_NEW decode steps, ``Engine.generate`` on a
+    VL_PROMPT-token text prompt, the batcher eager and with graphs; every
+    kernel call held against its plain version; then the vision-stub row
+    in float32 on the card against the CPU. Returns the summary and the
+    kernels line's launches."""
+    torch, T, E = port.torch, port.T, port.engine
+    out = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"== {QWEN_VL}: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+        f"allocated on the card before the path")
+    with Phase(f"{QWEN_VL} at full width, {VL_LAYERS} of 80 layers: seeded "
+               f"qkv biases, random factors at uniform 20%"):
+        cfg = port.get_config(QWEN_VL).replace(n_layers=VL_LAYERS)
+        t0 = time.perf_counter()
+        params, _ = T.init_model(cfg, seed=VL_SEED, device=dev)
+        n_params = T.param_count(params)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(VL_SEED)
+        attn = params["decoder"]["run0"]["attn"]
+        for name in ("wq", "wk", "wv"):
+            b = attn[name]["b"]
+            b.copy_(0.02 * torch.randn(b.shape, generator=gen, device=dev))
+        comp, ks = random_factors(port, params, cfg, VL_RATIO, VL_SEED)
+        del params, attn
+        torch.cuda.synchronize()
+        ranks = {}
+        for gid, k in ks.items():
+            ranks.setdefault(gid.split(":")[0], set()).add(k)
+        biased = [p for p in linears(comp) if "b" in p]
+        log(f"  {n_params:,} dense params; {T.param_count(comp) / 1e9:.3f} B "
+            f"factorized ({VL_LAYERS} layers), ranks {ranks}; "
+            f"{len(biased)} factorized linears keep their bias; "
+            f"{time.perf_counter() - t0:.1f} s")
+        assert n_params == VL_PARAMS, n_params
+        assert ranks == VL_RANKS, ranks
+        assert len(biased) == 3 * VL_LAYERS and all(
+            float(p["b"].abs().max()) > 0 for p in biased)
+    port.reset_counts()
+    with recording(port) as calls:
+        with Phase(f"{QWEN_VL}: bf16 vision-stub prefill and decode, "
+                   f"generate, the batcher eager and with graphs"):
+            eng = E.Engine(comp, cfg, E.ServeConfig(batch=1), device=dev)
+            t0 = time.perf_counter()
+            steps = vision_greedy(port, eng.params, cfg, VL_NEW, dev)
+            torch.cuda.synchronize()
+            vtoks = [int(s[0, -1].argmax()) for s in steps]
+            log(f"  vision-stub row ({VL_TEXT[0]} text, {VL_GRID[0]} x "
+                f"{VL_GRID[1]} patches, {VL_TEXT[1]} text: "
+                f"{sum(VL_TEXT) + VL_GRID[0] * VL_GRID[1]} positions), "
+                f"{VL_NEW} decode steps: {time.perf_counter() - t0:.2f} s, "
+                f"tokens {vtoks[:8]}")
+            assert all(torch.isfinite(s).all() for s in steps)
+            prompt = np.random.default_rng(VL_SEED).integers(
+                0, cfg.vocab_size, (1, VL_PROMPT), dtype=np.int32)
+            t0 = time.perf_counter()
+            toks = eng.generate(prompt, VL_NEW)
+            torch.cuda.synchronize()
+            log(f"  generate, a {VL_PROMPT}-token prompt, {VL_NEW} new: "
+                f"{time.perf_counter() - t0:.2f} s, tokens "
+                f"{toks[0, :8].tolist()}")
+            assert toks.shape == (1, VL_NEW)
+            assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
+            del eng, steps
+            out["rates"] = qwen2vl_batcher(port, dev, cfg, comp)
+    out["launches"] = port.counts()
+    out["variants"] = variants = port.variant_counts()
+    log(f"  launches on the {QWEN_VL} path: {out['launches']}; by variant "
+        f"{variants}")
+    missing = [n for n in VL_KERNELS if out["launches"][n] <= 0]
+    assert not missing, f"kernels not launched on the qwen2-vl path: {missing}"
+    assert variants["lowrank_matmul_2d"]["split"] > 0, variants
+    for name in TC_KERNELS:
+        assert variants[name]["simt"] == 0, \
+            f"a bf16 {name} launch took simt on the qwen2-vl path"
+    assert_gemv(variants["lowrank_gemv"], "bfloat16", "the qwen2-vl path")
+    with Phase(f"{QWEN_VL}: the path's kernel calls against the plain "
+               f"versions, every variant, the first call of each operand "
+               f"signature"):
+        log(f"  {len(calls)} signatures")
+        hold_recorded(port, calls, "bfloat16", f"the {QWEN_VL} path")
+    del calls
+    torch.cuda.empty_cache()
+    with Phase(f"{QWEN_VL} float32, card against CPU, the vision-stub row"):
+        cfg32 = cfg.replace(dtype="float32")
+        port.reset_counts()
+        with recording(port) as calls32:
+            t0 = time.perf_counter()
+            gpu = vision_greedy(port, comp, cfg32, VL_NEW_F32, dev)
+            card_s = time.perf_counter() - t0
+        assert_gemv(port.variant_counts()["lowrank_gemv"], "float32",
+                    "the qwen2-vl float32 run")
+        t0 = time.perf_counter()
+        cpu = vision_greedy(port, comp, cfg32, VL_NEW_F32,
+                            torch.device("cpu"))
+        log(f"  {VL_NEW_F32} new tokens: card {card_s:.1f} s, cpu "
+            f"{time.perf_counter() - t0:.1f} s")
+        compare_greedy(torch, gpu, cpu)
+        out["parity"] = max(abs_err(a, b) for a, b in zip(gpu, cpu))
+        log(f"  the float32 run's {len(calls32)} kernel signatures against "
+            f"the plain versions:")
+        hold_recorded(port, calls32, "float32", f"the {QWEN_VL} float32 path")
+    del comp, calls32, gpu, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def log_encdec_vl(enc: dict, vl: dict) -> None:
+    """The seamless and qwen2-vl summary lines."""
+    s = enc["secs"]
+    log(f"{SEAMLESS}: compression seconds " + ", ".join(
+        f"{k} {v:.2f}" for k, v in s.items()
+        if k not in ("artifact_mb", "achieved_ratio"))
+        + f"; artifact {s['artifact_mb']:.1f} MB; achieved ratio "
+        f"{s['achieved_ratio']:.4f} (requested {ENC_RATIO}); decode at "
+        f"batch 8: " + ", ".join(
+            f"{k} {v['ms_per_step']:.3f} ms/step" for k, v in
+            enc["tput"].items())
+        + f"; non-causal flash launches {enc['noncausal']}; float32 card "
+        f"against CPU max |logits| {enc['parity']:.3e}; train step "
+        f"{enc['train']}")
+    log(f"{QWEN_VL} ({VL_LAYERS} layers): batcher, batch {CB_BATCH}: "
+        + ", ".join(f"{k} {v['ms_per_step']:.2f} ms/step, "
+                    f"{v['tokens_per_s']:.1f} tokens/s"
+                    for k, v in vl["rates"].items())
+        + f"; by variant {vl['variants']}; float32 card against CPU max "
+        f"|logits| {vl['parity']:.3e}")
 
 
 def main() -> int:
@@ -3888,6 +4496,10 @@ def main() -> int:
     for arch in (HYMBA, XLSTM):
         rec[arch] = recurrent_phases(port, dev, arch)
         torch.cuda.empty_cache()
+    enc = seamless_phases(port, dev)
+    torch.cuda.empty_cache()
+    vl = qwen2vl_phases(port, dev)
+    torch.cuda.empty_cache()
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
@@ -3930,7 +4542,9 @@ def main() -> int:
             "work": t["work"], "train_launches": train_counts[name],
             "moe_launches": moe["launches"][name],
             "hymba_launches": rec[HYMBA]["launches"][name],
-            "xlstm_launches": rec[XLSTM]["launches"][name]})
+            "xlstm_launches": rec[XLSTM]["launches"][name],
+            "seamless_launches": enc["launches"][name],
+            "qwen2vl_launches": vl["launches"][name]})
         if "simt_ms" in t:     # the variant the main path ran, the earlier
             kernels[-1].update(variant="+".join(t["variant"]),
                                launches_by_variant=variants[name],
@@ -3944,6 +4558,7 @@ def main() -> int:
     log_moe(moe)
     for arch, r in rec.items():
         log_recurrent(arch, r)
+    log_encdec_vl(enc, vl)
     by_name = {k["name"]: k for k in kernels}
     wide = times["lowrank_gemv@64"]
     by_name["lowrank_gemv"]["rows_64"] = dict(

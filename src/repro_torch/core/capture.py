@@ -49,7 +49,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.params import Params, set_capture
-from repro_torch.models.transformer import tree_index
+from repro_torch.models.transformer import encoder_config, tree_index
 from repro_torch.obs import trace
 
 
@@ -386,17 +386,27 @@ def _is_linear(d) -> bool:
     return isinstance(d, dict) and ("w" in d or ("B" in d and "C" in d))
 
 
+def _stacks(cfg: ModelConfig):
+    """(subtree name, its layer runs): the decoder's and, for an
+    encoder-decoder model, the encoder's."""
+    out = [("decoder", cfg.layer_runs())]
+    if cfg.is_encoder_decoder:
+        out.append(("encoder", encoder_config(cfg).layer_runs()))
+    return out
+
+
 def to_list_params(params: Params, cfg: ModelConfig) -> Params:
     """Stacked layer runs -> lists of per-layer trees (views of the stacked
-    tensors). Already-list runs pass through. Non-run subtrees are kept."""
+    tensors), in the decoder and the encoder. Already-list runs pass
+    through. Non-run subtrees are kept."""
     out = dict(params)
-    stack = params["decoder"]
-    new = dict(stack)
-    for r, (_kind, n) in enumerate(cfg.layer_runs()):
-        rp = stack[f"run{r}"]
-        new[f"run{r}"] = rp if isinstance(rp, list) else [
-            tree_index(rp, i) for i in range(n)]
-    out["decoder"] = new
+    for name, runs in _stacks(cfg):
+        new = dict(params[name])
+        for r, (_kind, n) in enumerate(runs):
+            rp = new[f"run{r}"]
+            new[f"run{r}"] = rp if isinstance(rp, list) else [
+                tree_index(rp, i) for i in range(n)]
+        out[name] = new
     return out
 
 
@@ -413,12 +423,13 @@ def to_stacked_params(list_params: Params, cfg: ModelConfig) -> Params:
         return t0
 
     out = dict(list_params)
-    new = dict(list_params["decoder"])
-    for r, _ in enumerate(cfg.layer_runs()):
-        rp = new[f"run{r}"]
-        if isinstance(rp, list):
-            new[f"run{r}"] = stack(*rp)
-    out["decoder"] = new
+    for name, runs in _stacks(cfg):
+        new = dict(list_params[name])
+        for r, _ in enumerate(runs):
+            rp = new[f"run{r}"]
+            if isinstance(rp, list):
+                new[f"run{r}"] = stack(*rp)
+        out[name] = new
     return out
 
 

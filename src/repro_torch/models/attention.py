@@ -6,9 +6,12 @@ Every score computation of the cached paths goes through ``kernels.ops``:
 the flash kernel for full sequences, the decode kernels against the
 contiguous cache or the paged block arena, and on the CPU their plain
 versions, which are the dense-mask formulation of the JAX package's
-``_sdpa``. The prefix-reuse tail prefill (``attend_prefill_ext``) is plain
-torch ops, as the JAX package computes it outside any Pallas kernel.
-Cross-attention and M-RoPE come with their model families.
+``_sdpa``. The prefix-reuse tail prefill (``attend_prefill_ext``) and the
+encoder-decoder cross-attention (``cross_kv`` and ``attend_cross``: the
+cross paths of JAX's ``attend_full(kv=)`` and ``attend_decode(cross_kv=)``)
+are plain torch ops, as the JAX package computes them with ``_sdpa``,
+outside any Pallas kernel. M-RoPE needs nothing here: its angles arrive
+like RoPE's (``models.rotary``).
 
 The decode KV cache is preallocated and updated IN PLACE by index
 assignment, where the JAX package returns a new cache from a functional
@@ -36,7 +39,9 @@ from repro_torch.models.params import Builder, apply_linear, head_rms_norm
 
 
 def init_attention(b: Builder, cfg: ModelConfig,
-                   stack: Tuple[int, ...] = ()) -> None:
+                   stack: Tuple[int, ...] = (), cross: bool = False) -> None:
+    """q/k/v/o projections (qwen2-vl's q/k/v with a bias) and, with
+    ``cfg.qk_norm``, per-head q/k norms, which a cross block has not."""
     heads_ax = "heads" if cfg.shard_attn_heads else "fsdp"
     kv_ax = "kv_heads" if cfg.shard_attn_heads else "fsdp"
     bias = cfg.family == "vlm"   # qwen2-vl carries qkv bias
@@ -45,7 +50,7 @@ def init_attention(b: Builder, cfg: ModelConfig,
     b.linear("wv", cfg.d_model, cfg.kv_dim, ("fsdp", kv_ax), stack, bias=bias)
     b.linear("wo", cfg.q_dim, cfg.d_model, (heads_ax, "fsdp"), stack,
              scale=0.02 / max(1, cfg.n_layers) ** 0.5)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         b.ones("q_norm", (*stack, cfg.head_dim), ((None,) * len(stack)) + (None,))
         b.ones("k_norm", (*stack, cfg.head_dim), ((None,) * len(stack)) + (None,))
 
@@ -67,6 +72,29 @@ def _qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         q = rotary.apply_rope(q, angles)
         k = rotary.apply_rope(k, angles)
     return q, k, v
+
+
+def cross_kv(p: Dict, cfg: ModelConfig, enc_out: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A cross block's K and V of the encoder output (B, T, D): (B, T, KV,
+    hd) each, no rope."""
+    k = _split_heads(apply_linear(p["wk"], enc_out), cfg.n_kv_heads,
+                     cfg.head_dim)
+    v = _split_heads(apply_linear(p["wv"], enc_out), cfg.n_kv_heads,
+                     cfg.head_dim)
+    return k, v
+
+
+def attend_cross(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                 k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Cross-attention of x (B, S, D) to the encoder's K/V (B, T, KV, hd):
+    q from x with no rope and no norm, every encoder position visible (an
+    all-true mask), JAX's ``_sdpa``. A dead decode row gets no exact zero
+    here, as in JAX (``attention.py:397-401`` there)."""
+    B, S, _ = x.shape
+    q = _split_heads(apply_linear(p["wq"], x), cfg.n_heads, cfg.head_dim)
+    mask = torch.ones((B, S, k.shape[1]), dtype=torch.bool, device=x.device)
+    return apply_linear(p["wo"], _sdpa_masked(cfg, q, k, v, mask))
 
 
 def attend_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,

@@ -1,7 +1,9 @@
 """Rotary embeddings (counterpart of ``repro/models/rotary.py``): standard
-RoPE. M-RoPE and the sinusoidal encoder positions come with their model
-families."""
+RoPE, Qwen2-VL's M-RoPE and the sinusoidal absolute positions of the
+encoder-decoder models."""
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -19,6 +21,32 @@ def rope_angles(positions: torch.Tensor, head_dim: int,
     return positions[..., None].float() * freqs
 
 
+def mrope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                 sections: Tuple[int, ...]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.
+
+    positions: (3, B, S) — (t, h, w) component ids (text tokens use
+    t = h = w). sections: per-component count of rotary frequency pairs,
+    summing to head_dim//2. Returns angles (B, S, head_dim//2) whose
+    frequency axis is split into t/h/w sections: pair f takes its angle from
+    the component ``repeat(arange(3), sections)[f]``, selected by a one-hot
+    (hd/2, 3) product as in JAX."""
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"mrope sections {sections} must sum to "
+                         f"head_dim // 2 = {head_dim // 2}")
+    dev = positions.device
+    freqs = _rope_freqs(head_dim, theta, dev)                  # (hd/2,)
+    ang = positions[..., None].float() * freqs               # (3, B, S, hd/2)
+    # the component of each pair from the section bounds (device ops on
+    # Python ints: no host-to-device copy, so a decode step captures)
+    f = torch.arange(head_dim // 2, device=dev)
+    comp = (f >= sections[0]).long() + (f >= sections[0] + sections[1]).long()
+    sel = (comp[:, None] == torch.arange(3, device=dev)).to(ang.dtype)
+    # JAX's einsum "cbsf,fc->bsf" as an elementwise product and sum: exact
+    # in float32 whatever the matmul precision (TF32 would round angles)
+    return (ang * sel.t()[:, None, None, :]).sum(0)
+
+
 def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     """x: (B, S, H, hd); angles: (B, S, hd//2). Rotates interleaved halves
     (GPT-NeoX convention: first half / second half)."""
@@ -33,8 +61,27 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     return torch.cat([y1, y2], dim=-1).to(dtype)
 
 
+def sinusoidal_embed(positions: torch.Tensor, dim: int,
+                     max_wavelength: float = 10_000.0) -> torch.Tensor:
+    """positions (..., S) -> (..., S, dim) sinusoidal absolute embedding in
+    float32, [sin | cos] halves; the caller casts it to x's dtype."""
+    half = dim // 2
+    # -log(max_wavelength) in float32, as JAX computes it, kept on the host
+    # so that the embedding needs no host-to-device copy
+    neg_log = -float(torch.log(torch.tensor(max_wavelength,
+                                            dtype=torch.float32)))
+    freq = torch.exp(neg_log * torch.arange(half, dtype=torch.float32,
+                                            device=positions.device) / half)
+    ang = positions[..., None].float() * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def make_positions(batch: int, seq: int, device: torch.device,
-                   offset: int = 0) -> torch.Tensor:
-    """Default position ids (B, S)."""
+                   offset: int = 0, kind: str = "rope") -> torch.Tensor:
+    """Default position ids: (B, S), or (3, B, S) with t = h = w for
+    ``kind == "mrope"``."""
     pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :]
-    return (pos + offset).expand(batch, seq)
+    pos = (pos + offset).expand(batch, seq)
+    if kind == "mrope":
+        return pos[None].expand(3, batch, seq)
+    return pos

@@ -17,18 +17,27 @@ This port serves decoder-only models of every layer kind the JAX package
 has: ``attn`` and ``swa`` with a dense FFN or a Mixture-of-Experts layer
 (``models.mlp.apply_moe``, expert parallelism 1); Hymba's ``hymba`` and
 ``hymba_g`` (attention and a Mamba-2 head in parallel, ``models.mamba``);
-xLSTM's ``mlstm`` and ``slstm`` (``models.ssm``). The cache is the
-contiguous per-slot pool (``init_cache``): k/v per attention layer and the
-recurrent state of the other kinds, every leaf stacked per run and updated
-in place by ``decode_step``. Pure ``attn`` stacks also have the paged block
-arena (``init_cache_paged``, read through a block table in
-``decode_step(table=)`` and ``prefill_ext``); recurrent kinds have no paged
-layout, in JAX as here. Encoder-decoder wiring and M-RoPE come with their
-model families (ROADMAP Queue 1, item 10).
+xLSTM's ``mlstm`` and ``slstm`` (``models.ssm``); and the
+encoder-decoder wiring of seamless-m4t (``encode``: a non-causal encoder
+stack over ``enc_embeds``, the audio stub, with sinusoidal positions on
+both sides; a ``cross`` block in every decoder layer) and Qwen2-VL's
+M-RoPE (``rotary.mrope_angles`` over (3, B, S) positions, with ``embeds``,
+the vision stub, in place of token embeddings). The cache is the
+contiguous per-slot pool (``init_cache``): k/v per attention layer, the
+recurrent state of the other kinds and, for an encoder-decoder model, each
+layer's read-only cross K/V (``cross_kv``), every leaf stacked per run and
+updated in place by ``decode_step``. Pure-attention decoders also have the
+paged block arena (``init_cache_paged``, read through a block table in
+``decode_step(table=)`` and ``prefill_ext``); recurrent kinds and
+encoder-decoder models have no paged layout, in JAX as here.
 
-Batch dictionary convention: ``tokens`` (B, S) int, optional ``positions``
-(B, S) int and, for prefill, ``lengths`` (B,) int; ``prefill_ext`` also
-takes ``starts`` (B,) int.
+Batch dictionary convention (everything optional except one input):
+``tokens`` (B, S) int (the decoder's, for an encoder-decoder model);
+``embeds`` (B, S, D) float, precomputed frontend embeddings in place of
+the token embedding; ``positions`` (B, S) int, or (3, B, S) under M-RoPE;
+``enc_embeds`` (B, T, D) float or ``enc_tokens`` (B, T) int, the encoder's
+input; ``labels`` and ``loss_mask`` for the loss; for prefill,
+``lengths`` (B,) int; ``prefill_ext`` also takes ``starts`` (B,) int.
 """
 from __future__ import annotations
 
@@ -43,10 +52,12 @@ from repro_torch import pytree
 from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import mamba, rotary, ssm
-from repro_torch.models.attention import (attend_decode, attend_full,
-                                          attend_prefill, attend_prefill_ext,
-                                          cache_write_index, init_attention,
-                                          init_kv_cache, paged_write_index)
+from repro_torch.models.attention import (attend_cross, attend_decode,
+                                          attend_full, attend_prefill,
+                                          attend_prefill_ext,
+                                          cache_write_index, cross_kv,
+                                          init_attention, init_kv_cache,
+                                          paged_write_index)
 from repro_torch.models.mlp import apply_mlp, apply_moe, init_mlp, init_moe
 from repro_torch.models.params import (Builder, Params, apply_linear,
                                        rms_norm, softcap)
@@ -64,12 +75,24 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
+    """Raises for a layer kind, rope kind or frontend the JAX package does
+    not have. The frontends are stubs there and here: their embeddings
+    arrive precomputed (``embeds``, ``enc_embeds``)."""
     kinds = set(cfg.layer_kinds())
-    if (not kinds <= set(KINDS) or cfg.is_encoder_decoder
-            or cfg.rope_kind == "mrope" or cfg.frontend):
+    if cfg.is_encoder_decoder:
+        kinds |= set(encoder_config(cfg).layer_kinds())
+    if (not kinds <= set(KINDS)
+            or cfg.rope_kind not in ("rope", "mrope", "none")
+            or cfg.frontend not in ("", "audio", "vision")):
         raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models, M-RoPE and frontends are "
-            f"not ported yet (ROADMAP Queue 1, item 10)")
+            f"{cfg.name}: layer kinds {sorted(kinds)}, rope kind "
+            f"{cfg.rope_kind!r} or frontend {cfg.frontend!r} unknown")
+
+
+def encoder_config(cfg: ModelConfig) -> ModelConfig:
+    """The encoder stack's config: ``n_encoder_layers`` global layers."""
+    return cfg.replace(n_layers=cfg.n_encoder_layers, sliding_window=0,
+                       local_global_pattern=(0, 0))
 
 
 def is_recurrent(cfg: ModelConfig) -> bool:
@@ -81,8 +104,11 @@ def is_recurrent(cfg: ModelConfig) -> bool:
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
-def _init_block(b: Builder, cfg: ModelConfig, kind: str, n: int) -> None:
-    """One run of `n` layers of `kind` (stacked along leading dim)."""
+def _init_block(b: Builder, cfg: ModelConfig, kind: str, n: int,
+                cross: bool = False) -> None:
+    """One run of `n` layers of `kind` (stacked along leading dim); with
+    ``cross``, each layer has a cross-attention block (``ln_cross``,
+    ``cross``) before its FFN."""
     stack = (n,)
     b.rmsnorm("ln1", cfg.d_model, stack)
     if kind in _ATTN:
@@ -94,6 +120,9 @@ def _init_block(b: Builder, cfg: ModelConfig, kind: str, n: int) -> None:
         ssm.init_mlstm(b.sub("mlstm"), cfg, stack)
     if kind == "slstm":
         ssm.init_slstm(b.sub("slstm"), cfg, stack)
+    if cross:
+        b.rmsnorm("ln_cross", cfg.d_model, stack)
+        init_attention(b.sub("cross"), cfg, stack, cross=True)
     # FFN (attention-ish kinds only; the xLSTM kinds carry their own)
     if kind in _ATTN:
         b.rmsnorm("ln2", cfg.d_model, stack)
@@ -118,10 +147,17 @@ def init_model(cfg: ModelConfig, seed: int = 0,
              scale=1.0 / cfg.d_model ** 0.5)
     dec = b.sub("decoder")
     for r, (kind, n) in enumerate(cfg.layer_runs()):
-        _init_block(dec.sub(f"run{r}"), cfg, kind, n)
+        _init_block(dec.sub(f"run{r}"), cfg, kind, n,
+                    cross=cfg.is_encoder_decoder)
     b.rmsnorm("final_norm", cfg.d_model)
     if not cfg.tie_embeddings:
         b.linear("lm_head", cfg.d_model, cfg.vocab_size, ("embed", "vocab"))
+    if cfg.is_encoder_decoder:
+        enc = b.sub("encoder")
+        enc_cfg = encoder_config(cfg)
+        for r, (kind, n) in enumerate(enc_cfg.layer_runs()):
+            _init_block(enc.sub(f"run{r}"), enc_cfg, kind, n)
+        enc.rmsnorm("enc_norm", cfg.d_model)
     return b.params, b.specs
 
 
@@ -167,6 +203,9 @@ def _angles_for(cfg: ModelConfig, kind: str,
         return None
     local = kind in ("swa", "hymba") and cfg.rope_theta_local > 0
     theta = cfg.rope_theta_local if local else cfg.rope_theta
+    if cfg.rope_kind == "mrope":
+        return rotary.mrope_angles(positions, cfg.head_dim, theta,
+                                   cfg.mrope_sections)
     return rotary.rope_angles(positions, cfg.head_dim, theta)
 
 
@@ -192,8 +231,17 @@ def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor
     return x, None
 
 
+def _cross(p: Params, cfg: ModelConfig, x: torch.Tensor,
+           kv: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """x plus the layer's cross-attention of ``ln_cross(x)`` to the
+    encoder's (k, v), (B, T_enc, KV, hd) each."""
+    return x + attend_cross(p["cross"], cfg,
+                            rms_norm(p["ln_cross"], x, cfg.norm_eps), *kv)
+
+
 def _block_fwd(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
-               angles: Optional[torch.Tensor], causal: bool
+               angles: Optional[torch.Tensor], causal: bool,
+               enc_out: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Returns (x, moe_aux or None)."""
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
@@ -209,6 +257,8 @@ def _block_fwd(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
         x = x + ssm.apply_mlstm(p["mlstm"], cfg, h)
     elif kind == "slstm":
         x = x + ssm.apply_slstm(p["slstm"], cfg, h)
+    if "ln_cross" in p and enc_out is not None:
+        x = _cross(p, cfg, x, cross_kv(p["cross"], cfg, enc_out))
     return _ffn(p, cfg, x)
 
 
@@ -278,12 +328,72 @@ def _default_positions(cfg: ModelConfig, batch: Dict,
         return None
     if "positions" in batch:
         return torch.as_tensor(batch["positions"], device=device)
-    B, S = batch["tokens"].shape[0], batch["tokens"].shape[1]
-    return rotary.make_positions(B, S, device)
+    src = batch["tokens"] if "tokens" in batch else batch["embeds"]
+    return rotary.make_positions(src.shape[0], src.shape[1], device,
+                                 kind=cfg.rope_kind)
 
 
 def _tokens(batch: Dict, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(batch["tokens"], device=device)
+
+
+def _embed_input(params: Params, cfg: ModelConfig, batch: Dict,
+                 device: torch.device) -> torch.Tensor:
+    """The decoder's input rows: ``embeds`` in the compute dtype when the
+    batch has them (the frontend stub), else the token embedding; an
+    encoder-decoder model adds the sinusoidal positions."""
+    if "embeds" in batch:
+        x = torch.as_tensor(batch["embeds"], device=device).to(
+            dtype_of(cfg.dtype))
+    else:
+        x = embed_tokens(params, cfg, _tokens(batch, device))
+    if cfg.is_encoder_decoder:
+        x = _add_sinusoidal(cfg, x)
+    return x
+
+
+def _add_sinusoidal(cfg: ModelConfig, x: torch.Tensor,
+                    pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (B, S, D) plus the sinusoidal embedding of ``pos`` (B, S) (by
+    default 0..S-1), cast to x's dtype before the add, as in JAX."""
+    if pos is None:
+        B, S = x.shape[0], x.shape[1]
+        pos = torch.arange(S, device=x.device)[None].expand(B, S)
+    return x + rotary.sinusoidal_embed(pos, cfg.d_model).to(x.dtype)
+
+
+def _stack_forward(stack_p: Params, cfg: ModelConfig, x: torch.Tensor,
+                   positions: Optional[torch.Tensor],
+                   enc_out: Optional[torch.Tensor], causal: bool
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every run of ``cfg``'s stack over x. Returns (x, the MoE aux sum)."""
+    aux = torch.zeros((), device=x.device)
+    for r, (kind, n) in enumerate(cfg.layer_runs()):
+        angles = _angles_for(cfg, kind, positions)
+        x, aux = _run_layers(
+            stack_p[f"run{r}"], n, x,
+            lambda pl, xx, kind=kind, angles=angles: _block_fwd(
+                kind, cfg, pl, xx, angles, causal=causal, enc_out=enc_out),
+            cfg, aux)
+    return x, aux
+
+
+def encode(params: Params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
+    """The encoder stack of an encoder-decoder model over ``enc_embeds``
+    (the audio stub; cast to the compute dtype) or ``enc_tokens``:
+    sinusoidal positions, non-causal self-attention (the flash kernel),
+    ``enc_norm``. Returns (B, T, D)."""
+    dev = _params_device(params)
+    if "enc_embeds" in batch:
+        x = torch.as_tensor(batch["enc_embeds"], device=dev).to(
+            dtype_of(cfg.dtype))
+    else:
+        x = embed_tokens(params, cfg, torch.as_tensor(batch["enc_tokens"],
+                                                      device=dev))
+    x = _add_sinusoidal(cfg, x)
+    x, _ = _stack_forward(params["encoder"], encoder_config(cfg), x, None,
+                          None, causal=False)
+    return rms_norm(params["encoder"]["enc_norm"], x, cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -294,15 +404,11 @@ def forward(params: Params, cfg: ModelConfig,
     """Full-sequence forward. Returns (logits (B,S,V), aux)."""
     check_supported(cfg)
     dev = _params_device(params)
-    x = embed_tokens(params, cfg, _tokens(batch, dev))
+    enc_out = encode(params, cfg, batch) if cfg.is_encoder_decoder else None
+    x = _embed_input(params, cfg, batch, dev)
     positions = _default_positions(cfg, batch, dev)
-    aux = torch.zeros((), device=dev)
-    for r, (kind, n) in enumerate(cfg.layer_runs()):
-        angles = _angles_for(cfg, kind, positions)
-        x, aux = _run_layers(
-            params["decoder"][f"run{r}"], n, x,
-            lambda pl, xx, kind=kind, angles=angles: _block_fwd(
-                kind, cfg, pl, xx, angles, causal=True), cfg, aux)
+    x, aux = _stack_forward(params["decoder"], cfg, x, positions, enc_out,
+                            causal=True)
     logits = lm_logits(params, cfg, x)
     return logits, {"moe_aux": aux}
 
@@ -351,12 +457,13 @@ def lm_loss(params: Params, cfg: ModelConfig,
 # Decode (single step with caches)
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device: DeviceLike = None) -> Dict:
+               device: DeviceLike = None, enc_len: int = 0) -> Dict:
     """Cache tree: per-run stacked caches + per-sequence positions, in the
     JAX package's layout: ``kv`` for the attention kinds, ``ssm`` (a
     ``ScanState`` and the conv history) beside it for Hymba's, ``mlstm``
-    and ``slstm`` for xLSTM's; every leaf (n, batch, ...), each in its own
-    storage. Every slot starts dead (pos = -1)."""
+    and ``slstm`` for xLSTM's, ``cross_kv`` (k, v of (n, batch, enc_len,
+    KV, hd)) for an encoder-decoder model; every leaf (n, batch, ...),
+    each in its own storage. Every slot starts dead (pos = -1)."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
@@ -380,6 +487,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         if kind == "slstm":
             entry["slstm"] = stacked(
                 ssm.init_slstm_cache(cfg, batch, dtype, dev), n)
+        if cfg.is_encoder_decoder:
+            shape = (n, batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
+            entry["cross_kv"] = {
+                "k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev)}
         runs[f"run{r}"] = entry
     return {"runs": runs,
             "pos": torch.full((batch,), -1, dtype=torch.int32, device=dev)}
@@ -396,6 +508,8 @@ def init_cache_paged(cfg: ModelConfig, batch: int, blocks: int,
     cache. Every slot starts dead (pos = -1)."""
     check_supported(cfg)
     kinds = {kind for kind, _ in cfg.layer_runs()}
+    if cfg.is_encoder_decoder:
+        raise ValueError("the paged cache is for decoder-only models")
     if kinds != {"attn"}:
         raise ValueError(f"the paged cache supports pure-attention stacks "
                          f"only, got layer kinds {sorted(kinds)}")
@@ -441,6 +555,9 @@ def _block_decode(kind: str, cfg: ModelConfig, p: Params, cache: Dict,
         out, new["slstm"] = ssm.decode_slstm(p["slstm"], cfg, h,
                                              cache["slstm"])
         x = x + out
+    if "ln_cross" in p and "cross_kv" in cache:     # read-only in decode
+        x = _cross(p, cfg, x, (cache["cross_kv"]["k"],
+                               cache["cross_kv"]["v"]))
     for name, tree in new.items():
         for dst, src in zip(pytree.tensors(cache[name]),
                             pytree.tensors(tree)):
@@ -453,8 +570,13 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
                 positions: Optional[torch.Tensor] = None,
                 table: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, Dict]:
-    """One new token per sequence. tokens (B,1) int. The cache (k/v and
-    every recurrent state leaf) and ``cache["pos"]`` are updated in place:
+    """One new token per sequence. tokens (B,1) int, or embeds (B,1,D)
+    float. Without ``positions`` the rope position is each row's cache
+    index ``pos``, broadcast to t = h = w under M-RoPE as in JAX (not
+    Qwen2-VL's offsets after an image); an encoder-decoder model adds the
+    sinusoidal embedding of ``pos`` and attends to the cache's read-only
+    ``cross_kv``. The cache (k/v and every recurrent state leaf) and
+    ``cache["pos"]`` are updated in place:
     dead slots (pos = -1) stay dead, live slots advance. As in JAX every
     row is decoded, so a dead row's recurrent state evolves; admission
     overwrites a slot's every leaf and purge zeroes them. Nothing here
@@ -464,8 +586,18 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
     table; dead slots write nothing. Returns (logits (B,1,V), cache)."""
     dev = _params_device(params)
     pos = cache["pos"]
-    x = embed_tokens(params, cfg, tokens)
-    rp = positions if positions is not None else pos[:, None]
+    if tokens.is_floating_point():
+        x = tokens.to(device=dev, dtype=dtype_of(cfg.dtype))
+    else:
+        x = embed_tokens(params, cfg, tokens)
+    if cfg.is_encoder_decoder:
+        x = _add_sinusoidal(cfg, x, pos[:, None])
+    if positions is not None:
+        rp = positions
+    elif cfg.rope_kind == "mrope":
+        rp = pos[None, :, None].expand(3, pos.shape[0], 1)
+    else:
+        rp = pos[:, None]
     if table is not None:
         table = table.to(device=dev, dtype=torch.int32)
     for r, (kind, n) in enumerate(cfg.layer_runs()):
@@ -492,9 +624,12 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
 # ---------------------------------------------------------------------------
 def _block_prefill(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
                    angles: Optional[torch.Tensor], max_len: int,
-                   lengths: Optional[torch.Tensor]
+                   lengths: Optional[torch.Tensor],
+                   enc_out: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Dict]:
-    """One layer of the prefill: (x, the layer's cache)."""
+    """One layer of the prefill: (x, the layer's cache). A cross block's
+    K/V of ``enc_out`` are computed once, attended to and kept as the
+    layer's ``cross_kv`` (JAX applies wk/wv twice, to the same numbers)."""
     cache: Dict[str, Any] = {}
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
     win = _kind_window(cfg, kind)
@@ -516,6 +651,10 @@ def _block_prefill(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
         out, cache["slstm"] = ssm.apply_slstm(p["slstm"], cfg, h,
                                               return_cache=True)
         x = x + out
+    if "ln_cross" in p and enc_out is not None:
+        k, v = cross_kv(p["cross"], cfg, enc_out)
+        x = _cross(p, cfg, x, (k, v))
+        cache["cross_kv"] = {"k": k, "v": v}
     return _ffn(p, cfg, x)[0], cache
 
 
@@ -536,7 +675,8 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict,
     lengths = batch.get("lengths")
     if lengths is not None:
         lengths = torch.as_tensor(lengths, device=dev).to(torch.int32)
-    x = embed_tokens(params, cfg, _tokens(batch, dev))
+    enc_out = encode(params, cfg, batch) if cfg.is_encoder_decoder else None
+    x = _embed_input(params, cfg, batch, dev)
     B, S, _ = x.shape
     positions = _default_positions(cfg, batch, dev)
     runs: Dict[str, Any] = {}
@@ -544,7 +684,8 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict,
         angles = _angles_for(cfg, kind, positions)
         caches = []
         for pl in _layers(params["decoder"][f"run{r}"], n):
-            x, c = _block_prefill(kind, cfg, pl, x, angles, max_len, lengths)
+            x, c = _block_prefill(kind, cfg, pl, x, angles, max_len, lengths,
+                                  enc_out)
             caches.append(c)
         runs[f"run{r}"] = _stack_trees(caches)
     if lengths is None:
@@ -572,8 +713,17 @@ def prefill_ext(params: Params, cfg: ModelConfig, batch: Dict,
     Returns (logits of each row's last live tail position (B, 1, V), tail
     cache): tail k/v are (n, B, St, KV, hd) in slot layout (slot s = tail
     position s), which ``serve.aot.scatter_paged`` writes through the
-    table at the absolute offsets; cache ``pos`` = starts + lengths."""
+    table at the absolute offsets; cache ``pos`` = starts + lengths.
+
+    Not under M-RoPE: the tail positions are built as (B, S), which
+    ``mrope_angles`` cannot take, and the JAX package fails there too
+    (its ``prefill_ext`` builds the same (B, S) positions)."""
     check_supported(cfg)
+    if cfg.rope_kind == "mrope":
+        raise ValueError(
+            f"{cfg.name}: prefill_ext (prefix reuse) builds (B, S) "
+            f"positions, which M-RoPE's (3, B, S) angles cannot take; the "
+            f"JAX reference cannot run it either")
     dev = _params_device(params)
     lengths = torch.as_tensor(batch["lengths"], device=dev).to(torch.int32)
     starts = torch.as_tensor(batch["starts"], device=dev).to(torch.int32)

@@ -226,12 +226,14 @@ class Engine:
     # ---- batch generation (simple API, fixed same-length prompts) --------
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, n_new: int,
-                 lengths: Optional[np.ndarray] = None) -> np.ndarray:
+                 lengths: Optional[np.ndarray] = None,
+                 enc_embeds: Optional[np.ndarray] = None) -> np.ndarray:
         """prompts: (B, S) int; ``lengths`` (B,) int, optional: row b's
         prompt is its first lengths[b] tokens (right-padded), as
         ``T.prefill`` takes them; a stack with recurrent layers refuses it
-        (the padding would run through the state). Returns (B, n_new)
-        int32."""
+        (the padding would run through the state). ``enc_embeds`` (B, T,
+        D): an encoder-decoder model's encoder input (the audio stub).
+        Returns (B, n_new) int32."""
         if lengths is not None and T.is_recurrent(self.cfg):
             raise ValueError(
                 f"{self.cfg.name}: generate(lengths=...) right-pads prompts, "
@@ -243,6 +245,9 @@ class Engine:
         if lengths is not None:
             batch["lengths"] = torch.as_tensor(np.asarray(lengths),
                                                device=self.device)
+        if enc_embeds is not None:
+            batch["enc_embeds"] = torch.as_tensor(np.asarray(enc_embeds),
+                                                  device=self.device)
         logits, cache = T.prefill(self.params, self.cfg, batch,
                                   max_len=max_len)
         outs = []
@@ -267,12 +272,17 @@ class Engine:
                                   n_new: int, warmup: int = 3
                                   ) -> Dict[str, float]:
         """Greedy decode of ``n_new`` steps after a prefill of ``batch``
-        random prompts; the host clock runs between two device
-        synchronizations around the timed loop."""
+        random prompts (an encoder-decoder model's encoder reads zero
+        ``enc_embeds`` of ``prompt_len`` frames, as in JAX); the host clock
+        runs between two device synchronizations around the timed loop."""
         prompts = np.random.default_rng(0).integers(
             0, self.cfg.vocab_size, size=(batch, prompt_len), dtype=np.int32)
-        tokens = torch.as_tensor(prompts, device=self.device)
-        logits, cache = T.prefill(self.params, self.cfg, {"tokens": tokens},
+        b = {"tokens": torch.as_tensor(prompts, device=self.device)}
+        if self.cfg.is_encoder_decoder:
+            b["enc_embeds"] = torch.zeros(
+                (batch, prompt_len, self.cfg.d_model), dtype=torch.float32,
+                device=self.device)
+        logits, cache = T.prefill(self.params, self.cfg, b,
                                   max_len=prompt_len + warmup + n_new + 1)
         tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
         # warmup advances the cache (each step decodes a fresh position,
@@ -320,6 +330,13 @@ class ContinuousBatcher:
     per request at its prompt's exact length (one prefill signature per
     distinct length) scattered into its slot, every state leaf included.
     Such stacks have no paged pool (``kv_block > 0`` raises).
+
+    The batcher serves decoder-only stacks: an encoder-decoder model
+    raises ``ValueError`` at construction (the JAX batcher's admission
+    passes no encoder input and fails on the first request; serve one
+    through ``Engine.generate(enc_embeds=...)``). Under M-RoPE, prefix
+    reuse raises too: the JAX reference's tail prefill cannot build
+    M-RoPE positions.
     """
 
     @classmethod
@@ -347,6 +364,18 @@ class ContinuousBatcher:
                  flight: Optional[frec.FlightRecorder] = None,
                  device: DeviceLike = None):
         T.check_supported(cfg)
+        if cfg.is_encoder_decoder:
+            raise ValueError(
+                f"{cfg.name}: the ContinuousBatcher serves decoder-only "
+                f"stacks; its admission passes no encoder input (the JAX "
+                f"reference's exact-length admission passes only tokens and "
+                f"fails with KeyError 'enc_tokens'); use "
+                f"Engine.generate(enc_embeds=...)")
+        if scfg.prefix_cache and cfg.rope_kind == "mrope":
+            raise ValueError(
+                f"{cfg.name}: prefix_cache under M-RoPE is not served: the "
+                f"tail prefill builds (B, S) positions where M-RoPE takes "
+                f"(3, B, S), and the JAX reference fails there too")
         self.device = resolve_device(device)
         self.params = place_params(params, T.dtype_of(cfg.dtype),
                                    self.device)
@@ -358,8 +387,7 @@ class ContinuousBatcher:
         # always-on event ring; only writes when flight.dump_dir is set
         self.flight = flight if flight is not None else frec.FlightRecorder()
         kinds = {k for k, _ in cfg.layer_runs()}
-        self.bucketed = (kinds <= {"attn", "swa"}
-                         and not cfg.is_encoder_decoder)
+        self.bucketed = kinds <= {"attn", "swa"}
         # --- paged KV pool (DESIGN.md §5.7) -------------------------------
         self.paged = scfg.kv_block > 0
         if scfg.prefix_cache and not self.paged:
@@ -369,7 +397,7 @@ class ContinuousBatcher:
                 raise ValueError(
                     f"kv_block={scfg.kv_block} must divide "
                     f"max_len={scfg.max_len}")
-            if kinds != {"attn"} or cfg.is_encoder_decoder:
+            if kinds != {"attn"}:
                 raise ValueError(
                     "paged KV cache requires a pure-attention decoder "
                     f"(got layer kinds {sorted(kinds)})")
