@@ -22,6 +22,29 @@ What it does, in order, printing the seconds of each phase:
    ``Engine`` on the in-memory compressed params. Every kernel must have
    launched. The seconds of each ingest and of the device decomposition
    are taken inside this one run;
+2a. the mesh (``mesh_phase``), with the main path's batches, Collector and
+   plan as references. The card's ranks share it over gloo through pinned
+   host memory (NCCL refuses two ranks on one device). World 2, spawned
+   (``mesh_rank``, each rank reporting through a file under ``build/``):
+   SmolLM-360M's mesh calibration on the main path's batches, the
+   2560-wide ``w_down`` inputs row-sharded (a (1280, 2560) block a rank,
+   asserted) and the wq tags whitened per shard and tree-reduced: every
+   Gram within 1e-5 relative of the main path's, every wq factor within
+   1e-6 of the single-shard QR chain after the sign fix, ``gram_blocked``
+   launched on each rank; ``build_plan_and_params(device=True, mesh=)``:
+   the main plan's integer ranks, and against one process on the same
+   Collector σ within 1e-5 and B·C within 1e-4, the same factors on both
+   ranks; ``generate`` on the mesh-compressed model; data-parallel
+   training on the training path's float32 cut (2 layers, 3 steps of 4 x
+   128 tokens), losses within 1e-5 relative of the single-process
+   ``Trainer``, ms/step and the all-reduce's ms; expert parallelism on
+   granite-moe-1b-a400m at full width and 2 layers (data 1, model 2):
+   bf16 ``generate`` with the same tokens on both ranks and the drops
+   counted, float32 card against CPU as in 10. Beside it, the serve CLI
+   under ``torchrun --standalone --nproc-per-node 2`` with
+   ``--calib-mesh-shards 2`` must exit 0, drained, its report showing
+   world 2 and the gloo backend. Then every ``comm`` wrapper on NCCL at
+   world 1, equal to its definition;
 2b. the continuous batcher's path on the same artifact, with the counts
    set to 0 again just before it and read just after:
    ``ContinuousBatcher.from_compressed(verify=True)``, batch 8, max_len
@@ -75,7 +98,7 @@ What it does, in order, printing the seconds of each phase:
 3. the streaming Grams against the eager fp64 ``Collector`` on the card,
    every tag: Gram and mean |x| within 1e-4 relative, equal row counts;
 4. the device decomposition against the host fp64 oracle at full width and
-   4 layers, model in float32: identical integer ranks, σ heads within 1e-5
+   2 layers (one group of every type), model in float32: identical integer ranks, σ heads within 1e-5
    relative, every group's B·C within 1e-4 relative;
 5. every kernel against its plain PyTorch version on the card, at the main
    path's shapes (the plan's ranks, the calibration's activations) and
@@ -123,10 +146,10 @@ What it does, in order, printing the seconds of each phase:
    loss is the continuous run's within 1e-4 relative; the step alone
    (ms/step, tokens/s, its model-FLOPs share, one profiled step's idle
    share, flash launches a step: twice a layer and microbatch under
-   remat); one float32 step of a 4-layer SmolLM on the card and on the
+   remat); one float32 step of a 2-layer SmolLM on the card and on the
    CPU from the same weights (loss within 1e-5, params within 1e-4
    relative); D-Rank and fwsvd 20% of the trained model on the card, and
-   fwsvd at 4 layers in float32 on the host and the card (identical
+   fwsvd at 2 layers in float32 on the host and the card (identical
    ranks, B·C within 1e-4); 4 LoRA steps on the D-Rank model (rank 8,
    alpha 32, lr 1e-4; every 2-D launch ``"wgmma"``); the perplexities on
    4 held-out batches; then ``python -m repro_torch.launch.train`` (2
@@ -157,8 +180,9 @@ What it does, in order, printing the seconds of each phase:
    logits and greedy tokens, held up to the first routing flip, which
    is allowed only where the CPU's k-th and (k+1)-th probabilities are
    within 1e-6); streaming against eager Grams and host against device
-   decomposition at 2 layers, expert tags and groups included; a float32
-   train step at 2 layers against the CPU; and qwen2-moe-a2.7b at full
+   decomposition at 1 layer (every granite layer holds the same seven
+   group types), expert tags and groups included; a float32 train step
+   at 1 layer against the CPU; and qwen2-moe-a2.7b at full
    width (60 experts padded to 64, 4 shared experts, MHA 16 of 128),
    depth cut to 2 layers, seeded random factors at uniform 20%: bf16
    ``generate`` on a 200- and a 64-token prompt, every kernel call held,
@@ -245,7 +269,8 @@ product also its two-launch variant's, ``split_ms``; every kernel its
 launches on the training path, ``train_launches``, and on the MoE path,
 ``moe_launches``, and on the recurrent paths, ``hymba_launches`` and
 ``xlstm_launches``, and on the encoder-decoder and M-RoPE paths,
-``seamless_launches`` and ``qwen2vl_launches``); the last
+``seamless_launches`` and ``qwen2vl_launches``, and by rank on the mesh
+paths, ``mesh_launches``); the last
 is ``{"ok": true, "device": {...}}``. Any failure raises, so the script
 exits non-zero and prints no result; so it does with no CUDA device, or
 without the repository's ``src/repro_torch`` beside it.
@@ -279,7 +304,11 @@ SIG_TOL, FACTOR_TOL = 1e-5, 1e-4       # tests/test_compress_device.py:35-36
 ARCH = "smollm-360m"
 CALIB_SAMPLES, CALIB_SEQ, CALIB_BATCH = 16, 256, 4
 FLUSH_EVERY = 2                  # the fp64 host fold runs mid-stream
-ORACLE_LAYERS = 4                # depth of the host-vs-device phase
+# depth of the host-vs-device phase: 2 layers hold one group of every
+# type. The float32 train step, the fwsvd oracle and DP training keep 4:
+# a float32 step's error grows with depth
+ORACLE_LAYERS = 2
+TRAIN_PARITY_LAYERS = 4
 ARTIFACT_DIR = ROOT / "build" / "chip_smoke_artifact"
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 8, 64, 32
 PARITY_BATCH, PARITY_PROMPT, PARITY_STEPS = 4, 32, 16
@@ -324,7 +353,7 @@ GEMV_VARIANT = {"bfloat16": "mma", "float32": "fma"}
 GEMV_ROWS_WIDE = 64             # the larger throughput batch: gemv rows
 # the training path: SmolLM-360M at full size, 6 steps of 8 x 256 tokens in
 # 2 microbatches, an async checkpoint at step 3; the float32 card-vs-CPU
-# step at ORACLE_LAYERS layers on 2 x 128 tokens; held-out and LoRA batches
+# step at TRAIN_PARITY_LAYERS layers on 2 x 128 tokens; held-out and LoRA batches
 # from loader steps far past the training ones
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS, TRAIN_LR = 8, 256, 2, 6, 1e-3
 PARITY_TRAIN_ROWS, PARITY_TRAIN_SEQ = 2, 128
@@ -337,7 +366,7 @@ TRAIN_KERNELS = ("flash_attention", "lowrank_matmul_2d", "gram_blocked")
 # the MoE path: granite-moe-1b-a400m at MOE_LAYERS (calibration, D-Rank
 # 20% on the card, artifact, generate, the batcher eager and with graphs);
 # the float32 card-vs-CPU check at 4 layers; host-vs-device,
-# streaming-vs-eager and the train step at 2; qwen2-moe-a2.7b at full
+# streaming-vs-eager and the train step at 1; qwen2-moe-a2.7b at full
 # width, 2 of its 24 layers, random factors at uniform 20%. A routing flip
 # between card and CPU is allowed where the CPU's k-th and (k+1)-th
 # probabilities are within ROUTE_GAP
@@ -345,9 +374,29 @@ MOE, MOE_SEED, MOE_RATIO = "granite-moe-1b-a400m", 0, 0.2
 # granite's depth on the MoE path, cut from 24 to make room for the later
 # paths in the run's time (the 24 layers are identical MoE layers)
 MOE_LAYERS = 12
-MOE_PARITY_LAYERS, MOE_ORACLE_LAYERS, ROUTE_GAP = 4, 2, 1e-6
+# the oracles at 1 layer: every granite layer holds the same seven group
+# types
+MOE_PARITY_LAYERS, MOE_ORACLE_LAYERS, ROUTE_GAP = 4, 1, 1e-6
+MOE_TRAIN_LAYERS = 2            # the MoE float32 train step
 MOE_ARTIFACT_DIR = ROOT / "build" / "chip_smoke_moe_artifact"
 QWEN_MOE, QWEN_LAYERS, QWEN_SEED = "qwen2-moe-a2.7b", 2, 6
+# the mesh phase (ROADMAP Queue 1, item 11): two ranks share the one card
+# over gloo through pinned host memory (NCCL refuses two ranks on one
+# device; it runs here at world 1 only). SmolLM's mesh calibration on the
+# main path's batches with w_down's 2560-wide input row-sharded and the wq
+# tags whitened per shard, held to tests/mesh_parity_main.py's bars
+# (checks [1] and [2]); data-parallel training on the training path's
+# float32 cut; expert parallelism on granite at full width, EP_LAYERS
+# layers; the serve CLI under torchrun with --calib-mesh-shards 2
+MESH_DIR = ROOT / "build" / "chip_smoke_mesh"
+MESH_WORLD, MESH_SHARD_ABOVE = 2, 2048
+MESH_FACTOR_REL, MESH_GRAM_REL = 1e-6, 1e-5
+DP_ROWS, DP_SEQ, DP_STEPS = 4, 128, 3
+EP_LAYERS, EP_BATCH, EP_PROMPT, EP_NEW, EP_PARITY_STEPS = 2, 4, 32, 8, 4
+MESH_CLI = ["--arch", ARCH, "--compress", "drank", "--ratio", "0.2",
+            "--device-compress", "--calib-mesh-shards", str(MESH_WORLD),
+            "--batch", "4", "--max-len", "64", "--requests", "4",
+            "--prompt-len", "16", "--n-new", "8"]
 QWEN_PROMPTS, QWEN_NEW, QWEN_NEW_F32 = (200, 64), 16, 8
 # the recurrent families (random weights, seed 0; hymba at REC_DEPTH): hymba-1.5b
 # (attention and Mamba-2 heads in parallel) and xlstm-350m (mLSTM and
@@ -1318,12 +1367,17 @@ def _rel64(a: np.ndarray, b: np.ndarray) -> float:
     return float(np.abs(a - b).max() / (np.abs(b).max() + 1e-30))
 
 
-def streaming_vs_eager(port, cfg, params, col, calib):
+def eager_collector(port, cfg, params, calib):
+    """The eager fp64 Collector (the oracle) on ``calib``."""
+    return port.compress.calibrate(port.capture.to_list_params(params, cfg),
+                                   cfg, calib, streaming=False)
+
+
+def streaming_vs_eager(port, cfg, params, col, calib, eager=None):
     """The main path's streaming Grams against the eager fp64 Collector on
-    the same batches, every tag."""
-    CC = port.compress
-    eager = CC.calibrate(port.capture.to_list_params(params, cfg), cfg, calib,
-                         streaming=False)
+    the same batches (``eager``, made here if not given), every tag."""
+    if eager is None:
+        eager = eager_collector(port, cfg, params, calib)
     assert sorted(col.gram) == sorted(eager.gram), "tag sets differ"
     worst_g = worst_a = 0.0
     for tag, g in eager.gram.items():
@@ -2684,7 +2738,7 @@ def train_path(port, dev):
     # whole step's params (the card's grads through the card's AdamW) are
     # printed, not held.
     assert not torch.backends.cuda.matmul.allow_tf32
-    cfg4 = cfg.replace(n_layers=ORACLE_LAYERS, dtype="float32")
+    cfg4 = cfg.replace(n_layers=TRAIN_PARITY_LAYERS, dtype="float32")
     ocfg = port.adamw.OptimizerConfig(lr=1e-3, warmup_steps=1)
     state_cpu, _ = TS.init_train_state(cfg4, seed=1, device="cpu")
     state_gpu = port.pytree.tree_map(lambda t: t.to(dev), state_cpu)
@@ -2726,7 +2780,7 @@ def train_path(port, dev):
     g_at = max(((x.cpu() - y).abs().max(), g.flatten()[
         (x.cpu() - y).abs().argmax()].abs()) for x, y, g in zip(
             leaves(p_gpu), leaves(p_cpu), leaves(g_cpu)))[1]
-    log(f"  float32 step, {ORACLE_LAYERS} layers, {PARITY_TRAIN_ROWS} x "
+    log(f"  float32 step, {TRAIN_PARITY_LAYERS} layers, {PARITY_TRAIN_ROWS} x "
         f"{PARITY_TRAIN_SEQ} tokens, lr 1e-3: loss card {lg:.7f}, CPU "
         f"{lc:.7f} (rel {abs(lg - lc) / abs(lc):.2e}, tolerance 1e-5); "
         f"each leaf relative to its largest entry: grads {g_err:.2e}, "
@@ -2747,7 +2801,7 @@ def train_path(port, dev):
     del state_cpu, state_gpu, g_cpu, g_gpu, p_cpu, p_gpu, p_opt, p_neg
 
     # (d) compress the trained model: D-Rank and fwsvd 20% on the card,
-    # fwsvd's ranks against the host oracle at ORACLE_LAYERS layers
+    # fwsvd's ranks against the host oracle at TRAIN_PARITY_LAYERS layers
     trained = tr.state.params
     calib = calib_batches(port, cfg, dev)
     held = [{k: torch.as_tensor(v, device=dev) for k, v in
@@ -2764,8 +2818,8 @@ def train_path(port, dev):
         torch.cuda.synchronize()
         secs[method] = time.perf_counter() - t0
     del col
-    cfg_o = cfg.replace(n_layers=ORACLE_LAYERS, dtype="float32")
-    p_o = cut_layers(port, trained, ORACLE_LAYERS)
+    cfg_o = cfg.replace(n_layers=TRAIN_PARITY_LAYERS, dtype="float32")
+    p_o = cut_layers(port, trained, TRAIN_PARITY_LAYERS)
     t0 = time.perf_counter()
     plans = {d: CC.build_plan_and_params(
         p_o, cfg_o, CC.CompressionConfig(method="fwsvd", ratio=0.2), calib,
@@ -2783,7 +2837,7 @@ def train_path(port, dev):
         f"{comps['drank'][1].summary['achieved_ratio']:.4f}); fwsvd 20% "
         f"{secs['fwsvd']:.2f} s (ratio "
         f"{comps['fwsvd'][1].summary['achieved_ratio']:.4f}); fwsvd at "
-        f"{ORACLE_LAYERS} layers, float32 ({secs['oracle']:.2f} s, host and "
+        f"{TRAIN_PARITY_LAYERS} layers, float32 ({secs['oracle']:.2f} s, host and "
         f"device): {len(ks_h)} groups, ranks "
         f"{'equal' if ks_h == ks_d else 'DIFFER'} host and device, B·C "
         f"max-relative {fac:.3e} (tolerance {FACTOR_TOL:.0e})")
@@ -3323,10 +3377,10 @@ def qwen_path(port, dev):
 
 
 def moe_train_step(port, dev, cfg):
-    """One float32 train step of the MoE model at MOE_ORACLE_LAYERS
+    """One float32 train step of the MoE model at MOE_TRAIN_LAYERS
     layers on the card against the CPU (``train_step_parity``)."""
     return train_step_parity(
-        port, dev, cfg.replace(n_layers=MOE_ORACLE_LAYERS), MOE)
+        port, dev, cfg.replace(n_layers=MOE_TRAIN_LAYERS), MOE)
 
 
 def moe_phases(port, dev) -> dict:
@@ -3379,7 +3433,7 @@ def moe_phases(port, dev) -> dict:
                f"{MOE_ORACLE_LAYERS} layers, expert tags and groups"):
         moe_oracles(port, dev, cfg, params, calib)
     with Phase(f"MoE float32 train step, card against CPU, "
-               f"{MOE_ORACLE_LAYERS} layers"):
+               f"{MOE_TRAIN_LAYERS} layers"):
         out["train"] = moe_train_step(port, dev, cfg)
     del params, calib
     torch.cuda.empty_cache()
@@ -4398,6 +4452,537 @@ def log_encdec_vl(enc: dict, vl: dict) -> None:
         f"|logits| {vl['parity']:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# The mesh (ROADMAP Queue 1, item 11): world 2 on the one card over gloo
+# through pinned host memory, the serve CLI under torchrun, NCCL at world 1
+# ---------------------------------------------------------------------------
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def wq_tags(cfg) -> list:
+    return [f"decoder/run{r}/{i}/attn/wq"
+            for r, (_, n) in enumerate(cfg.layer_runs()) for i in range(n)]
+
+
+class QRChain:
+    """Capture target: the single-shard QR chain ``R' = qr_r([R; X])`` of
+    ``tags``, batch by batch, as ``StreamingCalibrator``'s whiten route
+    computes it on one device (float32, from a zero factor)."""
+
+    def __init__(self, torch, tags):
+        self.torch, self.tags, self.R = torch, set(tags), {}
+
+    def add(self, tag, x) -> None:
+        if tag not in self.tags:
+            return
+        torch = self.torch
+        x2 = x.detach().reshape(-1, x.shape[-1]).float()
+        R = self.R.get(tag)
+        if R is None:
+            R = torch.zeros((x2.shape[1],) * 2, dtype=torch.float32,
+                            device=x2.device)
+        self.R[tag] = torch.linalg.qr(torch.cat([R, x2]), mode="r")[1]
+
+    def add_expert_batch(self, tag, xs) -> None:
+        pass
+
+
+def single_chain(port, params, cfg, calib, tags) -> dict:
+    """The single-shard whitening factors of ``tags`` over ``calib``: one
+    forward pass a batch, nothing else captured."""
+    from repro_torch.models.params import set_capture
+    torch, Cap = port.torch, port.capture
+    tagged = Cap.tag_linears(Cap.to_list_params(params, cfg))
+    chain = QRChain(torch, tags)
+    set_capture(chain)
+    try:
+        with torch.no_grad():
+            for b in calib:
+                port.T.forward(tagged, cfg, b)
+    finally:
+        set_capture(None)
+    return {t: R.double().cpu().numpy() for t, R in chain.R.items()}
+
+
+def sign_fixed(R: np.ndarray) -> np.ndarray:
+    s = np.sign(np.diag(R)).copy()
+    s[s == 0] = 1.0
+    return s[:, None] * R
+
+
+def _npz_key(tag: str) -> str:
+    return tag.replace("/", ".")
+
+
+class EPDrops:
+    """Within the block, the MoE layers' dropped rows under expert
+    parallelism, by wrapping ``models.mlp._dispatch_to_buffers``: a layer
+    calls it three times (the T·k repeated rows to the ep shards, their
+    meta rows, the received rows to the local experts). The first level
+    drops an assignment where it keeps no slot; the second where it keeps
+    none for a row that holds data (a received buffer's empty rows are
+    exact zeros and take expert 0's spare capacity, as in JAX)."""
+
+    def __init__(self, port):
+        self.mlp = port.mlp
+        self.first = self.second = None
+        self.assigned = 0
+        self.calls = 0
+
+    def __enter__(self):
+        inner = self.inner = self.mlp._dispatch_to_buffers
+
+        def spy(x, dest, n_dest, capacity):
+            buf, slot, kept = inner(x, dest, n_dest, capacity)
+            level = self.calls % 3
+            if level == 0:
+                self.assigned += x.shape[0]
+                lost = (~kept).sum()
+                self.first = lost if self.first is None else self.first + lost
+            elif level == 2:
+                lost = (~kept & (x.abs().sum(-1) > 0)).sum()
+                self.second = (lost if self.second is None
+                               else self.second + lost)
+            self.calls += 1
+            return buf, slot, kept
+        self.mlp._dispatch_to_buffers = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mlp._dispatch_to_buffers = self.inner
+        return False
+
+    def counts(self) -> dict:
+        return {"assigned": self.assigned,
+                "dropped_first_level": int(self.first or 0),
+                "dropped_second_level": int(self.second or 0)}
+
+
+def ep_local(port, params, mesh):
+    """This rank's E/ep experts of every MoE layer (``local_block`` of the
+    stacked (layers, E, ...) expert arrays along ``model``); everything
+    else whole, as JAX's EP body holds it."""
+    from repro_torch.dist import sharding as SH
+    spec = SH.P(None, "model")
+    out = port.pytree.tree_map(lambda x: x, params)     # new containers
+    for run in out["decoder"].values():
+        moe = run.get("moe") if isinstance(run, dict) else None
+        for k in ("w_gate", "w_up", "w_down") if moe else ():
+            moe[k] = SH.local_block(moe[k], spec, mesh).contiguous()
+    return out
+
+
+def _digest(arrays) -> list:
+    """Float sums of each array, in order: equal on two ranks only if their
+    values are (here: identical all-reduced and gathered results)."""
+    return [float(np.asarray(a, dtype=np.float64).sum()) for a in arrays]
+
+
+def mesh_calibration(port, dev, rank: int, comm) -> dict:
+    """World 2 over the one card: SmolLM-360M's mesh calibration on the main
+    path's batches (``w_down``'s 2560-wide input sharded, the wq tags
+    whitened per shard), the device decomposition spread over the ranks,
+    and the same decomposition on one process from the same Collector;
+    then ``generate`` on the mesh-compressed model. Rank 0 writes its
+    Grams and factors for the parent's comparison with the main path."""
+    from repro_torch.launch.mesh import make_host_mesh
+    torch, T, CC, Cap, E = (port.torch, port.T, port.compress, port.capture,
+                            port.engine)
+    out = {}
+    mesh = make_host_mesh(data=MESH_WORLD, model=1)
+    cfg = port.get_config(ARCH)
+    params, _ = T.init_model(cfg, seed=0, device=dev)
+    calib = calib_batches(port, cfg, dev)
+    port.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cal = Cap.StreamingCalibrator(
+        Cap.to_list_params(params, cfg), cfg, mesh=mesh,
+        flush_every=FLUSH_EVERY, whiten_tags=wq_tags(cfg),
+        shard_grams_above=MESH_SHARD_ABOVE)
+    for b in calib:
+        cal.ingest(b)
+    routes = out["route_of"] = dict(cal.routes)
+    shapes = {t: list(a["gram"].shape) for t, a in cal.accumulators.items()
+              if routes[t] == "sharded"}
+    col = cal.finalize()
+    torch.cuda.synchronize()
+    out["calibration_s"] = time.perf_counter() - t0
+    out["launches_calibration"] = port.counts()
+    out["routes"] = {r: sum(v == r for v in routes.values())
+                     for r in ("replicated", "sharded", "whiten")}
+    for t, s in shapes.items():
+        d = col.gram[t].shape[0]
+        assert t.endswith("/mlp/w_down") and s == [d // MESH_WORLD, d], \
+            (t, s)
+    assert out["routes"]["sharded"] == cfg.n_layers, out["routes"]
+    assert out["launches_calibration"]["gram_blocked"] > 0
+    out["sharded_block"] = next(iter(shapes.values()))
+    out["gram_digest"] = _digest(col.gram[t] for t in sorted(col.gram))
+    out["chol_digest"] = _digest(col.chol[t] for t in sorted(col.chol))
+    if rank == 0:
+        np.savez(MESH_DIR / "grams.npz", **{
+            _npz_key(t): g.astype(np.float32) for t, g in col.gram.items()})
+        np.savez(MESH_DIR / "chol.npz", **{
+            _npz_key(t): R for t, R in col.chol.items()})
+
+    ccfg = CC.CompressionConfig(method="drank", ratio=0.2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    comp, plan = CC.build_plan_and_params(params, cfg, ccfg, calib,
+                                          collector=col, device=True,
+                                          mesh=mesh)
+    torch.cuda.synchronize()
+    out["spread_s"] = time.perf_counter() - t0
+    out["ranks"] = {g.gid: g.k for g in plan.groups}
+    lin = linears(comp)
+    out["factor_digest"] = [float(sum(x[k].double().sum().item()
+                                      for x in lin)) for k in ("B", "C")]
+    if rank == 0:
+        t0 = time.perf_counter()
+        comp1, plan1 = CC.build_plan_and_params(params, cfg, ccfg, calib,
+                                                collector=col, device=True)
+        torch.cuda.synchronize()
+        out["single_s"] = time.perf_counter() - t0
+        assert {g.gid: g.k for g in plan1.groups} == out["ranks"], \
+            "the spread decomposition's ranks differ from one process's"
+        out["sigma_rel"] = max(
+            _rel64(np.asarray(a.sigma_head), np.asarray(b.sigma_head))
+            for a, b in zip(plan.groups, plan1.groups))
+        fac = 0.0
+        for a, b in zip(lin, linears(comp1)):
+            pa = a["B"].double() @ a["C"].double()
+            pb = b["B"].double() @ b["C"].double()
+            fac = max(fac, float((pa - pb).abs().max() / pb.abs().max()))
+        out["bc_rel"] = fac
+        assert out["sigma_rel"] < SIG_TOL and fac < FACTOR_TOL, \
+            (out["sigma_rel"], fac)
+        del comp1
+        # the mesh-compressed model serves
+        port.reset_counts()
+        prompts = np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT), dtype=np.int32)
+        t0 = time.perf_counter()
+        toks = E.Engine(comp, cfg, E.ServeConfig(
+            batch=GEN_BATCH, max_len=GEN_PROMPT + GEN_NEW + 1),
+            device=dev).generate(prompts, GEN_NEW)
+        torch.cuda.synchronize()
+        out["generate_s"] = time.perf_counter() - t0
+        out["launches_generate"] = port.counts()
+        assert toks.shape == (GEN_BATCH, GEN_NEW) and (
+            (toks >= 0) & (toks < cfg.vocab_size)).all()
+    comm.barrier()
+    del params, comp, col, cal
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train(port, dev, rank: int, comm) -> dict:
+    """Data-parallel training at world 2 on the training path's float32 cut
+    (SmolLM-360M at TRAIN_PARITY_LAYERS layers), DP_STEPS steps of DP_ROWS x
+    DP_SEQ tokens, and on rank 0 the single-process Trainer on the same
+    global batches."""
+    torch = port.torch
+    cfg = port.get_config(ARCH).replace(n_layers=TRAIN_PARITY_LAYERS,
+                                        dtype="float32")
+    dcfg = port.synthetic.DataConfig(vocab_size=cfg.vocab_size,
+                                     seq_len=DP_SEQ, global_batch=DP_ROWS)
+    tcfg = port.TS.TrainConfig(optimizer=port.adamw.OptimizerConfig(
+        lr=TRAIN_LR, warmup_steps=1, total_steps=DP_STEPS + 1))
+
+    def run(shard: int, n: int) -> dict:
+        port.reset_counts()
+        tr = port.loop.Trainer(cfg, tcfg, dcfg, port.loop.LoopConfig(
+            total_steps=DP_STEPS, log_every=1, shard_id=shard,
+            num_shards=n), seed=0, device=dev)
+        c = comm.current()
+        ar = c.seconds.get("all_reduce", 0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = tr.run()["history"]
+        torch.cuda.synchronize()
+        return {"losses": [h["loss"] for h in hist],
+                "ms_per_step": (time.perf_counter() - t0) / DP_STEPS * 1e3,
+                "all_reduce_ms": (c.seconds.get("all_reduce", 0.0) - ar)
+                / DP_STEPS * 1e3, "launches": port.counts()}
+    out = {"world2": run(rank, MESH_WORLD)}
+    if rank == 0:
+        out["world1"] = run(0, 1)
+    comm.barrier()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_moe(port, dev, rank: int, comm) -> dict:
+    """Expert parallelism on (data 1, model 2): granite-moe-1b-a400m at full
+    width, EP_LAYERS layers, random weights from MOE_SEED, each rank
+    holding half of every layer's experts: bf16 ``generate`` with the
+    drops counted, then the float32 forward and greedy decode on the card
+    against the same ranks on the CPU (``moe_parity``)."""
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch.mesh import make_host_mesh
+    torch, T, E = port.torch, port.T, port.engine
+    mesh = make_host_mesh(data=1, model=MESH_WORLD)
+    cfg = port.get_config(MOE).replace(n_layers=EP_LAYERS)
+    params, _ = T.init_model(cfg, seed=MOE_SEED, device=dev)
+    local = ep_local(port, params, mesh)
+    del params
+    prompts = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (EP_BATCH, EP_PROMPT), dtype=np.int32)
+    out = {}
+    with SH.use_rules(mesh=mesh):
+        port.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with EPDrops(port) as drops:
+            toks = E.Engine(local, cfg, E.ServeConfig(
+                batch=EP_BATCH, max_len=EP_PROMPT + EP_NEW + 1),
+                device=dev).generate(prompts, EP_NEW)
+        torch.cuda.synchronize()
+        out["generate_s"] = time.perf_counter() - t0
+        out["launches"] = port.counts()
+        out["drops"] = drops.counts()
+        out["tokens"] = np.asarray(toks).tolist()
+        t0 = time.perf_counter()
+        out["parity"] = moe_parity(port, dev, cfg, local, prompts, None,
+                                   EP_PARITY_STEPS, f"EP rank {rank}")
+        out["parity_s"] = time.perf_counter() - t0
+    comm.barrier()
+    return out
+
+
+def mesh_rank(rank: int, init_method: str) -> None:
+    """One rank of the world-2 job on the card, spawned by ``mesh_phase``:
+    joins the process group (gloo through pinned host memory: the ranks
+    share the one card), runs the calibration, training and MoE parts and
+    writes its results to MESH_DIR/rank{r}.json. Any failure raises, and
+    the parent's spawn fails with it."""
+    global log
+    sys.path.insert(0, str(SRC))
+    quiet = log
+
+    def log(msg: str = "") -> None:          # noqa: F811
+        quiet(f"  [rank {rank}] {msg}")
+
+    port = Port()
+    from repro_torch.dist import comm
+    c = comm.init(MESH_WORLD, rank, "cuda", init_method=init_method)
+    try:
+        assert (c.backend, c.transport) == ("gloo", "pinned-host"), c
+        out = {"rank": rank}
+        out["calibration"] = mesh_calibration(port, c.device, rank, comm)
+        out["training"] = mesh_train(port, c.device, rank, comm)
+        out["moe"] = mesh_moe(port, c.device, rank, comm)
+        out["comm"] = c.report()
+    finally:
+        comm.shutdown()
+    (MESH_DIR / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def nccl_world1(port) -> None:
+    """NCCL at world 1 on the card, the only NCCL a one-card host can run:
+    every ``comm`` wrapper once on CUDA tensors, each equal to its
+    definition at world 1."""
+    torch = port.torch
+    from repro_torch.dist import comm
+    c = comm.init(1, 0, "cuda", init_method=f"tcp://localhost:{_free_port()}")
+    try:
+        assert (c.backend, c.transport) == ("nccl", "nccl"), c
+        x = torch.randn(6, 5, generator=torch.Generator(device=c.device)
+                        .manual_seed(3), device=c.device)
+        got = {"all_reduce_sum": (comm.all_reduce_sum(x), x),
+               "all_reduce_mean": (comm.all_reduce_mean(x), x),
+               "all_gather_rows": (comm.all_gather_rows(x), x),
+               "all_to_all": (comm.all_to_all(x[None]), x[None]),
+               "broadcast": (comm.broadcast(x, src=0), x),
+               "gather_rows_to_host": (comm.gather_rows_to_host(x)[0],
+                                       x.cpu())}
+        for name, (a, b) in got.items():
+            assert a.device == b.device and torch.equal(a, b), name
+        assert comm.all_reduce_ints([3, 4]) == [3, 4]
+        comm.barrier()
+        log(f"  NCCL at world 1 on {c.device} (the only NCCL one card can "
+            f"run; ranks that share the card use gloo): "
+            f"{', '.join(got)}, all_reduce_ints and barrier each equal to "
+            f"its definition; calls {c.calls}")
+    finally:
+        comm.shutdown()
+
+
+def mesh_phase(port, dev, cfg, plan, col, eager, calib, params) -> dict:
+    """The mesh on the one H100 (ROADMAP Queue 1, item 11), with the main
+    path's batches, its streaming and eager fp64 Collectors and its plan as
+    references: the world-2 job
+    (``mesh_rank``, two processes on cuda:0 over gloo), and beside it the
+    serve CLI under ``torchrun --standalone --nproc-per-node 2`` with
+    ``--calib-mesh-shards 2``; then NCCL at world 1. Every spawned process
+    must exit 0."""
+    import os
+    import torch.multiprocessing as mp
+    torch = port.torch
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    out = {}
+    t0 = time.perf_counter()
+    chain = single_chain(port, params, cfg, calib, wq_tags(cfg))
+    torch.cuda.synchronize()
+    log(f"  single-shard QR chain of the {len(chain)} wq tags on the main "
+        f"path's batches: {time.perf_counter() - t0:.2f} s")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(SRC)] + [p for p in [env.get("PYTHONPATH")] if p])
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(MESH_WORLD), "-m",
+         "repro_torch.launch.serve", *MESH_CLI], cwd=str(ROOT), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    t_cli = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        mp.spawn(mesh_rank, args=(f"tcp://localhost:{_free_port()}",),
+                 nprocs=MESH_WORLD, join=True)
+        out["job_s"] = time.perf_counter() - t0
+        ranks = [json.loads((MESH_DIR / f"rank{r}.json").read_text())
+                 for r in range(MESH_WORLD)]
+        out["ranks"] = ranks
+        check_mesh_ranks(ranks, plan, col, eager, chain, out)
+        cli_out, cli_err = cli.communicate(timeout=900)
+        out["cli_s"] = time.perf_counter() - t_cli
+        assert cli.returncode == 0, \
+            f"the torchrun CLI exited {cli.returncode}: {cli_err[-3000:]}"
+        report = json.loads(cli_out[cli_out.rindex("\n{\n") + 1:])
+        log(f"  torchrun --nproc-per-node {MESH_WORLD} serve "
+            f"--calib-mesh-shards {MESH_WORLD}: exit 0, "
+            f"{report['drain_status']}, world {report['world']}, backend "
+            f"{report['comm']['backend']} ({report['comm']['transport']}, "
+            f"{report['comm']['staged_bytes'] / 2 ** 20:.0f} MiB staged on "
+            f"rank 0), {report['generated_tokens']} tokens, "
+            f"{out['cli_s']:.1f} s beside the world-2 job")
+        assert report["drain_status"] == "drained", report
+        assert report["world"] == MESH_WORLD, report
+        assert report["comm"]["backend"] == "gloo", report
+        out["cli_report"] = {k: report[k] for k in ("world", "comm")}
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    nccl_world1(port)
+    log(f"  NCCL world 1: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
+def check_mesh_ranks(ranks, plan, col, eager, chain, out) -> None:
+    """The world-2 job's results against the main path's streaming and
+    eager fp64 Collectors, its plan and the single-shard chain; both ranks
+    equal."""
+    r0, r1 = ranks
+    c0, c1 = r0["calibration"], r1["calibration"]
+    assert c0["gram_digest"] == c1["gram_digest"], "ranks' Grams differ"
+    assert c0["chol_digest"] == c1["chol_digest"], "ranks' factors differ"
+    assert c0["factor_digest"] == c1["factor_digest"], \
+        "the ranks hold different factors"
+    assert c0["ranks"] == c1["ranks"]
+    worst_r = 0.0
+    # by route, the worst tag against the streaming Grams and against the
+    # fp64 oracle, with the streaming Grams' own distance from the oracle
+    worst = {}
+    with np.load(MESH_DIR / "grams.npz") as z:
+        tags = {k.replace(".", "/") for k in z.files}
+        assert tags == set(col.gram) - set(chain), "tag sets differ"
+        for t in sorted(tags):
+            g = z[_npz_key(t)].astype(np.float64)
+            w = worst.setdefault(c0["route_of"][t], {
+                "streaming": (0.0, ""), "fp64": (0.0, ""),
+                "streaming_fp64": 0.0})
+            w["streaming"] = max(w["streaming"], (_rel64(g, col.gram[t]), t))
+            w["fp64"] = max(w["fp64"], (_rel64(g, eager.gram[t]), t))
+            w["streaming_fp64"] = max(w["streaming_fp64"],
+                                      _rel64(col.gram[t], eager.gram[t]))
+    worst_g = max(w["streaming"][0] for w in worst.values())
+    worst_e = max(w["fp64"][0] for w in worst.values())
+    with np.load(MESH_DIR / "chol.npz") as z:
+        assert {k.replace(".", "/") for k in z.files} == set(chain)
+        for t, R in chain.items():
+            worst_r = max(worst_r, _rel64(sign_fixed(z[_npz_key(t)]),
+                                          sign_fixed(R)))
+    main_ranks = {g.gid: g.k for g in plan.groups}
+    flips = {g: (k, c0["ranks"].get(g)) for g, k in main_ranks.items()
+             if c0["ranks"].get(g) != k}
+    log(f"  mesh calibration, world {MESH_WORLD} on one card (gloo, pinned "
+        f"host): {c0['calibration_s']:.2f} s; routes {c0['routes']}, each "
+        f"sharded w_down a {c0['sharded_block']} block a rank; "
+        f"{len(tags)} Grams max-relative {worst_g:.3e} against the main "
+        f"path's single-process streaming Grams (tolerance "
+        f"{MESH_GRAM_REL:.0e}), {worst_e:.3e} against the eager fp64 "
+        f"Collector (tolerance {CALIB_RTOL:.0e}, phase 3's); "
+        f"{len(chain)} tree-reduced wq factors {worst_r:.3e} against the "
+        f"single-shard chain after the sign fix (tolerance "
+        f"{MESH_FACTOR_REL:.0e}); gram_blocked launches "
+        f"{c0['launches_calibration']['gram_blocked']} / "
+        f"{c1['launches_calibration']['gram_blocked']} by rank")
+    log(f"  device decomposition spread over {MESH_WORLD} ranks: "
+        f"{c0['spread_s']:.2f} s (one process on the same Collector "
+        f"{c0['single_s']:.2f} s): {len(main_ranks)} groups, rank flips "
+        f"against the main path's plan {len(flips)}; against one process "
+        f"on the same Grams σ {c0['sigma_rel']:.3e} (tolerance "
+        f"{SIG_TOL:.0e}), B·C {c0['bc_rel']:.3e} (tolerance "
+        f"{FACTOR_TOL:.0e}); factors identical on both ranks; generate on "
+        f"the mesh-compressed model {c0['generate_s']:.2f} s, launches "
+        f"{c0['launches_generate']}")
+    for route, w in sorted(worst.items()):
+        log(f"    {route} route: worst against the streaming Grams "
+            f"{w['streaming'][0]:.3e} ({w['streaming'][1]}), against the "
+            f"fp64 oracle {w['fp64'][0]:.3e} ({w['fp64'][1]}); the streaming"
+            f" Grams of this route against the oracle at worst "
+            f"{w['streaming_fp64']:.3e}")
+    out["gram_worst"] = worst
+    assert worst_g < MESH_GRAM_REL, "mesh Grams disagree with the main path"
+    assert worst_e < CALIB_RTOL, "mesh Grams disagree with the fp64 oracle"
+    assert worst_r < MESH_FACTOR_REL, \
+        "tree-reduced factors disagree with the single-shard chain"
+    assert not flips, f"mesh plan's ranks differ from the main path's: {flips}"
+    d0, d1 = r0["training"], r1["training"]
+    w1 = d0["world1"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(d0["world2"]["losses"], w1["losses"]))
+    log(f"  data-parallel training, world {MESH_WORLD}, {TRAIN_PARITY_LAYERS} "
+        f"layers float32, {DP_STEPS} steps of {DP_ROWS} x {DP_SEQ} tokens: "
+        f"losses {[round(x, 6) for x in d0['world2']['losses']]}, "
+        f"max-relative {loss_rel:.3e} against one process (tolerance 1e-5); "
+        f"{d0['world2']['ms_per_step']:.1f} / {d1['world2']['ms_per_step']:.1f}"
+        f" ms/step by rank, of them all-reduce "
+        f"{d0['world2']['all_reduce_ms']:.1f} / "
+        f"{d1['world2']['all_reduce_ms']:.1f} ms (one flat bucket, "
+        f"staged through pinned host memory); world 1 "
+        f"{w1['ms_per_step']:.1f} ms/step; {card_line()}")
+    assert d0["world2"]["losses"] == d1["world2"]["losses"]
+    assert loss_rel < 1e-5, "data-parallel losses differ from one process"
+    assert d0["world2"]["launches"]["flash_attention"] > 0
+    m0, m1 = r0["moe"], r1["moe"]
+    log(f"  expert parallelism (data 1, model {MESH_WORLD}), {MOE} at "
+        f"{EP_LAYERS} layers: bf16 generate {EP_BATCH} x {EP_PROMPT} + "
+        f"{EP_NEW} in {m0['generate_s']:.2f} s, tokens identical on both "
+        f"ranks: {m0['tokens'] == m1['tokens']}; drops by rank "
+        f"{m0['drops']} / {m1['drops']}; float32 card against CPU "
+        f"{m0['parity']} ({m0['parity_s']:.1f} s); launches "
+        f"{m0['launches']}")
+    assert m0["tokens"] == m1["tokens"], "EP ranks generated other tokens"
+    assert m0["parity"]["padding_assignments"] == 0
+    out["launches"] = {
+        "calibration": [r["calibration"]["launches_calibration"]
+                        for r in ranks],
+        "generate (rank 0)": c0["launches_generate"],
+        "training": [r["training"]["world2"]["launches"] for r in ranks],
+        "ep generate": [r["moe"]["launches"] for r in ranks]}
+    log(f"  comm: rank 0 {r0['comm']}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4426,6 +5011,13 @@ def main() -> int:
                    "20% on the card, save, boot, generate"):
             cfg, params, comp, plan, (counts, variants), col, calib = \
                 main_path(port, dev)
+        with Phase("mesh: world 2 on the one card over gloo (mesh "
+                   "calibration, the spread decomposition, data-parallel "
+                   "training, expert parallelism), the serve CLI under "
+                   "torchrun, NCCL at world 1"):
+            eager = eager_collector(port, cfg, params, calib)
+            mesh = mesh_phase(port, dev, cfg, plan, col, eager, calib,
+                              params)
         with Phase("batcher path: ContinuousBatcher from the artifact, "
                    "contiguous, paged and prefix pools, fault plans"):
             cb_counts, snap, rates, cb_outs = batcher_path(port, dev, cfg,
@@ -4455,8 +5047,8 @@ def main() -> int:
     with Phase("batcher step profile, bf16, batch 8"):
         profile_batcher(port, dev, cfg, comp, graph=graph_windows)
     with Phase("streaming Grams against the eager fp64 oracle, every tag"):
-        streaming_vs_eager(port, cfg, params, col, calib)
-    del col
+        streaming_vs_eager(port, cfg, params, col, calib, eager)
+    del col, eager
     with Phase(f"device decomposition against the host fp64 oracle, "
                f"{ORACLE_LAYERS} layers"):
         device_vs_host(port, dev, calib)
@@ -4544,7 +5136,11 @@ def main() -> int:
             "hymba_launches": rec[HYMBA]["launches"][name],
             "xlstm_launches": rec[XLSTM]["launches"][name],
             "seamless_launches": enc["launches"][name],
-            "qwen2vl_launches": vl["launches"][name]})
+            "qwen2vl_launches": vl["launches"][name],
+            "mesh_launches": {
+                part: ([c[name] for c in v] if isinstance(v, list)
+                       else v[name])
+                for part, v in mesh["launches"].items()}})
         if "simt_ms" in t:     # the variant the main path ran, the earlier
             kernels[-1].update(variant="+".join(t["variant"]),
                                launches_by_variant=variants[name],

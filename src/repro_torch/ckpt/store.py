@@ -156,11 +156,15 @@ def restore(ckpt_dir: str, template, step: Optional[int] = None,
     template's structure, each leaf cast to the template leaf's dtype and
     placed on ``device`` (default: the template leaf's device; a template
     on the ``meta`` device needs ``device``). Only the template's structure
-    and dtypes are read."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...): resharding onto a mesh is not ported "
-            "yet (ROADMAP Queue 1, item 11)")
+    and dtypes are read.
+
+    ``shardings``: a tree shaped like the template whose leaves are
+    ``dist.sharding.NamedSharding`` (or None: the whole leaf). Each rank
+    then loads only its ``local_block`` of each leaf under the sharding's
+    spec and mesh, JAX's elastic reshard on load; the template leaf gives
+    the dtype and device, and its shape is not read."""
+    shard_of = ([None] * len(pytree.leaves(template)) if shardings is None
+                else pytree.leaves(shardings))
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -170,17 +174,24 @@ def restore(ckpt_dir: str, template, step: Optional[int] = None,
     leaves = []
     # an npz member is read when it is asked for: keys that the template
     # does not hold stay on the disk
+    flat = pytree.flatten_with_path(template)
+    if len(shard_of) != len(flat):
+        raise ValueError(f"restore: {len(shard_of)} shardings for "
+                         f"{len(flat)} template leaves")
     with np.load(os.path.join(path, "arrays.npz")) as z:
-        for pth, leaf in pytree.flatten_with_path(template):
+        for (pth, leaf), shd in zip(flat, shard_of):
             leaves.append(_restore_leaf(z, pytree.joined(pth, _SEP), leaf,
-                                        dev))
+                                        dev, shd))
     return step, pytree.unflatten(template, leaves)
 
 
-def _restore_leaf(z, key: str, leaf, dev):
+def _restore_leaf(z, key: str, leaf, dev, sharding=None):
     if key not in z.files:
         raise KeyError(f"checkpoint missing {key}")
     arr = _from_numpy(z[key])
+    if sharding is not None:
+        from repro_torch.dist.sharding import local_block
+        arr = local_block(arr, sharding.spec, sharding.mesh).contiguous()
     if isinstance(leaf, torch.Tensor):
         where = dev if dev is not None else leaf.device
         if where.type == "meta":

@@ -36,8 +36,9 @@ those of the rows it received.
 The JAX package traces the streaming step under ``jax.jit`` and threads
 donated accumulators through it; the port runs the same forward pass
 eagerly under ``torch.no_grad()`` and adds into the accumulators in place.
-Not ported yet: the mesh path (row-sharded Grams, per-shard factors; ROADMAP
-Queue 1, item 11).
+On a mesh (``launch.mesh.Mesh``, one process a rank) each rank captures its
+rows of every batch and the statistics meet through ``dist.comm``
+(DESIGN.md §1.6; see ``StreamingCalibrator``).
 """
 from __future__ import annotations
 
@@ -47,6 +48,10 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.core import numerics_device as numd
+from repro_torch.dist import comm
+from repro_torch.dist.sharding import (axis_group_size, combined_axis_index,
+                                       logical_spec)
 from repro_torch.kernels import ops as kops
 from repro_torch.models.params import Params, set_capture
 from repro_torch.models.transformer import encoder_config, tree_index
@@ -115,16 +120,18 @@ class StreamingTape:
     runs. ``partials`` maps tag -> {"gram", "absx", "count"}; pass the
     calibrator's accumulators as ``partials`` and the statistics are added
     into them in place (the fold of the JAX step), otherwise zeroed
-    partials are made per tag. Tags selected by ``whiten`` keep their raw
-    float32 row blocks in ``xblocks`` instead of a Gram: they feed the QR
-    update of the whitening factor.
+    partials are made per tag. Tags selected by ``whiten``, and the tags in
+    ``raw``, keep their raw float32 row blocks in ``xblocks`` instead of a
+    Gram: they feed the QR update of the whitening factor, or (on a mesh)
+    the row-block fold of a sharded Gram.
 
     Grams go through ``kernels.ops.gram``: the ``gram_blocked`` kernel on a
     CUDA device, its plain version on a CPU or meta tensor."""
 
     def __init__(self, whiten=None,
-                 partials: Optional[Dict[str, Dict]] = None):
+                 partials: Optional[Dict[str, Dict]] = None, raw=None):
         self.whiten = whiten            # True (all tags) or a set of tags
+        self.raw = raw or frozenset()
         self.partials: Dict[str, Dict] = ({} if partials is None
                                           else partials)
         self.xblocks: Dict[str, list] = {}
@@ -138,7 +145,7 @@ class StreamingTape:
                 d, _tag_whitened(self.whiten, tag), x2.device)
         part["absx"] += x2.abs().sum(0, dtype=torch.float32)
         part["count"] += x2.shape[0]
-        if _tag_whitened(self.whiten, tag):
+        if _tag_whitened(self.whiten, tag) or tag in self.raw:
             self.xblocks.setdefault(tag, []).append(x2.float())
         else:
             kops.gram(x2, out=part["gram"])
@@ -168,15 +175,6 @@ def _zero_entry(d: int, whitened: bool, device) -> Dict:
     return {stat: torch.zeros((d, d), dtype=torch.float32, device=device),
             "absx": torch.zeros((d,), dtype=torch.float32, device=device),
             "count": 0}
-
-
-def _zero_accs(dims: Dict[str, int], whiten=None, device=None
-               ) -> Dict[str, Dict]:
-    """Zeroed float32 accumulators per tag: a (D, D) Gram, or a (D, D)
-    whitening factor for whitened tags, plus Σ|x| and the row count (a
-    host integer: the rows of every batch are known without a sync)."""
-    return {tag: _zero_entry(d, _tag_whitened(whiten, tag), device)
-            for tag, d in dims.items()}
 
 
 class _ShapeProbe:
@@ -221,7 +219,7 @@ def discover_capture_dims(tagged: Params, cfg: ModelConfig,
 
 
 class StreamingCalibrator:
-    """Device-side calibration capture, single device (DESIGN.md §1.3).
+    """Device-side calibration capture (DESIGN.md §1.3, §1.6).
 
     Each ``ingest`` runs the forward pass on the card and adds every tag's
     float32 statistics into its accumulators in place (the Gram through the
@@ -240,7 +238,32 @@ class StreamingCalibrator:
     (``numerics_device.decompose(factor=...)``) take as it is. Factors are
     never flushed: orthogonal updates do not square the condition number.
 
-    ``mesh=`` (per-shard capture and reduction) is not ported yet.
+    On a mesh (``mesh=``, a ``launch.mesh.Mesh`` over the process group;
+    JAX's ``shard_map`` steps) every rank runs this same program: it
+    captures its rows of each batch (JAX's ``P(data_axes)`` split of the
+    batch dim: rank index ``i`` along the folded data axes takes rows
+    ``i·b/n .. (i+1)·b/n``) and each tag's accumulator takes a route:
+
+      replicated  a (D, D) float32 Gram on every rank: the rank's partial
+                  from the ``gram_blocked`` kernel, summed over the data
+                  axes (``comm.all_reduce_sum``, JAX's ``psum``) when it
+                  is flushed. The default for small D.
+      sharded     ``D >= shard_grams_above`` (and divisible): each rank
+                  holds a (D/n, D) row block and adds
+                  ``X[:, off:off+D/n]ᵀ X`` of the all-gathered rows every
+                  batch (``off`` = its index along the "gram_rows" axes
+                  times D/n), a float32 ``torch.matmul`` as JAX's
+                  ``dot_general`` outside Pallas. No rank ever holds a
+                  (D, D) tensor for such a tag on the device; a flush
+                  gathers the blocks into the host's float64 Gram, as
+                  JAX's ``device_get`` does.
+      whiten      each rank QR-updates its own factor over its rows;
+                  ``finalize`` gathers the per-shard factors and merges
+                  them with ``numerics_device.tree_reduce_factors``
+                  (float64 on the host; exact: RᵀR = Σ_s R_sᵀR_s).
+
+    Σ|x| and the row counts are summed over the data axes at each flush.
+    ``finalize`` returns the same Collector on every rank.
 
     Example (on the CPU; the card is the default device of the model)::
 
@@ -262,14 +285,13 @@ class StreamingCalibrator:
     """
 
     def __init__(self, list_params: Params, cfg: ModelConfig, *,
-                 mesh=None, flush_every: int = 8, whiten_tags=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh calibration is not ported yet (ROADMAP Queue 1, item "
-                "11); the streaming capture runs on one device")
+                 mesh=None, data_axes=("pod", "data"), flush_every: int = 8,
+                 whiten_tags=None, shard_grams_above: int = 4096):
         self.cfg = cfg
         self.tagged = tag_linears(list_params)
+        self.mesh = mesh
         self.flush_every = max(1, flush_every)
+        self.shard_grams_above = shard_grams_above
         if whiten_tags is True:
             self.whiten = True
         elif whiten_tags:
@@ -281,34 +303,121 @@ class StreamingCalibrator:
         self._accs: Optional[Dict[str, Dict]] = None
         self._since_flush = 0
         self._host: Dict[str, Dict] = {}
+        if mesh is not None:
+            axes = tuple(a for a in data_axes if a in mesh.axis_names)
+            if not axes:
+                raise ValueError(
+                    f"mesh axes {mesh.axis_names} share nothing with "
+                    f"data_axes {data_axes}")
+            self.data_axes = axes
+            self.n_shards = axis_group_size(mesh, axes)
+            # accumulator layouts resolve through the logical rules: the
+            # gram rows must shard a SUBSET of the data axes and the
+            # factor stack must match them exactly (the fold rides the
+            # batch split)
+            self.row_axes = tuple(
+                a for a in _spec_axes(logical_spec(("gram_rows",), mesh))
+                if a in axes)
+            stack = _spec_axes(logical_spec(("calib_shard",), mesh))
+            if tuple(a for a in stack if a in axes) != axes:
+                raise ValueError(
+                    f"calib_shard rule {stack} must cover the capture "
+                    f"data axes {axes}: each data shard QR-updates its "
+                    f"own factor over its slice of the batch")
+            self.shard_index = combined_axis_index(axes, mesh)
+            self.data_group = mesh.group(axes)
+            self.row_group = mesh.group(self.row_axes)
+        else:
+            self.data_axes = ()
+            self.n_shards = 1
+            self.row_axes = ()
+
+    # -- routing ------------------------------------------------------------
+    def _route_of(self, tag: str, d: int) -> str:
+        if _tag_whitened(self.whiten, tag):
+            return "whiten"
+        if (self.mesh is not None and self.shard_grams_above
+                and self.row_axes
+                and d >= self.shard_grams_above
+                and d % axis_group_size(self.mesh, self.row_axes) == 0):
+            return "sharded"
+        return "replicated"
 
     @property
     def routes(self) -> Dict[str, str]:
-        """tag -> accumulator route ('whiten' | 'replicated'); populated
-        after the first ``ingest``."""
+        """tag -> accumulator route ('whiten' | 'sharded' | 'replicated');
+        populated after the first ``ingest``."""
         return dict(self._routes)
+
+    @property
+    def accumulators(self) -> Dict[str, Dict]:
+        """This rank's float32 accumulators (a sharded tag's "gram" is its
+        (D/n, D) row block)."""
+        return self._accs or {}
+
+    def _local_rows(self, batch: Dict) -> Dict:
+        """This rank's rows of ``batch`` (dim 0 of every field)."""
+        if self.mesh is None:
+            return batch
+        out = {}
+        for k, v in batch.items():
+            v = torch.as_tensor(v)
+            if v.shape[0] % self.n_shards:
+                raise ValueError(
+                    f"calibration batch field {k!r} of {v.shape[0]} rows "
+                    f"does not split over {self.n_shards} data shards")
+            b = v.shape[0] // self.n_shards
+            out[k] = v[self.shard_index * b:(self.shard_index + 1) * b]
+        return out
+
+    def _fresh(self, tag: str, d: int, dev) -> Dict:
+        route = self._routes[tag]
+        rows = d
+        if route == "sharded":
+            rows = d // axis_group_size(self.mesh, self.row_axes)
+        stat = "chol" if route == "whiten" else "gram"
+        return {stat: torch.zeros((rows, d), dtype=torch.float32,
+                                  device=dev),
+                "absx": torch.zeros((d,), dtype=torch.float32, device=dev),
+                "count": 0}
 
     def ingest(self, batch: Dict) -> None:
         """Fold one calibration batch into the device accumulators."""
         with trace.span("calib_ingest", since_flush=self._since_flush):
+            batch = self._local_rows(batch)
             if self._accs is None:
                 self._dims = discover_capture_dims(self.tagged, self.cfg,
                                                    batch)
-                self._routes = {t: "whiten" if _tag_whitened(self.whiten, t)
-                                else "replicated" for t in self._dims}
-                self._accs = _zero_accs(self._dims, self.whiten,
-                                        self.tagged["embed"].device)
+                self._routes = {t: self._route_of(t, d)
+                                for t, d in self._dims.items()}
+                dev = self.tagged["embed"].device
+                self._accs = {t: self._fresh(t, d, dev)
+                              for t, d in self._dims.items()}
             from repro_torch.models import transformer as T
-            tape = StreamingTape(whiten=self.whiten, partials=self._accs)
+            raw = frozenset(t for t, r in self._routes.items()
+                            if r == "sharded")
+            tape = StreamingTape(whiten=self.whiten, partials=self._accs,
+                                 raw=raw)
             with torch.no_grad(), tape:
                 T.forward(self.tagged, self.cfg, batch)
                 for tag, blocks in tape.xblocks.items():
                     acc = self._accs[tag]
-                    acc["chol"] = torch.linalg.qr(torch.cat(
-                        [acc["chol"], *blocks], dim=0), mode="r")[1]
+                    if self._routes[tag] == "whiten":
+                        acc["chol"] = torch.linalg.qr(torch.cat(
+                            [acc["chol"], *blocks], dim=0), mode="r")[1]
+                    else:
+                        self._fold_rows(acc, torch.cat(blocks, dim=0))
             self._since_flush += 1
             if self._since_flush >= self.flush_every:
                 self.flush()
+
+    def _fold_rows(self, acc: Dict, x: torch.Tensor) -> None:
+        """A sharded Gram's row block: ``X[:, off:off+blk]ᵀ X`` of the rows
+        of every data shard, in float32."""
+        xa = comm.all_gather_rows(x, self.data_group)
+        blk = acc["gram"].shape[0]
+        off = combined_axis_index(self.row_axes, self.mesh) * blk
+        acc["gram"] += torch.matmul(xa[:, off:off + blk].T, xa)
 
     def flush(self) -> None:
         """Pull the float32 accumulators to the host, fold them into
@@ -319,11 +428,22 @@ class StreamingCalibrator:
             self._flush_inner()
 
     def _flush_inner(self) -> None:
-        for tag, acc in self._accs.items():
-            new = {"absx": acc["absx"].cpu().double().numpy(),
-                   "count": acc["count"]}
+        tags = list(self._accs)
+        if self.mesh is not None:
+            counts = comm.all_reduce_ints(
+                [self._accs[t]["count"] for t in tags], self.data_group)
+            absx = comm.all_reduce_sum(torch.cat(
+                [self._accs[t]["absx"] for t in tags]), self.data_group)
+            absx = absx.split([self._dims[t] for t in tags])
+        else:
+            counts = [self._accs[t]["count"] for t in tags]
+            absx = [self._accs[t]["absx"] for t in tags]
+        for i, tag in enumerate(tags):
+            acc = self._accs[tag]
+            new = {"absx": absx[i].cpu().double().numpy(),
+                   "count": counts[i]}
             if "gram" in acc:
-                new["gram"] = acc["gram"].cpu().double().numpy()
+                new["gram"] = self._host_gram(tag, acc["gram"])
             host = self._host.get(tag)
             if host is None:
                 self._host[tag] = new
@@ -336,6 +456,18 @@ class StreamingCalibrator:
             acc["count"] = 0
         self._since_flush = 0
 
+    def _host_gram(self, tag: str, g: torch.Tensor) -> np.ndarray:
+        """The tag's whole float32 Gram since the last flush, as float64 on
+        the host: this rank's own, summed over the data shards, or the
+        sharded row blocks gathered one at a time."""
+        route = self._routes[tag]
+        if self.mesh is None:
+            return g.cpu().double().numpy()
+        if route == "sharded":
+            blocks = comm.gather_rows_to_host(g, self.row_group)
+            return torch.cat(blocks, dim=0).double().numpy()
+        return comm.all_reduce_sum(g, self.data_group).cpu().double().numpy()
+
     def sync(self) -> None:
         """Block until the in-flight device work is done (benchmarking /
         completion barrier)."""
@@ -347,7 +479,8 @@ class StreamingCalibrator:
     def finalize(self) -> Collector:
         """Return the fp64 host-side statistics as a Collector (drop-in for
         the compression driver). Whitened tags expose their running
-        Cholesky factor as ``col.chol[tag]`` and have no Gram entry."""
+        Cholesky factor as ``col.chol[tag]`` and have no Gram entry; on a
+        mesh the per-shard factors are tree-reduced first."""
         with trace.span("calib_finalize"):
             return self._finalize_inner()
 
@@ -360,20 +493,38 @@ class StreamingCalibrator:
             col.absmean[tag] = acc["absx"]
             col.count[tag] = acc["count"]
         for tag, acc in (self._accs or {}).items():
-            if "chol" in acc:
+            if "chol" not in acc:
+                continue
+            if self.mesh is None:
                 col.chol[tag] = acc["chol"].cpu().double().numpy()
+            else:
+                Rs = torch.stack(comm.gather_rows_to_host(
+                    acc["chol"], self.data_group))
+                col.chol[tag] = numd.tree_reduce_factors(Rs).numpy()
         return col
+
+
+def _spec_axes(spec) -> tuple:
+    """The mesh axes a one-entry spec resolves to (a name, a tuple or
+    None)."""
+    entry = spec[0] if len(spec) else None
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
 def streaming_calibrate(list_params: Params, cfg: ModelConfig,
                         batches: Iterable[Dict], *, mesh=None,
                         flush_every: int = 8,
-                        whiten_tags=None) -> Collector:
+                        whiten_tags=None,
+                        shard_grams_above: int = 4096) -> Collector:
     """Run the device-side streaming capture over ``batches`` and return the
-    finalized fp64 Collector (see ``StreamingCalibrator``)."""
+    finalized fp64 Collector (see ``StreamingCalibrator`` for the mesh,
+    whitening and sharded-accumulator knobs)."""
     cal = StreamingCalibrator(list_params, cfg, mesh=mesh,
                               flush_every=flush_every,
-                              whiten_tags=whiten_tags)
+                              whiten_tags=whiten_tags,
+                              shard_grams_above=shard_grams_above)
     for batch in batches:
         cal.ingest(batch)
     return cal.finalize()

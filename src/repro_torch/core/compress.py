@@ -27,7 +27,14 @@ list-form params tree whose linears are factorized {B, C} with a shared
 basis per group, loadable straight into the model; ``save_plan`` writes it
 as a ``pytree_v1`` artifact that either package boots.
 
-Not ported yet: the mesh paths (ROADMAP Queue 1, item 11).
+On a mesh (``launch.mesh.Mesh``, one process a rank) calibration shards
+its batches over the data axes (``capture.StreamingCalibrator``), and the
+device decomposition and the device refine spread each same-shape bucket
+over the ranks along the logical ``group_batch`` axis (JAX's
+``_shard_group_batch``): rank ``i`` decomposes its share of the bucket and
+the spectra and factors are gathered, so every rank ends with the same
+factors, the same spectra and therefore the same integer ranks. A bucket
+that does not divide runs whole on every rank, as JAX replicates it.
 """
 from __future__ import annotations
 
@@ -50,6 +57,9 @@ from repro_torch.core.capture import (Collector, streaming_calibrate,
 from repro_torch.core.groups import (BETA_MAP, Group, MatrixRef,
                                      build_groups, enumerate_matrices)
 from repro_torch.device import DeviceLike
+from repro_torch.dist import comm
+from repro_torch.dist.sharding import (axis_group_size, combined_axis_index,
+                                       shape_aware_spec)
 from repro_torch.models import transformer as T
 from repro_torch.models.params import Params
 from repro_torch.obs import trace
@@ -57,13 +67,6 @@ from repro_torch.obs import trace
 METHODS = ("svd", "fwsvd", "asvd", "svdllm", "basis", "drank", "dranke")
 # where the host path's whitening, SVD and truncation run
 LINALG = "numpy float64 on the host"
-
-_NOT_YET = {
-    "mesh": "mesh calibration is not ported yet (ROADMAP Queue 1, item "
-            "11)",
-    "mesh_device": "the mesh group batch of the device decomposition is "
-                   "not ported yet (ROADMAP Queue 1, item 11)",
-}
 
 
 @dataclass(frozen=True)
@@ -92,8 +95,8 @@ class CompressionConfig:
 # ---------------------------------------------------------------------------
 def calibrate(list_params: Params, cfg: ModelConfig,
               batches: Iterable[Dict], *, streaming: bool = True,
-              mesh=None, whiten_tags=None, flush_every: int = 8
-              ) -> Collector:
+              mesh=None, whiten_tags=None, flush_every: int = 8,
+              shard_grams_above: int = 4096) -> Collector:
     """Collect per-tag Gram statistics over the calibration batches, with
     the forward pass running where the params live.
 
@@ -103,14 +106,17 @@ def calibrate(list_params: Params, cfg: ModelConfig,
     ``capture.StreamingCalibrator``). The eager host path
     (``streaming=False``) is the fp64 oracle it is validated against.
     ``whiten_tags`` (streaming only) captures those tags as streaming
-    Cholesky factors instead of Grams.
+    Cholesky factors instead of Grams — on a mesh, per shard, tree-reduced
+    at finalize. ``shard_grams_above`` routes tags whose feature dim
+    reaches it to row-sharded (D, D) accumulators when a mesh is given.
+    The eager oracle ignores the mesh, as JAX's does: every rank runs it
+    over the whole batches.
     """
     if streaming:
         return streaming_calibrate(list_params, cfg, batches, mesh=mesh,
                                    flush_every=flush_every,
-                                   whiten_tags=whiten_tags)
-    if mesh is not None:
-        raise NotImplementedError(_NOT_YET["mesh"])
+                                   whiten_tags=whiten_tags,
+                                   shard_grams_above=shard_grams_above)
     if whiten_tags:
         raise ValueError(
             "whiten_tags requires streaming=True: the eager fp64 oracle "
@@ -258,10 +264,32 @@ def _chunk_groups(n_groups: int, per_group: int, dev: torch.device) -> int:
     return max(1, min(n_groups, int(CHUNK_MEMORY_SHARE * free) // per_group))
 
 
+def _share(mesh, n: int):
+    """(lo, hi, group) of this rank's share of ``n`` stacked items along the
+    logical ``group_batch`` axis; the whole range and no group where the
+    mesh is absent or ``n`` does not divide (replicated, as
+    ``shape_aware_spec`` leaves it in JAX)."""
+    if mesh is None or n == 0:
+        return 0, n, None
+    entry = shape_aware_spec((n,), ("group_batch",), mesh)[0]
+    axes = () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+    if not axes:
+        return 0, n, None
+    per = n // axis_group_size(mesh, axes)
+    i = combined_axis_index(axes, mesh)
+    return i * per, (i + 1) * per, mesh.group(axes)
+
+
+def _gather(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's share of a bucket, stacked in bucket order."""
+    return x if group is None else comm.all_gather_rows(x, group)
+
+
 def _decompose_groups_device(
         lp: Params, groups: List[Group], ccfg: CompressionConfig,
         col: Optional[Collector], fisher: Optional[Dict[str, np.ndarray]],
-        dev: torch.device
+        dev: torch.device, mesh=None
         ) -> Dict[str, Tuple[np.ndarray, torch.Tensor, torch.Tensor]]:
     """Whitened decomposition of every group at its cost cap, batched by
     shape bucket, on ``dev``. Returns gid -> (sig fp64, B
@@ -272,7 +300,11 @@ def _decompose_groups_device(
     operands stacked on the host and moved to ``dev`` only when it runs
     (MoE's expert buckets hold over a thousand groups). Each group's math
     is its own batch member, so the chunking changes no result. An rsvd
-    bucket runs whole: its sketch is drawn for the whole batch at once."""
+    bucket runs whole: its sketch is drawn for the whole batch at once.
+
+    On a mesh each rank decomposes its share of a bucket (``_share``) and
+    the spectra and factors of the shares are gathered in bucket order;
+    an rsvd bucket runs whole on every rank (the same seeded sketch)."""
     buckets: Dict[Tuple, List[Group]] = {}
     for g in groups:
         buckets.setdefault((g.d_in, g.n * g.d_out, g.n, g.cost_cap),
@@ -281,14 +313,28 @@ def _decompose_groups_device(
     for (d1, nd2, n, kmax), bucket in sorted(buckets.items()):
         rsvd = int(bool(ccfg.rsvd_threshold)
                    and min(d1, nd2) >= ccfg.rsvd_threshold)
-        c0 = 0
-        while c0 < len(bucket):
+        lo, hi, group = _share(None if rsvd else mesh, len(bucket))
+        mine: Dict[str, Tuple] = {}
+        c0 = lo
+        while c0 < hi:
             # sized at each chunk: the factors kept so far take memory too
-            size = (len(bucket) if rsvd else _chunk_groups(
-                len(bucket) - c0, _group_bytes(d1, nd2, kmax), dev))
-            out.update(_decompose_chunk(lp, bucket[c0:c0 + size], ccfg, col,
-                                        fisher, dev, (d1, nd2, kmax), rsvd))
+            size = (hi - c0 if rsvd else _chunk_groups(
+                hi - c0, _group_bytes(d1, nd2, kmax), dev))
+            mine.update(_decompose_chunk(lp, bucket[c0:c0 + size], ccfg,
+                                         col, fisher, dev, (d1, nd2, kmax),
+                                         rsvd))
             c0 += size
+        if group is None:
+            out.update(mine)
+            continue
+        share = bucket[lo:hi]
+        sig = _gather(torch.as_tensor(np.stack(
+            [mine[g.gid][0] for g in share]), device=dev), group)
+        B = _gather(torch.stack([mine[g.gid][1] for g in share]), group)
+        C = _gather(torch.stack([mine[g.gid][2] for g in share]), group)
+        sig = sig.cpu().numpy()
+        for i, g in enumerate(bucket):
+            out[g.gid] = (sig[i], B[i], C[i])
     return out
 
 
@@ -396,6 +442,7 @@ def build_plan_and_params(
         device: bool = False,
         mesh=None,
         whiten_tags=None,
+        shard_grams_above: int = 4096,
 ) -> Tuple[Params, Plan]:
     """Compress. Returns (list-form compressed params, plan).
 
@@ -408,10 +455,18 @@ def build_plan_and_params(
     device-computed spectra. The host fp64 path (``device=False``) is the
     precision oracle it is validated against. The factors are placed on the
     device the params live on.
+
+    With a ``mesh`` every rank of it calls this with the same arguments:
+    calibration shards over the data axes, and with ``device=True`` each
+    same-shape bucket's decomposition is spread over the ranks and
+    gathered (see the module docstring), so every rank returns the same
+    params and plan. ``whiten_tags`` (True = all; streaming capture only)
+    streams whitening factors instead of Grams for those tags, mesh or
+    not; ``shard_grams_above`` routes wide tags to row-sharded Gram
+    accumulators on a mesh (see ``capture.StreamingCalibrator``).
     """
     assert ccfg.method in METHODS, ccfg.method
-    if device and mesh is not None:
-        raise NotImplementedError(_NOT_YET["mesh_device"])
+    _check_mesh(mesh)
     lp = to_list_params(params, cfg)
     dev = params["embed"].device
 
@@ -420,7 +475,8 @@ def build_plan_and_params(
         with trace.span("calibrate", batches=len(calib_batches),
                         streaming=streaming):
             col = calibrate(lp, cfg, calib_batches, streaming=streaming,
-                            mesh=mesh, whiten_tags=whiten_tags)
+                            mesh=mesh, whiten_tags=whiten_tags,
+                            shard_grams_above=shard_grams_above)
     fisher = (fisher_rows(lp, cfg, calib_batches)
               if ccfg.method == "fwsvd" else None)
 
@@ -442,7 +498,8 @@ def build_plan_and_params(
     dec: Dict[str, Tuple] = {}
     sig_of: Dict[str, np.ndarray] = {}
     if device:
-        dec = _decompose_groups_device(lp, groups, ccfg, col, fisher, dev)
+        dec = _decompose_groups_device(lp, groups, ccfg, col, fisher, dev,
+                                       mesh)
         sig_of = {gid: d[0] for gid, d in dec.items()}
     else:
         with trace.span("decompose_host", n_groups=len(groups)):
@@ -536,15 +593,32 @@ def build_plan_and_params(
         with trace.span("refine", n_groups=len(groups)):
             new_lp = refine_coefficients(
                 lp, new_lp, cfg, groups, calib_batches, streaming=streaming,
-                device=device, mesh=mesh, whiten_tags=wt)
+                device=device, mesh=mesh, whiten_tags=wt,
+                shard_grams_above=shard_grams_above)
     return new_lp, plan
+
+
+def _check_mesh(mesh) -> None:
+    """A mesh here is a ``launch.mesh.Mesh`` over the process group this
+    process joined; a shapes-only mesh (``make_production_mesh``) has no
+    ranks to run on."""
+    if mesh is None:
+        return
+    from repro_torch.launch.mesh import Mesh
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a launch.mesh.Mesh, got "
+                        f"{type(mesh).__name__}")
+    if mesh.rank is None:
+        raise ValueError(f"{mesh} is a shapes-only mesh: no process group "
+                         f"to calibrate or decompose over")
 
 
 def refine_coefficients(orig_lp: Params, comp_lp: Params, cfg: ModelConfig,
                         groups: List[Group],
                         calib_batches: Sequence[Dict],
                         streaming: bool = True, device: bool = False,
-                        mesh=None, whiten_tags=None) -> Params:
+                        mesh=None, whiten_tags=None,
+                        shard_grams_above: int = 4096) -> Params:
     """Closed-form downstream update (the paper's ≥40% trick, after
     SVD-LLM): re-collect Grams THROUGH the compressed model (inputs now
     deviate from the originals) and re-solve each coefficient matrix
@@ -556,10 +630,14 @@ def refine_coefficients(orig_lp: Params, comp_lp: Params, cfg: ModelConfig,
     ``numerics_device.refine_solve`` on the params' device instead of a
     host loop. ``whiten_tags`` re-captures those tags as streaming
     Cholesky factors; the device solve then runs in factor form, so a
-    fully whiten-streamed refine never materializes a Gram.
+    fully whiten-streamed refine never materializes a Gram. On a mesh each
+    bucket's solves spread over the ranks along ``group_batch`` and the
+    coefficients are gathered, as in the decomposition.
     """
+    _check_mesh(mesh)
     col2 = calibrate(comp_lp, cfg, calib_batches, streaming=streaming,
-                     mesh=mesh, whiten_tags=whiten_tags)
+                     mesh=mesh, whiten_tags=whiten_tags,
+                     shard_grams_above=shard_grams_above)
     members = [m for g in groups for m in g.members
                if m.expert is None
                and (m.tag in col2.gram or m.tag in col2.chol)]
@@ -570,18 +648,21 @@ def refine_coefficients(orig_lp: Params, comp_lp: Params, cfg: ModelConfig,
             buckets.setdefault(
                 (m.d_in, int(node["B"].shape[1]), m.d_out), []).append(m)
         for _key, ms in sorted(buckets.items()):
+            lo, hi, group = _share(mesh, len(ms))
+            mine = ms[lo:hi]
             B = torch.stack([_get_node(comp_lp, m.path)["B"].float()
-                             for m in ms])
-            W = torch.stack([_member_tensor(orig_lp, m) for m in ms]
+                             for m in mine])
+            W = torch.stack([_member_tensor(orig_lp, m) for m in mine]
                             ).to(B.device)
             if all(m.tag in col2.chol for m in ms):
                 R = torch.as_tensor(np.stack(
-                    [col2.chol[m.tag] for m in ms]), device=B.device)
+                    [col2.chol[m.tag] for m in mine]), device=B.device)
                 C = numd.refine_solve(B, None, W, factor=R)
             else:
                 G = torch.as_tensor(np.stack(
-                    [_gram_of(col2, m.tag) for m in ms]), device=B.device)
+                    [_gram_of(col2, m.tag) for m in mine]), device=B.device)
                 C = numd.refine_solve(B, G, W)
+            C = _gather(C, group)
             for i, m in enumerate(ms):
                 node = _get_node(comp_lp, m.path)
                 node["C"] = C[i].to(node["C"].dtype).contiguous()

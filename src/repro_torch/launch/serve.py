@@ -20,8 +20,18 @@ options on the CPU.
     # package) at its last step
     python -m repro_torch.launch.serve --arch smollm-360m --ckpt runs/smollm
 
+    # calibrate and compress on a (data = 2) mesh of two ranks; rank 0
+    # writes the artifact and serves
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch smollm-360m --compress drank --ratio 0.2 --device-compress \
+        --calib-mesh-shards 2
+
 ``--aot`` captures the graphs at boot; they live in the process and are
 never persisted (``--aot-cache-dir`` is accepted and stores nothing).
+Under ``torchrun`` (``WORLD_SIZE`` > 1) every rank joins the process group
+(``dist.comm.init``: NCCL when every rank owns a card, gloo through pinned
+host memory when the ranks share one); ranks other than 0 calibrate and
+compress (``api.mesh_compress``) and exit.
 """
 from __future__ import annotations
 
@@ -59,9 +69,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "Grams during calibration (QR updates; the Gram "
                          "is never materialized — DESIGN.md §1.5/§1.6)")
     ap.add_argument("--calib-mesh-shards", type=int, default=0,
-                    help="calibrate over a (data=N) mesh of devices; "
-                         "not ported yet (ROADMAP Queue 1, item 11): only "
-                         "0 = single-device capture runs")
+                    help="calibrate over a (data=N) mesh of N ranks: run "
+                         "under torchrun --standalone --nproc-per-node N "
+                         "(sharded batch and accumulators, the device "
+                         "decomposition spread over the ranks; rank 0 "
+                         "serves); 0 = single-device capture")
     ap.add_argument("--shard-grams-above", type=int, default=4096,
                     help="with --calib-mesh-shards: feature dim at which "
                          "calibration (D,D) accumulators shard row-wise "
@@ -201,9 +213,26 @@ def parse_serve_options(argv=None):
 
 
 def main(argv=None) -> int:
-    from repro_torch.serve.api import serve
+    import os
+
+    from repro_torch.serve.api import mesh_compress, serve
 
     opts = parse_serve_options(argv)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        from repro_torch.dist import comm
+        c = comm.init(world, int(os.environ["RANK"]), "cuda")
+        try:
+            if c.rank != 0:
+                mesh_compress(opts)
+                return 0
+            return _serve_and_print(serve, opts)
+        finally:
+            comm.shutdown()
+    return _serve_and_print(serve, opts)
+
+
+def _serve_and_print(serve, opts) -> int:
     res = serve(opts, echo=print)
     print(json.dumps(res.report, indent=1))
     if res.status != "drained":

@@ -7,6 +7,13 @@ flags exactly). It runs on the card:
 then serve the last checkpoint with ``python -m repro_torch.launch.serve
 --arch smollm-360m --ckpt runs/smollm``. From Python,
 ``Trainer(..., device="cpu")`` trains on the CPU.
+
+Under ``torchrun --standalone --nproc-per-node N -m
+repro_torch.launch.train ...`` (``WORLD_SIZE`` N > 1) every rank joins the
+process group (``dist.comm.init``: NCCL when every rank owns a card, gloo
+through pinned host memory when the ranks share one) and trains
+data-parallel on shard ``RANK`` of N; rank 0 prints the history and
+writes the checkpoints.
 """
 from __future__ import annotations
 
@@ -50,6 +57,11 @@ def main(argv=None) -> int:
     from repro_torch.train import step as TS
     from repro_torch.train.loop import LoopConfig, Trainer
 
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        from repro_torch.dist import comm
+        c = comm.init(world, int(os.environ["RANK"]), "cuda")
+        args.shard_id, args.num_shards = c.rank, world
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -68,6 +80,12 @@ def main(argv=None) -> int:
                       heartbeat_path=args.heartbeat)
     trainer = Trainer(cfg, tcfg, dcfg, lcfg, seed=args.seed)
     result = trainer.run()
+    if world > 1:
+        from repro_torch.dist import comm
+        result["comm"] = comm.current().report()
+        comm.shutdown()
+        if args.shard_id != 0:
+            return 0
     for row in result["history"]:
         print(json.dumps(row))
     if args.history_out:

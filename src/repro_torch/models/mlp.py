@@ -23,10 +23,29 @@ MoE layers captures into a CUDA graph. Routing, dispatch and the expert
 products are ``torch`` ops, as they are ``jnp`` ops outside Pallas in the
 JAX package.
 
-Only the single-device body (expert parallelism 1) is ported: the
-expert-parallel mesh path (``shard_map`` with ``all_to_all`` over the
-``model`` axis, ep > 1) comes with the port's mesh, ROADMAP Queue 1, item
-11.
+Expert parallelism (ep > 1) runs under a mesh pinned by
+``dist.sharding.use_rules(mesh=...)`` whose ``model`` axis has ep ranks,
+as JAX's ``shard_map`` branch does: a rank holds ``E/ep`` experts (its
+``local_block`` of each expert stack, or ``ckpt.store.restore(
+shardings=)``), its ``data`` shard of the tokens (replicated over
+``model``) and the whole router. The body is JAX's: a first-level
+dispatch to ``ep`` shards of ``cap1`` rows, ``comm.all_to_all`` over the
+``model`` group, the second-level dispatch into the local experts'
+``cap2`` rows, and the return trip, with both capacities computed per
+shard exactly as JAX computes them (so the drops are JAX's at that ep).
+JAX's behaviours are kept. Its mesh body passes no capture tag, so under
+ep > 1 no expert statistic is captured. Each model rank routes the same
+(replicated) tokens and sends them all, so an expert shard receives one
+copy from every model rank, model rank 0's first: the later copies can
+lose capacity that rank 0's never do, and the model ranks' outputs then
+differ. JAX declares the output replicated over ``model`` and returns
+device 0's copy; the port broadcasts model rank 0's output and aux to the
+model group, so every rank holds what JAX returns (rank 0's result does
+not depend on the other ranks' copies, which come after its rows). The
+aux is declared replicated over the data axes too: JAX returns data
+shard 0's, and each port rank keeps its own data shard's.
+A backward through the EP body is not ported (ROADMAP Queue 1, item 11,
+second part) and raises.
 """
 from __future__ import annotations
 
@@ -36,7 +55,10 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import pytree
 from repro_torch.config import ModelConfig, MoEConfig
+from repro_torch.dist import comm
+from repro_torch.dist.sharding import current_mesh
 from repro_torch.models.params import Builder, apply_linear, get_capture
 
 
@@ -180,16 +202,18 @@ def route(router_w: torch.Tensor, m: MoEConfig, x: torch.Tensor
     return probs, gate_vals, expert_ids
 
 
-def _moe_local(p: Dict, m: MoEConfig, x: torch.Tensor,
-               tag: Optional[str] = None
+def _moe_local(p: Dict, m: MoEConfig, x: torch.Tensor, ep: int = 1,
+               group=None, tag: Optional[str] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """MoE body at expert parallelism 1. x: (T, D) tokens. Returns (out,
-    aux_loss). The first-level dispatch (to the one shard) and its meta
-    buffer are kept as in JAX: they fix the received rows' order and the
-    zero rows that reach the second level."""
+    """Per-shard MoE body. x: (T, D) local tokens; the experts are spread
+    over ``group`` (the ``model`` axis) in ``ep`` shards of E/ep each, and
+    ``p``'s expert stacks hold this rank's. Returns (out, aux_loss). At
+    ep = 1 the first-level dispatch (to the one shard) and its meta buffer
+    are kept as in JAX: they fix the received rows' order and the zero
+    rows that reach the second level."""
     T, D = x.shape
     E = m.padded_experts
-    ep, e_local = 1, E
+    e_local = E // ep
     k = m.top_k
 
     probs, gate_vals, expert_ids = route(p["router"], m, x)
@@ -211,8 +235,13 @@ def _moe_local(p: Dict, m: MoEConfig, x: torch.Tensor,
     send_meta = torch.stack([(eids % e_local).to(x.dtype),
                              torch.zeros_like(gates)], dim=-1)
     meta_buf, _, _ = _dispatch_to_buffers(send_meta, dest_shard, ep, cap1)
-    recv = send.reshape(ep * cap1, D)
-    local_eid = meta_buf.reshape(ep * cap1, 2)[:, 0].to(torch.int32)
+    if ep > 1:
+        recv = comm.all_to_all(send, group)
+        meta = comm.all_to_all(meta_buf, group)
+    else:
+        recv, meta = send, meta_buf
+    recv = recv.reshape(ep * cap1, D)
+    local_eid = meta.reshape(ep * cap1, 2)[:, 0].to(torch.int32)
 
     # ---- second-level dispatch: per-expert batched GEMM --------------------
     cap2 = capacity(ep * cap1, e_local, m.capacity_factor)
@@ -222,6 +251,8 @@ def _moe_local(p: Dict, m: MoEConfig, x: torch.Tensor,
 
     # ---- return trip ------------------------------------------------------
     back = back.reshape(ep, cap1, D)
+    if ep > 1:
+        back = comm.all_to_all(back, group)
     rows = _undispatch(back, dest_shard, slot1, kept1)        # (T*k, D)
     out = torch.sum((rows * gates[:, None]).reshape(T, k, D), dim=1)
     return out, aux
@@ -236,7 +267,22 @@ def apply_moe(p: Dict, cfg: ModelConfig,
     moe_p = p["moe"]
     pp = {"router": moe_p["router"]["w"],
           **{k: moe_p[k] for k in ("w_gate", "w_up", "w_down")}}
-    out, aux = _moe_local(pp, m, x.reshape(-1, D), tag=moe_p.get("_tag"))
+    mesh = current_mesh()
+    ep = (mesh.shape["model"] if mesh is not None
+          and "model" in mesh.axis_names else 1)
+    if ep > 1:
+        _check_ep(pp, m, ep, x)
+        group = mesh.group("model")
+        # JAX's mesh body passes no capture tag: no expert statistics
+        out, aux = _moe_local(pp, m, x.reshape(-1, D), ep, group)
+        # the output is replicated over ``model``, and the model ranks'
+        # copies differ where their duplicate rows lost capacity: JAX
+        # returns device 0's, so every model rank takes model rank 0's
+        out = comm.broadcast(out, src=0, group=group)
+        aux = comm.broadcast(aux, src=0, group=group)
+    else:
+        out, aux = _moe_local(pp, m, x.reshape(-1, D),
+                              tag=moe_p.get("_tag"))
     out = out.reshape(B, S, D)
     if m.num_shared:
         sh = p["moe_shared"]
@@ -245,3 +291,22 @@ def apply_moe(p: Dict, cfg: ModelConfig,
         sgate = torch.sigmoid(apply_linear(sh["shared_gate"], x))
         out = out + sgate * shared_out
     return out, aux
+
+
+def _check_ep(pp: Dict, m: MoEConfig, ep: int, x: torch.Tensor) -> None:
+    """The expert-parallel body's preconditions: E divides over ep, the
+    rank holds E/ep experts, and nothing asks for a gradient."""
+    E = m.padded_experts
+    if E % ep:
+        raise ValueError(f"{E} experts do not split over ep = {ep}")
+    w = pp["w_gate"]
+    held = (w["B"] if isinstance(w, dict) else w).shape[0]
+    if held != E // ep:
+        raise ValueError(f"expert parallelism {ep}: this rank holds {held} "
+                         f"experts, not E/ep = {E // ep} (take its "
+                         f"local_block of each expert stack)")
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            t.requires_grad for t in pytree.tensors(pp))):
+        raise NotImplementedError(
+            "a backward through the expert-parallel MoE body is not ported "
+            "(ROADMAP Queue 1, item 11, second part: EP under autograd)")

@@ -12,9 +12,9 @@ Leaves are named by ``jax.tree_util.keystr`` of their path (``['w']``), as
 in the JAX module, so the two packages' state and rank dicts share keys.
 The orthonormalization is a float32 QR; LAPACK and cuSOLVER may choose
 other column signs, which P·Qnᵀ, the error feedback and the stats do not
-depend on. The cross-pod reduce (``cross_pod_mean`` over a process group)
-is not ported yet (ROADMAP Queue 1, item 11): without a group it is the
-identity, as the JAX one is without a mesh axis.
+depend on. ``cross_pod_mean(mesh)`` is the reduce between the pods: a
+mean over the mesh's ``pod`` axis (``dist.comm.all_reduce_mean``), the
+identity without a mesh or without that axis, as in JAX.
 """
 from __future__ import annotations
 
@@ -118,15 +118,19 @@ def compress_decompress(grads, state: PowerSGDState, cfg: PowerSGDConfig,
     return out, PowerSGDState(error=new_err, q=new_q), stats
 
 
-def cross_pod_mean(group=None, axis: str = "pod"):
-    """The reduce_fn of ``compress_decompress``: the identity without a
-    process group. A mean over a ``torch.distributed`` group is not ported
-    yet (ROADMAP Queue 1, item 11)."""
-    if group is None:
+def cross_pod_mean(mesh=None, axis: str = "pod"):
+    """Returns the reduce_fn of ``compress_decompress``: the mean over the
+    mesh's ``axis`` (JAX's ``lax.pmean`` inside ``shard_map``), each rank
+    averaging with the ranks that share its other coordinates; the
+    identity when there is no mesh or the axis is absent."""
+    if mesh is None or axis not in getattr(mesh, "axis_names", ()):
         return lambda x: x
-    raise NotImplementedError(
-        f"cross_pod_mean over a process group ({axis!r}): the cross-pod "
-        f"reduce is not ported yet (ROADMAP Queue 1, item 11)")
+    from repro_torch.dist import comm
+    group = mesh.group(axis)
+
+    def rf(x):
+        return comm.all_reduce_mean(x, group)
+    return rf
 
 
 def allocate_ranks_by_reff(grads, byte_budget_frac: float,

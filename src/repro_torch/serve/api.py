@@ -27,7 +27,13 @@ stores nothing, see ``serve/aot.py``).
 
 Departures from the JAX package:
 
-* ``calib_mesh_shards > 1`` raises (ROADMAP Queue 1, item 11). A random
+* ``calib_mesh_shards = n > 1`` runs under a process group of n ranks
+  (``dist.comm.init``), not over n local devices: start it with
+  ``torchrun --standalone --nproc-per-node n -m repro_torch.launch.serve
+  ...``. Every rank calibrates and compresses on a (data = n) mesh
+  (``mesh_compress``); rank 0 writes the artifact and serves, and its
+  report carries ``world`` and ``comm`` (the backend, its transport and
+  the bytes staged). Any other world raises. A random
   model comes from ``init_model``'s torch seed, so its weights are not
   JAX's; an artifact or a step checkpoint (``ckpt=``) of either package
   boots the same weights in both.
@@ -66,10 +72,6 @@ __all__ = [
 ]
 
 _CALIB_BATCH = 8          # rows per calibration batch (matches launch CLI)
-_NOT_YET = {
-    "mesh": "calib_mesh_shards > 1: mesh calibration is not ported yet "
-            "(ROADMAP Queue 1, item 11)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,8 +242,8 @@ def _compress_in_process(opts: ServeOptions, params, cfg, device,
     from repro_torch.core import compress as CC
     from repro_torch.data.synthetic import DataConfig, calibration_batches
 
-    if opts.calib_mesh_shards > 1:
-        raise NotImplementedError(_NOT_YET["mesh"])
+    mesh = (_calib_mesh(opts.calib_mesh_shards)
+            if opts.calib_mesh_shards > 1 else None)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=opts.calib_seq,
                       global_batch=_CALIB_BATCH)
     calib = [{"tokens": torch.as_tensor(b["tokens"], device=device)}
@@ -254,13 +256,34 @@ def _compress_in_process(opts: ServeOptions, params, cfg, device,
         params, cfg, ccfg, calib,
         streaming=not opts.eager_capture,
         device=opts.device_compress,
-        whiten_tags=(True if opts.whiten_stream else None))
+        mesh=mesh,
+        whiten_tags=(True if opts.whiten_stream else None),
+        shard_grams_above=opts.shard_grams_above)
     _echo(echo, f"compressed with {opts.compress}: "
                 f"{plan.summary['achieved_ratio']:.1%} removed")
-    if opts.save_compressed:
+    if opts.save_compressed and (mesh is None or mesh.rank == 0):
         path = CC.save_plan(opts.save_compressed, params, plan, cfg)
         _echo(echo, f"saved compressed artifact to {path}")
+    if mesh is not None:
+        from repro_torch.dist import comm
+        comm.barrier()          # the artifact is on disk for every rank
     return params, plan
+
+
+def _calib_mesh(n: int):
+    """The (data = n) mesh of mesh calibration: the process group this
+    process joined must hold exactly n ranks."""
+    from repro_torch.dist import comm
+    world = comm.current().world if comm.is_initialized() else 1
+    if world != n:
+        raise ValueError(
+            f"calib_mesh_shards={n} calibrates over a process group of {n} "
+            f"ranks, and this process is in "
+            + (f"one of {world}" if comm.is_initialized() else "none")
+            + f": start it with torchrun --standalone --nproc-per-node {n} "
+              f"-m repro_torch.launch.serve ...")
+    from repro_torch.launch.mesh import make_host_mesh
+    return make_host_mesh(data=n, model=1)
 
 
 def _registry_for(opts: ServeOptions, cfg, scfg, fingerprint: str):
@@ -268,6 +291,41 @@ def _registry_for(opts: ServeOptions, cfg, scfg, fingerprint: str):
         return None                       # engine defaults to traced
     return AotRegistry(cfg, scfg, fingerprint,
                        cache_dir=opts.aot_cache_dir or None)
+
+
+def _source_params(opts: ServeOptions, cfg, dev, echo=None):
+    """The dense params to serve or compress: a training checkpoint's, or
+    a random model from ``opts.seed``."""
+    from repro_torch.models import transformer as T
+    if opts.ckpt:
+        from repro_torch.ckpt import store
+        from repro_torch.train import step as TS
+        # the template holds no memory: restore reads its structure and
+        # dtypes only. Its npz keys are the TrainState's "params␟…", so
+        # only the params reach the device, not the optimizer's moments
+        state, _ = TS.init_train_state(cfg, seed=0, device="meta")
+        step, tree = store.restore(opts.ckpt, {"params": state.params},
+                                   device=dev)
+        _echo(echo, f"loaded {opts.ckpt} @ step {step}")
+        return tree["params"]
+    params, _ = T.init_model(cfg, seed=opts.seed, device=dev)
+    _echo(echo, "serving a randomly initialized model (no ckpt)")
+    return params
+
+
+def mesh_compress(opts: ServeOptions, *, device: DeviceLike = None):
+    """What a rank other than 0 runs under ``calib_mesh_shards``: the same
+    model source, calibration and compression as rank 0's
+    ``load_engine`` (every collective needs every rank), without an
+    engine. Returns (params, plan)."""
+    from repro_torch.configs import get_config
+    if not opts.compress or opts.calib_mesh_shards <= 1:
+        raise ValueError("mesh_compress needs compress= and "
+                         "calib_mesh_shards > 1")
+    cfg = get_config(opts.arch)
+    dev = resolve_device(device)
+    return _compress_in_process(opts, _source_params(opts, cfg, dev), cfg,
+                                dev)
 
 
 def load_engine(opts: ServeOptions, *, replica: int = 0,
@@ -305,22 +363,7 @@ def load_engine(opts: ServeOptions, *, replica: int = 0,
                     f"method={cb.plan.config.method}"
                     + (", integrity verified" if opts.verify else "") + ")")
     else:
-        from repro_torch.models import transformer as T
-        if opts.ckpt:
-            from repro_torch.ckpt import store
-            from repro_torch.train import step as TS
-            # the template holds no memory: restore reads its structure
-            # and dtypes only. Its npz keys are the TrainState's
-            # "params␟…", so only the params reach the device, not the
-            # optimizer's moments
-            state, _ = TS.init_train_state(cfg, seed=0, device="meta")
-            step, tree = store.restore(opts.ckpt, {"params": state.params},
-                                       device=dev)
-            params = tree["params"]
-            _echo(echo, f"loaded {opts.ckpt} @ step {step}")
-        else:
-            params, _ = T.init_model(cfg, seed=opts.seed, device=dev)
-            _echo(echo, "serving a randomly initialized model (no ckpt)")
+        params = _source_params(opts, cfg, dev, echo)
         plan = None
         if opts.compress:
             params, plan = _compress_in_process(opts, params, cfg, dev,
@@ -468,6 +511,10 @@ def _serve_inner(opts: ServeOptions, *,
         _echo(echo, "flight-recorder artifacts: " + ", ".join(dumped))
     dt = time.perf_counter() - t0
     result.report = _report(result, stats, accepted, opts.requests, dt)
+    from repro_torch.dist import comm
+    if comm.is_initialized():
+        result.report["world"] = comm.current().world
+        result.report["comm"] = comm.current().report()
     if opts.stats_json:
         with open(opts.stats_json, "w") as f:
             json.dump(metrics, f, indent=1)

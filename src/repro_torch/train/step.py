@@ -6,6 +6,17 @@ Remat is the model's (``cfg.remat``, applied inside a stacked run in
 ``models.transformer``). A step reads nothing back to the host: losses,
 metrics and the optimizer's stats stay tensors on the params' device, and
 only ``evaluate_ppl`` (where the JAX module's loop logs) calls ``float``.
+
+Data parallelism (``make_train_step(..., group=...)``, the ``data`` group
+of a mesh): each rank computes its shard's loss and grads, and
+``reduce_data_parallel`` turns them into the global batch's before AdamW.
+``lm_loss`` divides by its shard's count of tokens, so the reduce weighs
+each rank's loss, grads and accuracy by that count and divides by the
+summed count (sums and counts, not means), in one flat float32 bucket
+for all the grads: one collective a step, not one a leaf. JAX gets the
+same from jit shardings on one process (``tests/test_dist.py``); sharding
+the parameters themselves (FSDP, tensor parallelism over ``model``) is
+not ported (ROADMAP Queue 1, item 11, second part).
 """
 from __future__ import annotations
 
@@ -112,10 +123,40 @@ def loss_and_grads(params: Params, cfg: ModelConfig, batch: Dict,
     return acc_loss / n, metrics, grads
 
 
+def reduce_data_parallel(loss: torch.Tensor, metrics: Dict, grads,
+                         group) -> Tuple[torch.Tensor, Dict, Params]:
+    """The global batch's loss, metrics and grads from every rank's
+    shard: each rank's values weighed by its token count ``n_r`` and
+    divided by ``N = Σ n_r``. The grads travel in one flat float32 bucket
+    with the count and the weighted loss and accuracy at its end."""
+    from repro_torch.dist import comm
+    n = metrics["tokens"].to(torch.float32)
+    leaves = pytree.leaves(grads)
+    flat = torch.cat([g.reshape(-1).to(torch.float32) * n for g in leaves]
+                     + [torch.stack([loss.to(torch.float32) * n,
+                                     metrics["accuracy"] * n, n])])
+    flat = comm.all_reduce_sum(flat, group)
+    total = flat[-1]
+    out, off = [], 0
+    for g in leaves:
+        out.append((flat[off:off + g.numel()] / total).reshape(g.shape)
+                   .to(g.dtype))
+        off += g.numel()
+    metrics = dict(metrics)
+    metrics["loss"] = flat[-3] / total
+    metrics["ppl_log"] = metrics["loss"]
+    metrics["accuracy"] = flat[-2] / total
+    metrics["tokens"] = total
+    return metrics["loss"], metrics, pytree.unflatten(grads, out)
+
+
 def train_step(state: TrainState, batch: Dict, *, cfg: ModelConfig,
-               tcfg: TrainConfig) -> Tuple[TrainState, Dict]:
+               tcfg: TrainConfig, group=None) -> Tuple[TrainState, Dict]:
     loss, metrics, grads = loss_and_grads(state.params, cfg, batch,
                                           tcfg.microbatches)
+    if group is not None:
+        loss, metrics, grads = reduce_data_parallel(loss, metrics, grads,
+                                                    group)
     new_params, new_opt, stats = adamw_update(
         tcfg.optimizer, grads, state.opt, state.params)
     metrics = dict(metrics)
@@ -123,8 +164,10 @@ def train_step(state: TrainState, batch: Dict, *, cfg: ModelConfig,
     return TrainState(params=new_params, opt=new_opt), metrics
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
-    return functools.partial(train_step, cfg=cfg, tcfg=tcfg)
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, group=None):
+    """The step function; with ``group`` (a data-parallel process group)
+    the grads are reduced over it before AdamW."""
+    return functools.partial(train_step, cfg=cfg, tcfg=tcfg, group=group)
 
 
 # ---------------------------------------------------------------------------

@@ -190,13 +190,20 @@ def test_fwsvd_plan_matches_jax(device):
         assert _rel(B @ C, jB @ jC) < FACTOR_TOL, g.gid
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(streaming=True, mesh=object()), "streaming"),
-    (dict(streaming=False, device=True, mesh=object()), "item 11"),
-    (dict(streaming=False, mesh=object()), "mesh"),
+@pytest.mark.parametrize("kw,exc,match", [
+    (dict(streaming=True, mesh=object()), TypeError, "launch.mesh.Mesh"),
+    (dict(streaming=False, device=True, mesh=object()), TypeError,
+     "launch.mesh.Mesh"),
+    (dict(streaming=False, mesh="production"), ValueError, "shapes-only"),
 ])
-def test_unported_options_raise(kw, match):
+def test_unported_options_raise(kw, exc, match):
+    """The mesh paths are ported (see tests/test_torch_mesh_calib.py); what
+    they refuse is a mesh that is not the port's, and a shapes-only mesh
+    (no process group to run on)."""
+    from repro_torch.launch.mesh import make_production_mesh
+    if kw.get("mesh") == "production":
+        kw = dict(kw, mesh=make_production_mesh())
     cfg = get_config("llama-mini").replace(**dict(_KW, n_kv_heads=4))
     tp, _ = T.init_model(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         CC.build_plan_and_params(tp, cfg, CC.CompressionConfig(), [], **kw)

@@ -249,7 +249,10 @@ def test_a_training_checkpoint_boots(tmp_path, monkeypatch):
 
 
 def test_mesh_calibration_raises():
-    with pytest.raises(NotImplementedError, match="item 11"):
+    """Without a process group of calib_mesh_shards ranks the option
+    raises and names torchrun; it never runs single-process quietly (the
+    mesh run: tests/test_torch_mesh_calib.py)."""
+    with pytest.raises(ValueError, match="torchrun"):
         api.load_engine(api.ServeOptions(arch="llama-mini", compress="drank",
                                          calib_mesh_shards=2),
                         device="cpu")

@@ -307,10 +307,15 @@ def test_powersgd_rank_allocation_matches_jax():
 
 
 def test_cross_pod_mean_over_a_group_is_not_ported():
+    """The identity without a mesh or without a pod axis; over a mesh's pod
+    axis it needs the process group (the mean itself:
+    tests/test_torch_dist.py)."""
+    from repro_torch.launch.mesh import make_production_mesh
     x = torch.ones(3)
     assert PS.cross_pod_mean(None)(x) is x
-    with pytest.raises(NotImplementedError, match="item 11"):
-        PS.cross_pod_mean(object())
+    assert PS.cross_pod_mean(make_production_mesh())(x) is x
+    with pytest.raises(RuntimeError, match="shapes-only"):
+        PS.cross_pod_mean(make_production_mesh(multi_pod=True))
 
 
 # ---------------------------------------------------------------------------

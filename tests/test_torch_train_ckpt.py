@@ -156,8 +156,12 @@ def test_restore_refuses_what_it_cannot_do(tmp_path):
     with pytest.raises(FileNotFoundError):
         store.restore(str(tmp_path), tree)
     store.save(str(tmp_path), 1, tree)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        store.restore(str(tmp_path), tree, shardings={"x": None})
+    # a None sharding is the whole leaf (the blocks of a mesh:
+    # tests/test_torch_dist.py); shardings must match the template's leaves
+    _, got = store.restore(str(tmp_path), tree, shardings={"x": None})
+    assert torch.equal(got["x"], tree["x"])
+    with pytest.raises(ValueError, match="shardings"):
+        store.restore(str(tmp_path), tree, shardings={"x": None, "y": None})
     with pytest.raises(ValueError, match="meta"):
         store.restore(str(tmp_path), {"x": torch.ones(3, device="meta")})
     with pytest.raises(KeyError, match="y"):
