@@ -138,15 +138,36 @@ What it does, in order, printing the seconds of each phase:
    time, launches per step, beside the graph step of 2d;
 8. the whole slice in float32 on the card (kernels) against the CPU (plain
    versions): identical greedy tokens, prefill logits within atol 2e-3;
+8a. the launch accounting (``launch/op_analysis.py``,
+   ``launch/dryrun.py``): a D-Rank decode step of the batcher's shape
+   (batch 8, max_len 256) and one 512-row prefill (8 x 64), each counted
+   once on the card and once on meta under the op counter, with identical
+   FLOPs, bytes and argument bytes required; the step's own bytes at its
+   peak, predicted on meta, against ``torch.cuda.max_memory_allocated``
+   less ``memory_allocated`` over an uncounted run of the same step (after
+   ``reset_peak_memory_stats``), held to 10% (the allocator's largest live
+   blocks at its peak printed before a miss fails the run), and the whole
+   peak (the arguments plus those bytes) against its prediction; model
+   and counted FLOPs over the step's measured ms as shares of 989 TFLOP/s;
+   the roofline's dominant term against the measured ms; then
+   qwen2-vl-72b at ``prefill_32k`` and ``decode_32k`` and SmolLM-360M at
+   ``train_4k``, counted on meta alone on a (1, 1) mesh: whether each fits
+   80 GB and the seconds of each count. The training path (9) does the
+   same for its train step, whose model-FLOPs share is
+   ``launch/dryrun.model_flops``'s (6·N·D), with the attention's
+   QKᵀ and PV printed apart from the counter; the mesh phase (2a) holds one
+   world-2 DP step's counted collective bytes against the bytes per
+   family that ``Comm.report()`` shows for it;
 9. the training path, with the counts set to 0 just before and read just
    after: SmolLM-360M at full size (float32 params, bf16 compute, remat
    "block", seed 0) through ``Trainer``: 6 steps of 8 x 256 tokens in 2
    microbatches, an async checkpoint at step 3 and the final save, every
    loss finite; a second ``Trainer`` resumes from step 3 and its step-6
    loss is the continuous run's within 1e-4 relative; the step alone
-   (ms/step, tokens/s, its model-FLOPs share, one profiled step's idle
-   share, flash launches a step: twice a layer and microbatch under
-   remat); one float32 step of a 2-layer SmolLM on the card and on the
+   (ms/step, tokens/s, its model-FLOPs share by
+   ``launch/dryrun.model_flops``, one profiled step's idle share, flash
+   launches a step: twice a layer and microbatch under remat; the launch
+   accounting of 8a on the step); one float32 step of a 2-layer SmolLM on the card and on the
    CPU from the same weights (loss within 1e-5, params within 1e-4
    relative); D-Rank and fwsvd 20% of the trained model on the card, and
    fwsvd at 2 layers in float32 on the host and the card (identical
@@ -160,12 +181,12 @@ What it does, in order, printing the seconds of each phase:
 10. the MoE path, after the earlier paths' memory is freed, with the
    counts set to 0 just before granite's calibration and read after its
    graph runs: granite-moe-1b-a400m at full width (d_model 1024, 32
-   experts top-8, d_expert 512, vocab 49155, tied), depth cut to 12 of its
+   experts top-8, d_expert 512, vocab 49155, tied), depth cut to 8 of its
    24 identical MoE layers (random weights, seed 0): streaming calibration
-   as in 2 with every expert's Gram (816 a batch, 768 of them the experts'
+   as in 2 with every expert's Gram (544 a batch, 512 of them the experts'
    400-row capacity
-   buffers) through ``gram_blocked``; D-Rank 20% on the card (2304 expert
-   and 96 attention groups, the expert buckets in chunks sized to the
+   buffers) through ``gram_blocked``; D-Rank 20% on the card (1536 expert
+   and 64 attention groups, the expert buckets in chunks sized to the
    card's free memory); ``save_plan``; ``from_compressed(verify=True)``;
    ``generate`` equal to an in-memory ``Engine``'s tokens. Then the
    batcher on that artifact (2b's 24 requests, bf16): eager on the
@@ -193,9 +214,9 @@ What it does, in order, printing the seconds of each phase:
    read after its batcher runs: hymba-1.5b at full width (d_model 1600, 25
    heads over 5 KV of 64 beside a Mamba-2 head, d_ff 5504, window 1024),
    depth cut to 16 of its 32 layers (global at 0, 8 and 15, the 13 others
-   windowed), and xlstm-350m at full size (24 layers, d_model 1024, 21
-   mLSTM layers of 4 heads of 512, sLSTM at layers 7, 15 and 23 with a
-   1365-wide FFN), random weights from seed 0: streaming calibration, D-Rank
+   windowed), and xlstm-350m at full width, depth cut to 16 of its 24
+   layers (d_model 1024, 14 mLSTM layers of 4 heads of 512, sLSTM at
+   layers 7 and 15 with a 1365-wide FFN), random weights from seed 0: streaming calibration, D-Rank
    20% on the card, ``save_plan``, ``from_compressed(verify=True)``,
    ``generate`` equal to an in-memory ``Engine``'s tokens (hymba also one
    1200-token prompt, past its window); the batcher through exact-length
@@ -292,9 +313,6 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# NVIDIA H100 SXM data sheet, dense: HBM bytes/s and peak operations/s
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}     # tests/test_kernels.py:15
 GRAM_TOL = 2e-5          # fp32 sums of exactly widened inputs, both dtypes
 LOGITS_ATOL = 2e-3                            # tests/test_kernels.py:141
@@ -373,7 +391,7 @@ TRAIN_KERNELS = ("flash_attention", "lowrank_matmul_2d", "gram_blocked")
 MOE, MOE_SEED, MOE_RATIO = "granite-moe-1b-a400m", 0, 0.2
 # granite's depth on the MoE path, cut from 24 to make room for the later
 # paths in the run's time (the 24 layers are identical MoE layers)
-MOE_LAYERS = 12
+MOE_LAYERS = 8
 # the oracles at 1 layer: every granite layer holds the same seven group
 # types
 MOE_PARITY_LAYERS, MOE_ORACLE_LAYERS, ROUTE_GAP = 4, 1, 1e-6
@@ -393,12 +411,15 @@ MESH_WORLD, MESH_SHARD_ABOVE = 2, 2048
 MESH_FACTOR_REL, MESH_GRAM_REL = 1e-6, 1e-5
 DP_ROWS, DP_SEQ, DP_STEPS = 4, 128, 3
 EP_LAYERS, EP_BATCH, EP_PROMPT, EP_NEW, EP_PARITY_STEPS = 2, 4, 32, 8, 4
+# the launch accounting's full-size cells, counted on meta on a (1, 1) mesh
+ACCOUNT_CELLS = (("qwen2-vl-72b", "prefill_32k"),
+                 ("qwen2-vl-72b", "decode_32k"), (ARCH, "train_4k"))
 MESH_CLI = ["--arch", ARCH, "--compress", "drank", "--ratio", "0.2",
             "--device-compress", "--calib-mesh-shards", str(MESH_WORLD),
             "--batch", "4", "--max-len", "64", "--requests", "4",
             "--prompt-len", "16", "--n-new", "8"]
 QWEN_PROMPTS, QWEN_NEW, QWEN_NEW_F32 = (200, 64), 16, 8
-# the recurrent families (random weights, seed 0; hymba at REC_DEPTH): hymba-1.5b
+# the recurrent families (random weights, seed 0; at REC_DEPTH): hymba-1.5b
 # (attention and Mamba-2 heads in parallel) and xlstm-350m (mLSTM and
 # sLSTM) through the main path's steps and the batcher's exact-length
 # admission, eager and with graphs; hymba also one prompt past its window.
@@ -412,9 +433,10 @@ QWEN_PROMPTS, QWEN_NEW, QWEN_NEW_F32 = (200, 64), 16, 8
 # layer)
 HYMBA, XLSTM = "hymba-1.5b", "xlstm-350m"
 REC_SEED, REC_RATIO, REC_PARITY_STEPS = 0, 0.2, 8
-# hymba's depth, cut from 32 to make room for the later paths in the run's
-# time: its schedule keeps a global layer first, in the middle (8) and last
-REC_DEPTH = {HYMBA: dict(n_layers=16), XLSTM: {}}
+# the depths, cut to make room for the later paths in the run's time:
+# hymba's from 32 (its schedule keeps a global layer first, in the middle
+# (8) and last), xLSTM's from 24 (its sLSTM layers 7 and 15 stay)
+REC_DEPTH = {HYMBA: dict(n_layers=16), XLSTM: dict(n_layers=16)}
 REC_LONG, REC_LONG_NEW = 1200, 16
 REC_PARITY_LAYERS = {HYMBA: 4, XLSTM: 8}
 REC_ORACLE_CUT = {HYMBA: dict(n_layers=1),
@@ -510,6 +532,7 @@ class Port:
         from repro_torch.kernels import lowrank_matmul as lm
         from repro_torch.ckpt import store
         from repro_torch import pytree
+        from repro_torch.launch import dryrun, op_analysis
         from repro_torch.launch import serve as launch
         from repro_torch.models import mlp, ssm, transformer
         from repro_torch.optim import adamw
@@ -520,6 +543,8 @@ class Port:
         self.pytree, self.adamw, self.TS, self.loop, self.lora = (
             pytree, adamw, TS, loop, lora)
         self.store, self.launch, self.aot, self.api = store, launch, aot, api
+        self.dryrun, self.OA = dryrun, op_analysis
+        self.card = dryrun.H100_SXM
         self.get_config = get_config
         self.capture, self.compress = capture, compress
         self.synthetic = synthetic
@@ -630,8 +655,11 @@ def timed(torch, owner, name: str, sink: list):
 
 
 def bound_ms(nbytes: float, ops: float, dtype: str):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    """The card's least time for ``nbytes`` moved and ``ops`` done, by the
+    data-sheet rates of ``launch/dryrun.py`` (``H100_SXM``)."""
+    from repro_torch.launch.dryrun import H100_SXM
+    t_bytes = nbytes / H100_SXM.hbm_bytes_per_s * 1e3
+    t_ops = ops / H100_SXM.peak_ops_per_s[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2562,23 +2590,209 @@ def replica_graphs(port):
 
 
 # ---------------------------------------------------------------------------
+# The launch accounting (launch/dryrun.py, launch/op_analysis.py)
+# ---------------------------------------------------------------------------
+def allocator_peak_blocks(torch, fn, top: int = 8):
+    """The caching allocator's view of one run of ``fn``: its memory
+    history replayed to the moment the most bytes were allocated, and the
+    block sizes live then (size: count), largest first. For a predicted
+    peak that missed."""
+    torch.cuda.memory._record_memory_history(max_entries=1_000_000)
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    del out
+    live, cur, best, best_live = {}, 0, 0, {}
+    for ev in snap["device_traces"][0]:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = ev["size"]
+            cur += ev["size"]
+            if cur > best:
+                best, best_live = cur, dict(live)
+        elif ev["action"] in ("free_requested", "free_completed"):
+            cur -= live.pop(ev["addr"], 0)
+    sizes = {}
+    for n in best_live.values():
+        sizes[n] = sizes.get(n, 0) + 1
+    return best, sorted(sizes.items(), key=lambda kv: -kv[0] * kv[1])[:top]
+
+
+def account_step(port, name: str, fn, args, ms: float,
+                 model_flops: float) -> dict:
+    """The op counter (``launch/op_analysis.py``) on one step that an
+    earlier phase runs: the step counted once on the card and once on
+    ``meta``, which must give identical FLOPs and bytes (both byte models,
+    every op and kernel) and argument bytes; the step's own bytes at its
+    peak, predicted by the meta count, against ``max_memory_allocated``
+    less ``memory_allocated`` over an uncounted run of the same step, taken
+    after ``reset_peak_memory_stats``, held to 10% (the allocator's blocks
+    at its peak printed before it fails), and the whole peak (the arguments
+    as the card counts them plus those bytes) against the prediction;
+    model and counted FLOPs over
+    ``ms`` (the step's time, measured by the phase) as shares of the
+    card's bf16 peak; the roofline's dominant term against ``ms``."""
+    torch, OA, card = port.torch, port.OA, port.card
+    t0 = time.perf_counter()
+    on_card = OA.count(fn, *args)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    del on_card["out"]
+    meta = OA.count(fn, *OA.to_meta(args))
+    del meta["out"]
+    keys = ("flops", "bytes", "per_op", "kernels")
+    if any(on_card[k] != meta[k] for k in keys):
+        diff = {op: (on_card["per_op"].get(op), meta["per_op"].get(op))
+                for op in set(on_card["per_op"]) | set(meta["per_op"])
+                if on_card["per_op"].get(op) != meta["per_op"].get(op)}
+        raise AssertionError(f"{name}: the card's count differs from "
+                             f"meta's: {diff}; kernels {on_card['kernels']}"
+                             f" against {meta['kernels']}")
+    mem, card_mem = meta["memory"], on_card["memory"]
+    if card_mem["argument_bytes"] != mem["argument_bytes"]:
+        raise AssertionError(f"{name}: argument bytes on the card "
+                             f"{card_mem['argument_bytes']}, on meta "
+                             f"{mem['argument_bytes']}")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = fn(*args)
+    torch.cuda.synchronize()
+    top = torch.cuda.max_memory_allocated()
+    del res
+    own = top - before
+    own_pred = mem["peak_bytes"] - mem["argument_bytes"]
+    own_miss = abs(own_pred - own) / own
+    measured = card_mem["argument_bytes"] + own
+    miss = abs(mem["peak_bytes"] - measured) / measured
+    rf = port.dryrun.roofline(meta["flops"], meta["bytes"], 0.0,
+                              model_flops, 1)
+    resident = sum(k["resident"] for k in meta["kernels"].values())
+    plain = sum(k["plain"] for k in meta["kernels"].values())
+    out = {"flops": meta["flops"], "bytes": meta["bytes"],
+           "bytes_resident": meta["bytes"] - plain + resident,
+           "per_op": meta["per_op"], "kernels": meta["kernels"],
+           "memory": mem, "measured_peak": measured,
+           "max_memory_allocated": top, "allocated_before": before,
+           "own_predicted": own_pred, "own_measured": own,
+           "own_miss": own_miss, "peak_miss": miss, "ms": ms,
+           "model_share": model_flops / (ms * 1e-3) / card.peak_flops,
+           "counted_share": meta["flops"] / (ms * 1e-3) / card.peak_flops,
+           "roofline": rf, "count_s": meta["count_s"], "card_count_s": card_s}
+    needed = sum(k["flops_needed"] for k in meta["kernels"].values())
+    log(f"  accounting, {name}: counted on the card ({card_s:.2f} s) and "
+        f"on meta ({meta['count_s']:.2f} s), identical: "
+        f"{meta['flops'] / 1e12:.4f} TFLOP, {meta['bytes'] / 1e9:.3f} GB "
+        f"(kernels' intermediates resident: "
+        f"{out['bytes_resident'] / 1e9:.3f} GB); kernels "
+        + ", ".join(f"{k} x{v['calls']}" for k, v in meta["kernels"].items())
+        + f" (their FLOPs the plain products'; what the masks keep "
+        f"{needed / 1e12:.4f} T of {sum(k['flops'] for k in meta['kernels'].values()) / 1e12:.4f})")
+    log(f"    the step's own bytes at its peak: predicted {own_pred} "
+        f"against measured {own} (max_memory_allocated {top} less "
+        f"{before} allocated before): "
+        f"{'within' if own_miss <= 0.1 else 'MISSED'} 10% "
+        f"({own_miss:.2%}); the whole peak: predicted "
+        f"{mem['peak_bytes'] / 2 ** 30:.4f} GiB (arguments "
+        f"{mem['argument_bytes'] / 2 ** 30:.4f}, the card's the same) "
+        f"against {measured / 2 ** 30:.4f} GiB ({miss:.2%}); {card_line()}")
+    log(f"    FLOPs over the measured {ms:.3f} ms: model "
+        f"{model_flops / 1e12:.4f} T = {out['model_share']:.2%}, counted "
+        f"{out['counted_share']:.2%} of 989 TFLOP/s bf16; roofline "
+        f"compute {rf['compute_s'] * 1e3:.3f} ms, memory "
+        f"{rf['memory_s'] * 1e3:.3f} ms (resident "
+        f"{out['bytes_resident'] / card.hbm_bytes_per_s * 1e3:.3f}): "
+        f"dominant {rf['dominant']} "
+        f"{max(rf['compute_s'], rf['memory_s']) * 1e3:.3f} ms against "
+        f"{ms:.3f} ms measured")
+    if own_miss > 0.1:
+        best, sizes = allocator_peak_blocks(torch, lambda: fn(*args))
+        log(f"    the allocator's history at its peak ({best} bytes of the "
+            f"step's blocks): " + ", ".join(f"{n} B x{c}" for n, c in sizes))
+        raise AssertionError(f"{name}: the step's own peak bytes predicted "
+                             f"{own_pred}, measured {own} ({own_miss:.2%} "
+                             f"off, the tier 10%)")
+    return out
+
+
+def accounting_phase(port, dev, cfg, comp) -> dict:
+    """The op counter on a D-Rank decode step of the batcher's shape
+    (batch 8, max_len 256, contiguous pool, live lengths 73-80) and on one
+    prefill of 512 rows (8 x 64), each on the card and on meta; then three
+    full-size cells counted on meta alone on a (1, 1) mesh
+    (``launch/dryrun.account_cell``)."""
+    torch, T, D = port.torch, port.T, port.dryrun
+    params = port.engine.place_params(comp, T.dtype_of(cfg.dtype), dev)
+    out = {}
+    rng = np.random.default_rng(11)
+    cache = T.init_cache(cfg, CB_BATCH, CB_MAX_LEN, device=dev)
+    cache["pos"].copy_(torch.arange(72, 72 + CB_BATCH, device=dev))
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (CB_BATCH, 1),
+                                       dtype=np.int32), device=dev)
+
+    def decode(p, c, t):
+        with torch.no_grad():
+            return T.decode_step(p, cfg, c, t)[0]
+
+    ms = host_ms(torch, lambda: decode(params, cache, tok))
+    mf = D.model_flops(cfg, D.ShapeConfig("chip_decode", CB_MAX_LEN,
+                                          CB_BATCH, "decode"), params)
+    out["decode"] = account_step(
+        port, f"D-Rank decode step (batch {CB_BATCH}, max_len "
+        f"{CB_MAX_LEN})", decode, (params, cache, tok), ms, mf)
+    del cache
+    prompts = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT), dtype=np.int32),
+        device=dev)
+
+    def prefill(p, b):
+        with torch.no_grad():
+            return T.prefill(p, cfg, b, max_len=GEN_PROMPT + GEN_NEW + 1)
+
+    batch = {"tokens": prompts}
+    ms = host_ms(torch, lambda: prefill(params, batch))
+    mf = D.model_flops(cfg, D.ShapeConfig("chip_prefill", GEN_PROMPT,
+                                          GEN_BATCH, "prefill"), params)
+    out["prefill"] = account_step(
+        port, f"D-Rank prefill ({GEN_BATCH} x {GEN_PROMPT} = "
+        f"{GEN_BATCH * GEN_PROMPT} rows)", prefill, (params, batch), ms, mf)
+    del params
+    from repro_torch.launch.mesh import Mesh
+    mesh = Mesh((1, 1), ("data", "model"), rank=0, build_groups=False)
+    out["cells"] = {}
+    for arch, shape in ACCOUNT_CELLS:
+        res = D.account_cell(arch, shape, mesh)
+        m, rf = res["memory"], res["roofline"]
+        out["cells"][f"{arch}/{shape}"] = {
+            "fits": res["fits"], "count_s": res["count_s"],
+            "peak_bytes": m["peak_bytes"], "dominant": rf["dominant"]}
+        log(f"  {arch} x {shape} on a (1, 1) mesh, counted on meta in "
+            f"{res['count_s']:.2f} s: peak {m['peak_bytes'] / 1e9:.1f} GB "
+            f"(arguments {m['argument_bytes'] / 1e9:.1f}), fits "
+            f"{res['fits']}; {res['cost']['counted_flops'] / 1e15:.2f} "
+            f"PFLOP counted, model {res['model_flops'] / 1e15:.2f}; "
+            f"dominant {rf['dominant']} "
+            f"({max(rf['compute_s'], rf['memory_s']):.3f} s)")
+    return out
+
+
+def host_ms(torch, fn, reps: int = 3) -> float:
+    """Host ms of ``fn`` between syncs, mean of ``reps`` runs after one."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+# ---------------------------------------------------------------------------
 # The training path: Trainer, resume, card against CPU, compress the
 # trained model, LoRA, and the train / serve --ckpt CLIs
 # ---------------------------------------------------------------------------
-def model_flops(cfg, n_params: int, rows: int, seq: int):
-    """(6·params·tokens + causal attention, fwd + bwd; one more forward of
-    the layers that remat recomputes) for one step of ``rows`` × ``seq``
-    tokens. Attention: QKᵀ and PV, half the S² pairs (causal), 2 flops a
-    multiply-add, 3× for forward and backward."""
-    tokens = rows * seq
-    attn_fwd = (2 * 2 * rows * cfg.n_heads * seq * seq * cfg.head_dim / 2
-                * cfg.n_layers)
-    layer_params = n_params - cfg.vocab_size * cfg.d_model
-    model = 6 * n_params * tokens + 3 * attn_fwd
-    recompute = 2 * layer_params * tokens + attn_fwd
-    return model, recompute
-
-
 def cut_layers(port, params, n: int):
     """The first ``n`` layers of a one-run stacked params tree."""
     run = port.pytree.tree_map(lambda t: t[:n], params["decoder"]["run0"])
@@ -2684,33 +2898,39 @@ def train_path(port, dev):
     del tr2, res2
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
 
-    # the step alone: host ms and tokens/s over 3 steps after a warm one,
-    # flash launches a step, and one profiled step
+    # the step alone, from the trained state: host ms and tokens/s over 3
+    # steps after a warm one, then one profiled step and its flash launches
     step_fn = TS.make_train_step(cfg, tcfg)
     batch = {k: torch.as_tensor(v, device=dev)
              for k, v in tr.loader.batch(0).items()}
     state = tr.state
-    state, _ = step_fn(state, batch)
-    torch.cuda.synchronize()
+    ms = host_ms(torch, lambda: step_fn(state, batch))
     f0 = port.wrappers["flash_attention"].launches
-    t0 = time.perf_counter()
-    for _ in range(3):
-        state, m = step_fn(state, batch)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / 3 * 1e3
-    flash_step = (port.wrappers["flash_attention"].launches - f0) / 3
     host, busy, ours, launches, kernels, top = profile_train_step(
         port, step_fn, state, batch)
-    del state, m
+    flash_step = port.wrappers["flash_attention"].launches - f0
+    shape = port.dryrun.ShapeConfig("chip_train", TRAIN_SEQ, TRAIN_BATCH,
+                                    "train")
+    flops = port.dryrun.model_flops(cfg, shape, state.params)
+    acct = account_step(port, f"train step ({TRAIN_BATCH} x {TRAIN_SEQ}, "
+                        f"{TRAIN_MICRO} microbatches)", step_fn,
+                        (state, batch), ms, flops)
+    del state
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops, recompute = model_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
-    share = flops / (ms * 1e-3) / PEAK_OPS_PER_S["bfloat16"]
+    share = flops / (ms * 1e-3) / port.card.peak_flops
+    # QKᵀ and PV: the flash kernels' (forward and remat recompute) and the
+    # flash backward's, traced (its recompute and its grads: the step's
+    # only batched products)
+    attention = (acct["kernels"]["flash_attention"]["flops"]
+                 + acct["per_op"].get("bmm", {}).get("flops", 0.0))
     log(f"  train step: {ms:.2f} ms/step, {tokens / ms * 1e3:.0f} tokens/s "
         f"(host clock between syncs, 3 steps); model FLOPs "
-        f"{flops / 1e12:.3f} T a step (6·params·tokens + causal "
-        f"attention), {share:.2%} of 989 TFLOP/s bf16; remat recompute "
-        f"{recompute / 1e12:.3f} T more ({(flops + recompute) / (ms * 1e-3) / PEAK_OPS_PER_S['bfloat16']:.2%} "
-        f"with it); flash launches a step "
+        f"{flops / 1e12:.3f} T a step (6·N·D, launch/dryrun.model_flops), "
+        f"{share:.2%} of 989 TFLOP/s bf16; counted "
+        f"{acct['flops'] / 1e12:.3f} T ({acct['counted_share']:.2%}), of "
+        f"them attention {attention / 1e12:.3f} T (QKᵀ and PV of the flash "
+        f"forward, its remat recompute and its backward, counted apart "
+        f"from the model FLOPs); flash launches a step "
         f"{flash_step:.0f} (expected {2 * cfg.n_layers * TRAIN_MICRO}: "
         f"forward and remat recompute, per layer and microbatch)")
     log(f"  profiled step: {host:.2f} ms on the host clock under the "
@@ -2725,7 +2945,8 @@ def train_path(port, dev):
                flop_share=share, idle=1 - busy / host,
                idle_estimate=1 - busy / ms, peak_gib=peak,
                flash_per_step=flash_step, busy_ms=busy,
-               launches_per_step=launches)
+               launches_per_step=launches, accounting=acct,
+               attention_flops=attention)
 
     # (c) float32, card against CPU: one train step of a 2-layer SmolLM
     # from the same weights, TF32 off, at lr 1e-3 from its first step. The
@@ -4709,12 +4930,35 @@ def mesh_train(port, dev, rank: int, comm) -> dict:
                 "ms_per_step": (time.perf_counter() - t0) / DP_STEPS * 1e3,
                 "all_reduce_ms": (c.seconds.get("all_reduce", 0.0) - ar)
                 / DP_STEPS * 1e3, "launches": port.counts()}
-    out = {"world2": run(rank, MESH_WORLD)}
+    out = {"world2": run(rank, MESH_WORLD), "dp_bytes": dp_step_bytes(
+        port, dev, comm, cfg, tcfg)}
     if rank == 0:
         out["world1"] = run(0, 1)
     comm.barrier()
     torch.cuda.empty_cache()
     return out
+
+
+def dp_step_bytes(port, dev, comm, cfg, tcfg) -> dict:
+    """One data-parallel step at world 2: the result bytes per collective
+    family that ``Comm.report()`` shows for it, and the op counter's count
+    of the same step on meta (``dist.comm.counting``)."""
+    import torch.distributed as dist
+    torch, TS, OA = port.torch, port.TS, port.OA
+    state, _ = TS.init_train_state(cfg, seed=0, device=dev)
+    batch = {"tokens": torch.zeros((DP_ROWS // MESH_WORLD, DP_SEQ),
+                                   dtype=torch.int32, device=dev)}
+    step = TS.make_train_step(cfg, tcfg, group=dist.group.WORLD)
+    before = dict(comm.current().report()["bytes"])
+    new, _ = step(state, batch)
+    torch.cuda.synchronize()
+    after = comm.current().report()["bytes"]
+    counted = OA.count(step, *OA.to_meta((state, batch)), world=MESH_WORLD)
+    del new, state, counted["out"]
+    return {"real": {k: v - before.get(k, 0) for k, v in after.items()
+                     if v != before.get(k, 0)},
+            "counted": counted["collectives"]["per_op"],
+            "calls": counted["collectives"]["calls"]}
 
 
 def mesh_moe(port, dev, rank: int, comm) -> dict:
@@ -4961,6 +5205,14 @@ def check_mesh_ranks(ranks, plan, col, eager, chain, out) -> None:
         f"{d1['world2']['all_reduce_ms']:.1f} ms (one flat bucket, "
         f"staged through pinned host memory); world 1 "
         f"{w1['ms_per_step']:.1f} ms/step; {card_line()}")
+    for r, d in enumerate((d0, d1)):
+        log(f"  accounting, one DP step at world {MESH_WORLD} on rank {r}: "
+            f"counted on meta {d['dp_bytes']['counted']} "
+            f"({d['dp_bytes']['calls']}), Comm.report() "
+            f"{d['dp_bytes']['real']} (result bytes per family)")
+        assert d["dp_bytes"]["counted"] == d["dp_bytes"]["real"], \
+            "counted collective bytes differ from the real step's"
+        assert d["dp_bytes"]["real"].get("all_reduce", 0) > 0
     assert d0["world2"]["losses"] == d1["world2"]["losses"]
     assert loss_rel < 1e-5, "data-parallel losses differ from one process"
     assert d0["world2"]["launches"]["flash_attention"] > 0
@@ -5071,6 +5323,9 @@ def main() -> int:
         profile_decode(port, dev, cfg, comp)
     with Phase("parity: float32, card kernels against CPU plain versions"):
         parity(port, dev, cfg, comp)
+    with Phase("accounting: the op counter on a decode step and a prefill, "
+               "on the card and on meta; full-size cells on meta"):
+        acct = accounting_phase(port, dev, cfg, comp)
     del params, comp
     torch.cuda.empty_cache()
     try:
@@ -5119,6 +5374,23 @@ def main() -> int:
         + ", ".join(f"{x:.2f}" for x in train["save_s"]) + " s; LoRA "
         f"{train['lora_ms']:.1f} ms/step; perplexity (synthetic data) "
         + ", ".join(f"{k} {v:.2f}" for k, v in train["ppl"].items()))
+    for name, a in (("D-Rank decode step", acct["decode"]),
+                    ("D-Rank prefill", acct["prefill"]),
+                    ("train step", train["accounting"])):
+        rf = a["roofline"]
+        log(f"accounting, {name}: card count = meta count; the step's own "
+            f"peak bytes predicted {a['own_predicted']}, measured "
+            f"{a['own_measured']} ({a['own_miss']:.2%}); whole peak "
+            f"predicted {a['memory']['peak_bytes'] / 2 ** 30:.4f} GiB, "
+            f"measured {a['measured_peak'] / 2 ** 30:.4f} GiB "
+            f"({a['peak_miss']:.2%}); "
+            f"model FLOPs {a['model_share']:.2%}, counted "
+            f"{a['counted_share']:.2%} of 989 TFLOP/s; roofline "
+            f"{rf['dominant']} {max(rf['compute_s'], rf['memory_s']) * 1e3:.3f}"
+            f" ms against {a['ms']:.3f} ms")
+    log("accounting, full-size cells on meta: " + "; ".join(
+        f"{k} fits {v['fits']} (peak {v['peak_bytes'] / 1e9:.1f} GB, "
+        f"{v['count_s']:.2f} s)" for k, v in acct["cells"].items()))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = times[name]

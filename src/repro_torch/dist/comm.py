@@ -38,6 +38,15 @@ Nothing falls back: a failed collective raises, and the backend never
 changes after :func:`init`. A CPU tensor under ``nccl`` goes through the
 rank's card and back (only the host-side integer counts of calibration do
 that).
+
+Each wrapper adds its result's bytes to :attr:`Comm.bytes` under its family
+(``all_reduce``, ``all_gather``, ``all_to_all``, ``broadcast``), the
+quantity JAX's dry-run reads from the HLO. Under :class:`counting` no
+process group is needed: every wrapper records its family and result bytes
+the same way and returns a ``meta`` tensor of the result's shape, and a
+shapes-only mesh (``launch.mesh.Mesh(..., build_groups=False)``) hands out
+:class:`CountedGroup` objects. That is how ``launch.op_analysis`` counts a
+step's collectives.
 """
 from __future__ import annotations
 
@@ -45,7 +54,7 @@ import datetime
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 import torch
 import torch.distributed as dist
@@ -65,16 +74,67 @@ class Comm:
     staged_bytes: int = 0        # bytes copied through pinned host memory
     calls: Dict[str, int] = field(default_factory=dict)
     seconds: Dict[str, float] = field(default_factory=dict)
+    bytes: Dict[str, int] = field(default_factory=dict)   # result bytes
 
     def report(self) -> Dict:
         """What a run's report carries about its collectives."""
         return {"backend": self.backend, "transport": self.transport,
                 "world": self.world, "staged_bytes": self.staged_bytes,
-                "calls": dict(self.calls),
+                "calls": dict(self.calls), "bytes": dict(self.bytes),
                 "seconds": {k: round(v, 6) for k, v in self.seconds.items()}}
 
 
-_STATE: Dict[str, Optional[Comm]] = {"comm": None}
+@dataclass
+class Count:
+    """What a step's collectives move, counted without a process group:
+    calls and result bytes per family (as :class:`Comm` records them)."""
+    world: int
+    calls: Dict[str, int] = field(default_factory=dict)
+    bytes: Dict[str, int] = field(default_factory=dict)
+
+    def record(self, name: str, shape, dtype: torch.dtype) -> torch.Tensor:
+        out = torch.empty(tuple(shape), dtype=dtype, device="meta")
+        self.calls[name] = self.calls.get(name, 0) + 1
+        self.bytes[name] = (self.bytes.get(name, 0)
+                            + out.numel() * out.element_size())
+        return out
+
+
+class CountedGroup:
+    """A mesh axis group under :class:`counting`: its axes and size, no
+    ranks behind it."""
+
+    def __init__(self, axes, size: int):
+        self.axes, self.size = tuple(axes), int(size)
+
+    def __repr__(self) -> str:
+        return f"CountedGroup({self.axes}, {self.size})"
+
+
+_STATE: Dict[str, object] = {"comm": None, "count": None}
+
+
+class counting:
+    """Context manager: the wrappers count instead of communicating. ``world``
+    is the size of the default group (``group=None``). Yields the
+    :class:`Count`."""
+
+    def __init__(self, world: int = 1):
+        self.count = Count(world=int(world))
+
+    def __enter__(self) -> Count:
+        if _STATE["count"] is not None:
+            raise RuntimeError("comm.counting: already counting")
+        _STATE["count"] = self.count
+        return self.count
+
+    def __exit__(self, *exc):
+        _STATE["count"] = None
+        return False
+
+
+def is_counting() -> bool:
+    return _STATE["count"] is not None
 
 
 def choose_backend(world: int, device: torch.device,
@@ -142,6 +202,8 @@ def shutdown() -> None:
 
 
 def barrier() -> None:
+    if is_counting():
+        return
     comm = current()
     if comm.backend == "nccl":
         dist.barrier(device_ids=[comm.device.index])
@@ -188,8 +250,11 @@ def _empty_wire(shape, like: torch.Tensor, comm: Comm) -> torch.Tensor:
 
 
 class _timed:
-    def __init__(self, comm: Comm, name: str):
-        self.comm, self.name = comm, name
+    """Times one collective of family ``name``, adding its result's bytes
+    (``nbytes``) to the family's."""
+
+    def __init__(self, comm: Comm, name: str, nbytes: int):
+        self.comm, self.name, self.nbytes = comm, name, nbytes
 
     def __enter__(self):
         self.t0 = time.perf_counter()
@@ -200,7 +265,15 @@ class _timed:
         c.calls[self.name] = c.calls.get(self.name, 0) + 1
         c.seconds[self.name] = (c.seconds.get(self.name, 0.0)
                                 + time.perf_counter() - self.t0)
+        c.bytes[self.name] = c.bytes.get(self.name, 0) + self.nbytes
         return False
+
+
+def _nbytes(shape, x: torch.Tensor) -> int:
+    n = x.element_size()
+    for d in shape:
+        n *= int(d)
+    return n
 
 
 class _SelfGroup:
@@ -215,7 +288,13 @@ SELF = _SelfGroup()
 
 
 def _size(group) -> int:
-    return 1 if group is SELF else dist.get_world_size(group)
+    if group is SELF:
+        return 1
+    if isinstance(group, CountedGroup):
+        return group.size
+    if group is None and is_counting():
+        return _STATE["count"].world
+    return dist.get_world_size(group)
 
 
 # A group of one rank that torch does hold (the world at world size 1) runs
@@ -228,10 +307,12 @@ def _size(group) -> int:
 # ---------------------------------------------------------------------------
 def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     """``lax.psum``: the sum of ``x`` over the group, on every rank."""
-    comm = current()
     if group is SELF:
         return x.clone()
-    with _timed(comm, "all_reduce"):
+    if is_counting():
+        return _STATE["count"].record("all_reduce", x.shape, x.dtype)
+    comm = current()
+    with _timed(comm, "all_reduce", _nbytes(x.shape, x)):
         w = _wire(x, comm)
         dist.all_reduce(w, op=dist.ReduceOp.SUM, group=group)
         return _back(w, x, comm)
@@ -245,13 +326,16 @@ def all_reduce_mean(x: torch.Tensor, group=None) -> torch.Tensor:
 def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     """``lax.all_gather(x, axis=0, tiled=True)``: every rank's ``x``
     concatenated along dim 0 in group-rank order."""
-    comm = current()
     if group is SELF:
         return x.clone()
     n = _size(group)
-    with _timed(comm, "all_gather"):
+    shape = (n * x.shape[0],) + tuple(x.shape[1:])
+    if is_counting():
+        return _STATE["count"].record("all_gather", shape, x.dtype)
+    comm = current()
+    with _timed(comm, "all_gather", _nbytes(shape, x)):
         w = _wire(x, comm)
-        out = _empty_wire((n * x.shape[0],) + tuple(x.shape[1:]), x, comm)
+        out = _empty_wire(shape, x, comm)
         dist.all_gather_into_tensor(out, w, group=group)
         return _back(out, x, comm)
 
@@ -260,14 +344,16 @@ def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
     """``lax.all_to_all(x, axis, 0, 0, tiled=False)`` on ``x (n, cap,
     ...)``, n the group's size: block j of ``x`` goes to rank j, and block
     i of the result is what rank i sent here."""
-    comm = current()
     n = _size(group)
     if x.shape[0] != n:
         raise ValueError(f"all_to_all: leading dim {x.shape[0]} is not the "
                          f"group's size {n}")
     if group is SELF:
         return x.clone()
-    with _timed(comm, "all_to_all"):
+    if is_counting():
+        return _STATE["count"].record("all_to_all", x.shape, x.dtype)
+    comm = current()
+    with _timed(comm, "all_to_all", _nbytes(x.shape, x)):
         w = _wire(x, comm)
         out = _empty_wire(tuple(x.shape), x, comm)
         dist.all_to_all_single(out, w, group=group)
@@ -277,10 +363,12 @@ def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
 def broadcast(x: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     """The value that group rank ``src`` holds, on every rank of the
     group (``x`` gives the shape and dtype on the others)."""
-    comm = current()
     if group is SELF:
         return x.clone()
-    with _timed(comm, "broadcast"):
+    if is_counting():
+        return _STATE["count"].record("broadcast", x.shape, x.dtype)
+    comm = current()
+    with _timed(comm, "broadcast", _nbytes(x.shape, x)):
         w = _wire(x, comm)
         gsrc = (src if group is None
                 else dist.get_global_rank(group, src))

@@ -19,9 +19,23 @@ stay forward-only. ``decode_attention`` and ``gram`` are inference-only;
 A meta tensor (shapes only, no data) takes the plain version: that is how
 ``core.capture.discover_capture_dims`` walks a forward pass without running
 it, as the JAX package does under ``jax.eval_shape``.
+
+While ``launch.op_analysis.Counter`` counts a step it sits in ``_COUNTER``,
+and each wrapper reports its call by its own formula (``*_cost``): the
+FLOPs of the plain product, as JAX's dry-run counts them (the full masked
+score tile; causal blocks that the kernel skips are not subtracted, and
+``flops_needed`` gives what the mask keeps), and its bytes under two
+models, ``plain`` (the intermediates that the plain version materialises,
+each written and read once: low-rank ``t``, the float32 score tile, the
+gathered paged cache) and ``resident`` (those stay on chip). The CUDA
+kernels are ``ctypes`` calls that no dispatch mode sees, and the plain
+version's ops would count another algorithm, so what runs inside a wrapper
+is hidden from the counter, and under the counter a meta call returns an
+output of the right shape without running anything.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -36,6 +50,97 @@ from repro_torch.kernels.lowrank_matmul import lowrank_gemv, lowrank_matmul_2d
 # At or below this many flattened rows the low-rank matmul is decode-shaped:
 # route to the weight-streaming kernel instead of the prefill tiler.
 GEMV_MAX_ROWS = 64
+
+# the op counter while it counts a step (launch.op_analysis.Counter)
+_COUNTER = None
+
+
+# ---------------------------------------------------------------------------
+# each kernel's work by its own formula: {flops, plain, resident} (bytes)
+# ---------------------------------------------------------------------------
+def _nb(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def lowrank_cost(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor) -> dict:
+    """y = (x@B)@C over x's flattened rows, in x's dtype: two products;
+    ``t`` (M, R) in x's dtype is the plain version's intermediate."""
+    K, R, N = B.shape[0], B.shape[1], C.shape[-1]
+    M = x.numel() // K
+    es = x.element_size()
+    resident = _nb(x, B, C) + M * N * es
+    return {"flops": 2.0 * M * R * (K + N), "resident": resident,
+            "plain": resident + 2 * M * R * es}
+
+
+def _pairs(S: int, T: int, causal: bool, window: int) -> int:
+    """(query, key) pairs that the mask keeps, query i at position i, key j
+    at j: causal j <= i, window j > i - window."""
+    if causal:
+        hi = S * (S + 1) // 2 if S <= T else T * (T + 1) // 2 + (S - T) * T
+    else:
+        hi = S * T
+    lo = 0
+    if window and S > window:          # keys at or below i - window
+        n = S - window
+        lo = n * (n + 1) // 2
+    return hi - lo
+
+
+def flash_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool, window: int) -> dict:
+    """QKᵀ and PV over the full (S, T) tile of every head; the plain
+    version's float32 score tile is written once and read once."""
+    Bb, S, H, hd = q.shape
+    T = k.shape[1]
+    resident = _nb(q, k, v) + q.numel() * q.element_size()
+    return {"flops": 4.0 * Bb * H * S * T * hd,
+            "flops_needed": 4.0 * Bb * H * _pairs(S, T, causal, window) * hd,
+            "resident": resident, "plain": resident + 2 * Bb * H * S * T * 4}
+
+
+def decode_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                lengths: torch.Tensor) -> dict:
+    """One query a row against the whole (B, L) cache, as the plain version
+    (dead and unwritten slots masked, not skipped)."""
+    Bb, H, hd = q.shape
+    L = k.shape[1]
+    resident = _nb(q, k, v, lengths) + q.numel() * q.element_size()
+    return {"flops": 4.0 * Bb * H * L * hd, "resident": resident,
+            "plain": resident + 2 * Bb * H * L * 4}
+
+
+def decode_paged_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      lengths: torch.Tensor, table: torch.Tensor) -> dict:
+    """The contiguous formula over the table's NB·bk slots a row; only the
+    blocks the table names are read. The plain version gathers them into a
+    contiguous copy first (written and read once)."""
+    Bb, H, hd = q.shape
+    L = table.shape[1] * k.shape[1]
+    kv = 2 * Bb * L * k.shape[2] * hd * k.element_size()
+    resident = (_nb(q, lengths, table) + q.numel() * q.element_size() + kv)
+    return {"flops": 4.0 * Bb * H * L * hd, "resident": resident,
+            "plain": resident + 2 * kv + 2 * Bb * H * L * 4}
+
+
+def gram_cost(x2: torch.Tensor, out: Optional[torch.Tensor]) -> dict:
+    """XᵀX (N, D) into a float32 (D, D), read first when accumulated."""
+    N, D = x2.shape
+    nb = _nb(x2) + D * D * 4 * (1 if out is None else 2)
+    return {"flops": 2.0 * N * D * D, "resident": nb, "plain": nb}
+
+
+_NOT_COUNTING = contextlib.nullcontext(False)
+
+
+def _kernel_call(name: str, t: torch.Tensor, cost):
+    """Around a wrapper's work: under the op counter, its ``kernel_call``
+    (report ``cost()``, hide the work's ops; True where the call must not
+    run: a meta tensor); otherwise a context that yields False."""
+    counter = _COUNTER
+    if counter is None:
+        return _NOT_COUNTING
+    return counter.kernel_call(name, t, cost)
 
 
 def _route(t: torch.Tensor, what: str) -> bool:
@@ -55,19 +160,22 @@ def _lowrank_fwd_impl(x: torch.Tensor, B: torch.Tensor,
                       C: torch.Tensor) -> torch.Tensor:
     *lead, K = x.shape
     N = C.shape[-1]
-    x2 = x.reshape(-1, K)
-    B = B.to(x.dtype)
-    C = C.to(x.dtype)
-    if not _route(x, "lowrank_matmul"):
-        y = ref.lowrank_matmul(x2, B, C)
-    else:
-        # the kernels read row-major operands; a view that is not one (a
-        # slice, a transpose) is copied once here
-        x2, B, C = x2.contiguous(), B.contiguous(), C.contiguous()
-        kernel = (lowrank_gemv if x2.shape[0] <= GEMV_MAX_ROWS
-                  else lowrank_matmul_2d)
-        y = kernel(x2, B, C)
-    return y.reshape(*lead, N)
+    gemv = x.numel() // K <= GEMV_MAX_ROWS
+    with _kernel_call("lowrank_gemv" if gemv else "lowrank_matmul_2d", x,
+                      lambda: lowrank_cost(x, B, C)) as skip:
+        if skip:
+            return x.new_empty((*lead, N))
+        x2 = x.reshape(-1, K)
+        B = B.to(x.dtype)
+        C = C.to(x.dtype)
+        if not _route(x, "lowrank_matmul"):
+            y = ref.lowrank_matmul(x2, B, C)
+        else:
+            # the kernels read row-major operands; a view that is not one
+            # (a slice, a transpose) is copied once here
+            x2, B, C = x2.contiguous(), B.contiguous(), C.contiguous()
+            y = (lowrank_gemv if gemv else lowrank_matmul_2d)(x2, B, C)
+        return y.reshape(*lead, N)
 
 
 class _LowRank(torch.autograd.Function):
@@ -114,12 +222,16 @@ def lowrank_matmul(x: torch.Tensor, B: torch.Tensor,
 # flash attention
 # ---------------------------------------------------------------------------
 def _flash_fwd_impl(q, k, v, causal, window, softcap):
-    if not _route(q, "flash_attention"):
-        return ref.flash_attention(q, k, v, causal=causal, window=window,
-                                   softcap=softcap)
-    return flash_attention_bshd(q.contiguous(), k.contiguous(),
-                                v.contiguous(), causal=causal,
-                                window=window, softcap=softcap)
+    with _kernel_call("flash_attention", q,
+                      lambda: flash_cost(q, k, v, causal, window)) as skip:
+        if skip:
+            return q.new_empty(q.shape)
+        if not _route(q, "flash_attention"):
+            return ref.flash_attention(q, k, v, causal=causal,
+                                       window=window, softcap=softcap)
+        return flash_attention_bshd(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal=causal,
+                                    window=window, softcap=softcap)
 
 
 class _Flash(torch.autograd.Function):
@@ -158,15 +270,19 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, H, hd) — one new token per sequence; k/v: (B, L, KV, hd)
     cache pool; lengths: (B,) per-slot live length (pos + 1). window > 0 =
     ring-buffer cache layout. Returns (B, H, hd). Inference-only."""
-    if not _route(q, "decode_attention"):
-        return ref.decode_attention(q, k, v, lengths, window=window,
-                                    softcap=softcap)
-    B, H, hd = q.shape
-    KV = k.shape[2]
-    o = decode_attention_bkgh(q.reshape(B, KV, H // KV, hd), k, v,
-                              lengths.to(torch.int32), window=window,
-                              softcap=softcap)
-    return o.reshape(B, H, hd)
+    with _kernel_call("decode_attention", q,
+                      lambda: decode_cost(q, k, v, lengths)) as skip:
+        if skip:
+            return q.new_empty(q.shape)
+        if not _route(q, "decode_attention"):
+            return ref.decode_attention(q, k, v, lengths, window=window,
+                                        softcap=softcap)
+        B, H, hd = q.shape
+        KV = k.shape[2]
+        o = decode_attention_bkgh(q.reshape(B, KV, H // KV, hd), k, v,
+                                  lengths.to(torch.int32), window=window,
+                                  softcap=softcap)
+        return o.reshape(B, H, hd)
 
 
 def decode_attention_paged(q: torch.Tensor, k: torch.Tensor,
@@ -177,15 +293,19 @@ def decode_attention_paged(q: torch.Tensor, k: torch.Tensor,
     block arena (block 0 the null block); lengths: (B,) live length per
     slot (pos + 1; 0: a dead slot, exact-zero row); table: (B, NB) block
     table. Returns (B, H, hd). Inference-only, full layout only."""
-    if not _route(q, "decode_attention_paged"):
-        return ref.decode_attention_paged(q, k, v, lengths, table,
-                                          softcap=softcap)
-    B, H, hd = q.shape
-    KV = k.shape[2]
-    o = decode_attention_paged_bkgh(
-        q.reshape(B, KV, H // KV, hd), k, v, lengths.to(torch.int32),
-        table.to(torch.int32), softcap=softcap)
-    return o.reshape(B, H, hd)
+    with _kernel_call("decode_attention_paged", q, lambda: decode_paged_cost(
+            q, k, v, lengths, table)) as skip:
+        if skip:
+            return q.new_empty(q.shape)
+        if not _route(q, "decode_attention_paged"):
+            return ref.decode_attention_paged(q, k, v, lengths, table,
+                                              softcap=softcap)
+        B, H, hd = q.shape
+        KV = k.shape[2]
+        o = decode_attention_paged_bkgh(
+            q.reshape(B, KV, H // KV, hd), k, v, lengths.to(torch.int32),
+            table.to(torch.int32), softcap=softcap)
+        return o.reshape(B, H, hd)
 
 
 # ---------------------------------------------------------------------------
@@ -197,7 +317,12 @@ def gram(x: torch.Tensor, out: Optional[torch.Tensor] = None
     With ``out`` ((D, D) float32), the Gram is added into it in place and
     ``out`` is returned: the streaming calibrator's fold."""
     x2 = x.reshape(-1, x.shape[-1])
-    if _route(x2, "gram"):
-        return gram_blocked(x2.contiguous(), out)
-    g = ref.gram(x2)
-    return g if out is None else out.add_(g)
+    with _kernel_call("gram_blocked", x2, lambda: gram_cost(x2, out)) as skip:
+        if skip:
+            D = x2.shape[1]
+            return out if out is not None else x2.new_empty(
+                (D, D), dtype=torch.float32)
+        if _route(x2, "gram"):
+            return gram_blocked(x2.contiguous(), out)
+        g = ref.gram(x2)
+        return g if out is None else out.add_(g)

@@ -16,7 +16,10 @@ Production topologies (TPU pods in the JAX package) are shapes only:
   single-pod:  (data=16, model=16)        = 256 ranks
   multi-pod:   (pod=2, data=16, model=16) = 512 ranks
 No run of the port needs them; ``make_production_mesh`` returns a mesh
-without groups for the sharding rules and the accounting.
+without groups for the sharding rules and the accounting. Under
+``dist.comm.counting`` a mesh without groups hands out
+``comm.CountedGroup`` objects (axes and size), so a step runs its collectives'
+counts (``launch.op_analysis``) without a process group.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
+from repro_torch.dist import comm
 from repro_torch.dist.comm import SELF
 
 
@@ -109,6 +113,8 @@ class Mesh:
         key = tuple(a for a in self.axis_names if a in key)
         if self._size_of(key) == 1:
             return SELF
+        if self.device_mesh is None and comm.is_counting():
+            return comm.CountedGroup(key, self._size_of(key))
         if self.device_mesh is None:
             raise RuntimeError(f"{self} is a shapes-only mesh: it has no "
                                f"process groups")

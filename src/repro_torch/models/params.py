@@ -66,6 +66,12 @@ class Builder:
     def normal(self, name: str, shape: Sequence[int],
                axes: Sequence[Optional[str]], scale: float = 0.02):
         assert len(shape) == len(axes), (name, shape, axes)
+        if self.device.type == "meta":      # shapes only: nothing to draw
+            self.params[name] = torch.empty(tuple(shape),
+                                            dtype=self.param_dtype,
+                                            device=self.device)
+            self.specs[name] = tuple(axes)
+            return
         arr = torch.randn(tuple(shape), generator=self.generator,
                           device=self.device, dtype=torch.float32) * scale
         self.params[name] = arr.to(self.param_dtype)

@@ -23,24 +23,28 @@ def _is_namedtuple(node) -> bool:
     return isinstance(node, tuple) and hasattr(node, "_fields")
 
 
+def _walk(node, path: Path, out: list) -> None:
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _walk(node[k], path + (("key", k),), out)
+    elif _is_namedtuple(node):
+        for f in node._fields:
+            _walk(getattr(node, f), path + (("name", f),), out)
+    elif isinstance(node, (list, tuple)):
+        for i, v in enumerate(node):
+            _walk(v, path + (("idx", i),), out)
+    else:
+        out.append((path, node))
+
+
 def flatten_with_path(tree) -> List[Tuple[Path, Any]]:
-    """[(path, leaf)] in ``jax.tree_util.tree_flatten_with_path`` order."""
+    """[(path, leaf)] in ``jax.tree_util.tree_flatten_with_path`` order.
+    The walkers here are module functions, not nested closures: a closure
+    that calls itself is a reference cycle, which would keep every leaf it
+    saw alive until Python's cyclic collector ran (gigabytes of a train
+    step's trees)."""
     out: List[Tuple[Path, Any]] = []
-
-    def walk(node, path):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], path + (("key", k),))
-        elif _is_namedtuple(node):
-            for f in node._fields:
-                walk(getattr(node, f), path + (("name", f),))
-        elif isinstance(node, (list, tuple)):
-            for i, v in enumerate(node):
-                walk(v, path + (("idx", i),))
-        else:
-            out.append((path, node))
-
-    walk(tree, ())
+    _walk(tree, (), out)
     return out
 
 
@@ -53,24 +57,24 @@ def tensors(tree) -> List[torch.Tensor]:
     return [x for x in leaves(tree) if isinstance(x, torch.Tensor)]
 
 
+def _build(node, it):
+    if isinstance(node, dict):
+        done = {k: _build(node[k], it) for k in sorted(node)}
+        return {k: done[k] for k in node}
+    if _is_namedtuple(node):
+        return type(node)(*(_build(getattr(node, f), it)
+                            for f in node._fields))
+    if isinstance(node, (list, tuple)):
+        seq = [_build(v, it) for v in node]
+        return seq if isinstance(node, list) else tuple(seq)
+    return next(it)
+
+
 def unflatten(tree, new_leaves) -> Any:
     """A tree shaped like ``tree`` holding ``new_leaves`` in flattening
     order (new containers; dict keys keep ``tree``'s insertion order)."""
     it = iter(new_leaves)
-
-    def build(node):
-        if isinstance(node, dict):
-            done = {k: build(node[k]) for k in sorted(node)}
-            return {k: done[k] for k in node}
-        if _is_namedtuple(node):
-            return type(node)(*(build(getattr(node, f))
-                                for f in node._fields))
-        if isinstance(node, (list, tuple)):
-            seq = [build(v) for v in node]
-            return seq if isinstance(node, list) else tuple(seq)
-        return next(it)
-
-    out = build(tree)
+    out = _build(tree, it)
     if next(it, it) is not it:
         raise ValueError("more leaves than the tree has places")
     return out

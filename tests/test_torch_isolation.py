@@ -31,7 +31,8 @@ def test_import_loads_no_jax():
             "repro_torch.optim.powersgd, repro_torch.train.step, "
             "repro_torch.train.loop, repro_torch.train.lora, "
             "repro_torch.launch.train, repro_torch.dist.comm, "
-            "repro_torch.dist.sharding, repro_torch.launch.mesh; "
+            "repro_torch.dist.sharding, repro_torch.launch.mesh, "
+            "repro_torch.launch.dryrun, repro_torch.launch.op_analysis; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.')); print(bad); sys.exit(1 if bad else 0)")
@@ -52,7 +53,8 @@ def test_sources_import_no_jax_and_nothing_of_repro():
             "serve/api.py", "launch/serve.py", "pytree.py",
             "optim/adamw.py", "optim/powersgd.py", "train/step.py",
             "train/loop.py", "train/lora.py", "launch/train.py",
-            "dist/comm.py", "dist/sharding.py", "launch/mesh.py"} <= names
+            "dist/comm.py", "dist/sharding.py", "launch/mesh.py",
+            "launch/dryrun.py", "launch/op_analysis.py"} <= names
     for path in SOURCES:
         text = path.read_text()
         assert not _JAX.search(text), f"{path} imports jax"

@@ -301,6 +301,25 @@ def test_expert_parallel_body_captures_no_expert_statistic(ranks):
     assert len(col.gram) == 2 * MOE["num_experts"]
 
 
+def test_counted_collectives_equal_the_bytes_comm_reports(ranks):
+    """A data-parallel step and an expert-parallel forward, counted on meta
+    by the counting comm (``launch.op_analysis``; the EP forward on a
+    shapes-only mesh), move the result bytes per family that the real run's
+    ``Comm.report()`` shows: one all_reduce of the grad bucket; three
+    all_to_alls (rows, routing metadata, rows back) and two broadcasts a
+    forward."""
+    _, outs = ranks
+    for out in outs:
+        assert out["dp_step_count"]["per_op"] == out["dp_step_bytes"]
+        assert set(out["dp_step_bytes"]) == {"all_reduce"}
+        assert out["dp_step_count"]["calls"] == {"all_reduce": 1}
+        assert out["ep_count"]["per_op"] == out["ep_bytes"]
+        assert out["ep_count"]["calls"] == {"all_to_all": 3, "broadcast": 2}
+        assert out["comm"]["bytes"]["all_to_all"] >= \
+            out["ep_bytes"]["all_to_all"] > 0
+        assert out["comm"]["staged_bytes"] == 0
+
+
 def test_a_backward_through_expert_parallelism_raises(ranks):
     _, outs = ranks
     for out in outs:

@@ -10,7 +10,6 @@ World 4, one intra-op and one BLAS thread a rank, at a lower priority
 (``os.nice``): a spawn of four ranks costs ~4-5 s of the test's budget,
 and the twins run on a few cores beside the rest of the suite."""
 import os
-import socket
 import sys
 import traceback
 
@@ -20,10 +19,12 @@ import torch.multiprocessing as mp
 WORLD = 4
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+def _init_method(workdir: str, name: str) -> str:
+    """A ``file://`` rendezvous at ``workdir/name``: no port to pick, so
+    nothing else on the host can take it between the pick and the bind (a
+    picked free port was taken under the full suite: EADDRINUSE at the
+    second group's ``init_process_group``)."""
+    return "file://" + os.path.join(os.path.abspath(workdir), name)
 
 
 # ---------------------------------------------------------------------------
@@ -149,12 +150,27 @@ def job_calib(rank, inp):
     return out
 
 
+def _bytes_of(fn):
+    """(fn's result, the result bytes per collective family that it moved,
+    from ``Comm.report()``)."""
+    from repro_torch.dist import comm
+    before = comm.current().report()["bytes"]
+    res = fn()
+    after = comm.current().report()["bytes"]
+    return res, {k: v - before.get(k, 0) for k, v in after.items()
+                 if v != before.get(k, 0)}
+
+
 def job_train_moe(rank, inp):
+    import torch.distributed as dist
+
     from repro_torch.core.capture import Collector
     from repro_torch.data.synthetic import DataConfig
     from repro_torch.dist import sharding as SH
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch import op_analysis as OA
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
     from repro_torch.models import mlp as M
+    from repro_torch.optim.adamw import adamw_init
     from repro_torch.train import step as TS
     from repro_torch.train.loop import LoopConfig, Trainer
 
@@ -173,6 +189,15 @@ def job_train_moe(rank, inp):
                                              shard)
     out["dp_local"] = (loss, metrics["tokens"], grads)
     out["dp_reduced"] = TS.reduce_data_parallel(loss, metrics, grads, None)
+    # one DP step, run and counted (on meta, by the counting comm)
+    step = TS.make_train_step(inp["cfg"], TS.TrainConfig(**inp["tcfg"]),
+                              group=dist.group.WORLD)
+    state = TS.TrainState(params=inp["dp_params"],
+                          opt=adamw_init(inp["dp_params"]))
+    _, out["dp_step_bytes"] = _bytes_of(lambda: step(state, shard))
+    out["dp_step_count"] = OA.count(step, OA.to_meta(state),
+                                    OA.to_meta(shard),
+                                    world=WORLD)["collectives"]
     # expert parallelism, (data 2, model 2)
     mesh = make_host_mesh(data=2, model=2)
     mcfg, p, x = inp["moe_cfg"], inp["moe_p"], inp["moe_x"]
@@ -194,10 +219,18 @@ def job_train_moe(rank, inp):
     M._dispatch_to_buffers = rec
     try:
         with torch.no_grad(), SH.use_rules(mesh=mesh):
-            o, aux = M.apply_moe(local, mcfg, xs)
+            (o, aux), out["ep_bytes"] = _bytes_of(
+                lambda: M.apply_moe(local, mcfg, xs))
     finally:
         M._dispatch_to_buffers = orig
     out["moe"] = (o, aux, calls, mesh.coord("data"), mesh.coord("model"))
+    # the same forward counted on a shapes-only mesh
+    shapes_only = Mesh((2, 2), ("data", "model"), rank=rank,
+                       build_groups=False)
+    with torch.no_grad(), SH.use_rules(mesh=shapes_only):
+        out["ep_count"] = OA.count(
+            lambda p, x: M.apply_moe(p, mcfg, x), OA.to_meta(local),
+            OA.to_meta(xs), world=WORLD)["collectives"]
     # a tagged layer under EP captures no expert statistic, as in JAX
     tagged = {"moe": dict(local["moe"], _tag="layer/moe")}
     with torch.no_grad(), SH.use_rules(mesh=mesh), Collector() as col:
@@ -223,9 +256,8 @@ def _rank_main(rank, job, workdir, init_method):
                          weights_only=False)
         comm.init(WORLD, rank, "cpu", init_method=init_method)
         if job == "dist":
-            # the second group's port: rank 0's pick, sent over the first
-            port = comm.broadcast(torch.tensor([_free_port()]), src=0)
-            inp["init_method2"] = f"tcp://localhost:{int(port)}"
+            # the second group's rendezvous file, beside the first's
+            inp["init_method2"] = _init_method(workdir, "pg2")
         out = JOBS[job](rank, inp)
         if comm.is_initialized():
             out["comm"] = comm.current().report()
@@ -264,8 +296,11 @@ def main(job: str, workdir: str) -> None:
     # below the suite's other workers: the ranks are four more processes
     # on cores that the longest test module needs
     os.nice(10)
-    mp.spawn(_rank_main, args=(job, workdir,
-                               f"tcp://localhost:{_free_port()}"),
+    for name in ("pg", "pg2"):        # a rendezvous file starts absent
+        path = os.path.join(workdir, name)
+        if os.path.exists(path):
+            os.remove(path)
+    mp.spawn(_rank_main, args=(job, workdir, _init_method(workdir, "pg")),
              nprocs=WORLD, join=True)
 
 
