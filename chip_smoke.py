@@ -42,9 +42,31 @@ What it does, in order, printing the seconds of each phase:
    bf16 ``generate`` with the same tokens on both ranks and the drops
    counted, float32 card against CPU as in 10. Beside it, the serve CLI
    under ``torchrun --standalone --nproc-per-node 2`` with
-   ``--calib-mesh-shards 2`` must exit 0, drained, its report showing
+   ``--calib-mesh-shards 2`` (8 calibration samples) must exit 0,
+   drained, its report showing
    world 2 and the gloo backend. Then every ``comm`` wrapper on NCCL at
    world 1, equal to its definition;
+2a'. sharded training (``sharded_phase``): world 4 = (data 2, model 2),
+   spawned (``sharded_rank``), the ranks sharing the card over gloo through
+   pinned host memory, each holding its block of every parameter and AdamW
+   moment under the sharding rules (``train.step.shard_state``) and running
+   ``make_train_step(mesh=)`` with its launch counts set to 0 just before
+   and read just after: SmolLM-360M at full width on 4 layers (FSDP over
+   d_model, the MLP tensor-parallel, tied vocab-parallel logits, its 15
+   heads replicated), 3 steps of 4 x 128 tokens in float32 and in bf16;
+   granite-moe-1b-a400m at full width on 2 layers (16 q / 8 kv heads split
+   8 / 4 a rank, 32 experts 16 a rank with a backward through the
+   ``all_to_all``s, vocab 49155 replicated by the fallback), 2 float32
+   steps at lr 1e-4 and a capacity factor of 8 at which no assignment may
+   drop. Meanwhile this process runs the same steps on one process
+   (granite's with one microbatch a data shard: its aux statistic is each
+   shard's, as under JAX's EP body) and counts each step on meta
+   (``account_cell``). Every rank's losses and first-step grad norm must
+   be within 1e-5 relative of one process's in float32 and 5e-3 in bf16,
+   its state's bytes must equal ``rule_state_bytes`` exactly, and its
+   flash launches must run on its local heads; ms/step, seconds per
+   collective family and ``max_memory_allocated`` beside the accounting's
+   peak are printed;
 2b. the continuous batcher's path on the same artifact, with the counts
    set to 0 again just before it and read just after:
    ``ContinuousBatcher.from_compressed(verify=True)``, batch 8, max_len
@@ -160,9 +182,9 @@ What it does, in order, printing the seconds of each phase:
    family that ``Comm.report()`` shows for it;
 9. the training path, with the counts set to 0 just before and read just
    after: SmolLM-360M at full size (float32 params, bf16 compute, remat
-   "block", seed 0) through ``Trainer``: 6 steps of 8 x 256 tokens in 2
-   microbatches, an async checkpoint at step 3 and the final save, every
-   loss finite; a second ``Trainer`` resumes from step 3 and its step-6
+   "block", seed 0) through ``Trainer``: 4 steps of 8 x 256 tokens in 2
+   microbatches, an async checkpoint at step 2 and the final save, every
+   loss finite; a second ``Trainer`` resumes from step 2 and its step-4
    loss is the continuous run's within 1e-4 relative; the step alone
    (ms/step, tokens/s, its model-FLOPs share by
    ``launch/dryrun.model_flops``, one profiled step's idle share, flash
@@ -181,13 +203,12 @@ What it does, in order, printing the seconds of each phase:
 10. the MoE path, after the earlier paths' memory is freed, with the
    counts set to 0 just before granite's calibration and read after its
    graph runs: granite-moe-1b-a400m at full width (d_model 1024, 32
-   experts top-8, d_expert 512, vocab 49155, tied), depth cut to 8 of its
+   experts top-8, d_expert 512, vocab 49155, tied), depth cut to 4 of its
    24 identical MoE layers (random weights, seed 0): streaming calibration
-   as in 2 with every expert's Gram (544 a batch, 512 of them the experts'
-   400-row capacity
-   buffers) through ``gram_blocked``; D-Rank 20% on the card (1536 expert
-   and 64 attention groups, the expert buckets in chunks sized to the
-   card's free memory); ``save_plan``; ``from_compressed(verify=True)``;
+   as in 2 with every expert's Gram (the experts' Grams from their
+   400-row capacity buffers) through ``gram_blocked``; D-Rank 20% on the
+   card (an expert group per expert and matrix, the expert buckets in
+   chunks sized to the card's free memory); ``save_plan``; ``from_compressed(verify=True)``;
    ``generate`` equal to an in-memory ``Engine``'s tokens. Then the
    batcher on that artifact (2b's 24 requests, bf16): eager on the
    contiguous, paged and paged + prefix pools with the dropped top-k
@@ -213,10 +234,11 @@ What it does, in order, printing the seconds of each phase:
    freed and with the counts set to 0 just before its calibration and
    read after its batcher runs: hymba-1.5b at full width (d_model 1600, 25
    heads over 5 KV of 64 beside a Mamba-2 head, d_ff 5504, window 1024),
-   depth cut to 16 of its 32 layers (global at 0, 8 and 15, the 13 others
-   windowed), and xlstm-350m at full width, depth cut to 16 of its 24
-   layers (d_model 1024, 14 mLSTM layers of 4 heads of 512, sLSTM at
-   layers 7 and 15 with a 1365-wide FFN), random weights from seed 0: streaming calibration, D-Rank
+   depth cut to 8 of its 32 layers (global at 0, 4 and 7, the 5 others
+   windowed), and xlstm-350m at full width, depth cut to 8 of its 24
+   layers (d_model 1024, 7 mLSTM layers of 4 heads of 512, the sLSTM at
+   layer 7 with a 1365-wide FFN), random weights from seed 0: streaming
+   calibration, D-Rank
    20% on the card, ``save_plan``, ``from_compressed(verify=True)``,
    ``generate`` equal to an in-memory ``Engine``'s tokens (hymba also one
    1200-token prompt, past its window); the batcher through exact-length
@@ -369,11 +391,12 @@ CB_KERNELS = ("lowrank_gemv", "lowrank_matmul_2d", "flash_attention",
 # earlier design, only where this script forces it)
 GEMV_VARIANT = {"bfloat16": "mma", "float32": "fma"}
 GEMV_ROWS_WIDE = 64             # the larger throughput batch: gemv rows
-# the training path: SmolLM-360M at full size, 6 steps of 8 x 256 tokens in
-# 2 microbatches, an async checkpoint at step 3; the float32 card-vs-CPU
+# the training path: SmolLM-360M at full size, 4 steps of 8 x 256 tokens in
+# 2 microbatches (cut from 6 to make room for the sharded phase), an async
+# checkpoint at step 2; the float32 card-vs-CPU
 # step at TRAIN_PARITY_LAYERS layers on 2 x 128 tokens; held-out and LoRA batches
 # from loader steps far past the training ones
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS, TRAIN_LR = 8, 256, 2, 6, 1e-3
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS, TRAIN_LR = 8, 256, 2, 4, 1e-3
 PARITY_TRAIN_ROWS, PARITY_TRAIN_SEQ = 2, 128
 PPL_STEP0, LORA_STEP0, LORA_STEPS = 1000, 2000, 4
 TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
@@ -391,7 +414,7 @@ TRAIN_KERNELS = ("flash_attention", "lowrank_matmul_2d", "gram_blocked")
 MOE, MOE_SEED, MOE_RATIO = "granite-moe-1b-a400m", 0, 0.2
 # granite's depth on the MoE path, cut from 24 to make room for the later
 # paths in the run's time (the 24 layers are identical MoE layers)
-MOE_LAYERS = 8
+MOE_LAYERS = 4
 # the oracles at 1 layer: every granite layer holds the same seven group
 # types
 MOE_PARITY_LAYERS, MOE_ORACLE_LAYERS, ROUTE_GAP = 4, 1, 1e-6
@@ -411,11 +434,33 @@ MESH_WORLD, MESH_SHARD_ABOVE = 2, 2048
 MESH_FACTOR_REL, MESH_GRAM_REL = 1e-6, 1e-5
 DP_ROWS, DP_SEQ, DP_STEPS = 4, 128, 3
 EP_LAYERS, EP_BATCH, EP_PROMPT, EP_NEW, EP_PARITY_STEPS = 2, 4, 32, 8, 4
+# sharded training (ROADMAP Queue 1, item 11, second part): world 4 =
+# (data 2, model 2) on the one card over gloo through pinned host memory,
+# each rank holding its block of every parameter and AdamW moment;
+# SmolLM-360M at full width on TRAIN_PARITY_LAYERS layers, DP_STEPS steps
+# of DP_ROWS x DP_SEQ tokens in float32 and in its configured bf16;
+# granite at full width on SH_MOE_LAYERS layers, SH_MOE_STEPS float32
+# steps at a capacity factor at which no assignment drops (under EP the
+# drops differ across model ranks by JAX's design). Losses against one
+# process on the same global batches: 1e-5 relative in float32 (the DP
+# bar), 5e-3 in bf16 (tests/test_dist.py's)
+SH_MESH = (2, 2)
+SH_MOE_LAYERS, SH_MOE_STEPS, SH_MOE_CAPACITY = 2, 2, 8.0
+# granite's learning rate: Adam's first step moves an entry by ~lr whatever
+# the size of its grad, so the sharded step's last-bit differences in
+# reduction order (first-step grads within 1.8e-6 of each leaf's largest
+# entry on the card) reach the second step's loss at ~lr·1e-2; at 1e-3
+# that was 1.945e-05 (tests/test_torch_train.py takes 1e-4 for the same
+# reason)
+SH_MOE_LR = 1e-4
+SH_LOSS_REL = {"float32": 1e-5, "bfloat16": 5e-3}
+SH_DIR = ROOT / "build" / "chip_smoke_sharded"
 # the launch accounting's full-size cells, counted on meta on a (1, 1) mesh
 ACCOUNT_CELLS = (("qwen2-vl-72b", "prefill_32k"),
                  ("qwen2-vl-72b", "decode_32k"), (ARCH, "train_4k"))
 MESH_CLI = ["--arch", ARCH, "--compress", "drank", "--ratio", "0.2",
             "--device-compress", "--calib-mesh-shards", str(MESH_WORLD),
+            "--calib-samples", "8",
             "--batch", "4", "--max-len", "64", "--requests", "4",
             "--prompt-len", "16", "--n-new", "8"]
 QWEN_PROMPTS, QWEN_NEW, QWEN_NEW_F32 = (200, 64), 16, 8
@@ -435,8 +480,8 @@ HYMBA, XLSTM = "hymba-1.5b", "xlstm-350m"
 REC_SEED, REC_RATIO, REC_PARITY_STEPS = 0, 0.2, 8
 # the depths, cut to make room for the later paths in the run's time:
 # hymba's from 32 (its schedule keeps a global layer first, in the middle
-# (8) and last), xLSTM's from 24 (its sLSTM layers 7 and 15 stay)
-REC_DEPTH = {HYMBA: dict(n_layers=16), XLSTM: dict(n_layers=16)}
+# (4) and last), xLSTM's from 24 (its sLSTM layer 7 stays)
+REC_DEPTH = {HYMBA: dict(n_layers=8), XLSTM: dict(n_layers=8)}
 REC_LONG, REC_LONG_NEW = 1200, 16
 REC_PARITY_LAYERS = {HYMBA: 4, XLSTM: 8}
 REC_ORACLE_CUT = {HYMBA: dict(n_layers=1),
@@ -2864,8 +2909,9 @@ def train_path(port, dev):
         f"{n_params * 3 * 4 / 1e9:.2f} GB) ms " + ", ".join(
             f"{x * 1e3:.1f}" for x in submits) + "; store.save seconds "
         + ", ".join(f"{x:.2f}" for x in saves)
-        + " (the async writes at steps 3 and 6, ckpt_every dividing the "
-        "run as in the JAX loop, then the final synchronous one)")
+        + f" (the async writes at steps {TRAIN_STEPS // 2} and "
+        f"{TRAIN_STEPS}, ckpt_every dividing the run as in the JAX loop, "
+        f"then the final synchronous one)")
     out["submit_ms"] = [x * 1e3 for x in submits]
     out["save_s"] = saves
     assert res["final_step"] == TRAIN_STEPS and len(losses) == TRAIN_STEPS
@@ -2873,8 +2919,8 @@ def train_path(port, dev):
     assert sorted(os.listdir(TRAIN_DIR)) == [
         "LATEST", f"step_{TRAIN_STEPS // 2:09d}", f"step_{TRAIN_STEPS:09d}"]
 
-    # (b) resume from step 3, as after a preemption just past its
-    # checkpoint: the last step's directory gone, LATEST back at step 3
+    # (b) resume from the middle step, as after a preemption just past its
+    # checkpoint: the last step's directory gone, LATEST back at it
     shutil.rmtree(TRAIN_DIR / f"step_{TRAIN_STEPS:09d}")
     (TRAIN_DIR / "LATEST").write_text(f"step_{TRAIN_STEPS // 2:09d}")
     t0 = time.perf_counter()
@@ -3092,8 +3138,8 @@ def train_path(port, dev):
     ppl = {name: TS.evaluate_ppl(p, cfg, held) for name, p in (
         ("dense (trained)", trained), ("D-Rank 20%", comps["drank"][0]),
         ("fwsvd 20%", comps["fwsvd"][0]), ("D-Rank 20% + LoRA", lora_p))}
-    log("  perplexity on 4 held-out batches of synthetic data (random init "
-        "+ 6 steps, not a language model): " + ", ".join(
+    log(f"  perplexity on 4 held-out batches of synthetic data (random init "
+        f"+ {TRAIN_STEPS} steps, not a language model): " + ", ".join(
             f"{k} {v['ppl']:.2f}" for k, v in ppl.items()))
     assert all(np.isfinite(v["ppl"]) for v in ppl.values())
     out["ppl"] = {k: v["ppl"] for k, v in ppl.items()}
@@ -5235,6 +5281,252 @@ def check_mesh_ranks(ranks, plan, col, eager, chain, out) -> None:
     log(f"  comm: rank 0 {r0['comm']}")
 
 
+# ---------------------------------------------------------------------------
+# Sharded training: FSDP, tensor, vocab and expert parallelism at world 4
+# ---------------------------------------------------------------------------
+def sharded_cases(port) -> dict:
+    """The phase's cases: (config, global batches, train config, count
+    drops). Batches are seeded; each rank takes its data shard."""
+    import dataclasses
+    tcfg = port.TS.TrainConfig(optimizer=port.adamw.OptimizerConfig(
+        lr=TRAIN_LR, warmup_steps=1, total_steps=DP_STEPS + 1))
+    smol = port.get_config(ARCH).replace(n_layers=TRAIN_PARITY_LAYERS)
+    gr = port.get_config(MOE)
+    gr = gr.replace(n_layers=SH_MOE_LAYERS, dtype="float32",
+                    moe=dataclasses.replace(gr.moe,
+                                            capacity_factor=SH_MOE_CAPACITY))
+
+    def batches(cfg, n, seed):
+        rng = np.random.default_rng(seed)
+        return [rng.integers(0, cfg.vocab_size, (DP_ROWS, DP_SEQ),
+                             dtype=np.int32) for _ in range(n)]
+    gr_tcfg = dataclasses.replace(tcfg, optimizer=dataclasses.replace(
+        tcfg.optimizer, lr=SH_MOE_LR))
+    return {"smollm float32": (smol.replace(dtype="float32"),
+                               batches(smol, DP_STEPS, 21), tcfg, False),
+            "smollm bfloat16": (smol, batches(smol, DP_STEPS, 21), tcfg,
+                                False),
+            "granite float32": (gr, batches(gr, SH_MOE_STEPS, 22), gr_tcfg,
+                                True)}
+
+
+def sharded_run(port, dev, cfg, batches, tcfg, mesh=None, drops=False):
+    """``len(batches)`` train steps from seed 0: on ``mesh`` each rank
+    holds its blocks (``TS.shard_state``) and takes its data shard of each
+    global batch; without, one process on the whole state. Returns the
+    losses, ms/step, collective seconds, the state's bytes as held, the
+    allocator's peak, the launches and the (q, kv) heads of every flash
+    call. On ``mesh`` every kernel call of the steps, the first of each
+    operand signature, is then held again through every variant against
+    the plain version on the same operands (``hold_recorded``)."""
+    from repro_torch.dist import comm
+    torch, TS = port.torch, port.TS
+    state, specs = TS.init_train_state(cfg, seed=0, device=dev)
+    if mesh is not None:
+        state, _ = TS.shard_state(state, specs, mesh)
+        torch.cuda.empty_cache()
+    held = sum(t.numel() * t.element_size()
+               for t in port.pytree.tensors(state))
+    step = TS.make_train_step(cfg, tcfg, mesh=mesh)
+    n = mesh.shape["data"] if mesh is not None else 1
+    d = mesh.coord("data") if mesh is not None else 0
+    rows = DP_ROWS // n
+    heads, inner = set(), port.ops.flash_attention
+
+    def spy(q, k, v, *a, **kw):
+        heads.add((int(q.shape[2]), int(k.shape[2])))    # (q, kv) heads
+        return inner(q, k, v, *a, **kw)
+    c = comm.current() if mesh is not None else None
+    sec0 = dict(c.seconds) if c else {}
+    port.ops.flash_attention = spy
+    port.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"state_bytes": held, "base": torch.cuda.memory_allocated()}
+    try:
+        with (EPDrops(port) if drops else contextlib.nullcontext()) as dr, \
+                (recording(port) if mesh is not None
+                 else contextlib.nullcontext([])) as calls:
+            losses, norms = [], []
+            t0 = time.perf_counter()
+            for b in batches:
+                tok = torch.as_tensor(b[d * rows:(d + 1) * rows], device=dev)
+                state, m = step(state, {"tokens": tok})
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+    finally:
+        port.ops.flash_attention = inner
+    out.update(losses=losses, grad_norms=norms,
+               ms_per_step=dt / len(batches) * 1e3,
+               peak=torch.cuda.max_memory_allocated(),
+               launches=port.counts(),
+               flash_heads=[list(h) for h in sorted(heads)])
+    if c:
+        out["seconds"] = {k: v - sec0.get(k, 0.0)
+                          for k, v in c.seconds.items()
+                          if v != sec0.get(k, 0.0)}
+    if drops:
+        out["drops"] = dr.counts()
+    del state, step
+    if calls:
+        dname = "float32" if cfg.dtype == "float32" else "bfloat16"
+        log(f"  {cfg.name} {dname}: the steps' {len(calls)} kernel "
+            f"signatures against the plain versions:")
+        hold_recorded(port, calls, dname, f"the sharded {cfg.name} path")
+        out["held"] = len(calls)
+    del calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_rank(rank: int, init_method: str) -> None:
+    """One rank of the world-4 sharded-training job on the card, spawned
+    by ``sharded_phase``: joins the process group (gloo through pinned
+    host memory), runs every case of ``sharded_cases`` on the (data 2,
+    model 2) mesh and writes its results to SH_DIR/rank{r}.json. Any
+    failure raises, and the parent's join fails with it."""
+    global log
+    sys.path.insert(0, str(SRC))
+    quiet = log
+
+    def log(msg: str = "") -> None:          # noqa: F811
+        quiet(f"  [rank {rank}] {msg}")
+
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    port = Port()
+    from repro_torch.dist import comm
+    from repro_torch.launch.mesh import make_host_mesh
+    world = SH_MESH[0] * SH_MESH[1]
+    c = comm.init(world, rank, "cuda", init_method=init_method)
+    try:
+        assert (c.backend, c.transport) == ("gloo", "pinned-host"), c
+        mesh = make_host_mesh(*SH_MESH)
+        out = {"rank": rank, "coords": [mesh.coord("data"),
+                                        mesh.coord("model")]}
+        for name, (cfg, batches, tcfg, drops) in sharded_cases(port).items():
+            out[name] = sharded_run(port, c.device, cfg, batches, tcfg,
+                                    mesh, drops)
+        out["comm"] = c.report()
+    finally:
+        comm.shutdown()
+    (SH_DIR / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def sharded_accounting(port) -> dict:
+    """``account_cell`` of each case's train step on a shapes-only (data 2,
+    model 2) mesh, on meta: the rules' state bytes a rank and the
+    predicted peak."""
+    from repro_torch import config as C
+    from repro_torch.launch.mesh import Mesh
+    name = "chip_sharded"
+    C.SHAPES[name] = C.ShapeConfig(name, DP_SEQ, DP_ROWS, "train")
+    mesh = Mesh(SH_MESH, ("data", "model"), rank=0, build_groups=False)
+    out = {}
+    try:
+        for case, (cfg, _, _, _) in sharded_cases(port).items():
+            arch = MOE if case.startswith("granite") else ARCH
+            over = {k: getattr(cfg, k) for k in ("n_layers", "dtype", "moe")}
+            out[case] = port.dryrun.account_cell(arch, name, mesh,
+                                                 overrides=over)
+    finally:
+        del C.SHAPES[name]
+    return out
+
+
+def sharded_phase(port, dev) -> dict:
+    """World 4 = (data 2, model 2) on the one card (``sharded_rank``), and
+    meanwhile in this process the one-process steps on the same global
+    batches (granite's with one microbatch a data shard, so that its MoE
+    aux statistic is each shard's, as under JAX's EP body) and the
+    accounting's cells on meta. Each rank's losses against
+    one process, its state's bytes against ``rule_state_bytes`` exactly,
+    the flash launches on its local heads."""
+    import dataclasses
+
+    import torch.multiprocessing as mp
+    shutil.rmtree(SH_DIR, ignore_errors=True)
+    SH_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    # a file rendezvous: no port to pick, so none that another process
+    # can take between its choice and its bind
+    ctx = mp.spawn(sharded_rank, args=(f"file://{SH_DIR / 'pg'}",),
+                   nprocs=SH_MESH[0] * SH_MESH[1], join=False)
+    try:
+        # granite's one process takes one microbatch a data shard: its aux
+        # statistic is then each data shard's, as under the EP body
+        one = {name: sharded_run(port, dev, cfg, batches, dataclasses.replace(
+                   tcfg, microbatches=SH_MESH[0] if drops else 1))
+               for name, (cfg, batches, tcfg, drops) in
+               sharded_cases(port).items()}
+        acct = sharded_accounting(port)
+        while not ctx.join():
+            pass
+        job_s = time.perf_counter() - t0
+        ranks = [json.loads((SH_DIR / f"rank{r}.json").read_text())
+                 for r in range(len(ctx.processes))]
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+        shutil.rmtree(SH_DIR, ignore_errors=True)
+    out = {"job_s": job_s, "launches": {}}
+    card = card_line()
+    for name, ref in one.items():
+        dname = "bfloat16" if "bfloat16" in name else "float32"
+        mem = acct[name]["memory"]
+        for r in ranks:
+            got = r[name]
+            rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(got["losses"], ref["losses"]))
+            gn = (abs(got["grad_norms"][0] - ref["grad_norms"][0])
+                  / ref["grad_norms"][0])
+            secs = ", ".join(f"{k} {v:.3f}" for k, v in
+                             sorted(got["seconds"].items()))
+            log(f"  {name}, rank {r['rank']} (data, model) {r['coords']}: "
+                f"losses {[round(x, 6) for x in got['losses']]} against one "
+                f"process's {[round(x, 6) for x in ref['losses']]}, "
+                f"max-relative {rel:.3e} (tolerance {SH_LOSS_REL[dname]}); "
+                f"the first step's grad norm {got['grad_norms'][0]:.7f} "
+                f"against {ref['grad_norms'][0]:.7f} ({gn:.2e}); "
+                f"state {got['state_bytes']} bytes held, rule_state_bytes "
+                f"{mem['rule_state_bytes']} (whole {ref['state_bytes']}); "
+                f"{got['ms_per_step']:.1f} ms/step (one process "
+                f"{ref['ms_per_step']:.1f}), collective seconds {secs}; "
+                f"max_memory_allocated {got['peak']} (of it before the "
+                f"steps {got['base']}) against the accounting's peak "
+                f"{mem['peak_bytes']}; flash (q, kv) heads "
+                f"{got['flash_heads']} in {got['launches']['flash_attention']}"
+                f" launches, {got['held']} kernel signatures held to the "
+                f"plain version" + (f"; drops {got['drops']} (capacity factor "
+                                f"{SH_MOE_CAPACITY}: none may drop)"
+                                if "drops" in got else "") + f"; {card}")
+            assert rel <= SH_LOSS_REL[dname], \
+                f"{name}: rank {r['rank']}'s losses differ from one process"
+            assert gn <= SH_LOSS_REL[dname], \
+                f"{name}: rank {r['rank']}'s grads differ from one process"
+            assert got["state_bytes"] == mem["rule_state_bytes"], \
+                f"{name}: rank {r['rank']} holds other bytes than the rules"
+            assert got["launches"]["flash_attention"] > 0
+            assert got["held"] > 0, f"{name}: rank {r['rank']} held no call"
+            if name.startswith("granite"):
+                cfg = sharded_cases(port)[name][0]
+                assert got["flash_heads"] == [
+                    [cfg.n_heads // SH_MESH[1], cfg.n_kv_heads // SH_MESH[1]]]
+                assert got["drops"]["dropped_first_level"] == 0
+                assert got["drops"]["dropped_second_level"] == 0
+            else:
+                assert got["flash_heads"] == [[15, 5]]   # heads replicated
+        out["launches"][name] = [r[name]["launches"] for r in ranks]
+    log(f"  world {len(ranks)} job {job_s:.1f} s (spawn, init, every case; "
+        f"the one-process steps and the accounting beside it); comm rank "
+        f"0: {ranks[0]['comm']}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5270,6 +5562,11 @@ def main() -> int:
             eager = eager_collector(port, cfg, params, calib)
             mesh = mesh_phase(port, dev, cfg, plan, col, eager, calib,
                               params)
+        with Phase("sharded training: world 4 = (data 2, model 2) on the "
+                   "one card over gloo, FSDP and tensor, vocab and expert "
+                   "parallelism of the params and AdamW state (SmolLM-360M "
+                   "float32 and bf16, granite float32)"):
+            sharded = sharded_phase(port, dev)
         with Phase("batcher path: ContinuousBatcher from the artifact, "
                    "contiguous, paged and prefix pools, fault plans"):
             cb_counts, snap, rates, cb_outs = batcher_path(port, dev, cfg,
@@ -5412,7 +5709,10 @@ def main() -> int:
             "mesh_launches": {
                 part: ([c[name] for c in v] if isinstance(v, list)
                        else v[name])
-                for part, v in mesh["launches"].items()}})
+                for part, v in mesh["launches"].items()},
+            "sharded_launches": {
+                part: [c[name] for c in v]
+                for part, v in sharded["launches"].items()}})
         if "simt_ms" in t:     # the variant the main path ran, the earlier
             kernels[-1].update(variant="+".join(t["variant"]),
                                launches_by_variant=variants[name],

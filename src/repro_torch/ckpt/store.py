@@ -97,12 +97,36 @@ def _flatten(tree) -> Dict[str, np.ndarray]:
 
 
 def save(ckpt_dir: str, step: int, tree, meta: Optional[Dict] = None,
-         keep_last: int = 3) -> str:
+         keep_last: int = 3, shardings=None) -> str:
     """Synchronous atomic save of a tree of tensors (or numpy arrays).
-    Returns the checkpoint path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    Returns the checkpoint path.
+
+    ``shardings`` (a tree of ``dist.sharding.NamedSharding``, as
+    ``restore`` takes it): ``tree`` holds this rank's blocks, and the
+    checkpoint holds whole leaves, gathered from every rank to the host
+    (JAX's ``device_get`` of a sharded array) and written by rank 0 alone;
+    every rank of the mesh calls it, and it returns once the checkpoint is
+    on the disk. The leaves are gathered one at a time from blocks copied
+    to the host: no card holds a whole leaf (under NCCL, one at a time),
+    and a rank other than 0 drops each once it is gathered."""
     name = f"step_{step:09d}"
     final = os.path.join(ckpt_dir, name)
+    if shardings is not None:
+        from repro_torch.dist import comm
+        from repro_torch.dist.sharding import gather_leaf
+        rank0 = comm.current().rank == 0
+        whole = []
+        with torch.no_grad():
+            for t, s in zip(pytree.leaves(tree), pytree.leaves(shardings)):
+                w = gather_leaf(t.detach().cpu(), s)
+                whole.append(w if rank0 else None)
+                del w
+        if rank0:
+            save(ckpt_dir, step, pytree.unflatten(tree, whole), meta,
+                 keep_last)
+        comm.barrier()
+        return final
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=f".tmp_{name}_")
     try:
         arrays = _flatten(tree)

@@ -17,6 +17,23 @@ written out. The wrappers keep the JAX semantics:
                                              block i of the result came
                                              from rank i
   ``broadcast``                              the value of ``src`` everywhere
+  ``all_reduce_max``                         ``lax.pmax``
+  ``all_gather`` / ``reduce_scatter``        ``lax.all_gather(..., axis=d,
+                                             tiled=True)`` /
+                                             ``lax.psum_scatter(...,
+                                             scatter_dimension=d,
+                                             tiled=True)``
+
+The sharded train step's collectives carry a backward (JAX transposes
+its collectives; here each is an ``autograd.Function``): ``gather`` (FSDP's
+gather on use, reduce-scatter backward), ``gather_replicated`` (a gather
+for compute every rank repeats whole, its backward this rank's block of
+the cotangent), ``tp_enter`` / ``tp_exit`` (identity forward with an
+all-reduce backward, all-reduce forward with an identity backward: the
+boundaries of a tensor-parallel region), ``all_to_all`` (the inverse
+exchange) and ``replicated_output`` (group rank 0's value forward; JAX's
+transpose of an output declared replicated, the cotangent divided by the
+group's size, backward).
 
 Each takes the process group of a mesh axis (``launch.mesh.Mesh.group``);
 ``None`` is the whole world, and :data:`SELF` (the group of a mesh axis of
@@ -40,8 +57,8 @@ rank's card and back (only the host-side integer counts of calibration do
 that).
 
 Each wrapper adds its result's bytes to :attr:`Comm.bytes` under its family
-(``all_reduce``, ``all_gather``, ``all_to_all``, ``broadcast``), the
-quantity JAX's dry-run reads from the HLO. Under :class:`counting` no
+(``all_reduce``, ``all_gather``, ``reduce_scatter``, ``all_to_all``,
+``broadcast``), the quantity JAX's dry-run reads from the HLO. Under :class:`counting` no
 process group is needed: every wrapper records its family and result bytes
 the same way and returns a ``meta`` tensor of the result's shape, and a
 shapes-only mesh (``launch.mesh.Mesh(..., build_groups=False)``) hands out
@@ -340,10 +357,7 @@ def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
         return _back(out, x, comm)
 
 
-def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
-    """``lax.all_to_all(x, axis, 0, 0, tiled=False)`` on ``x (n, cap,
-    ...)``, n the group's size: block j of ``x`` goes to rank j, and block
-    i of the result is what rank i sent here."""
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     n = _size(group)
     if x.shape[0] != n:
         raise ValueError(f"all_to_all: leading dim {x.shape[0]} is not the "
@@ -358,6 +372,28 @@ def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
         out = _empty_wire(tuple(x.shape), x, comm)
         dist.all_to_all_single(out, w, group=group)
         return _back(out, x, comm)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The exchange is its own inverse: block i of the cotangent goes back
+    to rank i (``lax.all_to_all``'s transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g.contiguous(), ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``lax.all_to_all(x, axis, 0, 0, tiled=False)`` on ``x (n, cap,
+    ...)``, n the group's size: block j of ``x`` goes to rank j, and block
+    i of the result is what rank i sent here. Differentiable: the backward
+    sends each cotangent block back where its row came from."""
+    return _AllToAll.apply(x, group)
 
 
 def broadcast(x: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
@@ -395,3 +431,166 @@ def all_reduce_ints(values: List[int], group=None) -> List[int]:
     """Host integers summed over the group (row counts)."""
     t = torch.tensor(values, dtype=torch.int64)
     return [int(v) for v in all_reduce_sum(t, group).tolist()]
+
+
+def all_reduce_max(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``lax.pmax``: the elementwise max of ``x`` over the group (no
+    gradient)."""
+    if group is SELF:
+        return x.clone()
+    if is_counting():
+        return _STATE["count"].record("all_reduce", x.shape, x.dtype)
+    comm = current()
+    with _timed(comm, "all_reduce", _nbytes(x.shape, x)):
+        w = _wire(x.detach(), comm)
+        dist.all_reduce(w, op=dist.ReduceOp.MAX, group=group)
+        return _back(w, x, comm)
+
+
+def all_gather(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """``lax.all_gather(x, axis_name, axis=dim, tiled=True)``: the group's
+    blocks concatenated along ``dim`` in group-rank order (no gradient:
+    see :func:`gather`)."""
+    if group is SELF:
+        return x.clone()
+    return all_gather_rows(x.movedim(dim, 0).contiguous(),
+                           group).movedim(0, dim)
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """``lax.psum_scatter(x, axis_name, scatter_dimension=dim,
+    tiled=True)``: the sum of ``x`` over the group, of which each rank
+    keeps its block along ``dim`` (block i on group rank i)."""
+    if group is SELF:
+        return x.clone()
+    n = _size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
+                         f"does not split {n} ways")
+    xt = x.movedim(dim, 0)
+    shape = (xt.shape[0] // n,) + tuple(xt.shape[1:])
+    if is_counting():
+        return _STATE["count"].record("reduce_scatter", shape,
+                                      x.dtype).movedim(0, dim)
+    comm = current()
+    with _timed(comm, "reduce_scatter", _nbytes(shape, x)):
+        w = _wire(xt.contiguous(), comm)
+        out = _empty_wire(shape, x, comm)
+        dist.reduce_scatter(out, list(w.chunk(n)), op=dist.ReduceOp.SUM,
+                            group=group)
+        return _back(out, x, comm).movedim(0, dim)
+
+
+# ---------------------------------------------------------------------------
+# collectives with a backward: the sharded train step's (``dist.sharding.
+# Placement``). Each counts as the wrapper it runs; a backward's collective
+# counts when the backward runs it.
+# ---------------------------------------------------------------------------
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
+def gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """FSDP's gather on use: the group's blocks of a parameter along
+    ``dim``; the backward reduce-scatters (sums) the full cotangent back to
+    this rank's block, the transpose of ``lax.all_gather``. Every rank of
+    the group computes its own share of the loss through the whole tensor,
+    so the sum is the gradient of the group's loss."""
+    if group is SELF:
+        return x
+    return _Gather.apply(x, dim, group)
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, index):
+        ctx.dim, ctx.index, ctx.size = dim, index, x.shape[dim]
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), \
+            None, None, None
+
+
+def gather_replicated(x: torch.Tensor, dim: int, group,
+                      index: int) -> torch.Tensor:
+    """The group's blocks along ``dim`` for a computation that every rank
+    of the group then repeats whole (the same inputs, the same cotangent):
+    each rank already holds the whole gradient, so the backward keeps
+    block ``index`` (this rank's position in the group) and moves
+    nothing."""
+    if group is SELF:
+        return x
+    return _GatherReplicated.apply(x, dim, group, index)
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.group), None
+
+
+def tp_enter(x: torch.Tensor, group) -> torch.Tensor:
+    """Into a tensor-parallel region over ``group``: the identity forward,
+    an all-reduce (sum) backward. A replicated tensor that each rank uses
+    for its own share only (its heads, its columns, its experts) gets each
+    rank's part of the gradient, and the sum is the whole."""
+    if group is SELF:
+        return x
+    return _Enter.apply(x, group)
+
+
+class _Exit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def tp_exit(x: torch.Tensor, group) -> torch.Tensor:
+    """Out of a tensor-parallel region over ``group``: the all-reduce (sum)
+    of the ranks' partial results forward (a row-parallel product, a
+    vocab-parallel sum), the identity backward (every rank holds the same
+    cotangent of the replicated sum)."""
+    if group is SELF:
+        return x
+    return _Exit.apply(x, group)
+
+
+class _ReplicatedOutput(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.n = _size(group)
+        return broadcast(x, src=0, group=group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def replicated_output(x: torch.Tensor, group) -> torch.Tensor:
+    """A ``shard_map`` output declared replicated over ``group``'s axis
+    with ``check_vma=False`` (JAX's expert-parallel body): forward, group
+    rank 0's value on every rank (JAX returns device 0's copy); backward,
+    JAX's transpose of such an output, which hands every rank the
+    cotangent divided by the group's size, whatever the ranks' copies held
+    (``jax/_src/shard_map.py``, ``_shard_map_transpose``)."""
+    if group is SELF:
+        return x
+    return _ReplicatedOutput.apply(x, group)

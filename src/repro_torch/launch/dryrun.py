@@ -10,14 +10,20 @@ counted by ``dist.comm.counting`` on a mesh without process groups. Nothing
 is allocated on any device: this is the counterpart of the compile on fake
 devices, not a CPU fallback.
 
-The rank holds what the port places on it: data parallelism over ``pod`` ×
-``data`` (its block of the batch; the parameters and the AdamW state
-replicated) and, for a Mixture-of-Experts model, its E/``model`` experts
-(expert parallelism; a backward through it raises, ROADMAP Queue 1, item
-11, second part). ``memory.rule_argument_bytes`` gives the per-rank bytes
-under the sharding rules (``dist.sharding.shape_aware_spec``, what JAX's
-dry-run places); it differs from ``argument_bytes`` until FSDP and tensor
-parallelism are ported.
+The rank holds what the port places on it. A train cell runs the sharded
+step (``train.step.sharded_train_step``): the rank holds its block of every
+parameter and of AdamW's moments under the rules (FSDP over ``pod`` ×
+``data``, tensor, vocab and expert parallelism over ``model``: what JAX's
+dry-run places, ``memory.rule_state_bytes``), its block of the batch over
+the data axes, and the step's gathers on use, reduce-scatters and
+all-reduces are counted. A prefill or decode cell holds the parameters
+whole but a Mixture-of-Experts expert stack (E/``model`` experts: expert
+parallelism); serving with sharded parameters is not ported.
+``memory.rule_argument_bytes`` gives the per-rank bytes of every argument
+under the sharding rules (``dist.sharding.shape_aware_spec``); in a train
+cell it differs from ``argument_bytes`` by the batch alone, whose
+sequence the rules also lay over ``model`` (sequence parallelism, not
+ported).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh single \\
@@ -40,7 +46,6 @@ from repro_torch import pytree
 from repro_torch.config import SHAPES, ModelConfig, ShapeConfig, \
     shape_applicable
 from repro_torch.configs import ARCH_IDS, get_config
-from repro_torch.dist import comm
 from repro_torch.dist import sharding as SH
 from repro_torch.launch import op_analysis
 from repro_torch.launch.mesh import Mesh, make_production_mesh
@@ -254,8 +259,9 @@ def _with_axes(params, specs) -> list:
 
 
 def local_params(params, specs, mesh):
-    """The rank's parameters: every leaf whole but a Mixture-of-Experts
-    expert stack, which holds E/``model`` experts (expert parallelism)."""
+    """The rank's parameters when it serves: every leaf whole but a
+    Mixture-of-Experts expert stack, which holds E/``model`` experts
+    (expert parallelism)."""
     return pytree.unflatten(params, [
         _local(v, axes, mesh, keep=("model",)) if "experts" in axes else v
         for v, axes in _with_axes(params, specs)])
@@ -270,10 +276,6 @@ def rule_argument_bytes(args_axes, mesh) -> int:
 # ---------------------------------------------------------------------------
 # Per-cell accounting
 # ---------------------------------------------------------------------------
-def _dp_axes(mesh) -> tuple:
-    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
-
-
 def roofline(counted_flops: float, counted_bytes: float,
              coll_bytes: float, model_flops_: float, n_dev: int) -> Dict:
     rf = {"compute_s": counted_flops / H100_SXM.peak_flops,
@@ -321,17 +323,20 @@ def account_cell(arch: str, shape_name: str, mesh: Mesh, *,
                  for k, v in gbatch.items()}
         if shape.mode == "train":
             # the state: params, AdamW's step and float32 mu, nu (sharded
-            # as the params)
+            # as the params), each rank holding its blocks
             moments = [(_meta(t.shape, torch.float32), a) for t, a in p_axes]
-            args_axes = (p_axes + [(_meta((), torch.int32), ())]
-                         + moments + moments + b_axes)
+            state_axes = (p_axes + [(_meta((), torch.int32), ())]
+                          + moments + moments)
+            args_axes = state_axes + b_axes
+            rule_state = rule_argument_bytes(state_axes, mesh)
             tcfg = TS.TrainConfig(microbatches=microbatches,
                                   optimizer=OptimizerConfig(
                                       total_steps=10 ** 5))
-            with comm.counting(mesh.size):
-                group = mesh.group(_dp_axes(mesh))
-            fn = TS.make_train_step(cfg, tcfg, group=group)
-            args = (TS.TrainState(params=lp, opt=adamw_init(lp)), batch)
+            fn = TS.make_train_step(cfg, tcfg, mesh=mesh)
+            # the step's own placement of the state, on meta
+            state, _ = TS.shard_state(TS.TrainState(
+                params=params, opt=adamw_init(params)), specs, mesh)
+            args = (state, batch)
         elif shape.mode == "prefill":
             args_axes = p_axes + b_axes
 
@@ -358,6 +363,10 @@ def account_cell(arch: str, shape_name: str, mesh: Mesh, *,
     n_dev = mesh.size
     coll = res["collectives"]
     memory = dict(res["memory"], rule_argument_bytes=rule_bytes)
+    if shape.mode == "train":
+        memory["rule_state_bytes"] = rule_state
+        memory["state_bytes"] = sum(t.numel() * t.element_size()
+                                    for t in pytree.tensors(args[0]))
     result = {
         "arch": arch, "shape": shape_name, "mesh": list(mesh.shape.values()),
         "mesh_axes": list(mesh.axis_names), "devices": n_dev,

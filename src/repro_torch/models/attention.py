@@ -11,7 +11,9 @@ encoder-decoder cross-attention (``cross_kv`` and ``attend_cross``: the
 cross paths of JAX's ``attend_full(kv=)`` and ``attend_decode(cross_kv=)``)
 are plain torch ops, as the JAX package computes them with ``_sdpa``,
 outside any Pallas kernel. M-RoPE needs nothing here: its angles arrive
-like RoPE's (``models.rotary``).
+like RoPE's (``models.rotary``). Under a ``dist.sharding.Placement``
+(sharded training) ``attend_full`` is tensor-parallel over the heads
+where the placement split them.
 
 The decode KV cache is preallocated and updated IN PLACE by index
 assignment, where the JAX package returns a new cache from a functional
@@ -32,10 +34,13 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.dist import comm
+from repro_torch.dist import sharding as SH
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models import rotary
-from repro_torch.models.params import Builder, apply_linear, head_rms_norm
+from repro_torch.models.params import (Builder, apply_linear,
+                                       apply_row_parallel, head_rms_norm)
 
 
 def init_attention(b: Builder, cfg: ModelConfig,
@@ -62,9 +67,14 @@ def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
 def _qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor,
          angles: Optional[torch.Tensor]
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    q = _split_heads(apply_linear(p["wq"], x), cfg.n_heads, cfg.head_dim)
-    k = _split_heads(apply_linear(p["wk"], x), cfg.n_kv_heads, cfg.head_dim)
-    v = _split_heads(apply_linear(p["wv"], x), cfg.n_kv_heads, cfg.head_dim)
+    """q (…, H, hd), k and v (…, KV, hd), the head counts read from the
+    projections' widths (a rank's share of the heads under tensor
+    parallelism)."""
+    hd = cfg.head_dim
+    q, k, v = (apply_linear(p[n], x) for n in ("wq", "wk", "wv"))
+    q = _split_heads(q, q.shape[-1] // hd, hd)
+    k = _split_heads(k, k.shape[-1] // hd, hd)
+    v = _split_heads(v, v.shape[-1] // hd, hd)
     if cfg.qk_norm and "q_norm" in p:
         q = head_rms_norm(p["q_norm"], q, cfg.norm_eps)
         k = head_rms_norm(p["k_norm"], k, cfg.norm_eps)
@@ -97,15 +107,60 @@ def attend_cross(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     return apply_linear(p["wo"], _sdpa_masked(cfg, q, k, v, mask))
 
 
+def _tp_replicated(p: Dict, group) -> Dict:
+    """The attention's leaves that every model rank holds whole but uses
+    for its own heads only (k and v where the kv heads are not split, the
+    qk-norm scales), each through ``comm.tp_enter``: a rank's gradient of
+    them is its heads' part, summed over ``model``."""
+    out = dict(p)
+    if SH.share_of(p["wk"], "col") is None:
+        for name in ("wk", "wv"):
+            out[name] = {k: comm.tp_enter(v, group) if k in ("w", "b")
+                         else v for k, v in p[name].items()}
+    for name in ("q_norm", "k_norm"):
+        if name in p:
+            out[name] = comm.tp_enter(p[name], group)
+    return out
+
+
+def _kv_of_local_heads(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
+                       h0: int, hl: int):
+    """The kv heads that the q heads [h0, h0 + hl) read (GQA groups of G =
+    H / KV q heads) when every rank holds all the kv heads (they do not
+    split over ``model`` where the q heads do): the one kv head the local
+    q heads share, else one kv head a q head."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    if G % hl == 0:
+        j = h0 // G
+        return k[:, :, j:j + 1], v[:, :, j:j + 1]
+    idx = torch.arange(h0, h0 + hl, device=k.device) // G
+    return k[:, :, idx], v[:, :, idx]
+
+
 def attend_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                 angles: Optional[torch.Tensor], *, causal: bool = True,
                 window: int = 0) -> torch.Tensor:
-    """Train/prefill self-attention over the full sequence."""
+    """Train/prefill self-attention over the full sequence. Under a
+    placement that splits the heads over ``model`` (``wq`` marked
+    column-parallel, ``wo`` row-parallel: JAX's ``constrain`` of q, k, v
+    and the output over "heads" / "kv_heads"), each rank runs the flash
+    kernel on its own heads and the output is summed over ``model``; where
+    the kv heads stay whole, a rank's q heads read their own group's."""
     B, S, _ = x.shape
+    tp = SH.share_of(p["wq"], "col")
+    if tp is not None:
+        x = comm.tp_enter(x, tp.group)
+        p = _tp_replicated(p, tp.group)
     q, k, v = _qkv(p, cfg, x, angles)
+    if tp is not None and SH.share_of(p["wk"], "col") is None:
+        hl = q.shape[2]
+        k, v = _kv_of_local_heads(cfg, k, v, tp.index * hl, hl)
     out = kops.flash_attention(q, k, v, causal, window,
                                cfg.attn_logit_softcap)
-    return apply_linear(p["wo"], out.reshape(B, S, cfg.q_dim))
+    out = out.reshape(B, S, q.shape[2] * cfg.head_dim)
+    if tp is not None:
+        return apply_row_parallel(p["wo"], out, tp.group)
+    return apply_linear(p["wo"], out)
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,11 @@ Hymba block (arXiv:2411.13676): attention and SSM run in *parallel* on the
 same normed input; per-branch RMS norm then a learned per-channel convex
 combination. Sliding-window attention on most layers, global on
 {first, middle, last} (see ``ModelConfig.layer_kinds``).
+
+In the sharded train step the rules split the ``ssm_inner`` leaves over
+``model``; they are gathered over it before use and the SSM computes
+whole on every model rank (``models.transformer._tp_keep``). Their
+tensor-parallel compute is queued (ROADMAP, Queue 1, item 14).
 """
 from __future__ import annotations
 

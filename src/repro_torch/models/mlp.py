@@ -44,8 +44,23 @@ model group, so every rank holds what JAX returns (rank 0's result does
 not depend on the other ranks' copies, which come after its rows). The
 aux is declared replicated over the data axes too: JAX returns data
 shard 0's, and each port rank keeps its own data shard's.
-A backward through the EP body is not ported (ROADMAP Queue 1, item 11,
-second part) and raises.
+
+The EP body is differentiable, with JAX's transpose of its ``shard_map``
+(``check_vma=False``): ``comm.all_to_all``'s backward is the inverse
+exchange; x and the router enter through ``comm.tp_enter`` (each model
+rank routes the same replicated tokens, so their gradients sum over
+``model``, as JAX psums an input's cotangent over the axes its spec does
+not name); the broadcast output and aux leave through
+``comm.replicated_output``, whose backward hands every model rank the
+cotangent divided by ``model``'s size, whatever its own copy held (JAX
+divides an output's cotangent by the size of the axes its spec does not
+name). ``train.step.sharded_train_step`` adds the aux's data share.
+
+Under a ``dist.sharding.Placement`` (the sharded train step) the dense
+MLP and the shared experts are tensor-parallel where the placement left
+``w_gate``/``w_up`` column- and ``w_down`` row-parallel (JAX's
+``constrain(h, "batch", None, "mlp")``): each rank computes its columns
+of the hidden layer and its partial output, summed over ``model``.
 """
 from __future__ import annotations
 
@@ -55,11 +70,12 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch import pytree
 from repro_torch.config import ModelConfig, MoEConfig
 from repro_torch.dist import comm
+from repro_torch.dist import sharding as SH
 from repro_torch.dist.sharding import current_mesh
-from repro_torch.models.params import Builder, apply_linear, get_capture
+from repro_torch.models.params import (Builder, apply_linear,
+                                       apply_row_parallel, get_capture)
 
 
 # ---------------------------------------------------------------------------
@@ -84,12 +100,28 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def _tp_group(p: Dict):
+    """The ``model`` group where a placement left ``p``'s ``w_down``
+    row-parallel (its ``w_gate``/``w_up`` column-parallel: JAX's
+    ``constrain(h, "batch", None, "mlp")``), else None."""
+    s = SH.share_of(p["w_down"], "row")
+    return None if s is None else s.group
+
+
 def apply_mlp(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The dense FFN. Under tensor parallelism each rank computes its
+    columns of the hidden layer and its partial output, summed over
+    ``model``."""
+    group = _tp_group(p)
+    if group is not None:
+        x = comm.tp_enter(x, group)
     if "w_gate" in p:
         act = _gelu if cfg.mlp_kind == "geglu" else F.silu
         h = act(apply_linear(p["w_gate"], x)) * apply_linear(p["w_up"], x)
     else:
         h = _gelu(apply_linear(p["w_up"], x))
+    if group is not None:
+        return apply_row_parallel(p["w_down"], h, group)
     return apply_linear(p["w_down"], h)
 
 
@@ -267,35 +299,46 @@ def apply_moe(p: Dict, cfg: ModelConfig,
     moe_p = p["moe"]
     pp = {"router": moe_p["router"]["w"],
           **{k: moe_p[k] for k in ("w_gate", "w_up", "w_down")}}
-    mesh = current_mesh()
-    ep = (mesh.shape["model"] if mesh is not None
-          and "model" in mesh.axis_names else 1)
+    share = SH.share_of(moe_p, "experts")
+    if share is not None:           # a placement's stacks: E/model a rank
+        ep, group = share.size, share.group
+    else:
+        mesh = current_mesh()
+        ep = (mesh.shape["model"] if mesh is not None
+              and "model" in mesh.axis_names else 1)
+        group = mesh.group("model") if ep > 1 else None
     if ep > 1:
-        _check_ep(pp, m, ep, x)
-        group = mesh.group("model")
-        # JAX's mesh body passes no capture tag: no expert statistics
-        out, aux = _moe_local(pp, m, x.reshape(-1, D), ep, group)
+        _check_ep(pp, m, ep)
+        # JAX's body is a shard_map with x and the router replicated over
+        # ``model`` (their gradients summed over it) and no capture tag
+        pp["router"] = comm.tp_enter(pp["router"], group)
+        out, aux = _moe_local(pp, m, comm.tp_enter(x, group).reshape(-1, D),
+                              ep, group)
         # the output is replicated over ``model``, and the model ranks'
         # copies differ where their duplicate rows lost capacity: JAX
         # returns device 0's, so every model rank takes model rank 0's
-        out = comm.broadcast(out, src=0, group=group)
-        aux = comm.broadcast(aux, src=0, group=group)
+        out = comm.replicated_output(out, group)
+        aux = comm.replicated_output(aux, group)
     else:
         out, aux = _moe_local(pp, m, x.reshape(-1, D),
                               tag=moe_p.get("_tag"))
     out = out.reshape(B, S, D)
     if m.num_shared:
         sh = p["moe_shared"]
-        g = F.silu(apply_linear(sh["w_gate"], x)) * apply_linear(sh["w_up"], x)
-        shared_out = apply_linear(sh["w_down"], g)
+        group = _tp_group(sh)
+        xs = x if group is None else comm.tp_enter(x, group)
+        g = (F.silu(apply_linear(sh["w_gate"], xs))
+             * apply_linear(sh["w_up"], xs))
+        shared_out = (apply_linear(sh["w_down"], g) if group is None
+                      else apply_row_parallel(sh["w_down"], g, group))
         sgate = torch.sigmoid(apply_linear(sh["shared_gate"], x))
         out = out + sgate * shared_out
     return out, aux
 
 
-def _check_ep(pp: Dict, m: MoEConfig, ep: int, x: torch.Tensor) -> None:
-    """The expert-parallel body's preconditions: E divides over ep, the
-    rank holds E/ep experts, and nothing asks for a gradient."""
+def _check_ep(pp: Dict, m: MoEConfig, ep: int) -> None:
+    """The expert-parallel body's preconditions: E divides over ep and the
+    rank holds E/ep experts."""
     E = m.padded_experts
     if E % ep:
         raise ValueError(f"{E} experts do not split over ep = {ep}")
@@ -305,8 +348,3 @@ def _check_ep(pp: Dict, m: MoEConfig, ep: int, x: torch.Tensor) -> None:
         raise ValueError(f"expert parallelism {ep}: this rank holds {held} "
                          f"experts, not E/ep = {E // ep} (take its "
                          f"local_block of each expert stack)")
-    if torch.is_grad_enabled() and (x.requires_grad or any(
-            t.requires_grad for t in pytree.tensors(pp))):
-        raise NotImplementedError(
-            "a backward through the expert-parallel MoE body is not ported "
-            "(ROADMAP Queue 1, item 11, second part: EP under autograd)")

@@ -21,6 +21,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.dist import comm
 from repro_torch.kernels import ops as kops
 
 Params = Dict[str, object]
@@ -132,6 +133,17 @@ def apply_linear(p: Params, x: torch.Tensor, dtype=None) -> torch.Tensor:
             (x @ p["lora_A"].to(dtype)) @ p["lora_B"].to(dtype))
     if "b" in p:
         y = y + p["b"].to(dtype)
+    return y
+
+
+def apply_row_parallel(p: Params, x: torch.Tensor, group) -> torch.Tensor:
+    """A row-parallel linear (its input rows split over ``group``, x this
+    rank's share of the features): the partial products summed over the
+    group (``comm.tp_exit``), the bias added once after the sum."""
+    y = comm.tp_exit(apply_linear({k: v for k, v in p.items() if k != "b"},
+                                  x), group)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
     return y
 
 

@@ -18,6 +18,12 @@ conv history; sLSTM (c, n, h, m). They return the new state; the caller
 writes it into its cache (``transformer.decode_step`` does so in place).
 The full-sequence sLSTM is a Python loop over time of plain torch ops, as
 the JAX package's ``lax.scan`` is plain XLA ops (no Pallas kernel there).
+
+In the sharded train step the rules split the ``ssm_inner`` leaves and
+the sLSTM FFN's ``mlp`` over ``model``; they are gathered over it before
+use and both blocks compute whole on every model rank
+(``models.transformer._tp_keep``). Their tensor-parallel compute is
+queued (ROADMAP, Queue 1, item 14).
 """
 from __future__ import annotations
 

@@ -31,6 +31,21 @@ paged block arena (``init_cache_paged``, read through a block table in
 ``decode_step(table=)`` and ``prefill_ext``); recurrent kinds and
 encoder-decoder models have no paged layout, in JAX as here.
 
+Under a ``dist.sharding.Placement`` (``placement=``; the sharded train
+step) ``forward`` and ``lm_loss`` take a rank's blocks of the parameters:
+a stacked run gathers one layer's at a time on use, the embedding, the
+logits and the loss are vocab-parallel where the vocab splits over
+``model``, the attention, MLP and experts compute on the rank's share
+(``_tp_keep``; each share marked with a ``dist.sharding.Share``, which
+carries the model group), and the leaves the rules split over ``model``
+that have no
+tensor-parallel compute here (the Mamba-2 and xLSTM ``ssm_inner`` dims,
+the sLSTM FFN, cross-attention) are gathered and computed whole on every
+model rank. The residual stream stays replicated over ``model``: JAX's
+``constrain(x, "batch", "seq", None)`` also lays its sequence over
+``model``, a layout that changes no number (sequence parallelism, not
+ported).
+
 Batch dictionary convention (everything optional except one input):
 ``tokens`` (B, S) int (the decoder's, for an encoder-decoder model);
 ``embeds`` (B, S, D) float, precomputed frontend embeddings in place of
@@ -51,6 +66,8 @@ from torch.utils import checkpoint as ckpt
 from repro_torch import pytree
 from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist import comm
+from repro_torch.dist import sharding as SH
 from repro_torch.models import mamba, rotary, ssm
 from repro_torch.models.attention import (attend_cross, attend_decode,
                                           attend_full, attend_prefill,
@@ -273,28 +290,72 @@ def _dots_saveable(ctx, op, *args, **kwargs):
             else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+def _layer_spec(spec):
+    """A stacked run's spec tree without its leading (layer) entry."""
+    if isinstance(spec, dict):
+        return {k: _layer_spec(v) for k, v in spec.items()}
+    return type(spec)(*spec[1:])
+
+
+def _tp_keep(cfg: ModelConfig, model_size: int):
+    """Which of a layer's leaves the model code computes on in shares over
+    ``model`` (``dist.sharding.Placement.materialize``'s ``keep_model``):
+    the attention's q heads and wo where the heads split evenly, k and v
+    where the kv heads do too (tensor parallelism); the dense and shared
+    MLPs (column- and row-parallel); the expert stacks (expert
+    parallelism). Every other leaf the rules split over ``model`` (the
+    Mamba-2 and xLSTM ``ssm_inner`` dims, the sLSTM FFN, cross-attention)
+    is gathered and computed whole on every model rank."""
+    q = cfg.n_heads % model_size == 0
+    kv = q and cfg.n_kv_heads % model_size == 0
+
+    def keep(path) -> bool:
+        if path[0] == "attn":
+            return kv if path[1] in ("wk", "wv") else q
+        return path[0] in ("mlp", "moe", "moe_shared")
+    return keep
+
+
 def _run_layers(run_p: Any, n: int, x: torch.Tensor, body,
-                cfg: ModelConfig, aux: torch.Tensor
+                cfg: ModelConfig, aux: torch.Tensor,
+                placement: Optional[SH.Placement] = None, spec=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply a run, list (compressed deploy) or stacked form.
     `body(p_layer, x) -> (x, moe aux or None)`; returns (x, ``aux`` plus
     the run's MoE aux losses). With gradients on, a stacked run of a scanned
     config rematerializes each layer per ``cfg.remat``
     ("block"/"full": keep only the layer's input; "dots": keep the matmul
-    outputs too)."""
+    outputs too).
+
+    Under a ``placement`` (``spec``: the run's spec tree) a stacked run
+    holds this rank's blocks, and each layer's are gathered on use, one
+    layer at a time, inside the rematerialized region: the backward
+    gathers them again instead of keeping them, as XLA does under ``scan``
+    with remat, and reduce-scatters their gradients. The layer code reads
+    its shares' groups from their marks, so a recompute needs no context
+    of the caller's thread (it runs in the autograd engine's)."""
     remat = (cfg.remat != "none" and cfg.scan_layers
              and not isinstance(run_p, list) and torch.is_grad_enabled())
     kw: Dict[str, Any] = {}
     if remat and cfg.remat == "dots":
         kw["context_fn"] = functools.partial(
             ckpt.create_selective_checkpoint_contexts, _dots_saveable)
-    for pl in _layers(run_p, n):
+    pl = placement
+    if pl is not None:
+        if isinstance(run_p, list):
+            raise NotImplementedError("a placement holds stacked runs only")
+        lspec, keep, inner = _layer_spec(spec), _tp_keep(cfg,
+                                                         pl.model_size), body
+
+        def body(p_blocks, xx):     # noqa: F811
+            return inner(pl.materialize(p_blocks, lspec, keep), xx)
+    for pl_ in _layers(run_p, n):
         if remat:
             # the model draws no random numbers, so no RNG state to keep
-            x, a = ckpt.checkpoint(body, pl, x, use_reentrant=False,
+            x, a = ckpt.checkpoint(body, pl_, x, use_reentrant=False,
                                    preserve_rng_state=False, **kw)
         else:
-            x, a = body(pl, x)
+            x, a = body(pl_, x)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -305,8 +366,21 @@ def _run_layers(run_p: Any, n: int, x: torch.Tensor, body,
 # ---------------------------------------------------------------------------
 def embed_tokens(params: Params, cfg: ModelConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
+    """The token rows of ``embed``. Under a placement that splits the
+    vocab over ``model`` (``params`` marked "vocab"; ``embed`` is this
+    rank's block of rows), each rank looks up the tokens it owns, zeros
+    elsewhere, and the rows are summed over ``model``."""
     emb = params["embed"].to(dtype_of(cfg.dtype))
-    x = emb[tokens.to(device=emb.device, dtype=torch.long)]
+    tokens = tokens.to(device=emb.device, dtype=torch.long)
+    vocab = SH.share_of(params, "vocab")
+    if vocab is not None:
+        vl = emb.shape[0]
+        t = tokens - vocab.index * vl
+        x = emb[t.clamp(0, vl - 1)]
+        x = comm.tp_exit(torch.where(((t >= 0) & (t < vl))[..., None], x,
+                                     torch.zeros_like(x)), vocab.group)
+    else:
+        x = emb[tokens]
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
@@ -314,10 +388,19 @@ def embed_tokens(params: Params, cfg: ModelConfig,
 
 def lm_logits(params: Params, cfg: ModelConfig,
               x: torch.Tensor) -> torch.Tensor:
+    """The logits of the last hidden rows; under a placement that splits
+    the vocab over ``model``, this rank's block of the vocab (the tied
+    ``embed``'s rows or ``lm_head``'s columns)."""
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
+        vocab = SH.share_of(params, "vocab")
+        if vocab is not None:
+            x = comm.tp_enter(x, vocab.group)
         logits = x @ params["embed"].to(x.dtype).T
     else:
+        vocab = SH.share_of(params["lm_head"], "col")
+        if vocab is not None:
+            x = comm.tp_enter(x, vocab.group)
         logits = apply_linear(params["lm_head"], x)
     return softcap(logits, cfg.logit_softcap)
 
@@ -364,9 +447,11 @@ def _add_sinusoidal(cfg: ModelConfig, x: torch.Tensor,
 
 def _stack_forward(stack_p: Params, cfg: ModelConfig, x: torch.Tensor,
                    positions: Optional[torch.Tensor],
-                   enc_out: Optional[torch.Tensor], causal: bool
+                   enc_out: Optional[torch.Tensor], causal: bool,
+                   placement: Optional[SH.Placement] = None, spec=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Every run of ``cfg``'s stack over x. Returns (x, the MoE aux sum)."""
+    """Every run of ``cfg``'s stack over x (``spec``: the stack's spec tree
+    under a ``placement``). Returns (x, the MoE aux sum)."""
     aux = torch.zeros((), device=x.device)
     for r, (kind, n) in enumerate(cfg.layer_runs()):
         angles = _angles_for(cfg, kind, positions)
@@ -374,15 +459,20 @@ def _stack_forward(stack_p: Params, cfg: ModelConfig, x: torch.Tensor,
             stack_p[f"run{r}"], n, x,
             lambda pl, xx, kind=kind, angles=angles: _block_fwd(
                 kind, cfg, pl, xx, angles, causal=causal, enc_out=enc_out),
-            cfg, aux)
+            cfg, aux, placement, None if spec is None else spec[f"run{r}"])
     return x, aux
 
 
-def encode(params: Params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
+def _stack_spec(placement: Optional[SH.Placement], name: str):
+    return None if placement is None else placement.spec_at(name)
+
+
+def encode(params: Params, cfg: ModelConfig, batch: Dict, *,
+           placement: Optional[SH.Placement] = None) -> torch.Tensor:
     """The encoder stack of an encoder-decoder model over ``enc_embeds``
     (the audio stub; cast to the compute dtype) or ``enc_tokens``:
     sinusoidal positions, non-causal self-attention (the flash kernel),
-    ``enc_norm``. Returns (B, T, D)."""
+    ``enc_norm``. Returns (B, T, D). ``placement``: as ``forward``'s."""
     dev = _params_device(params)
     if "enc_embeds" in batch:
         x = torch.as_tensor(batch["enc_embeds"], device=dev).to(
@@ -392,64 +482,145 @@ def encode(params: Params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
                                                       device=dev))
     x = _add_sinusoidal(cfg, x)
     x, _ = _stack_forward(params["encoder"], encoder_config(cfg), x, None,
-                          None, causal=False)
+                          None, causal=False, placement=placement,
+                          spec=_stack_spec(placement, "encoder"))
     return rms_norm(params["encoder"]["enc_norm"], x, cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
 # Forward (train / eval, full sequence)
 # ---------------------------------------------------------------------------
-def forward(params: Params, cfg: ModelConfig,
-            batch: Dict) -> Tuple[torch.Tensor, Dict]:
-    """Full-sequence forward. Returns (logits (B,S,V), aux)."""
+_TOP = ("embed", "final_norm", "lm_head")
+
+
+def _use_top(pl, params: Params) -> Params:
+    """``params`` with the leaves outside the layer runs gathered for use
+    (the vocab stays split over ``model``: ``params`` marked "vocab"); the
+    runs stay blocks, gathered a layer at a time."""
+    out = dict(params)
+    vocab = pl.vocab_share()
+    if vocab is not None:
+        out["_tp"] = vocab
+    for k in _TOP:
+        if k in params:
+            out[k] = pl.materialize(params[k], pl.spec_at(k),
+                                    lambda path: True)
+    if "encoder" in params:
+        out["encoder"] = dict(params["encoder"], enc_norm=pl.materialize(
+            params["encoder"]["enc_norm"], pl.spec_at("encoder", "enc_norm")))
+    return out
+
+
+def forward(params: Params, cfg: ModelConfig, batch: Dict, *,
+            placement: Optional[SH.Placement] = None
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence forward. Returns (logits (B,S,V), aux). Under a
+    ``dist.sharding.Placement`` (``placement``) ``params`` are this rank's
+    blocks and the logits this rank's block of the vocab where the vocab
+    splits over ``model``."""
     check_supported(cfg)
+    pl = placement
+    if pl is not None:
+        params = _use_top(pl, params)
     dev = _params_device(params)
-    enc_out = encode(params, cfg, batch) if cfg.is_encoder_decoder else None
+    enc_out = (encode(params, cfg, batch, placement=pl)
+               if cfg.is_encoder_decoder else None)
     x = _embed_input(params, cfg, batch, dev)
     positions = _default_positions(cfg, batch, dev)
     x, aux = _stack_forward(params["decoder"], cfg, x, positions, enc_out,
-                            causal=True)
+                            causal=True, placement=pl,
+                            spec=_stack_spec(pl, "decoder"))
     logits = lm_logits(params, cfg, x)
     return logits, {"moe_aux": aux}
 
 
-def lm_loss(params: Params, cfg: ModelConfig,
-            batch: Dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token CE. If batch has explicit `labels`, logits align 1:1 with
-    them; otherwise labels are tokens shifted left by one (the last
-    position padded with -1, masked). ``loss_mask`` multiplies the mask.
-    An MoE model adds ``aux_loss_weight · moe_aux / n_layers`` and reports
-    ``metrics["moe_aux"]``. Returns (loss, metrics); the metrics are
-    detached and stay on the device."""
-    logits, aux = forward(params, cfg, batch)
-    dev = logits.device
+def loss_labels(cfg: ModelConfig, batch: Dict, device
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(labels, mask) of ``lm_loss``: explicit ``labels`` or the tokens
+    shifted left by one (the last position -1), masked where negative and
+    by ``loss_mask``."""
     if "labels" in batch:
-        labels = torch.as_tensor(batch["labels"], device=dev).long()
+        labels = torch.as_tensor(batch["labels"], device=device).long()
     else:
-        labels = F.pad(_tokens(batch, dev)[:, 1:].long(), (0, 1),
+        labels = F.pad(_tokens(batch, device)[:, 1:].long(), (0, 1),
                        value=-1)
     mask = (labels >= 0).to(torch.float32)
     if "loss_mask" in batch:
-        mask = mask * torch.as_tensor(batch["loss_mask"], device=dev)
+        mask = mask * torch.as_tensor(batch["loss_mask"], device=device)
+    return labels, mask
+
+
+def _log_softmax_terms(lf: torch.Tensor, labels: torch.Tensor,
+                       vocab: Optional[SH.Share]):
+    """(log-sum-exp, gold logit, argmax) of float32 logits. On this rank's
+    block of a vocab split over ``model`` (``vocab``, its share): the max
+    and the sum of exponentials reduced over ``model``, the gold logit
+    from the rank that owns the label, and the argmax across the blocks
+    with ``torch.argmax``'s tie rule (the first index)."""
+    if vocab is None:
+        return (torch.logsumexp(lf, dim=-1),
+                torch.gather(lf, -1, labels[..., None])[..., 0],
+                torch.argmax(lf.detach(), -1))
+    vl = lf.shape[-1]
+    g, v0 = vocab.group, vocab.index * vl
+    m = comm.all_reduce_max(lf.detach().amax(-1), g)
+    logz = m + torch.log(comm.tp_exit(torch.exp(lf - m[..., None]).sum(-1),
+                                      g))
+    t = labels - v0
+    mine = (t >= 0) & (t < vl)
+    gl = torch.gather(lf, -1, t.clamp(0, vl - 1)[..., None])[..., 0]
+    gold = comm.tp_exit(torch.where(mine, gl, torch.zeros_like(gl)), g)
+    with torch.no_grad():
+        vals = comm.all_gather(lf.amax(-1)[None], 0, g)
+        idxs = comm.all_gather((torch.argmax(lf, -1) + v0)[None], 0, g)
+        first = (vals == vals.amax(0)).to(torch.int32).argmax(0)
+        arg = torch.gather(idxs, 0, first[None])[0]
+    return logz, gold, arg
+
+
+def lm_loss_terms(params: Params, cfg: ModelConfig, batch: Dict, *,
+                  placement: Optional[SH.Placement] = None
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Dict]:
+    """``lm_loss``'s two terms apart: (the mean CE, the MoE term
+    ``aux_loss_weight · moe_aux / n_layers`` or None, metrics)."""
+    logits, aux = forward(params, cfg, batch, placement=placement)
+    dev = logits.device
+    labels, mask = loss_labels(cfg, batch, dev)
     labels_c = labels.clamp_min(0)
     lf = logits.to(torch.float32)
-    logz = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels_c[..., None])[..., 0]
+    logz, gold, arg = _log_softmax_terms(
+        lf, labels_c, None if placement is None else placement.vocab_share())
     nll = (logz - gold) * mask
     denom = torch.clamp(mask.sum(), min=1.0)
     loss = nll.sum() / denom
     with torch.no_grad():
-        acc = (torch.argmax(lf, -1) == labels_c).to(torch.float32) * mask
+        acc = (arg == labels_c).to(torch.float32) * mask
         metrics = {
             "loss": loss.detach(),
             "ppl_log": loss.detach(),       # exp() applied host-side
             "accuracy": acc.sum() / denom,
             "tokens": mask.sum(),
         }
+    term = None
     if cfg.moe.num_experts:
-        loss = loss + cfg.moe.aux_loss_weight * aux["moe_aux"] / max(
-            1, cfg.n_layers)
+        term = cfg.moe.aux_loss_weight * aux["moe_aux"] / max(1, cfg.n_layers)
         metrics["moe_aux"] = aux["moe_aux"].detach()
+    return loss, term, metrics
+
+
+def lm_loss(params: Params, cfg: ModelConfig, batch: Dict, *,
+            placement: Optional[SH.Placement] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token CE. If batch has explicit `labels`, logits align 1:1 with
+    them; otherwise labels are tokens shifted left by one (the last
+    position padded with -1, masked). ``loss_mask`` multiplies the mask.
+    An MoE model adds ``aux_loss_weight · moe_aux / n_layers`` and reports
+    ``metrics["moe_aux"]``. Returns (loss, metrics); the metrics are
+    detached and stay on the device. ``placement``: as ``forward``'s."""
+    loss, term, metrics = lm_loss_terms(params, cfg, batch,
+                                        placement=placement)
+    if term is not None:
+        loss = loss + term
     return loss, metrics
 
 

@@ -64,8 +64,11 @@ def global_norm(tree) -> torch.Tensor:
                           for x in pytree.leaves(tree)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, norm_fn=global_norm):
+    """``grads`` scaled to a global norm of at most ``max_norm``;
+    ``norm_fn`` computes the norm (a sharded step's sums every rank's
+    blocks: ``dist.sharding.Placement.global_norm``)."""
+    norm = norm_fn(grads)
     scale = torch.minimum(torch.ones_like(norm), max_norm / (norm + 1e-9))
     return pytree.tree_map(lambda g: (g.to(torch.float32) * scale
                                       ).to(g.dtype), grads), norm
@@ -81,11 +84,14 @@ def adamw_init(params) -> AdamWState:
 
 
 def adamw_update(cfg: OptimizerConfig, grads, state: AdamWState, params,
+                 norm_fn=global_norm,
                  ) -> Tuple[Dict, AdamWState, Dict[str, torch.Tensor]]:
     """Returns (new_params, new_state, stats). Reads nothing back to the
-    host."""
+    host. Elementwise but for the global norm, so it runs as it is on a
+    rank's blocks of the params and moments, given the ``norm_fn`` of the
+    whole gradient."""
     sched = make_schedule(cfg)
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, norm_fn)
     b1, b2 = cfg.betas
     step = state.step + 1
     lr = sched(state.step)

@@ -13,10 +13,16 @@ of a mesh): each rank computes its shard's loss and grads, and
 ``lm_loss`` divides by its shard's count of tokens, so the reduce weighs
 each rank's loss, grads and accuracy by that count and divides by the
 summed count (sums and counts, not means), in one flat float32 bucket
-for all the grads: one collective a step, not one a leaf. JAX gets the
-same from jit shardings on one process (``tests/test_dist.py``); sharding
-the parameters themselves (FSDP, tensor parallelism over ``model``) is
-not ported (ROADMAP Queue 1, item 11, second part).
+for all the grads: one collective a step, not one a leaf.
+
+Sharded training (``make_train_step(..., mesh=...)``,
+``sharded_train_step``): each rank holds its block of every parameter and
+AdamW moment under the sharding rules (``shard_state``: FSDP over the
+data axes, heads, MLP, vocab and experts over ``model``), gathers each on
+use and reduce-scatters its gradient (``dist.sharding.Placement``), and
+computes the heads, MLP columns, vocab block and experts it holds. JAX
+gets both from ``jit`` shardings on one process (``tests/test_dist.py``),
+with the same numbers.
 """
 from __future__ import annotations
 
@@ -30,6 +36,8 @@ import torch
 from repro_torch import pytree
 from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike
+from repro_torch.dist import comm
+from repro_torch.dist import sharding as SH
 from repro_torch.models import transformer as T
 from repro_torch.models.params import Params
 from repro_torch.optim.adamw import (AdamWState, OptimizerConfig, adamw_init,
@@ -129,7 +137,6 @@ def reduce_data_parallel(loss: torch.Tensor, metrics: Dict, grads,
     shard: each rank's values weighed by its token count ``n_r`` and
     divided by ``N = Σ n_r``. The grads travel in one flat float32 bucket
     with the count and the weighted loss and accuracy at its end."""
-    from repro_torch.dist import comm
     n = metrics["tokens"].to(torch.float32)
     leaves = pytree.leaves(grads)
     flat = torch.cat([g.reshape(-1).to(torch.float32) * n for g in leaves]
@@ -164,9 +171,102 @@ def train_step(state: TrainState, batch: Dict, *, cfg: ModelConfig,
     return TrainState(params=new_params, opt=new_opt), metrics
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, group=None):
+# ---------------------------------------------------------------------------
+# The sharded step: FSDP, tensor and expert parallelism over a mesh
+# ---------------------------------------------------------------------------
+def state_specs(specs) -> TrainState:
+    """The logical axes of a train state: AdamW's ``mu`` and ``nu`` take
+    the params' (``specs``, from ``init_model``), ``step`` is
+    replicated."""
+    return TrainState(params=specs,
+                      opt=AdamWState(step=(), mu=specs, nu=specs))
+
+
+def placement(cfg: ModelConfig, mesh) -> SH.Placement:
+    """The parameters' shape-aware specs on ``mesh`` (from a ``meta``
+    init: shapes only)."""
+    params, specs = T.init_model(cfg, device="meta")
+    shardings = SH.shardings_for_tree(params, specs, mesh)
+    return SH.Placement(mesh, pytree.tree_map(lambda s: s.spec, shardings))
+
+
+def shard_state(state: TrainState, specs, mesh):
+    """This rank's blocks of a whole train state under the rules
+    (``dist.sharding.shard_tree``). Returns (blocks, shardings)."""
+    return SH.shard_tree(state, state_specs(specs), mesh)
+
+
+def sharded_train_step(state: TrainState, batch: Dict, *, cfg: ModelConfig,
+                       tcfg: TrainConfig, placement: SH.Placement
+                       ) -> Tuple[TrainState, Dict]:
+    """One step on this rank's blocks of the state (``shard_state``) and
+    its data shard of the batch (replicated over ``model``), the numbers of
+    JAX's step under ``jit`` shardings. The rank's loss is scaled by
+    ``n_r / N`` (its token count over the batch's, all-reduced over the
+    batch axes first), so the gradients the FSDP gathers reduce-scatter
+    are the global batch's, weighted as ``reduce_data_parallel`` weighs
+    them; an MoE model's aux term is scaled by 1 / (the batch axes' size):
+    JAX's transpose of its replicated aux hands every device that share.
+    Microbatches accumulate float32 grads on the blocks. The metrics are
+    ``reduce_data_parallel``'s, the loss the CE as ``lm_loss`` reports it
+    (an MoE model's ``moe_aux``: data shard 0's, as JAX returns device
+    0's), with the global norm over every rank's blocks."""
+    pl = placement
+    nmb = max(1, tcfg.microbatches)
+    _, mask = T.loss_labels(cfg, batch, state.opt.step.device)
+    n = mask.sum()
+    total = comm.all_reduce_sum(n, pl.batch_group)
+    acc_grads, sums = None, None
+    for i in range(nmb):
+        mb = batch if nmb == 1 else _microbatch(batch, nmb, i)
+
+        def fn(p, mb=mb):
+            ce, term, m = T.lm_loss_terms(p, cfg, mb, placement=pl)
+            loss = ce * (n / (total * nmb))
+            if term is not None:
+                loss = loss + term / (pl.batch_size * nmb)
+            return loss, m
+        _, m, grads = value_and_grad_of(fn, state.params)
+        grads = pytree.tree_map(lambda g: g.to(torch.float32), grads)
+        vals = {k: v for k, v in m.items() if k != "ppl_log"}
+        if i == 0:
+            acc_grads, sums = grads, vals
+        else:
+            acc_grads = pytree.tree_map(torch.add, acc_grads, grads)
+            sums = {k: sums[k] + vals[k] for k in sums}
+        del grads
+    grads = pytree.tree_map(lambda g, p: g.to(p.dtype),
+                            pl.reduce_grads(acc_grads), state.params)
+    del acc_grads
+    mean = {k: v / nmb for k, v in sums.items()}
+    extra = ([mean["moe_aux"] * float(pl.batch_index == 0)]
+             if "moe_aux" in mean else [])
+    red = comm.all_reduce_sum(torch.stack(
+        [mean["loss"] * n, mean["accuracy"] * n, n] + extra),
+        pl.batch_group)
+    metrics = {"loss": red[0] / red[2], "accuracy": red[1] / red[2],
+               "tokens": red[2]}
+    metrics["ppl_log"] = metrics["loss"]
+    if extra:
+        metrics["moe_aux"] = red[3]
+    new_params, new_opt, stats = adamw_update(
+        tcfg.optimizer, grads, state.opt, state.params,
+        norm_fn=pl.global_norm)
+    metrics.update(stats)
+    return TrainState(params=new_params, opt=new_opt), metrics
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, group=None,
+                    mesh=None):
     """The step function; with ``group`` (a data-parallel process group)
-    the grads are reduced over it before AdamW."""
+    the grads are reduced over it before AdamW; with ``mesh`` the state is
+    sharded over it (``sharded_train_step``: pass ``shard_state``'s
+    blocks and the rank's data shard of the batch)."""
+    if mesh is not None:
+        if group is not None:
+            raise ValueError("make_train_step: group or mesh, not both")
+        return functools.partial(sharded_train_step, cfg=cfg, tcfg=tcfg,
+                                 placement=placement(cfg, mesh))
     return functools.partial(train_step, cfg=cfg, tcfg=tcfg, group=group)
 
 

@@ -210,15 +210,32 @@ JAX_MESH_PROG = textwrap.dedent("""
 """)
 
 
+_JAX_MESH = {}
+
+
+def _start_jax_mesh():
+    """JAX's four-device run, in a subprocess (started beside the ranks by
+    the ``ranks`` fixture)."""
+    if "proc" not in _JAX_MESH:
+        env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
+        _JAX_MESH["proc"] = subprocess.Popen(
+            [sys.executable, "-c", JAX_MESH_PROG, json.dumps(CKPT_SPECS),
+             json.dumps(CKPT_SHAPES)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+
+
 @functools.lru_cache(maxsize=None)
 def jax_mesh():
-    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
-    proc = subprocess.run(
-        [sys.executable, "-c", JAX_MESH_PROG, json.dumps(CKPT_SPECS),
-         json.dumps(CKPT_SHAPES)], env=env, capture_output=True, text=True,
-        timeout=300)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+    _start_jax_mesh()
+    proc = _JAX_MESH["proc"]
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, err[-3000:]
+    return json.loads(out.strip().splitlines()[-1])
 
 
 def _inputs(tmp):
@@ -243,9 +260,16 @@ def _inputs(tmp):
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
+    """The world-4 job, with JAX's four-device run beside it."""
     tmp = str(tmp_path_factory.mktemp("dist"))
-    inp = _inputs(tmp)
-    return inp, R.run("dist", tmp, inp)
+    _start_jax_mesh()
+    try:
+        inp = _inputs(tmp)
+        return inp, R.run("dist", tmp, inp)
+    except BaseException:
+        _JAX_MESH["proc"].kill()
+        _JAX_MESH["proc"].wait()
+        raise
 
 
 def _group_members(name, rank):

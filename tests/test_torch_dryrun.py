@@ -21,7 +21,12 @@ counter ``launch.op_analysis``) against the JAX package's dry-run.
   devices (started by the module's first test, read by the last);
 * (7) the CLI's JSON; and the counts on CPU tensors equal those on
   ``meta``, and the collectives of a data-parallel step and of an
-  expert-parallel forward on shapes-only meshes.
+  expert-parallel forward on shapes-only meshes;
+* (8) a train cell runs the sharded step: the state as placed equals
+  ``rule_state_bytes`` on the production mesh (smollm-360m, qwen3-4b,
+  granite at full width, 2 layers), the arguments differ from the rules'
+  by the batch's sequence over ``model`` alone, and the step's gathers
+  and reduce-scatters move the bytes of their formula.
 """
 import functools
 import json
@@ -55,7 +60,7 @@ from repro_torch.dist import comm                           # noqa: E402
 from repro_torch.kernels import ops, ref                    # noqa: E402
 from repro_torch.launch import dryrun as DR                 # noqa: E402
 from repro_torch.launch import op_analysis as OA            # noqa: E402
-from repro_torch.launch.mesh import Mesh                    # noqa: E402
+from repro_torch.launch.mesh import Mesh, make_production_mesh  # noqa: E402
 from repro_torch.models import transformer as T             # noqa: E402
 from repro_torch.train import step as TS                    # noqa: E402
 
@@ -287,15 +292,86 @@ def test_counts_on_cpu_tensors_equal_counts_on_meta():
 
 
 def test_data_parallel_step_counts_one_all_reduce_bucket():
-    """At data = 2 a train step all-reduces one float32 bucket: every
+    """At data = 2 the data-parallel step (``make_train_step(group=)``, the
+    parameters whole on every rank) all-reduces one float32 bucket: every
     gradient, then the weighted loss, accuracy and token count."""
+    cfg = get_config("llama-mini").replace(**LLAMA)
+    state, _ = TS.init_train_state(cfg, device="meta")
+    mesh = Mesh((2, 2), ("data", "model"), rank=0, build_groups=False)
+    with comm.counting(4):
+        group = mesh.group("data")
+    s = TINY["tiny_train"]
+    tok = torch.empty((s.global_batch // 2, s.seq_len), dtype=torch.int32,
+                      device="meta")
+    res = OA.count(TS.make_train_step(cfg, TS.TrainConfig(), group=group),
+                   state, {"tokens": tok}, world=4)
+    n = sum(t.numel() for t in pytree.tensors(state.params))
+    assert res["collectives"]["per_op"] == {"all_reduce": 4 * (n + 3)}
+    assert res["collectives"]["calls"] == {"all_reduce": 1}
+    assert DR.roofline(res["flops"], res["bytes"],
+                       res["collectives"]["total_bytes"], 1.0,
+                       4)["collective_s"] == \
+        4 * (n + 3) / DR.H100_SXM.link_bytes_per_s
+
+
+# train cells on the production mesh at full width, cut to 2 layers (every
+# leaf kind; a rank's blocks do not depend on the depth)
+STATE_CELLS = ("smollm-360m", "qwen3-4b", GRANITE)
+
+
+@pytest.mark.parametrize("arch", STATE_CELLS)
+def test_train_cells_place_the_state_as_the_rules(arch):
+    """A train cell's rank holds its block of every parameter and AdamW
+    moment under the rules: the state's bytes as placed equal
+    ``rule_state_bytes`` exactly (smollm's 15 heads and granite's vocab
+    49155 replicated over ``model`` by the fallback, qwen3-4b's 8 kv heads
+    replicated while its 32 q heads split), and the arguments differ from
+    the rules' by the batch alone, whose sequence the rules also lay over
+    ``model``."""
+    mesh = make_production_mesh()
+    res = DR.account_cell(arch, "train_4k", mesh,
+                          overrides={"n_layers": 2})
+    mem = res["memory"]
+    assert mem["state_bytes"] == mem["rule_state_bytes"]
+    s = TC.SHAPES["train_4k"]
+    rows = s.global_batch // mesh.shape["data"]
+    seq = s.seq_len
+    per_row = seq * 4                                     # tokens, int32
+    assert mem["argument_bytes"] - mem["rule_argument_bytes"] == \
+        rows * per_row - rows * per_row // mesh.shape["model"]
+    assert mem["argument_bytes"] - mem["state_bytes"] == rows * per_row
+    # params, mu and nu in float32: a rank holds under 1/16 of them
+    n = sum(t.numel() for t in pytree.tensors(T.init_model(
+        get_config(arch).replace(n_layers=2), device="meta")[0]))
+    assert 16 * mem["state_bytes"] < 12 * n
+
+
+def test_sharded_step_gathers_and_reduce_scatters_by_formula():
+    """llama-mini's train cell at (data 2, model 2): each layer's
+    data-split leaves gathered twice (the forward and the remat'd
+    recompute), the leaves outside the runs once, and the loss's argmax
+    across the vocab blocks (a float32 and an int64 (2, B, S)); each
+    data-split leaf's gradient reduce-scattered once, to its block."""
     res = port_cell("llama-mini", "train", mesh=(2, 2))
     cfg = get_config("llama-mini").replace(**LLAMA)
-    n = sum(t.numel() for t in pytree.tensors(
-        T.init_model(cfg, device="meta")[0]))
-    assert res["collectives"]["per_op"] == {"all_reduce": 4 * (n + 3)}
-    assert res["roofline"]["collective_s"] == \
-        4 * (n + 3) / DR.H100_SXM.link_bytes_per_s
+    params, specs = T.init_model(cfg, device="meta")
+    mesh = Mesh((2, 2), ("data", "model"), rank=0, build_groups=False)
+    pl = TS.placement(cfg, mesh)
+    gathered = scattered = 0
+    for path, t in pytree.flatten_with_path(params):
+        keys = [k for _, k in path]
+        spec = pl.spec_at(*keys)
+        if not any(e == "data" for e in spec):
+            continue
+        model = 2 if "model" in spec else 1
+        whole = t.numel() * 4 // model              # over data, float32
+        scattered += whole // 2
+        gathered += whole * (2 if keys[0] == "decoder" else 1)
+    s = TINY["tiny_train"]
+    gathered += 2 * (s.global_batch // 2) * s.seq_len * (4 + 8)
+    per_op = res["collectives"]["per_op"]
+    assert per_op["all_gather"] == gathered
+    assert per_op["reduce_scatter"] == scattered
 
 
 def test_expert_parallel_decode_counts_its_all_to_alls():
@@ -516,6 +592,8 @@ def test_rule_argument_bytes_match_jax_shard_shapes():
         res = port_cell(arch, mode, mesh=(2, 2))
         assert res["memory"]["rule_argument_bytes"] == \
             want[arch + "/" + mode], (arch, mode)
-        # the port replicates the parameters over data (no FSDP yet)
+        # prefill and decode hold the parameters whole (serving with
+        # sharded parameters is not ported); a train cell holds the rules'
+        # blocks, its batch split over the data axes only
         assert res["memory"]["argument_bytes"] > \
             res["memory"]["rule_argument_bytes"]

@@ -236,12 +236,128 @@ def job_train_moe(rank, inp):
     with torch.no_grad(), SH.use_rules(mesh=mesh), Collector() as col:
         M.apply_moe(tagged, mcfg, xs)
     out["ep_capture"] = sorted(col.gram)
-    # a backward through the EP body raises
+    # sharded training over (data 2, model 2), and the EP backward
+    out.update(_sharded_cases(rank, mesh, inp))
+    return out
+
+
+def _sharded_run(rank, mesh, case):
+    """A sharded train step of ``case["cfg"]`` for each global batch of
+    ``case["batches"]`` (each rank taking its data shard), from the whole
+    initial ``case["params"]``. Returns (what the test reads, the final
+    blocks, their shardings)."""
+    from repro_torch import pytree
+    from repro_torch.dist import sharding as SH
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import step as TS
+
+    cfg = case["cfg"]
+    _, specs = T.init_model(cfg, device="meta")
+    state = TS.TrainState(params=case["params"],
+                          opt=adamw_init(case["params"]))
+    blocks, shd = TS.shard_state(state, specs, mesh)
+    res = {"held": {pytree.keystr(p): tuple(t.shape) for p, t in
+                    pytree.flatten_with_path(blocks)},
+           "metrics": []}
+    step = TS.make_train_step(cfg, TS.TrainConfig(**case["tcfg"]),
+                              mesh=mesh)
+    n, d = mesh.shape["data"], mesh.coord("data")
+    for b in case["batches"]:
+        rows = next(iter(b.values())).shape[0] // n
+        blocks, m = step(blocks, {k: v[d * rows:(d + 1) * rows]
+                                  for k, v in b.items()})
+        res["metrics"].append({k: float(v) for k, v in m.items()})
+    whole = SH.gather_tree(blocks.params, shd.params)
+    if rank == 0:
+        res["params"] = whole
+    return res, blocks, shd
+
+
+def _one_process(case):
+    """The port's one-process steps of a case on the whole global batches
+    (``case["one_micro"]`` microbatches): (metrics, params)."""
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import step as TS
+    step = TS.make_train_step(case["cfg"], TS.TrainConfig(
+        microbatches=case["one_micro"], **case["tcfg"]))
+    state = TS.TrainState(params=case["params"],
+                          opt=adamw_init(case["params"]))
+    metrics = []
+    for b in case["batches"]:
+        state, m = step(state, b)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, state.params
+
+
+def _peak_gathered(SH, fn) -> int:
+    """Runs ``fn`` and returns the most bytes of whole leaves from
+    ``SH.gather_leaf`` alive at once in it."""
+    import weakref
+    live, peak, inner = {}, [0], SH.gather_leaf
+
+    def spy(t, s):
+        w = inner(t, s)
+        live[id(w)] = w.numel() * w.element_size()
+        weakref.finalize(w, live.pop, id(w), None)
+        peak[0] = max(peak[0], sum(live.values()))
+        return w
+    SH.gather_leaf = spy
     try:
-        with SH.use_rules(mesh=mesh):
-            M.apply_moe(local, mcfg, xs.clone().requires_grad_())
-    except NotImplementedError as e:
-        out["ep_grad"] = str(e)
+        fn()
+    finally:
+        SH.gather_leaf = inner
+    return peak[0]
+
+
+def _sharded_cases(rank, mesh, inp):
+    """Cases (a)-(e) of ``tests/test_torch_mesh_train_moe.py``."""
+    from repro_torch import pytree
+    from repro_torch.ckpt import store
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import mlp as M
+    from repro_torch.train import step as TS
+
+    out = {}
+    for name in ("llama", "smollm", "moe", "hymba"):
+        out[f"sh_{name}"], blocks, shd = _sharded_run(rank, mesh,
+                                                      inp["sharded"][name])
+        if name == "llama":
+            ck_blocks, ck_shd = blocks, shd
+    # the EP body's gradient blocks: sum(out * w) + aux of the MoE layer,
+    # its router and expert stacks placed by the rules
+    e = inp["ep_grad"]
+    blocks, shd = SH.shard_tree(e["p"], e["specs"], mesh)
+    pl = SH.Placement(mesh, pytree.tree_map(lambda s: s.spec, shd))
+    b = e["x"].shape[0] // mesh.shape["data"]
+    rows = slice(mesh.coord("data") * b, (mesh.coord("data") + 1) * b)
+
+    def fn(bl):
+        o, aux = M.apply_moe(pl.materialize(bl, pl.specs, lambda path: True),
+                             e["cfg"], e["x"][rows])
+        return (o * e["w"][rows]).sum() + aux / pl.batch_size, None
+    _, _, g = TS.value_and_grad_of(fn, blocks)
+    out["ep_grads"] = pl.reduce_grads(g)
+    # (e) a checkpoint of the sharded state, saved at (2, 2), restored onto
+    # (4, 1) and onto one process
+    ck = inp["ckpt_dir"]
+    out["ckpt_peak_gathered"] = _peak_gathered(
+        SH, lambda: store.save(ck, 3, ck_blocks, shardings=ck_shd))
+    whole = SH.gather_tree(ck_blocks, ck_shd)       # every rank takes part
+    out["ckpt_whole"] = whole if rank == 0 else None
+    mesh41 = make_host_mesh(data=4, model=1)
+    cfg = inp["sharded"]["llama"]["cfg"]
+    meta_state, specs = TS.init_train_state(cfg, device="meta")
+    shd41 = SH.shardings_for_tree(meta_state, TS.state_specs(specs), mesh41)
+    _, out["ckpt_41"] = store.restore(ck, meta_state, shardings=shd41,
+                                      device="cpu")
+    if rank == 0:
+        _, out["ckpt_one"] = store.restore(ck, meta_state, device="cpu")
+    # the references, one process on the same global batches: each rank
+    # runs every WORLD-th case
+    out["one"] = {name: _one_process(c) for i, (name, c) in
+                  enumerate(inp["sharded"].items()) if i % WORLD == rank}
     return out
 
 
@@ -268,11 +384,10 @@ def _rank_main(rank, job, workdir, init_method):
         raise
 
 
-def run(job: str, workdir: str, inputs: dict, timeout: float = 900):
-    """Write ``inputs``, run ``job`` on WORLD ranks in a child process and
-    return the ranks' outputs (the test side: it may import JAX, the
-    ranks do not). ``timeout`` only catches a hang: niced under a full
-    suite, a job that takes ~25 s alone has taken ~280 s."""
+def start(job: str, workdir: str, inputs: dict):
+    """Write ``inputs`` and start ``job`` on WORLD ranks in a child process
+    (the test side: it may import JAX, the ranks do not); the test goes on
+    while they run. Returns what :func:`collect` takes."""
     import subprocess
     torch.save(inputs, os.path.join(workdir, "inputs.pt"))
     here = os.path.dirname(os.path.abspath(__file__))
@@ -282,14 +397,34 @@ def run(job: str, workdir: str, inputs: dict, timeout: float = 900):
                MKL_NUM_THREADS="1")
     env["PYTHONPATH"] = os.path.join(os.path.dirname(here), "src") + (
         os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), job,
-                           workdir], env=env, capture_output=True,
-                          text=True, timeout=timeout)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), job,
+                             workdir], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return job, workdir, proc
+
+
+def collect(started, timeout: float = 900):
+    """The ranks' outputs of a job from :func:`start`. ``timeout`` only
+    catches a hang: niced under a full suite, a job that takes ~25 s alone
+    has taken ~280 s."""
+    job, workdir, proc = started
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     if proc.returncode != 0:
         raise RuntimeError(f"ranks of {job!r} failed ({proc.returncode}):\n"
-                           + proc.stderr[-6000:])
+                           + err[-6000:])
     return [torch.load(os.path.join(workdir, f"out_rank{r}.pt"),
                        weights_only=False) for r in range(WORLD)]
+
+
+def run(job: str, workdir: str, inputs: dict, timeout: float = 900):
+    """Write ``inputs``, run ``job`` on WORLD ranks in a child process and
+    return the ranks' outputs."""
+    return collect(start(job, workdir, inputs), timeout)
 
 
 def main(job: str, workdir: str) -> None:
