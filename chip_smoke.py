@@ -351,6 +351,16 @@ ORACLE_LAYERS = 2
 TRAIN_PARITY_LAYERS = 4
 ARTIFACT_DIR = ROOT / "build" / "chip_smoke_artifact"
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 8, 64, 32
+# the decode plan's boundaries (tiles of 64 rows, clusters of 8): one row,
+# a tile's share +- 1, every rank's first tile +- 1, every rank filled three
+# times over, gemma3's prompt, a long cache
+DECODE_PLAN_LENGTHS = (0, 1, 17, 63, 64, 65, 80, 511, 512, 513, 1217, 1541,
+                       4096, 32768)
+# decode attention over long caches at mistral-nemo-12b's widths (32 q
+# heads over 8, hd 128, bf16), past the 50 MB L2: (name, layers, B, H, KV,
+# hd, pool rows, live rows)
+LONG_DECODE = (("long cache, B 8", 2, 8, 32, 8, 128, 4096, 4096),
+               ("long cache, B 1", 1, 1, 32, 8, 128, 32768, 32768))
 PARITY_BATCH, PARITY_PROMPT, PARITY_STEPS = 4, 32, 16
 # the batcher's path: 24 requests of 17-160 prompt tokens, half of them
 # over one shared 64-token prefix (4 blocks of 16), submitted 8 at a time
@@ -745,7 +755,7 @@ def build_kernels(port) -> None:
                 f"first: {serialized[0][:160]}")
         for entry in text.split("Compiling entry function '")[1:]:
             fn = kernel_name(entry.split("'", 1)[0])
-            if not re.search(r"(wgmma|partial|gemv_stream)_kernel", fn):
+            if not re.search(r"(wgmma|decode|gemv_stream)_kernel", fn):
                 continue
             reg = re.search(r"Used (\d+) registers", entry)
             spill = re.search(r"(\d+) bytes spill stores", entry)
@@ -795,11 +805,40 @@ def build_kernels(port) -> None:
         f"at, strips, cluster, chunks a block, smem) " + ", ".join(
             f"{lt['blocks']}, {lt['strips']}, {lt['cluster']}, "
             f"{lt['chunks_per_block']}, {lt['smem']}" for lt in p["launches"]))
-    chunk = port.build.lib("decode_attention").drt_decode_chunk()
-    log(f"  decode attention: {chunk} rows a block (Python mirror "
-        f"{port.da.CHUNK})")
-    assert chunk == port.da.CHUNK, \
-        "the Python mirror of the decode chunk disagrees with the CUDA source"
+    # the decode plan: the Python mirror against the compiled one (its
+    # constants, the rows each cluster rank visits in order at the plan's
+    # boundaries, in pools of several rows, full and ring, and the shared
+    # memory a launch asks for)
+    da = port.da
+    got = da.compiled_config()
+    want = {"cluster": da.CLUSTER, "tile": da.TILE, "warps": da.WARPS,
+            "stages": da.STAGES, "ring_bytes": da.RING_BYTES}
+    assert got == want, \
+        f"the decode plan's Python mirror {want} disagrees with the CUDA " \
+        f"source's {got}"
+    cases = [(ln, rows, 0) for ln in DECODE_PLAN_LENGTHS
+             for rows in (max(ln, 1), ln + 97, 40000)]
+    cases += [(ln, rows, win) for win in (32, 1024) for ln in
+              (0, 1, 5, win - 1, win, win + 1, 3 * win + 7)
+              for rows in (win, win + 193)]
+    for ln, rows, win in cases:
+        assert da.compiled_rank_rows(ln, rows, win) == \
+            da.rank_rows(ln, rows, win), \
+            f"the decode plan disagrees with the CUDA source at length " \
+            f"{ln}, {rows} rows, window {win}"
+    smem = port.build.lib("decode_attention").drt_decode_smem
+    for G, hd, paged, rows, bk in ((3, 64, 0, 97, 1), (3, 64, 1, 256, 16),
+                                   (2, 256, 0, 1217, 1),
+                                   (8, 128, 1, 32768, 16),
+                                   (8, 256, 1, 4096, 1)):
+        assert smem(G, hd, paged, rows, bk) == da.smem_bytes(
+            G, hd, bool(paged), rows, bk), (G, hd, paged, rows, bk)
+    log(f"  decode attention: one launch of clusters of {da.CLUSTER} "
+        f"blocks a (slot, kv head), tiles of {da.TILE} rows, "
+        f"{da.WARPS} warps a block, {da.STAGES} ring slots a warp; the "
+        f"plan of {len(cases)} (length, rows, window) cases and the shared "
+        f"memory agree with the compiled ones; SmolLM's block "
+        f"{da.smem_bytes(3, 64)} bytes")
 
 
 def stub_embeds(shape, seed: int) -> np.ndarray:
@@ -1651,18 +1690,78 @@ def check_kernels(port, dev, comp):
             torch.cuda.synchronize()
             assert (o[0] == 0).all(), "dead slot must give exact zeros"
             hold("decode_attention", o, orf, f"hd {hd}")
+        # the plan's boundaries (tiles of 64 rows a rank, clusters of 8):
+        # one row, a tile's share +- 1, every rank's first tile +- 1, every
+        # rank of the cluster filled three times over; SmolLM's heads and
+        # mistral-nemo-12b's (G 4 at hd 128); hd 16 and 32 (a ring slot
+        # spans several tiles there) at G 5 and 7, and G 1 (MHA); then one
+        # slot of 32768 rows
+        for Bb, L, KVh, G, hd, lens in (
+                (8, 1600, 5, 3, 64, [1, 63, 64, 65, 511, 512, 513, 1541]),
+                (8, 1600, 8, 4, 128, [1541, 513, 512, 511, 65, 64, 63, 1]),
+                (8, 1600, 3, 5, 16, [1, 15, 16, 17, 63, 65, 513, 1541]),
+                (8, 700, 2, 7, 32, [0, 1, 33, 64, 65, 129, 511, 700]),
+                (4, 600, 4, 1, 128, [600, 1, 64, 65]),
+                (1, 32768, 8, 4, 128, [32768])):
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            q = rnd((Bb, KVh, G, hd), dtype)
+            k = rnd((Bb, L, KVh, hd), dtype)
+            v = rnd((Bb, L, KVh, hd), dtype)
+            o = w["decode_attention"](q, k, v, lengths)
+            orf = ref.decode_attention(q.reshape(Bb, KVh * G, hd), k, v,
+                                       lengths).reshape(o.shape)
+            torch.cuda.synchronize()
+            hold("decode_attention", o, orf, f"hd {hd}, plan boundaries")
+            del k, v
+        # the same slot in pools of different rows: its rows in a pool of
+        # 1217 and in one of 97 (full layout), the ring of 1024 in pools of
+        # 1217 and 1024 rows; bit for bit, the plan depends on the length
+        # alone
+        for KVh, G, hd in ((5, 3, 64), (2, 2, 256)):
+            q = rnd((8, KVh, G, hd), dtype)
+            k = rnd((8, 1217, KVh, hd), dtype)
+            v = rnd((8, 1217, KVh, hd), dtype)
+            for rows, window, lens in (
+                    (97, 0, [0, 1, 17, 63, 64, 65, 96, 97]),
+                    (1024, 1024, [0, 5, 1023, 1024, 1025, 2000, 77, 1])):
+                lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+                o = w["decode_attention"](q, k, v, lengths, window=window)
+                small = w["decode_attention"](
+                    q, k[:, :rows].contiguous(), v[:, :rows].contiguous(),
+                    lengths, window=window)
+                orf = ref.decode_attention(
+                    q.reshape(8, KVh * G, hd), k, v, lengths,
+                    window=window).reshape(o.shape)
+                torch.cuda.synchronize()
+                assert torch.equal(o, small), \
+                    f"a slot differs between pools of 1217 and {rows} rows"
+                assert (o[0] == 0).all(), "dead slot must give exact zeros"
+                hold("decode_attention", o, orf, f"hd {hd}, pools")
+            # 16-byte loads: a q off a 16-byte boundary is refused
+            off = rnd((q.numel() + 1,), dtype)[1:].view(q.shape)
+            try:
+                w["decode_attention"](off, k, v, lengths)
+            except ValueError:
+                pass
+            else:
+                raise AssertionError("a misaligned q was taken")
         # paged decode: a shuffled, non-monotonic table in which slots 0
         # and 1 share their first block; a dead slot; lengths that are no
         # multiple of bk; at bk 6, length 7's last 4-row group (rows 4-6)
         # straddles the block boundary at 6. SmolLM's shapes, G 8 at hd
-        # 128, and gemma3's hd 256 with lengths over many 32-row chunks.
-        # Bit for bit against the contiguous kernel on the gathered layout,
-        # then against the plain version.
+        # 128, gemma3's hd 256 with lengths over many 64-row tiles, G 4 at
+        # hd 128 at the plan's boundaries (a slot that fills every rank
+        # three times over), hd 16 (bk 6) and 32 at G 5 and 7. Bit for bit
+        # against the contiguous kernel on the gathered layout, then
+        # against the plain version.
         for KVh, G, hd, bk, lens in (
                 (5, 3, 64, 16, [40, 23, 0, 1, 16, 17, 255, 100]),
                 (5, 3, 64, 6, [7, 13, 0, 6, 5, 12, 61, 30]),
                 (2, 8, 128, 16, [33, 70, 0, 15, 64, 2, 128, 49]),
-                (2, 2, 256, 16, [33, 700, 0, 15, 64, 2, 1100, 49])):
+                (2, 2, 256, 16, [33, 700, 0, 15, 64, 2, 1100, 49]),
+                (8, 4, 128, 16, [1541, 513, 0, 64, 65, 1, 511, 1000]),
+                (3, 5, 16, 6, [17, 513, 0, 64, 65, 1, 200, 100]),
+                (2, 7, 32, 16, [129, 33, 0, 15, 700, 2, 64, 49])):
             nb = -(-max(lens) // bk)
             P = 8 * nb + 2
             perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
@@ -1876,36 +1975,14 @@ def time_kernels(port, dev, cfg, comp, snap):
             for q, (k, v) in zip(qs, kvs)]))
 
     # decode: one decode step's attention, nl layers, every slot mid-way
-    L = GEN_PROMPT + GEN_NEW + 1
-    ln = GEN_PROMPT + GEN_NEW // 2
-    lengths = torch.full((Bb,), ln, dtype=torch.int32, device=dev)
+    r = decode_row(port, dev, gen, ("main path", nl, Bb, H, KV, hd,
+                                    GEN_PROMPT + GEN_NEW + 1,
+                                    GEN_PROMPT + GEN_NEW // 2))
+    out["decode_attention"] = dict(r, work=r["work"] + " (one decode step)",
+                                   bound=(r["bound_ms"], r["bound_by"]))
     qd = [torch.randn((Bb, KV, H // KV, hd), generator=gen, device=dev
                       ).to(bf) for _ in range(nl)]
-    cache = [(torch.randn((Bb, L, KV, hd), generator=gen, device=dev).to(bf),
-              torch.randn((Bb, L, KV, hd), generator=gen, device=dev).to(bf))
-             for _ in range(nl)]
     qdt = [q.reshape(Bb, H, 1, hd) for q in qd]
-    cdt = [(k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous())
-           for k, v in cache]
-    mask = (torch.arange(L, device=dev)[None, :] < lengths[:, None]
-            )[:, None, None, :]
-
-    def decode():
-        return [w["decode_attention"](q, k, v, lengths)
-                for q, (k, v) in zip(qd, cache)]
-    out["decode_attention"] = dict(
-        work=f"{nl} layers of decode attention at B={Bb} H={H} KV={KV} "
-             f"hd={hd}, {ln} live cache rows per slot (one decode step)",
-        ms=device_ms(torch, decode),
-        plain_ms=device_ms(torch, lambda: [
-            ref.decode_attention(q.reshape(Bb, H, hd), k, v, lengths)
-            for q, (k, v) in zip(qd, cache)]),
-        library_ms=device_ms(torch, lambda: [
-            F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                           enable_gqa=True)
-            for q, (k, v) in zip(qdt, cdt)]),
-        bound=bound_ms(nl * 2 * (2 * Bb * H * hd + 2 * Bb * ln * KV * hd),
-                       nl * 4 * Bb * H * hd * ln, "bfloat16"))
     # paged decode: one decode step of the batcher's path (its live
     # lengths and block table right after the staggered admissions) over
     # nl layers of an arena of the batcher's size. The library call is
@@ -1993,13 +2070,67 @@ def time_kernels(port, dev, cfg, comp, snap):
     return out
 
 
+def decode_row(port, dev, gen, spec, reps: int = 3, copies=()):
+    """One row of contiguous decode attention timed on the card, bf16:
+    ``spec`` = (name, layers, B, H, KV, hd, pool rows, live rows a slot),
+    each layer its own cache. The kernel's ms and its largest absolute
+    difference from the plain version, the plain version's ms, masked
+    ``scaled_dot_product_attention``'s and the bound (bytes: q, o and each
+    live K/V row once). ``copies`` ((label, context factory) pairs) times
+    the kernel again inside each context ("ms <label>")."""
+    torch, da, ref = port.torch, port.da, port.ref
+    F = torch.nn.functional
+    name, nl, Bb, H, KV, hd, L, ln = spec
+    G = H // KV
+
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+    lengths = torch.full((Bb,), ln, dtype=torch.int32, device=dev)
+    qs = [rnd((Bb, KV, G, hd)) for _ in range(nl)]
+    cache = [(rnd((Bb, L, KV, hd)), rnd((Bb, L, KV, hd)))
+             for _ in range(nl)]
+
+    def kernel():
+        return [da.decode_attention_bkgh(q, k, v, lengths)
+                for q, (k, v) in zip(qs, cache)]
+
+    def plain():
+        return [ref.decode_attention(q.reshape(Bb, H, hd), k, v, lengths
+                                     ).reshape(q.shape)
+                for q, (k, v) in zip(qs, cache)]
+    err = max(abs_err(a, b) for a, b in zip(kernel(), plain()))
+    r = dict(name=name, work=f"{nl} layers of decode attention at B={Bb} "
+                             f"H={H} KV={KV} hd={hd}, a pool of {L} rows, "
+                             f"{ln} live a slot",
+             ms=device_ms(torch, kernel, reps), max_abs_err=err)
+    for label, ctx in copies:
+        with ctx():
+            r[f"ms {label}"] = device_ms(torch, kernel, reps)
+    r["plain_ms"] = device_ms(torch, plain, reps)
+    mask = (torch.arange(L, device=dev)[None, :] < lengths[:, None]
+            )[:, None, None, :]
+    qt = [q.reshape(Bb, H, 1, hd) for q in qs]
+    cdt = [(k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous())
+           for k, v in cache]
+    r["library_ms"] = device_ms(torch, lambda: [
+        F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                       enable_gqa=True)
+        for q, (k, v) in zip(qt, cdt)], reps)
+    r["bound_ms"], r["bound_by"] = bound_ms(
+        nl * 2 * (2 * Bb * H * hd + 2 * Bb * ln * KV * hd),
+        nl * 4 * Bb * H * hd * ln, "bfloat16")
+    return r
+
+
 def time_large_shapes(port, dev):
     """gemma3-12b's and the other dense configs' shapes, bf16: flash at hd
     256 for one gemma3 prefill (6 layers of B 2, S 1200, 16 heads over 8),
     and every variant of the 2-D product that takes each of LARGE_RANKS and
     two of SmolLM's linears (rank <= 896, where "split" is timed against
     the fused tensor-core kernel), at 512 and 2048 rows, per linear, beside
-    ``multi_dot``. Returns {"flash_hd256": {...}, "lowrank_2d": [...]}."""
+    ``multi_dot``; decode attention over LONG_DECODE's caches. Returns
+    {"flash_hd256": {...}, "lowrank_2d": [...], "decode_long": [...]}."""
     torch, ref, w = port.torch, port.ref, port.wrappers
     F = torch.nn.functional
     bf = torch.bfloat16
@@ -2060,7 +2191,19 @@ def time_large_shapes(port, dev):
                 f"linear: " + ", ".join(
                     f"{k[:-3]} {v:.4f} ms" for k, v in r.items()
                     if k.endswith("_ms")))
-    return {"flash_hd256": flash, "lowrank_2d": rows}
+    # decode attention over long caches (LONG_DECODE), where HBM bytes
+    # bound it
+    long = []
+    for spec in LONG_DECODE:
+        r = decode_row(port, dev, gen, spec)
+        torch.cuda.empty_cache()
+        long.append(r)
+        log(f"  decode_attention, {r['name']}: {r['ms']:.4f} ms "
+            f"({r['bound_ms'] / r['ms']:.1%} of its bound), plain "
+            f"{r['plain_ms']:.4f}, masked SDPA {r['library_ms']:.4f}, bound "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}), max |kernel - plain| "
+            f"{r['max_abs_err']:.3e} -- {r['work']}")
+    return {"flash_hd256": flash, "lowrank_2d": rows, "decode_long": long}
 
 
 def time_float32_2d(port, dev, comp, gemma_shapes):
@@ -2497,6 +2640,19 @@ def profile_window(port, cb, steps: int):
     }
 
 
+def assert_decode_launches(w: dict, layers: int, where: str) -> None:
+    """A profiled window's decode attention launches a step: one a layer,
+    each the one-launch cluster kernel, and no merge kernel."""
+    decode = {k: v for k, v in w["ours"].items() if "decode" in k}
+    names = sorted({re.search(r"decode\w*(<[^>]*>)?", k).group()
+                    for k in decode})
+    n = sum(decode.values())
+    log(f"    decode attention in {where}: {n:.0f} launches a step over "
+        f"{layers} layers ({', '.join(names)})")
+    assert n == layers and all("decode_kernel" in k for k in decode), \
+        f"{where}: {decode} (one decode_kernel launch a layer expected)"
+
+
 def log_window(name: str, w: dict, steps: int) -> None:
     log(f"  {name}: {w['host_ms']:.3f} ms/step on the host clock before the "
         f"profiled window, {w['again_ms']:.3f} after; device busy "
@@ -2534,6 +2690,7 @@ def profile_batcher(port, dev, cfg, comp, steps: int = 4, graph=None):
         cb.step()
         w = profile_window(port, cb, steps)
         log_window(name, w, steps)
+        assert_decode_launches(w, cfg.n_layers, f"an eager {name} step")
         if graph is not None and name in graph:
             g = graph[name]
             log(f"    beside the graph step: host {g['again_ms']:.3f} "
@@ -5577,6 +5734,9 @@ def main() -> int:
                                               rates)
         with Phase("graph step profile, bf16, batch 8"):
             graph_windows = graph_profile(port, kept)
+            for pool, w in graph_windows.items():
+                assert_decode_launches(w, cfg.n_layers,
+                                       f"a {pool} graph replay")
         with Phase("dense against D-Rank with graphs, bf16, batch 8"):
             fig4 = fig4_graphs(port, dev, cfg, params, comp, kept)
         del kept
@@ -5734,6 +5894,7 @@ def main() -> int:
         plain_ms=wide["plain_ms"], library_ms=wide["library_ms"],
         bound_ms=wide["bound"][0], bound_by=wide["bound"][1])
     by_name["flash_attention"]["gemma3_hd256"] = large["flash_hd256"]
+    by_name["decode_attention"]["long_cache"] = large["decode_long"]
     by_name["lowrank_matmul_2d"]["by_shape"] = large["lowrank_2d"]
     by_name["lowrank_matmul_2d"]["float32"] = f32_2d
     log(card)

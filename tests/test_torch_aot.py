@@ -31,6 +31,7 @@ from repro_torch.models import transformer as T
 from repro_torch.serve import admission as adm
 from repro_torch.serve import aot as taot
 from repro_torch.serve import engine as E
+from torch_threads import one_blas_thread  # noqa: F401 (autouse)
 
 # test workers share the machine's cores: one intra-op thread each
 torch.set_num_threads(1)

@@ -23,6 +23,7 @@ from repro_torch.ckpt import store
 from repro_torch.configs import get_config
 from repro_torch.core import compress as CC
 from repro_torch.serve import engine as E
+from torch_threads import one_blas_thread  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -28,6 +28,7 @@ from repro_torch.core import capture as Cap
 from repro_torch.core import compress as CC
 from repro_torch.kernels import gram as kgram
 from repro_torch.kernels import ops
+from torch_threads import one_blas_thread  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -22,6 +22,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import capture as Cap
 from repro_torch.core import compress as CC
 from repro_torch.models import transformer as T
+from torch_threads import one_blas_thread  # noqa: F401 (autouse)
 
 # test workers share the machine's cores: one intra-op thread each
 torch.set_num_threads(1)

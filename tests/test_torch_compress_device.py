@@ -28,6 +28,7 @@ from repro_torch.core import numerics as num
 from repro_torch.core import numerics_device as numd
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import Engine, ServeConfig
+from torch_threads import one_blas_thread  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -31,6 +31,7 @@ from repro_torch.core import numerics_device as numd
 from repro_torch.dist import comm
 from repro_torch.dist import sharding as SH
 from repro_torch.launch import mesh as LM
+from torch_threads import one_blas_thread  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

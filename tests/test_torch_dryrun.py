@@ -37,6 +37,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_blas_thread  # noqa: F401 (autouse)
 
 # JAX's dry-run module asks for 512 host devices when it is imported; keep
 # this process's device count as it was

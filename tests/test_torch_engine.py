@@ -16,6 +16,7 @@ from repro.serve.engine import ServeConfig as JServeConfig
 from repro_torch import bridge
 from repro_torch.configs import get_config
 from repro_torch.serve.engine import Engine, ServeConfig
+from torch_threads import one_blas_thread  # noqa: F401 (autouse)
 
 # test workers share the machine's cores: one intra-op thread each
 torch.set_num_threads(1)

@@ -20,6 +20,7 @@ from repro_torch.serve import aot as taot
 from repro_torch.serve.engine import (ContinuousBatcher, DrainResult,
                                       Request, ServeConfig)
 from repro_torch.serve.frontdoor import FrontDoor, Router, merge_drain_results
+from torch_threads import one_blas_thread  # noqa: F401 (autouse)
 
 # test workers share the machine's cores: one intra-op thread each
 torch.set_num_threads(1)

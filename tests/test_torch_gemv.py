@@ -15,6 +15,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import lowrank_matmul as lm
+from torch_threads import one_blas_thread  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -15,6 +15,7 @@ from repro_torch.kernels.decode_attention import (
     decode_attention_bkgh, decode_attention_paged_bkgh)
 from repro_torch.kernels.flash_attention import flash_attention_bshd
 from repro_torch.kernels.lowrank_matmul import lowrank_gemv, lowrank_matmul_2d
+from torch_threads import one_blas_thread  # noqa: F401 (autouse)
 
 # test workers share the machine's cores: one intra-op thread each
 torch.set_num_threads(1)

@@ -14,6 +14,7 @@ import torch
 
 from repro.models import linear_scan as JL
 from repro_torch.models import linear_scan as L
+from torch_threads import one_blas_thread  # noqa: F401 (autouse)
 
 # test workers share the machine's cores: one intra-op thread each
 torch.set_num_threads(1)

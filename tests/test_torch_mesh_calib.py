@@ -30,6 +30,7 @@ from repro_torch.core import capture as Cap
 from repro_torch.core import compress as CC
 from repro_torch.serve import api
 from repro_torch.serve.engine import Engine, ServeConfig
+from torch_threads import one_blas_thread  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -48,6 +48,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_blas_thread  # noqa: F401 (autouse)
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "src")

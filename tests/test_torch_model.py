@@ -17,6 +17,7 @@ from repro.models import transformer as JT
 from repro_torch import bridge
 from repro_torch.configs import get_config
 from repro_torch.models import transformer as T
+from torch_threads import one_blas_thread  # noqa: F401 (autouse)
 
 # test workers share the machine's cores: one intra-op thread each
 torch.set_num_threads(1)

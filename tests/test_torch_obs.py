@@ -19,6 +19,7 @@ from repro_torch.models import transformer as T
 from repro_torch.obs import flightrec, metrics, trace
 from repro_torch.serve import admission as adm
 from repro_torch.serve.engine import ContinuousBatcher, Request, ServeConfig
+from torch_threads import one_blas_thread  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

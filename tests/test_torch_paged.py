@@ -22,6 +22,7 @@ from test_torch_batcher import (CFG, CHAOS, CONTIG, PAGED, SHARED,
                                 assert_pool_drained, mixed_requests, outs,
                                 run, shared_registries, twin,
                                 uniform_requests, weights)
+from torch_threads import one_blas_thread  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -21,6 +21,7 @@ from repro.serve import api as japi
 from repro_torch.launch import serve as tlaunch
 from repro_torch.serve import api
 from test_serve_api import GOLDEN, SPECIAL
+from torch_threads import one_blas_thread  # noqa: F401 (autouse)
 
 # test workers share the machine's cores: one intra-op thread each
 torch.set_num_threads(1)

@@ -13,6 +13,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import gram as gm
 from repro_torch.kernels import lowrank_matmul as lm
 from repro_torch.kernels import tc_profile as tcp
+from torch_threads import one_blas_thread  # noqa: F401 (autouse)
 
 CSRC = Path(lm.__file__).resolve().parents[1] / "csrc"
 

@@ -32,6 +32,7 @@ from repro_torch.models import transformer as T
 from repro_torch.optim import adamw as A
 from repro_torch.optim import powersgd as PS
 from repro_torch.train import step as TS
+from torch_threads import one_blas_thread  # noqa: F401 (autouse)
 
 # test workers share the machine's cores: one intra-op thread each
 torch.set_num_threads(1)

@@ -30,6 +30,7 @@ from repro_torch.serve import api
 from repro_torch.train import step as TS
 from repro_torch.train.loop import LoopConfig, Trainer
 from test_torch_serve_api import SMALL, _small
+from torch_threads import one_blas_thread  # noqa: F401 (autouse)
 
 # test workers share the machine's cores: one intra-op thread each
 torch.set_num_threads(1)
