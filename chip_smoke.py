@@ -390,7 +390,14 @@ KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
                      "src/repro/kernels/gram.py:38"),
     "decode_attention_paged": ("src/repro_torch/csrc/decode_attention.cu",
                                "src/repro/kernels/decode_attention.py:192"),
+    # the state-out variant of decode_attention_bkgh (a template flag of the
+    # same kernel): the sharded serving path's decode attention
+    "decode_attention_state": ("src/repro_torch/csrc/decode_attention.cu",
+                               "src/repro/kernels/decode_attention.py:94"),
 }
+# kernels that only the sharded serving path launches (a cache whose rows
+# split over model ranks); the one-process paths never do
+SERVE_ONLY = ("decode_attention_state",)
 # kernels with a tensor-core ("wgmma") and a CUDA-core ("simt") variant; the
 # main path's bf16 work must take the first
 TC_KERNELS = ("lowrank_matmul_2d", "gram_blocked", "flash_attention")
@@ -416,18 +423,19 @@ CLI_TRAIN_DIR = ROOT / "build" / "chip_smoke_cli_train"
 TRAIN_KERNELS = ("flash_attention", "lowrank_matmul_2d", "gram_blocked")
 # the MoE path: granite-moe-1b-a400m at MOE_LAYERS (calibration, D-Rank
 # 20% on the card, artifact, generate, the batcher eager and with graphs);
-# the float32 card-vs-CPU check at 4 layers; host-vs-device,
+# the float32 card-vs-CPU check at MOE_PARITY_LAYERS; host-vs-device,
 # streaming-vs-eager and the train step at 1; qwen2-moe-a2.7b at full
 # width, 2 of its 24 layers, random factors at uniform 20%. A routing flip
 # between card and CPU is allowed where the CPU's k-th and (k+1)-th
 # probabilities are within ROUTE_GAP
 MOE, MOE_SEED, MOE_RATIO = "granite-moe-1b-a400m", 0, 0.2
 # granite's depth on the MoE path, cut from 24 to make room for the later
-# paths in the run's time (the 24 layers are identical MoE layers)
-MOE_LAYERS = 4
+# paths in the run's time (the 24 layers are identical MoE layers; 4 -> 2
+# for the sharded serving phase)
+MOE_LAYERS = 2
 # the oracles at 1 layer: every granite layer holds the same seven group
 # types
-MOE_PARITY_LAYERS, MOE_ORACLE_LAYERS, ROUTE_GAP = 4, 1, 1e-6
+MOE_PARITY_LAYERS, MOE_ORACLE_LAYERS, ROUTE_GAP = 2, 1, 1e-6
 MOE_TRAIN_LAYERS = 2            # the MoE float32 train step
 MOE_ARTIFACT_DIR = ROOT / "build" / "chip_smoke_moe_artifact"
 QWEN_MOE, QWEN_LAYERS, QWEN_SEED = "qwen2-moe-a2.7b", 2, 6
@@ -465,6 +473,15 @@ SH_MOE_LAYERS, SH_MOE_STEPS, SH_MOE_CAPACITY = 2, 2, 8.0
 SH_MOE_LR = 1e-4
 SH_LOSS_REL = {"float32": 1e-5, "bfloat16": 5e-3}
 SH_DIR = ROOT / "build" / "chip_smoke_sharded"
+# sharded serving (ROADMAP Queue 1, item 13), in the same world-4 job after
+# its training cases: a prefill of SV_ROWS prompts of SV_PROMPT tokens and
+# SV_STEPS greedy decode steps on a cache of SV_MAX_LEN rows a slot (even,
+# so it splits over model); SmolLM-360M at full width on
+# TRAIN_PARITY_LAYERS layers, dense in float32 and bf16 and at the
+# accounting's uniform-20% factorized shapes (seeded factors) in float32;
+# granite at SH_MOE_LAYERS layers in float32 (EP, heads 16 / 8 split)
+SV_ROWS, SV_PROMPT, SV_STEPS, SV_MAX_LEN = 8, 32, 8, 64
+SV_RATIO = 0.2
 # the launch accounting's full-size cells, counted on meta on a (1, 1) mesh
 ACCOUNT_CELLS = (("qwen2-vl-72b", "prefill_32k"),
                  ("qwen2-vl-72b", "decode_32k"), (ARCH, "train_4k"))
@@ -489,9 +506,10 @@ QWEN_PROMPTS, QWEN_NEW, QWEN_NEW_F32 = (200, 64), 16, 8
 HYMBA, XLSTM = "hymba-1.5b", "xlstm-350m"
 REC_SEED, REC_RATIO, REC_PARITY_STEPS = 0, 0.2, 8
 # the depths, cut to make room for the later paths in the run's time:
-# hymba's from 32 (its schedule keeps a global layer first, in the middle
-# (4) and last), xLSTM's from 24 (its sLSTM layer 7 stays)
-REC_DEPTH = {HYMBA: dict(n_layers=8), XLSTM: dict(n_layers=8)}
+# hymba's from 32 to 4 (g, h, g, g: its schedule keeps a global layer
+# first and last and one windowed layer), xLSTM's from 24 (its sLSTM layer
+# 7 stays)
+REC_DEPTH = {HYMBA: dict(n_layers=4), XLSTM: dict(n_layers=8)}
 REC_LONG, REC_LONG_NEW = 1200, 16
 REC_PARITY_LAYERS = {HYMBA: 4, XLSTM: 8}
 REC_ORACLE_CUT = {HYMBA: dict(n_layers=1),
@@ -614,7 +632,9 @@ class Port:
                          "decode_attention": da.decode_attention_bkgh,
                          "gram_blocked": gm.gram_blocked,
                          "decode_attention_paged":
-                             da.decode_attention_paged_bkgh}
+                             da.decode_attention_paged_bkgh,
+                         "decode_attention_state":
+                             da.decode_attention_state_bkgh}
 
     def reset_counts(self) -> None:
         for w in self.wrappers.values():
@@ -941,7 +961,8 @@ def main_path(port, dev):
     log("compression seconds: " + ", ".join(
         f"{k} {v:.2f}" for k, v in secs.items()))
     missing = [n for n, c in counts.items()
-               if c <= 0 and n != "decode_attention_paged"]
+               if c <= 0 and n != "decode_attention_paged"
+               and n not in SERVE_ONLY]
     assert not missing, f"kernels not launched on the main path: {missing}"
     assert toks.shape == (GEN_BATCH, GEN_NEW), toks.shape
     assert ((toks >= 0) & (toks < cfg.vocab_size)).all(), "token out of range"
@@ -2346,7 +2367,8 @@ PATH_WRAPPERS = {"lowrank_gemv": "lowrank_gemv",
                  "flash_attention": "flash_attention_bshd",
                  "decode_attention": "decode_attention_bkgh",
                  "gram_blocked": "gram_blocked",
-                 "decode_attention_paged": "decode_attention_paged_bkgh"}
+                 "decode_attention_paged": "decode_attention_paged_bkgh",
+                 "decode_attention_state": "decode_attention_state_bkgh"}
 
 
 @contextlib.contextmanager
@@ -2420,6 +2442,14 @@ def hold_recorded(port, calls, dname: str,
                 sig = f"x {tuple(x.shape)}"
                 variants = port.gm._allowed(x.dtype, *x.shape,
                                             x.data_ptr() % 16 == 0)
+            elif name == "decode_attention_state":
+                q, k, v, lengths = args
+                Bq, KVh, G, hd = q.shape
+                want = ref.decode_attention_state(
+                    q.reshape(Bq, KVh * G, hd), k, v, lengths, **kw)
+                sig = (f"q {tuple(q.shape)} block {tuple(k.shape)} live "
+                       f"{lengths.tolist()} {kw}")
+                variants = (None,)
             elif name == "decode_attention_paged":
                 q, k, v, lengths, table = args
                 Bq, KVh, G, hd = q.shape
@@ -2441,6 +2471,8 @@ def hold_recorded(port, calls, dname: str,
                 extra = {} if var is None else {"variant": var}
                 got = w[name](*args, **kw, **extra)
                 torch.cuda.synchronize()
+                if name == "decode_attention_state":
+                    got, want = state_output(port, got, want, q.dtype)
                 e = rel_err(got, want)
                 key = f"{name}[{var}]" if var else name
                 worst[key] = max(worst.get(key, 0.0), e)
@@ -2453,6 +2485,168 @@ def hold_recorded(port, calls, dname: str,
         assert e <= tol, \
             f"{key} disagrees with its plain version at {where}'s " \
             f"operands ({e:.2e} > {tol:.0e})"
+
+
+def state_output(port, got, want, dtype):
+    """The state-out variant's (acc, m, l) and its plain version's as two
+    comparable vectors: each state merged alone (o, rounded to ``dtype``)
+    and its denominator l, each scaled by the plain version's largest
+    entry, so ``rel_err`` of the pair is the larger of the two relative
+    errors."""
+    torch, ref = port.torch, port.ref
+    vecs = []
+    for acc, m, l in (got, want):
+        hd = acc.shape[-1]
+        o = ref.merge_states(acc.reshape(1, -1, hd), m.reshape(1, -1),
+                             l.reshape(1, -1), dtype)
+        vecs.append((o.float().flatten(), l.float().flatten()))
+    so, sl = (float(x.abs().max()) + 1e-6 for x in vecs[1])
+    return tuple(torch.cat([o / so, l / sl]) for o, l in vecs)
+
+
+def split_state(port, q, k, v, lengths, window: int, n_blocks: int):
+    """One slot set's decode attention with each slot's rows split over
+    ``n_blocks`` row blocks, as the sharded serving path splits a cache
+    over its model ranks: the state-out kernel over each block's rows with
+    the block's live rows (``models.attention.split_live_rows``), the
+    states merged in block order (``kernels.ref.merge_states``). q (B,
+    KV, G, hd); k/v (B, L, KV, hd). Returns (o (B, KV, G, hd), [(the block's state,
+    its live rows, its k, its v)])."""
+    torch, ref = port.torch, port.ref
+    from repro_torch.dist.sharding import SeqSplit
+    from repro_torch.models.attention import split_live_rows
+    L = k.shape[1]
+    rows = L // n_blocks
+    pos = lengths - 1
+    states = []
+    for b in range(n_blocks):
+        local = split_live_rows(pos, window,
+                                SeqSplit(None, b * rows, rows, L))
+        kb = k[:, b * rows:(b + 1) * rows].contiguous()
+        vb = v[:, b * rows:(b + 1) * rows].contiguous()
+        states.append((port.da.decode_attention_state_bkgh(q, kb, vb, local),
+                       local, kb, vb))
+    acc, m, l = (torch.stack(t) for t in zip(*(st for st, _, _, _
+                                                in states)))
+    return ref.merge_states(acc, m, l, q.dtype), states
+
+
+def state_variant(port, dev) -> dict:
+    """The decode kernel's state-out variant on the card. Every length of
+    DECODE_PLAN_LENGTHS, a slot each, in the full layout (a pool of 32768
+    rows) and the ring (window 1024, the longer lengths wrapped), the rows
+    split over 1, 2 and 4 blocks: each block's (acc, m, l) against the
+    plain version's on the same rows, the merge against the plain decode
+    attention over the whole cache within TOL, at one block bit for bit
+    the existing kernel's output; a block with no live rows gives the
+    empty state, a dead slot exact zeros. Bf16 and float32, SmolLM's heads
+    (5 x 3 at hd 64) and mistral-nemo's (8 x 4 at hd 128). Then timed at
+    LONG_DECODE[0]'s cache split over 2 blocks (one rank's block, both
+    layers), beside the existing kernel over the whole cache, the plain
+    version, masked SDPA over the block and the bound. Returns {"err":
+    largest abs error of a merge, "time": {...}}."""
+    torch, ref, w = port.torch, port.ref, port.wrappers
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    worst, err = {}, 0.0
+    lens = torch.tensor(DECODE_PLAN_LENGTHS, dtype=torch.int32, device=dev)
+    for dtype, dname in ((torch.bfloat16, "bfloat16"),
+                         (torch.float32, "float32")):
+        for KVh, G, hd in ((5, 3, 64), (8, 4, 128)):
+            for L, window in ((32768, 0), (1024, 1024)):
+                Bb = lens.shape[0]
+                q = torch.randn((Bb, KVh, G, hd), generator=gen,
+                                device=dev).to(dtype)
+                k = torch.randn((Bb, L, KVh, hd), generator=gen,
+                                device=dev).to(dtype)
+                v = torch.randn((Bb, L, KVh, hd), generator=gen,
+                                device=dev).to(dtype)
+                whole = ref.decode_attention(q.reshape(Bb, KVh * G, hd), k,
+                                             v, lens, window=window
+                                             ).reshape(q.shape)
+                for n in (1, 2, 4):
+                    o, states = split_state(port, q, k, v, lens, window, n)
+                    for (acc, m, l), local, kb, vb in states:
+                        want = ref.decode_attention_state(
+                            q.reshape(Bb, KVh * G, hd), kb, vb, local)
+                        got, want = state_output(port, (acc, m, l), want,
+                                                 dtype)
+                        key = f"state {dname}"
+                        worst[key] = max(worst.get(key, 0.0),
+                                         rel_err(got, want))
+                        empty = local == 0
+                        assert (m[empty] == port.ref.NEG_INF).all() and \
+                            (l[empty] == 0).all() and (acc[empty] == 0).all(), \
+                            "a block with no live rows must give the empty state"
+                    torch.cuda.synchronize()
+                    e = rel_err(o, whole)
+                    key = f"merge {dname} over {n}"
+                    worst[key] = max(worst.get(key, 0.0), e)
+                    err = max(err, abs_err(o, whole))
+                    assert (o[0] == 0).all(), "dead slot must give exact zeros"
+                    if n == 1:
+                        one = w["decode_attention"](q, k, v, lens,
+                                                    window=window)
+                        assert torch.equal(o, one), \
+                            "the state variant merged alone differs from " \
+                            "decode_attention_bkgh"
+                    log(f"  decode_attention_state {dname} KV {KVh} G {G} "
+                        f"hd {hd}, {'ring ' + str(window) if window else 'full'}"
+                        f" {L} rows over {n} blocks: merge max-relative "
+                        f"{e:.2e}" + (", bit for bit the kernel's" if n == 1
+                                      else ""))
+                del q, k, v, whole
+                torch.cuda.empty_cache()
+    for key, e in worst.items():
+        tol = TOL[key.split()[1]]
+        assert e <= tol, f"decode_attention_state {key}: {e:.2e} > {tol:.0e}"
+    log("  worst: " + ", ".join(f"{k} {e:.2e}" for k, e in worst.items()))
+    # timed: one rank's block of LONG_DECODE[0]'s cache over 2 blocks
+    name, nl, Bb, H, KV, hd, L, ln = LONG_DECODE[0]
+    G, rows = H // KV, L // 2
+    bf = torch.bfloat16
+    F = torch.nn.functional
+    lengths = torch.full((Bb,), ln, dtype=torch.int32, device=dev)
+    local = lengths.clamp(max=rows)
+    qs = [torch.randn((Bb, KV, G, hd), generator=gen, device=dev).to(bf)
+          for _ in range(nl)]
+    full = [tuple(torch.randn((Bb, L, KV, hd), generator=gen,
+                              device=dev).to(bf) for _ in range(2))
+            for _ in range(nl)]
+    block = [(k[:, :rows].contiguous(), v[:, :rows].contiguous())
+             for k, v in full]
+    t = dict(work=f"{nl} layers of one rank's block: B={Bb} H={H} KV={KV} "
+                  f"hd={hd}, {rows} of a slot's {L} rows (the cache of "
+                  f"'{name}' split over 2 model ranks), {rows} live")
+    t["ms"] = device_ms(torch, lambda: [
+        port.da.decode_attention_state_bkgh(q, k, v, local)
+        for q, (k, v) in zip(qs, block)])
+    t["whole_kernel_ms"] = device_ms(torch, lambda: [
+        w["decode_attention"](q, k, v, lengths)
+        for q, (k, v) in zip(qs, full)])
+    t["plain_ms"] = device_ms(torch, lambda: [
+        ref.decode_attention_state(q.reshape(Bb, H, hd), k, v, local)
+        for q, (k, v) in zip(qs, block)])
+    mask = (torch.arange(rows, device=dev)[None, :] < local[:, None]
+            )[:, None, None, :]
+    qt = [q.reshape(Bb, H, 1, hd) for q in qs]
+    bt = [(k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous())
+          for k, v in block]
+    t["library_ms"] = device_ms(torch, lambda: [
+        F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                       enable_gqa=True)
+        for q, (k, v) in zip(qt, bt)])
+    t["bound"] = bound_ms(
+        nl * (2 * Bb * H * hd + 2 * 2 * Bb * rows * KV * hd
+              + 4 * Bb * H * (hd + 2)),
+        nl * 4 * Bb * H * hd * rows, "bfloat16")
+    share = t["bound"][0] / t["ms"]
+    log(f"  decode_attention_state: {t['ms']:.4f} ms ({share:.1%} of its "
+        f"bound), the existing kernel over the whole "
+        f"cache {t['whole_kernel_ms']:.4f}, plain {t['plain_ms']:.4f}, masked"
+        f" SDPA over the block {t['library_ms']:.4f}, bound "
+        f"{t['bound'][0]:.4f} ({t['bound'][1]}) -- {t['work']}")
+    return {"err": err, "time": t}
 
 
 def gemma_path(port, dev):
@@ -3626,7 +3820,8 @@ def moe_path(port, dev):
             f"{name} left its tensor-core variant on the bf16 MoE path"
     assert_gemv(variants["lowrank_gemv"], "bfloat16", "the MoE path")
     missing = [n for n, c in counts.items()
-               if c <= 0 and n != "decode_attention_paged"]
+               if c <= 0 and n != "decode_attention_paged"
+               and n not in SERVE_ONLY]
     assert not missing, f"kernels not launched on the MoE path: {missing}"
     assert toks.shape == (GEN_BATCH, GEN_NEW)
     assert ((toks >= 0) & (toks < cfg.vocab_size)).all(), "token out of range"
@@ -3833,7 +4028,8 @@ def moe_phases(port, dev) -> dict:
     out["variants"] = port.variant_counts()
     log(f"  launches on the MoE path: {out['launches']}; by variant "
         f"{out['variants']}")
-    missing = [n for n, c in out["launches"].items() if c <= 0]
+    missing = [n for n, c in out["launches"].items()
+               if c <= 0 and n not in SERVE_ONLY]
     assert not missing, f"kernels not launched on the MoE path: {missing}"
     with Phase("MoE path's kernel calls against the plain versions, every "
                "variant, the first call of each operand signature"):
@@ -3841,7 +4037,7 @@ def moe_phases(port, dev) -> dict:
             f"generate; the batcher's eager runs)")
         hold_recorded(port, calls + cb_calls, "bfloat16", "the MoE path")
         done = {n for n, _, _ in calls + cb_calls}
-        assert done == set(port.wrappers), done
+        assert done == set(port.wrappers) - set(SERVE_ONLY), done
     del calls, cb_calls, comp
     torch.cuda.empty_cache()
     with Phase(f"MoE float32, card against CPU, {MOE_PARITY_LAYERS} "
@@ -5538,6 +5734,150 @@ def sharded_run(port, dev, cfg, batches, tcfg, mesh=None, drops=False):
     return out
 
 
+def serve_cases(port) -> dict:
+    """The sharded serving cases: name -> (config, factorized ratio)."""
+    import dataclasses
+    smol = port.get_config(ARCH).replace(n_layers=TRAIN_PARITY_LAYERS)
+    gr = port.get_config(MOE)
+    gr = gr.replace(n_layers=SH_MOE_LAYERS, dtype="float32",
+                    moe=dataclasses.replace(gr.moe,
+                                            capacity_factor=SH_MOE_CAPACITY))
+    return {"smollm float32": (smol.replace(dtype="float32"), 0.0),
+            "smollm bfloat16": (smol, 0.0),
+            "smollm factorized float32": (smol.replace(dtype="float32"),
+                                          SV_RATIO),
+            "granite float32": (gr, 0.0)}
+
+
+def serve_params(port, cfg, ratio: float, dev):
+    """Whole parameters from seed 0; with ``ratio`` every decoder linear at
+    the accounting's uniform factorized shapes (``dryrun.
+    factorized_shapes``), B and C drawn from a seeded generator. Returns
+    (params, specs)."""
+    torch, pytree = port.torch, port.pytree
+    params, specs = port.T.init_model(cfg, seed=0, device=dev)
+    if not ratio:
+        return params, specs
+    meta = pytree.tree_map(lambda t: t.to("meta"), params)
+    shapes, specs = port.dryrun.factorized_shapes(meta, specs, ratio)
+    dense = {pytree.keystr(p): t for p, t in pytree.flatten_with_path(params)}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    leaves = []
+    for p, t in pytree.flatten_with_path(shapes):
+        have = dense.get(pytree.keystr(p))
+        leaves.append(have if have is not None and have.shape == t.shape
+                      else (torch.randn(tuple(t.shape), generator=gen,
+                                        device=dev) * t.shape[-2] ** -0.5
+                            ).to(t.dtype))
+    return pytree.unflatten(shapes, leaves), specs
+
+
+def _held(port, *trees) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in port.pytree.tensors(list(trees)))
+
+
+def serve_run(port, dev, cfg, ratio: float, mesh=None) -> dict:
+    """A prefill of SV_ROWS seeded prompts and SV_STEPS greedy decode
+    steps; on ``mesh`` this rank's blocks of the parameters, of the batch
+    (its rows' prompts gathered over ``model``) and of the cache, under a
+    placement. Returns the tokens and the logits (its rows, every step),
+    the bytes held as each step's arguments, ms of the prefill and a
+    decode step (host clock, synchronized), the collectives' seconds by
+    family and the launches; on ``mesh`` every kernel call, the first of
+    each operand signature, is then held again against the plain version
+    (``hold_recorded``)."""
+    from repro_torch.dist import comm
+    from repro_torch.dist import sharding as SH
+    torch, T = port.torch, port.T
+    params, specs = serve_params(port, cfg, ratio, dev)
+    rng = np.random.default_rng(31)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                       (SV_ROWS, SV_PROMPT), dtype=np.int32),
+                          device=dev)
+    kw, out = {}, {}
+    if mesh is not None:
+        params, shd = SH.shard_tree(params, specs, mesh)
+        kw["placement"] = SH.Placement(
+            mesh, port.pytree.tree_map(lambda s: s.spec, shd),
+            cache_len=SV_MAX_LEN)
+        bblocks, bshd = SH.shard_batch({"tokens": tok}, mesh)
+        out["prefill_bytes"] = _held(port, params, bblocks)
+        torch.cuda.empty_cache()
+    c = comm.current() if mesh is not None else None
+    sec0 = dict(c.seconds) if c else {}
+    port.reset_counts()
+    with torch.no_grad(), (recording(port) if mesh is not None
+                           else contextlib.nullcontext([])) as calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = (SH.batch_rows(bblocks, bshd) if mesh is not None
+                 else {"tokens": tok})
+        lg, cache = T.prefill(params, cfg, batch, SV_MAX_LEN, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks, logits = [lg[:, -1].argmax(-1)], [lg[:, -1].float().cpu()]
+        step_tok = toks[-1][:, None].to(torch.int32)
+        out["decode_bytes"] = _held(port, params, cache, step_tok)
+        for _ in range(SV_STEPS):
+            lg, cache = T.decode_step(params, cfg, cache, step_tok, **kw)
+            toks.append(lg[:, -1].argmax(-1))
+            logits.append(lg[:, -1].float().cpu())
+            step_tok = toks[-1][:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    out.update(tokens=torch.stack(toks).cpu(), logits=torch.stack(logits),
+               prefill_ms=(t1 - t0) * 1e3,
+               ms_per_step=(t2 - t1) / SV_STEPS * 1e3,
+               launches=port.counts(),
+               cache_rows=int(cache["runs"]["run0"]["kv"]["k"].shape[2]))
+    if c:
+        out["seconds"] = {k: v - sec0.get(k, 0.0)
+                          for k, v in c.seconds.items()
+                          if v != sec0.get(k, 0.0)}
+    del params, cache
+    out["held"] = len(calls)
+    out["held_state"] = sum(n == "decode_attention_state"
+                            for n, _, _ in calls)
+    if calls:
+        dname = "float32" if cfg.dtype == "float32" else "bfloat16"
+        log(f"  serving {cfg.name} {dname}: the steps' {len(calls)} kernel "
+            f"signatures against the plain versions:")
+        hold_recorded(port, calls, dname, f"the sharded serving "
+                                          f"{cfg.name} path")
+    del calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_accounting(port) -> dict:
+    """``account_cell`` of each serving case's prefill and decode on a
+    shapes-only (data 2, model 2) mesh, on meta: the rules' argument
+    bytes a rank."""
+    from repro_torch import config as C
+    from repro_torch.launch.mesh import Mesh
+    shapes = {"prefill": C.ShapeConfig("chip_serve_prefill", SV_PROMPT,
+                                       SV_ROWS, "prefill"),
+              "decode": C.ShapeConfig("chip_serve_decode", SV_MAX_LEN,
+                                      SV_ROWS, "decode")}
+    mesh = Mesh(SH_MESH, ("data", "model"), rank=0, build_groups=False)
+    out = {}
+    try:
+        for sh in shapes.values():
+            C.SHAPES[sh.name] = sh
+        for case, (cfg, ratio) in serve_cases(port).items():
+            arch = MOE if case.startswith("granite") else ARCH
+            over = {k: getattr(cfg, k) for k in ("n_layers", "dtype", "moe")}
+            out[case] = {mode: port.dryrun.account_cell(
+                arch, sh.name, mesh, overrides=over, compressed=ratio)
+                for mode, sh in shapes.items()}
+    finally:
+        for sh in shapes.values():
+            C.SHAPES.pop(sh.name, None)
+    return out
+
+
 def sharded_rank(rank: int, init_method: str) -> None:
     """One rank of the world-4 sharded-training job on the card, spawned
     by ``sharded_phase``: joins the process group (gloo through pinned
@@ -5567,6 +5907,14 @@ def sharded_rank(rank: int, init_method: str) -> None:
         for name, (cfg, batches, tcfg, drops) in sharded_cases(port).items():
             out[name] = sharded_run(port, c.device, cfg, batches, tcfg,
                                     mesh, drops)
+        serve = {}
+        for name, (cfg, ratio) in serve_cases(port).items():
+            serve[name] = serve_run(port, c.device, cfg, ratio, mesh)
+        torch.save({k: {"tokens": v.pop("tokens"),
+                        "logits": v.pop("logits")}
+                    for k, v in serve.items()},
+                   SH_DIR / f"serve_rank{rank}.pt")
+        out["serve"] = serve
         out["comm"] = c.report()
     finally:
         comm.shutdown()
@@ -5620,11 +5968,16 @@ def sharded_phase(port, dev) -> dict:
                for name, (cfg, batches, tcfg, drops) in
                sharded_cases(port).items()}
         acct = sharded_accounting(port)
+        serve_one = {name: serve_run(port, dev, cfg, ratio)
+                     for name, (cfg, ratio) in serve_cases(port).items()}
+        serve_acct = serve_accounting(port)
         while not ctx.join():
             pass
         job_s = time.perf_counter() - t0
         ranks = [json.loads((SH_DIR / f"rank{r}.json").read_text())
                  for r in range(len(ctx.processes))]
+        serve_out = [torch_load(SH_DIR / f"serve_rank{r}.pt")
+                     for r in range(len(ctx.processes))]
     finally:
         for proc in ctx.processes:
             if proc.is_alive():
@@ -5678,9 +6031,75 @@ def sharded_phase(port, dev) -> dict:
             else:
                 assert got["flash_heads"] == [[15, 5]]   # heads replicated
         out["launches"][name] = [r[name]["launches"] for r in ranks]
+    out["serve"] = check_serving(port, ranks, serve_out, serve_one,
+                                 serve_acct)
     log(f"  world {len(ranks)} job {job_s:.1f} s (spawn, init, every case; "
         f"the one-process steps and the accounting beside it); comm rank "
         f"0: {ranks[0]['comm']}")
+    return out
+
+
+def torch_load(path):
+    import torch
+    return torch.load(path, weights_only=False)
+
+
+def check_serving(port, ranks, serve_out, one, acct) -> dict:
+    """Each rank's sharded prefill and decode against one process on the
+    card: float32 tokens identical and logits within LOGITS_ATOL (bf16
+    recorded), the bytes it held as each step's arguments equal to the
+    accounting's ``rule_argument_bytes`` exactly, its cache rows the
+    rules' block, the state-out kernel launched where the cache splits and
+    every recorded kernel call held to its plain version. Returns {case:
+    per-rank launches, ms, seconds}."""
+    card = card_line()
+    out = {}
+    for name, ref in one.items():
+        dname = "bfloat16" if "bfloat16" in name else "float32"
+        mem = {mode: a["memory"] for mode, a in acct[name].items()}
+        out[name] = {"launches": [], "ms_per_step": [], "seconds": []}
+        for r, res in zip(ranks, serve_out):
+            got, tl = r["serve"][name], res[name]
+            d = r["coords"][0]
+            rows = slice(d * SV_ROWS // SH_MESH[0],
+                         (d + 1) * SV_ROWS // SH_MESH[0])
+            same = bool((tl["tokens"] == ref["tokens"][:, rows]).all())
+            err = abs_err(tl["logits"], ref["logits"][:, rows])
+            secs = ", ".join(f"{k} {v:.4f}" for k, v in
+                             sorted(got["seconds"].items()))
+            log(f"  serving {name}, rank {r['rank']} (data, model) "
+                f"{r['coords']}: tokens {'identical to' if same else 'DIFFER from'}"
+                f" one process's over prefill + {SV_STEPS} steps, logits "
+                f"max |rank - one| {err:.3e}; bytes held prefill "
+                f"{got['prefill_bytes']} / decode {got['decode_bytes']}, "
+                f"rule_argument_bytes {mem['prefill']['rule_argument_bytes']}"
+                f" / {mem['decode']['rule_argument_bytes']}; cache rows "
+                f"{got['cache_rows']} of {SV_MAX_LEN}; prefill "
+                f"{got['prefill_ms']:.1f} ms, {got['ms_per_step']:.2f} "
+                f"ms/step (one process {ref['prefill_ms']:.1f}, "
+                f"{ref['ms_per_step']:.2f}), collective seconds {secs} (four "
+                f"ranks on one card through host memory say nothing about "
+                f"speed across cards); launches {got['launches']}; "
+                f"{got['held']} kernel signatures held ({got['held_state']} "
+                f"of the state variant); {card}")
+            if dname == "float32":
+                assert same, f"serving {name}: rank {r['rank']}'s tokens " \
+                    f"differ from one process"
+                assert err <= LOGITS_ATOL, f"serving {name}: rank " \
+                    f"{r['rank']}'s logits differ from one process"
+            for mode in ("prefill", "decode"):
+                assert got[f"{mode}_bytes"] == \
+                    mem[mode]["rule_argument_bytes"], \
+                    f"serving {name}: rank {r['rank']} holds other " \
+                    f"{mode} arguments than the rules"
+            assert got["cache_rows"] == SV_MAX_LEN // SH_MESH[1]
+            assert got["launches"]["decode_attention_state"] > 0
+            assert got["launches"]["decode_attention"] == 0
+            assert got["held_state"] > 0
+            out[name]["launches"].append(got["launches"])
+            out[name]["ms_per_step"].append(got["ms_per_step"])
+            out[name]["seconds"].append(got["seconds"])
+        out[name]["one_ms_per_step"] = ref["ms_per_step"]
     return out
 
 
@@ -5719,10 +6138,13 @@ def main() -> int:
             eager = eager_collector(port, cfg, params, calib)
             mesh = mesh_phase(port, dev, cfg, plan, col, eager, calib,
                               params)
-        with Phase("sharded training: world 4 = (data 2, model 2) on the "
-                   "one card over gloo, FSDP and tensor, vocab and expert "
-                   "parallelism of the params and AdamW state (SmolLM-360M "
-                   "float32 and bf16, granite float32)"):
+        with Phase("sharded training and serving: world 4 = (data 2, model "
+                   "2) on the one card over gloo, FSDP and tensor, vocab and "
+                   "expert parallelism of the params and AdamW state "
+                   "(SmolLM-360M float32 and bf16, granite float32), then "
+                   "prefill and decode with sharded params and a "
+                   "sequence-split cache (SmolLM-360M dense float32 and "
+                   "bf16, factorized float32, granite float32)"):
             sharded = sharded_phase(port, dev)
         with Phase("batcher path: ContinuousBatcher from the artifact, "
                    "contiguous, paged and prefix pools, fault plans"):
@@ -5763,8 +6185,14 @@ def main() -> int:
         device_vs_host(port, dev, calib)
     with Phase("kernels against their plain versions on the card"):
         errs = check_kernels(port, dev, comp)
+    with Phase("the decode kernel's state-out variant: the plan's boundary "
+               "lengths over 1, 2 and 4 row blocks, merged, against the "
+               "plain version and the whole-cache kernel; timed"):
+        state = state_variant(port, dev)
+        errs["decode_attention_state"] = state["err"]
     with Phase("kernel times (bfloat16, main-path shapes)"):
         times = time_kernels(port, dev, cfg, comp, snap)
+        times["decode_attention_state"] = state["time"]
     with Phase("kernel times (bfloat16, the dense configs' shapes)"):
         large = time_large_shapes(port, dev)
     with Phase("kernel times (float32 2-D product, simt against split)"):
@@ -5851,9 +6279,13 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = times[name]
-        # the paged kernel's launches are its path's: the batcher's
+        # the paged kernel's launches are its path's: the batcher's; the
+        # state variant's the sharded serving path's, every rank and case
         launches = (cb_counts if name == "decode_attention_paged"
                     else counts)[name]
+        if name in SERVE_ONLY:
+            launches = sum(c[name] for v in sharded["serve"].values()
+                           for c in v["launches"])
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -5872,7 +6304,10 @@ def main() -> int:
                 for part, v in mesh["launches"].items()},
             "sharded_launches": {
                 part: [c[name] for c in v]
-                for part, v in sharded["launches"].items()}})
+                for part, v in sharded["launches"].items()},
+            "serve_launches": {
+                part: [c[name] for c in v["launches"]]
+                for part, v in sharded["serve"].items()}})
         if "simt_ms" in t:     # the variant the main path ran, the earlier
             kernels[-1].update(variant="+".join(t["variant"]),
                                launches_by_variant=variants[name],
@@ -5895,6 +6330,13 @@ def main() -> int:
         bound_ms=wide["bound"][0], bound_by=wide["bound"][1])
     by_name["flash_attention"]["gemma3_hd256"] = large["flash_hd256"]
     by_name["decode_attention"]["long_cache"] = large["decode_long"]
+    by_name["decode_attention_state"]["whole_kernel_ms"] = \
+        times["decode_attention_state"]["whole_kernel_ms"]
+    for name, v in sharded["serve"].items():
+        log(f"sharded serving {name}: {', '.join(f'{x:.2f}' for x in v['ms_per_step'])}"
+            f" ms/step by rank (one process {v['one_ms_per_step']:.2f}); four "
+            f"ranks on one card through host memory say nothing about speed "
+            f"across cards")
     by_name["lowrank_matmul_2d"]["by_shape"] = large["lowrank_2d"]
     by_name["lowrank_matmul_2d"]["float32"] = f32_2d
     log(card)

@@ -77,6 +77,18 @@
 // rings and merges are unchanged, so on the same cache values the paged
 // kernel's output is bit-identical to the full-layout kernel's. An entry
 // outside [0, P) reads the null block rather than past the arena.
+//
+// State out (STATE = true, drt_decode_attention_state, full layout only):
+// the same plan, loads and merges, but the cluster writes the merged
+// softmax state in float32 in place of o: acc (B, KV, G, hd), the
+// unnormalised sum a of the last merge, and m, l (B, KV, G), its max and
+// denominator, before the floor. A caller that holds a slot's rows split
+// over several processes (a cache sequence-split over a mesh's model
+// ranks) runs it on each block with the block's live-row count and merges
+// the states as the cluster does (kernels/ref.py merge_states): a rank
+// that rounded a normalised output to bf16 first would add an error that
+// one process never makes. A block with no live rows writes m = -1e30,
+// l = 0, acc = 0; one state merged alone gives o bit for bit.
 #include "common.cuh"
 
 #ifndef DRT_DA_CL
@@ -247,12 +259,16 @@ __device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4& r,
 // 0). Nothing in the loop over the ring branches on G, the softcap or a
 // row's liveness, so the compiler interleaves the rows' and heads'
 // independent dot products, shuffles and exponentials.
-template <typename T, int HD, int GB>
+// With STATE the merged state goes to sacc, sm and sl (float32) instead of
+// o (see "State out" above).
+template <typename T, int HD, int GB, bool STATE>
 __global__ void __launch_bounds__(DA_THREADS, GB > 4 ? 2 : 3) decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int* __restrict__ lengths,
-    const int* __restrict__ table, T* __restrict__ o, int L, int KV, int G,
-    float scale, int window, float softcap, int NB, int bk, int P) {
+    const int* __restrict__ table, T* __restrict__ o,
+    float* __restrict__ sacc, float* __restrict__ sm,
+    float* __restrict__ sl, int L, int KV, int G, float scale, int window,
+    float softcap, int NB, int bk, int P) {
   using Geo = DaGeo<T, HD>;
   constexpr int VEC = Geo::VEC, LPR = Geo::LPR, VPL = Geo::VPL;
   constexpr int E = Geo::E, RPW = Geo::RPW, U = Geo::U, GPW = Geo::GPW;
@@ -510,7 +526,7 @@ __global__ void __launch_bounds__(DA_THREADS, GB > 4 ? 2 : 3) decode_kernel(
   cluster_sync();
   // the cluster's states merged in rank order, a slice of o a block; each
   // peer's values are loaded before any is used
-  T* op = o + (size_t)pair * G * HD;
+  T* op = STATE ? nullptr : o + (size_t)pair * G * HD;
   for (int i = rank * DA_THREADS + threadIdx.x; i < G * HD;
        i += DA_CL * DA_THREADS) {
     const int g = i / HD;
@@ -531,7 +547,15 @@ __global__ void __launch_bounds__(DA_THREADS, GB > 4 ? 2 : 3) decode_kernel(
       lsum += lr[c] * sw;
       a += ar[c] * sw;
     }
-    op[i] = cvt<T>(ln > 0 ? a / fmaxf(lsum, 1e-30f) : 0.f);
+    if constexpr (STATE) {
+      sacc[(size_t)pair * G * HD + i] = a;
+      if (i % HD == 0) {
+        sm[(size_t)pair * G + g] = mx;
+        sl[(size_t)pair * G + g] = lsum;
+      }
+    } else {
+      op[i] = cvt<T>(ln > 0 ? a / fmaxf(lsum, 1e-30f) : 0.f);
+    }
   }
   cluster_sync();                   // no block leaves while peers read it
 }
@@ -541,12 +565,19 @@ __host__ __device__ constexpr int da_group_bound(int G) {
   return G <= 4 ? G : 8;
 }
 
-template <typename T, int HD, int GB>
+// The merged state's outputs of a STATE launch (null otherwise).
+struct DaState {
+  float* acc;
+  float* m;
+  float* l;
+};
+
+template <typename T, int HD, int GB, bool STATE>
 int launch_decode(const void* q, const void* k, const void* v,
-                  const int* lengths, const int* table, void* o, int B,
-                  int L, int KV, int G, float scale, int window,
+                  const int* lengths, const int* table, void* o, DaState so,
+                  int B, int L, int KV, int G, float scale, int window,
                   float softcap, int NB, int bk, int P, cudaStream_t st) {
-  auto kern = decode_kernel<T, HD, GB>;
+  auto kern = decode_kernel<T, HD, GB, STATE>;
   static const cudaError_t configured = [kern] {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, DA_SMEM_MAX);
@@ -579,22 +610,26 @@ int launch_decode(const void* q, const void* k, const void* v,
 #endif
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, kern, static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, table, static_cast<T*>(o), L, KV,
-      G, scale, window, softcap, NB, bk, P);
+      static_cast<const T*>(v), lengths, table, static_cast<T*>(o), so.acc,
+      so.m, so.l, L, KV, G, scale, window, softcap, NB, bk, P);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int HD>
 int dispatch_g(const void* q, const void* k, const void* v,
-               const int* lengths, const int* table, void* o, int B, int L,
-               int KV, int G, float scale, int window, float softcap, int NB,
-               int bk, int P, cudaStream_t st) {
+               const int* lengths, const int* table, void* o, DaState so,
+               int B, int L, int KV, int G, float scale, int window,
+               float softcap, int NB, int bk, int P, cudaStream_t st) {
 #define DA_G(GB)                                                           \
   case GB:                                                                 \
-    return launch_decode<T, HD, GB>(q, k, v, lengths, table, o, B, L, KV,  \
-                                    G, scale, window, softcap, NB, bk, P,  \
-                                    st);
+    return so.acc != nullptr                                               \
+               ? launch_decode<T, HD, GB, true>(                           \
+                     q, k, v, lengths, table, o, so, B, L, KV, G, scale,   \
+                     window, softcap, NB, bk, P, st)                       \
+               : launch_decode<T, HD, GB, false>(                          \
+                     q, k, v, lengths, table, o, so, B, L, KV, G, scale,   \
+                     window, softcap, NB, bk, P, st);
   switch (da_group_bound(G)) {
     DA_G(1)
     DA_G(2)
@@ -608,15 +643,15 @@ int dispatch_g(const void* q, const void* k, const void* v,
 
 template <typename T>
 int dispatch_hd(const void* q, const void* k, const void* v,
-                const int* lengths, const int* table, void* o, int B, int L,
-                int KV, int G, int hd, float scale, int window,
+                const int* lengths, const int* table, void* o, DaState so,
+                int B, int L, int KV, int G, int hd, float scale, int window,
                 float softcap, int NB, int bk, int P, cudaStream_t st) {
   if (G < 1 || G > DA_GMAX || L < 1 || B < 1 || KV < 1 ||
       (size_t)B * KV * DA_CL > 0x7fffffffu)
     return static_cast<int>(cudaErrorInvalidValue);
 #define DA_CASE(H)                                                         \
   case H:                                                                  \
-    return dispatch_g<T, H>(q, k, v, lengths, table, o, B, L, KV, G,       \
+    return dispatch_g<T, H>(q, k, v, lengths, table, o, so, B, L, KV, G,   \
                             scale, window, softcap, NB, bk, P, st);
   switch (hd) {
     DA_CASE(16)
@@ -630,23 +665,26 @@ int dispatch_hd(const void* q, const void* k, const void* v,
 }
 
 int dispatch_dtype(const void* q, const void* k, const void* v,
-                   const void* lengths, const void* table, void* o, int B,
-                   int L, int KV, int G, int hd, float scale, int window,
-                   float softcap, int NB, int bk, int P, int dtype,
-                   void* stream) {
+                   const void* lengths, const void* table, void* o,
+                   DaState so, int B, int L, int KV, int G, int hd,
+                   float scale, int window, float softcap, int NB, int bk,
+                   int P, int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto len = static_cast<const int*>(lengths);
   auto tb = static_cast<const int*>(table);
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) %
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
+       reinterpret_cast<uintptr_t>(so.acc) |
+       reinterpret_cast<uintptr_t>(so.m) |
+       reinterpret_cast<uintptr_t>(so.l)) %
       16)
     return static_cast<int>(cudaErrorMisalignedAddress);
   if (dtype == kFloat32)
-    return dispatch_hd<float>(q, k, v, len, tb, o, B, L, KV, G, hd, scale,
-                              window, softcap, NB, bk, P, st);
+    return dispatch_hd<float>(q, k, v, len, tb, o, so, B, L, KV, G, hd,
+                              scale, window, softcap, NB, bk, P, st);
   if (dtype == kBFloat16)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, len, tb, o, B, L, KV, G, hd,
-                                      scale, window, softcap, NB, bk, P,
+    return dispatch_hd<__nv_bfloat16>(q, k, v, len, tb, o, so, B, L, KV, G,
+                                      hd, scale, window, softcap, NB, bk, P,
                                       st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -694,8 +732,28 @@ int drt_decode_attention(const void* q, const void* k, const void* v,
                          const void* lengths, void* o, int B, int L, int KV,
                          int G, int hd, float scale, int window,
                          float softcap, int dtype, void* stream) {
-  return drt::dispatch_dtype(q, k, v, lengths, nullptr, o, B, L, KV, G, hd,
-                             scale, window, softcap, 0, 1, 0, dtype, stream);
+  return drt::dispatch_dtype(q, k, v, lengths, nullptr, o,
+                             drt::DaState{nullptr, nullptr, nullptr}, B, L,
+                             KV, G, hd, scale, window, softcap, 0, 1, 0,
+                             dtype, stream);
+}
+
+// The state-out variant: q (B, KV, G, hd); k/v (B, L, KV, hd); lengths
+// (B,) int32, each slot's live rows, a prefix of its L (full layout);
+// acc (B, KV, G, hd), m and l (B, KV, G) float32. One launch; q, k, v,
+// acc, m and l on 16-byte boundaries.
+int drt_decode_attention_state(const void* q, const void* k, const void* v,
+                               const void* lengths, void* acc, void* m,
+                               void* l, int B, int L, int KV, int G, int hd,
+                               float scale, float softcap, int dtype,
+                               void* stream) {
+  if (acc == nullptr || m == nullptr || l == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return drt::dispatch_dtype(
+      q, k, v, lengths, nullptr, nullptr,
+      drt::DaState{static_cast<float*>(acc), static_cast<float*>(m),
+                   static_cast<float*>(l)},
+      B, L, KV, G, hd, scale, 0, softcap, 0, 1, 0, dtype, stream);
 }
 
 // q (B, KV, G, hd); k/v (P, bk, KV, hd) arena; lengths (B,) int32;
@@ -708,8 +766,10 @@ int drt_decode_attention_paged(const void* q, const void* k, const void* v,
   if (NB < 1 || bk < 1 || P < 1 || (long long)NB * bk > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   if (table == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return drt::dispatch_dtype(q, k, v, lengths, table, o, B, NB * bk, KV, G,
-                             hd, scale, 0, softcap, NB, bk, P, dtype, stream);
+  return drt::dispatch_dtype(q, k, v, lengths, table, o,
+                             drt::DaState{nullptr, nullptr, nullptr}, B,
+                             NB * bk, KV, G, hd, scale, 0, softcap, NB, bk,
+                             P, dtype, stream);
 }
 
 }  // extern "C"

@@ -76,6 +76,8 @@ from typing import Dict, List
 import torch
 import torch.distributed as dist
 
+from repro_torch.device import DeviceLike, resolve_device
+
 # a collective that waits longer than this raises instead of hanging
 TIMEOUT_S = 600
 
@@ -168,17 +170,18 @@ def choose_backend(world: int, device: torch.device,
     return "gloo", "pinned-host"
 
 
-def init(world: int, rank: int, device="cpu", *,
+def init(world: int, rank: int, device: DeviceLike = None, *,
          init_method: str = "env://") -> Comm:
     """Join the default process group of ``world`` ranks as ``rank`` and
-    return the :class:`Comm` that the wrappers use. ``device`` is "cpu" or
-    "cuda": under NCCL the rank takes ``cuda:{LOCAL_RANK}`` (``torchrun``
-    sets it; without it, the rank), otherwise every rank of the host
-    shares ``cuda:0``. ``init_method`` is ``env://`` under ``torchrun``,
-    or ``tcp://localhost:PORT``."""
+    return the :class:`Comm` that the wrappers use. ``device`` is "cuda"
+    (the default: raises without a card) or "cpu": under NCCL the rank
+    takes ``cuda:{LOCAL_RANK}`` (``torchrun`` sets it; without it, the
+    rank), otherwise every rank of the host shares ``cuda:0``.
+    ``init_method`` is ``env://`` under ``torchrun``, or
+    ``tcp://localhost:PORT``."""
     if _STATE["comm"] is not None or dist.is_initialized():
         raise RuntimeError("comm.init: a process group is already up")
-    dev = torch.device(device)
+    dev = resolve_device(device)
     n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
     if dev.type == "cuda" and n_cards == 0:
         raise RuntimeError("comm.init: device cuda asked for, no card")

@@ -20,6 +20,10 @@ What JAX's partitioner derives from ``jit`` shardings for a train step,
 the port writes out: :class:`Placement` gathers a rank's blocks on use
 and reduces their gradients, and the model code computes on the shares
 it keeps, each marked with a :class:`Share` (``models.transformer``).
+Serving reuses it: the prefill and decode step take a rank's blocks of
+the parameters, its batch rows and its block of the cache, placed by
+``CACHE_AXES`` (``shard_cache``; the K/V rows split over ``model``, a
+:class:`SeqSplit`), as JAX's dry-run places them (``lower_cell``).
 """
 from __future__ import annotations
 
@@ -256,6 +260,92 @@ def local_block(t: torch.Tensor, spec: Optional[Sequence], mesh
 
 
 # ---------------------------------------------------------------------------
+# Serving's inputs: the batch and the decode cache (JAX's dry-run places
+# them so: ``repro/launch/dryrun.py`` ``batch_shardings``, ``CACHE_AXES``)
+# ---------------------------------------------------------------------------
+CACHE_AXES = {
+    # kv cache (n, B, L, K, hd): batch over dp, cache seq over model
+    5: ("layer_stack", "batch", "kv_seq_model", None, None),
+    4: ("layer_stack", "batch", None, None),
+    3: ("layer_stack", "batch", None),
+    2: ("layer_stack", "batch"),
+}
+
+
+def cache_axes(t: torch.Tensor) -> tuple:
+    """The logical axes of a cache leaf (JAX's ``cache_shardings``)."""
+    nd = t.dim()
+    if nd == 1:                       # pos (B,)
+        return ("batch",)
+    return CACHE_AXES.get(nd, ("layer_stack", "batch") + (None,) * (nd - 2))
+
+
+def batch_axes(name: str, t: torch.Tensor) -> tuple:
+    """The logical axes of a batch entry (JAX's ``batch_shardings``):
+    rows over the batch axes, the sequence over ``model``."""
+    if name == "positions" and t.dim() == 3:
+        return (None, "batch", "seq")
+    if t.dim() == 1:                  # lengths (B,)
+        return ("batch",)
+    return ("batch", "seq") + (None,) * (t.dim() - 2)
+
+
+def cache_shardings(cache, mesh):
+    """A :class:`NamedSharding` for every leaf of a decode cache under
+    ``CACHE_AXES``, shape-aware: an ``L`` that ``model`` does not divide
+    stays whole."""
+    return pytree.tree_map(lambda t: NamedSharding(
+        mesh, shape_aware_spec(tuple(t.shape), cache_axes(t), mesh)), cache)
+
+
+def shard_cache(cache, mesh):
+    """Every leaf of a whole decode cache's block on this rank under
+    ``CACHE_AXES`` (``shard_tree``'s counterpart for the cache). Returns
+    (blocks, the :class:`NamedSharding` tree)."""
+    shardings = cache_shardings(cache, mesh)
+    return pytree.tree_map(lambda t, s: local_block(t, s.spec, mesh).clone(),
+                           cache, shardings), shardings
+
+
+def shard_batch(batch: Dict, mesh):
+    """This rank's block of every entry of a global batch under the
+    rules (``batch_axes``, shape-aware: rows over the batch axes, the
+    sequence over ``model``). Returns (blocks, {name:
+    :class:`NamedSharding`})."""
+    shardings = {k: NamedSharding(mesh, shape_aware_spec(
+        tuple(v.shape), batch_axes(k, v), mesh)) for k, v in batch.items()}
+    return {k: local_block(torch.as_tensor(v), shardings[k].spec,
+                           mesh).clone()
+            for k, v in batch.items()}, shardings
+
+
+def batch_rows(blocks: Dict, shardings: Dict) -> Dict:
+    """The batch rows a rank serves from its blocks (``shard_batch``):
+    every dim split over ``model`` (the sequence) all-gathered over the
+    model group, so each rank holds its rows' whole prompts (sequence
+    parallelism is not ported)."""
+    out = {}
+    for k, t in blocks.items():
+        sh = shardings[k]
+        for dim, entry in enumerate(sh.spec):
+            if _axes_of(entry) == ("model",):
+                t = comm.all_gather(t, dim, sh.mesh.group(("model",)))
+        out[k] = t
+    return out
+
+
+@dataclass(frozen=True)
+class SeqSplit:
+    """A decode cache's rows split over ``model``: this rank holds rows
+    ``[offset, offset + rows)`` of each slot's ``length`` (the global
+    ``L``); ``group`` is the model group."""
+    group: Any
+    offset: int
+    rows: int
+    length: int
+
+
+# ---------------------------------------------------------------------------
 # Sharded state: each rank holds its block of every leaf
 # ---------------------------------------------------------------------------
 # the mesh axes the batch is split over (the logical "batch"); a parameter
@@ -321,11 +411,13 @@ def share_of(p: Dict, kind: str) -> Optional[Share]:
 
 
 class Placement:
-    """A model's parameters sharded over a mesh for a train step (FSDP and
-    tensor, vocab and expert parallelism), as JAX's ``jit`` shardings place
-    them: ``specs`` is the tree of every parameter's shape-aware :class:`P`
-    (``shardings_for_tree`` on the whole parameters; their blocks are what
-    a rank holds).
+    """A model's parameters sharded over a mesh for a train step or for
+    serving (FSDP and tensor, vocab and expert parallelism), as JAX's
+    ``jit`` shardings place them: ``specs`` is the tree of every
+    parameter's shape-aware :class:`P` (``shardings_for_tree`` on the
+    whole parameters; their blocks are what a rank holds). ``cache_len``
+    is the full decode cache's global ``L`` (``max_len``), which a decode
+    step under the placement needs to find its block (``seq_split``).
 
     On use (``models.transformer``'s ``placement=``), a block is gathered
     over the axes of the batch (``pod``, ``data``: FSDP) with
@@ -335,8 +427,8 @@ class Placement:
     and is otherwise gathered with ``comm.gather_replicated``. A leaf that no batch axis splits has its
     gradient summed over those axes afterwards (:meth:`reduce_grads`)."""
 
-    def __init__(self, mesh, specs):
-        self.mesh, self.specs = mesh, specs
+    def __init__(self, mesh, specs, cache_len: Optional[int] = None):
+        self.mesh, self.specs, self.cache_len = mesh, specs, cache_len
         self.batch_axes = tuple(a for a in BATCH_AXES if a in mesh.axis_names)
         self.model_size = mesh.shape.get("model", 1)
         self.model_index = mesh.coord("model") if self.model_size > 1 else 0
@@ -363,6 +455,18 @@ class Placement:
     def batch_group(self):
         return (self.mesh.group(self.batch_axes) if self.batch_size > 1
                 else comm.SELF)
+
+    def seq_split(self, length: int) -> Optional[SeqSplit]:
+        """This rank's block of a cache of ``length`` rows a slot where
+        the rules split it over ``model`` (``CACHE_AXES``' "kv_seq_model",
+        shape-aware: None where ``model`` does not divide it, and the
+        cache stays whole)."""
+        spec = shape_aware_spec((length,), ("kv_seq_model",), self.mesh)
+        if self.model_size == 1 or _axes_of(spec[0]) != ("model",):
+            return None
+        rows = length // self.model_size
+        return SeqSplit(self.model_group, self.model_index * rows, rows,
+                        length)
 
     def spec_at(self, *keys):
         node = self.specs
@@ -394,11 +498,19 @@ class Placement:
         split over ``model`` is marked for the model code with a
         :class:`Share` under ``"_tp"``: a linear (its ``w``) "col" where its
         output columns split, "row" where its input rows do; a dict of
-        stacks (the experts') "experts"."""
+        stacks (the experts') "experts". A factorized linear (``B``, ``C``)
+        is always gathered whole: the low-rank kernels round ``x@B`` to C's
+        dtype before ``@C``, so a share of B's rows would round partial
+        sums that one process rounds whole, and it never reaches the model
+        code as an unmarked share."""
         def model_split(spec) -> list:
             return [d for d, axes in _split_axes(spec) if axes == ("model",)]
 
         def walk(node, spec, path):
+            if isinstance(node, dict) and "B" in node and "C" in node:
+                return {k: self.use(v, spec[k]) if isinstance(
+                    v, torch.Tensor) and k in spec else v
+                    for k, v in node.items()}
             if isinstance(node, dict):
                 out = {k: walk(v, spec[k], path + (k,)) if k in spec else v
                        for k, v in node.items()}

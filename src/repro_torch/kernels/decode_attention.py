@@ -17,6 +17,15 @@ order of every merge, depend on the slot's length and window alone
 the kernels on the card and how the design answers is in the note at the
 top of the CUDA source. The plain versions are ``kernels.ref.
 decode_attention`` and ``kernels.ref.decode_attention_paged``.
+
+``decode_attention_state_bkgh`` is the same kernel with its state out
+(a template flag): in place of o it writes the cluster's merged softmax
+state in float32, ``acc`` (B, KV, G, hd) unnormalised, ``m`` and ``l``
+(B, KV, G), for a slot whose rows are split over several processes (a
+sequence-split cache on a mesh: each model rank runs it over its block,
+and ``kernels.ref.merge_states`` merges the ranks' states as the cluster
+merges its blocks'). Its plain version is ``kernels.ref.
+decode_attention_state``.
 """
 from __future__ import annotations
 
@@ -49,6 +58,14 @@ def _fn():
     fn = _build.lib("decode_attention").drt_decode_attention
     if fn.argtypes is None:
         fn.argtypes = [P] * 5 + [I] * 5 + [F, I, F, I, P]
+        fn.restype = I
+    return fn
+
+
+def _state_fn():
+    fn = _build.lib("decode_attention").drt_decode_attention_state
+    if fn.argtypes is None:
+        fn.argtypes = [P] * 7 + [I] * 5 + [F, F, I, P]
         fn.restype = I
     return fn
 
@@ -146,6 +163,44 @@ def decode_attention_bkgh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 decode_attention_bkgh.launches = 0
+
+
+def decode_attention_state_bkgh(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, lengths: torch.Tensor, *,
+                                softcap: float = 0.0):
+    """The state-out variant of :func:`decode_attention_bkgh`, full
+    layout: q (B, KV, G, hd); k/v (B, L, KV, hd), a block of each slot's
+    rows; lengths (B,) int32, each slot's live rows in the block, a prefix
+    (0: no live row, the empty state). All on the card, q, k and v on
+    16-byte boundaries. Returns float32 (acc (B, KV, G, hd), m (B, KV,
+    G), l (B, KV, G)): the merged unnormalised sum, its max and its
+    denominator (``kernels.ref.merge_states`` gives o)."""
+    code = _build.check_operands("decode_attention_state", q, k, v)
+    B, KV, G, hd = q.shape
+    L = k.shape[1]
+    if (k.shape != v.shape or k.shape[0] != B or k.shape[2] != KV
+            or k.shape[3] != hd or hd not in HEAD_DIMS
+            or not 1 <= G <= MAX_GROUP or not 1 <= L <= MAX_ROWS):
+        raise ValueError(f"decode_attention_state: unsupported shapes q "
+                         f"{tuple(q.shape)} k {tuple(k.shape)} (hd in "
+                         f"{HEAD_DIMS}, G <= {MAX_GROUP}, L <= {MAX_ROWS})")
+    _check_index("decode_attention_state: lengths", lengths, (B,), q.device)
+    acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    m = torch.empty((B, KV, G), dtype=torch.float32, device=q.device)
+    l = torch.empty((B, KV, G), dtype=torch.float32, device=q.device)
+    if q.numel() == 0:
+        return acc, m, l
+    _check_aligned("decode_attention_state", q, k, v)
+    rc = _state_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     lengths.data_ptr(), acc.data_ptr(), m.data_ptr(),
+                     l.data_ptr(), B, L, KV, G, hd, hd ** -0.5,
+                     float(softcap), code, _build.stream_of(q))
+    _build.check_rc(rc, "decode_attention_state")
+    decode_attention_state_bkgh.launches += 1
+    return acc, m, l
+
+
+decode_attention_state_bkgh.launches = 0
 
 
 def decode_attention_paged_bkgh(q: torch.Tensor, k: torch.Tensor,

@@ -42,7 +42,8 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import (
-    decode_attention_bkgh, decode_attention_paged_bkgh)
+    decode_attention_bkgh, decode_attention_paged_bkgh,
+    decode_attention_state_bkgh)
 from repro_torch.kernels.flash_attention import flash_attention_bshd
 from repro_torch.kernels.gram import gram_blocked
 from repro_torch.kernels.lowrank_matmul import lowrank_gemv, lowrank_matmul_2d
@@ -106,6 +107,17 @@ def decode_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Bb, H, hd = q.shape
     L = k.shape[1]
     resident = _nb(q, k, v, lengths) + q.numel() * q.element_size()
+    return {"flops": 4.0 * Bb * H * L * hd, "resident": resident,
+            "plain": resident + 2 * Bb * H * L * 4}
+
+
+def decode_state_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      lengths: torch.Tensor) -> dict:
+    """``decode_cost`` of the rows given, with the float32 state (acc,
+    m, l) written in place of o."""
+    Bb, H, hd = q.shape
+    L = k.shape[1]
+    resident = _nb(q, k, v, lengths) + 4 * Bb * H * (hd + 2)
     return {"flops": 4.0 * Bb * H * L * hd, "resident": resident,
             "plain": resident + 2 * Bb * H * L * 4}
 
@@ -283,6 +295,32 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   lengths.to(torch.int32), window=window,
                                   softcap=softcap)
         return o.reshape(B, H, hd)
+
+
+def decode_attention_state(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, lengths: torch.Tensor, *,
+                           softcap: float = 0.0):
+    """The softmax state of decode attention over a block of each slot's
+    rows, full layout: q (B, H, hd); k/v (B, L, KV, hd); lengths (B,) each
+    slot's live rows in the block (a prefix). Returns float32 (acc (B, H,
+    hd), m (B, H), l (B, H)); ``kernels.ref.merge_states`` merges the
+    blocks'.
+    Inference-only."""
+    with _kernel_call("decode_attention_state", q, lambda: decode_state_cost(
+            q, k, v, lengths)) as skip:
+        B, H, hd = q.shape
+        if skip:
+            return (q.new_empty(q.shape, dtype=torch.float32),
+                    q.new_empty((B, H), dtype=torch.float32),
+                    q.new_empty((B, H), dtype=torch.float32))
+        if not _route(q, "decode_attention_state"):
+            return ref.decode_attention_state(q, k, v, lengths,
+                                              softcap=softcap)
+        KV = k.shape[2]
+        acc, m, l = decode_attention_state_bkgh(
+            q.reshape(B, KV, H // KV, hd), k, v, lengths.to(torch.int32),
+            softcap=softcap)
+        return acc.reshape(B, H, hd), m.reshape(B, H), l.reshape(B, H)
 
 
 def decode_attention_paged(q: torch.Tensor, k: torch.Tensor,

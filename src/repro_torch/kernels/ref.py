@@ -103,6 +103,53 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, H, hd).to(q.dtype)
 
 
+def decode_attention_state(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, lengths: torch.Tensor, *,
+                           softcap: float = 0.0):
+    """The unnormalised softmax state of ``decode_attention`` over a block
+    of each slot's rows, full layout: q (B, H, hd); k/v (B, L, KV, hd);
+    lengths (B,) int, each slot's live rows in the block, a prefix (0: no
+    live row). Returns float32 (acc (B, H, hd), m (B, H), l (B, H)): the
+    sum of p·v with p rounded to v's dtype, the max of the live scores
+    (``NEG_INF`` where none is live) and the sum of unrounded p (0 where
+    none is). The ops are ``decode_attention``'s, so ``merge_states`` of
+    one state over the whole cache gives its output bit for bit."""
+    B, H, hd = q.shape
+    L, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = hd ** -0.5
+    lengths = lengths.to(device=q.device, dtype=torch.int64)
+    valid = (torch.arange(L, device=q.device)[None, :]
+             < lengths[:, None])[:, None, None, None, :]     # (B,1,1,1,L)
+    qg = q.reshape(B, KV, G, hd).float() * scale
+    s = torch.einsum("bkgh,btkh->bkgt", qg, k.float())
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    s = torch.where(valid[..., 0, :], s, torch.full_like(s, NEG_INF))
+    s = s[..., None, :]                                       # (B,KV,G,1,L)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    vv = v.permute(0, 2, 1, 3)[:, :, None]                    # (B,KV,1,L,hd)
+    acc = p.to(v.dtype).float() @ vv.float()                  # (B,KV,G,1,hd)
+    return (acc[..., 0, :].reshape(B, H, hd), m.reshape(B, H),
+            l.reshape(B, H))
+
+
+def merge_states(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """Softmax states of R blocks of the same rows merged in block order,
+    as the decode kernel's cluster merges its blocks': acc (R, ..., hd), m
+    and l (R, ...) float32 (``decode_attention_state``'s, stacked).
+    M = max m_r, w_r = exp(m_r - M), o = Σ w_r·acc_r / max(Σ w_r·l_r,
+    1e-30), rounded to ``dtype``. Rows live in no block give exact zeros
+    (their acc and l are 0)."""
+    big = m.amax(dim=0)
+    w = torch.exp(m - big)
+    a = (w[..., None] * acc).sum(dim=0)
+    den = (w * l).sum(dim=0).clamp_min(1e-30)
+    return (a / den[..., None]).to(dtype)
+
 
 def decode_attention_paged(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, lengths: torch.Tensor,

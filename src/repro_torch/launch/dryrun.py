@@ -16,14 +16,23 @@ parameter and of AdamW's moments under the rules (FSDP over ``pod`` ×
 ``data``, tensor, vocab and expert parallelism over ``model``: what JAX's
 dry-run places, ``memory.rule_state_bytes``), its block of the batch over
 the data axes, and the step's gathers on use, reduce-scatters and
-all-reduces are counted. A prefill or decode cell holds the parameters
-whole but a Mixture-of-Experts expert stack (E/``model`` experts: expert
-parallelism); serving with sharded parameters is not ported.
+all-reduces are counted. A prefill or decode cell runs the sharded
+serving step (``models.transformer``'s ``prefill`` and ``decode_step``
+under a placement): the rank holds its block of every parameter, its
+block of the batch (rows over the data axes, the sequence over
+``model``, all-gathered over ``model`` on use: ``dist.sharding.
+batch_rows``) and its block of the decode cache (``dist.sharding.
+CACHE_AXES``: rows over the data axes, each slot's K/V rows over
+``model``), and the step's gathers and the decode attention's state
+all-gather are counted. A family that serving under a placement does
+not take yet (recurrent kinds, encoder-decoder) keeps the parameters
+whole but a Mixture-of-Experts expert stack and the cache whole over
+``L``, and its cell says ``"placed": false``.
 ``memory.rule_argument_bytes`` gives the per-rank bytes of every argument
-under the sharding rules (``dist.sharding.shape_aware_spec``); in a train
-cell it differs from ``argument_bytes`` by the batch alone, whose
-sequence the rules also lay over ``model`` (sequence parallelism, not
-ported).
+under the sharding rules (``dist.sharding.shape_aware_spec``); a placed
+serving cell's ``argument_bytes`` equals it, and in a train cell it
+differs from ``argument_bytes`` by the batch alone, whose sequence the
+rules also lay over ``model`` (sequence parallelism, not ported).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh single \\
@@ -104,30 +113,6 @@ def batch_specs(cfg: ModelConfig, shape: ShapeConfig, *,
     else:
         b["tokens"] = _meta((gb, S), torch.int32)
     return b
-
-
-def batch_axes(name: str, t: torch.Tensor) -> tuple:
-    """The logical axes of a batch entry (JAX's ``batch_shardings``)."""
-    if name == "positions" and t.dim() == 3:
-        return (None, "batch", "seq")
-    return ("batch", "seq") + (None,) * (t.dim() - 2)
-
-
-CACHE_AXES = {
-    # kv cache (n, B, L, K, hd): batch over dp, cache seq over model
-    5: ("layer_stack", "batch", "kv_seq_model", None, None),
-    4: ("layer_stack", "batch", None, None),
-    3: ("layer_stack", "batch", None),
-    2: ("layer_stack", "batch"),
-}
-
-
-def cache_axes(t: torch.Tensor) -> tuple:
-    """The logical axes of a cache leaf (JAX's ``cache_shardings``)."""
-    nd = t.dim()
-    if nd == 1:                       # pos (B,)
-        return ("batch",)
-    return CACHE_AXES.get(nd, ("layer_stack", "batch") + (None,) * (nd - 2))
 
 
 def decode_cache(cfg: ModelConfig, shape: ShapeConfig, batch: int):
@@ -259,9 +244,10 @@ def _with_axes(params, specs) -> list:
 
 
 def local_params(params, specs, mesh):
-    """The rank's parameters when it serves: every leaf whole but a
-    Mixture-of-Experts expert stack, which holds E/``model`` experts
-    (expert parallelism)."""
+    """The rank's parameters when it serves a family that serving under a
+    placement does not take yet: every leaf whole but a Mixture-of-Experts
+    expert stack, which holds E/``model`` experts (expert
+    parallelism)."""
     return pytree.unflatten(params, [
         _local(v, axes, mesh, keep=("model",)) if "experts" in axes else v
         for v, axes in _with_axes(params, specs)])
@@ -316,10 +302,9 @@ def account_cell(arch: str, shape_name: str, mesh: Mesh, *,
     dp = ("pod", "data")
     with SH.use_rules(rules or {}, mesh=mesh):
         p_axes = _with_axes(params, specs)
-        lp = local_params(params, specs, mesh)
         gbatch = batch_specs(cfg, shape, with_labels=shape.mode == "train")
-        b_axes = [(v, batch_axes(k, v)) for k, v in gbatch.items()]
-        batch = {k: _local(v, batch_axes(k, v), mesh, keep=dp)
+        b_axes = [(v, SH.batch_axes(k, v)) for k, v in gbatch.items()]
+        batch = {k: _local(v, SH.batch_axes(k, v), mesh, keep=dp)
                  for k, v in gbatch.items()}
         if shape.mode == "train":
             # the state: params, AdamW's step and float32 mu, nu (sharded
@@ -337,26 +322,19 @@ def account_cell(arch: str, shape_name: str, mesh: Mesh, *,
             state, _ = TS.shard_state(TS.TrainState(
                 params=params, opt=adamw_init(params)), specs, mesh)
             args = (state, batch)
-        elif shape.mode == "prefill":
-            args_axes = p_axes + b_axes
-
-            def fn(p, b):
-                with torch.no_grad():
-                    return T.prefill(p, cfg, b, max_len=shape.seq_len + 128)
-            args = (lp, batch)
         else:
-            gb = shape.global_batch
-            tok = _meta((gb, 1), torch.int32)
-            args_axes = (p_axes + [(t, cache_axes(t)) for t in
-                                   pytree.tensors(decode_cache(cfg, shape,
-                                                               gb))]
-                         + [(tok, ("batch", None))])
-            tok = _local(tok, ("batch", None), mesh, keep=dp)
-
-            def fn(p, c, t):
-                with torch.no_grad():
-                    return T.decode_step(p, cfg, c, t)
-            args = (lp, decode_cache(cfg, shape, tok.shape[0]), tok)
+            placed = _placed(cfg)
+            if shape.mode == "prefill":
+                args_axes = p_axes + b_axes
+            else:
+                gb = shape.global_batch
+                args_axes = (p_axes + [
+                    (t, SH.cache_axes(t)) for t in pytree.tensors(
+                        decode_cache(cfg, shape, gb))]
+                    + [(_meta((gb, 1), torch.int32), ("batch", None))])
+            args, fn = (_serve_step(cfg, shape, params, specs, gbatch, mesh)
+                        if placed else
+                        _serve_whole(cfg, shape, params, specs, batch, mesh))
         rule_bytes = rule_argument_bytes(args_axes, mesh)
         res = op_analysis.count(fn, *args, resident=resident,
                                 world=mesh.size)
@@ -386,7 +364,66 @@ def account_cell(arch: str, shape_name: str, mesh: Mesh, *,
                              coll["total_bytes"], mf, n_dev),
         "card": H100_SXM.name,
     }
+    if shape.mode != "train":
+        result["placed"] = placed
     return result
+
+
+def _placed(cfg: ModelConfig) -> bool:
+    """Whether serving under a placement takes ``cfg``
+    (``models.transformer.check_placed``)."""
+    try:
+        T.check_placed(cfg)
+    except NotImplementedError:
+        return False
+    return True
+
+
+def _serve_step(cfg, shape, params, specs, gbatch, mesh):
+    """(args, fn) of a placed prefill or decode cell: the rank's blocks of
+    the parameters, the batch and the cache under the rules, the step
+    under a placement."""
+    blocks, shd = SH.shard_tree(params, specs, mesh)
+    max_len = (shape.seq_len + 128 if shape.mode == "prefill"
+               else shape.seq_len)
+    pl = SH.Placement(mesh, pytree.tree_map(lambda s: s.spec, shd),
+                      cache_len=max_len)
+    if shape.mode == "prefill":
+        bblocks, bshd = SH.shard_batch(gbatch, mesh)
+
+        def fn(p, b):
+            with torch.no_grad():
+                return T.prefill(p, cfg, SH.batch_rows(b, bshd), max_len,
+                                 placement=pl)
+        return (blocks, bblocks), fn
+    gb = shape.global_batch
+    cblocks, _ = SH.shard_cache(decode_cache(cfg, shape, gb), mesh)
+    tok = _local(_meta((gb, 1), torch.int32), ("batch", None), mesh,
+                 keep=("pod", "data"))
+
+    def fn(p, c, t):
+        with torch.no_grad():
+            return T.decode_step(p, cfg, c, t, placement=pl)
+    return (blocks, cblocks, tok), fn
+
+
+def _serve_whole(cfg, shape, params, specs, batch, mesh):
+    """``_serve_step``'s pair for a family left for later: every parameter
+    whole but the expert stacks, the batch's rows, the cache whole over
+    ``L``, one process's step."""
+    lp = local_params(params, specs, mesh)
+    if shape.mode == "prefill":
+        def fn(p, b):
+            with torch.no_grad():
+                return T.prefill(p, cfg, b, max_len=shape.seq_len + 128)
+        return (lp, batch), fn
+    tok = _local(_meta((shape.global_batch, 1), torch.int32),
+                 ("batch", None), mesh, keep=("pod", "data"))
+
+    def fn(p, c, t):
+        with torch.no_grad():
+            return T.decode_step(p, cfg, c, t)
+    return (lp, decode_cache(cfg, shape, tok.shape[0]), tok), fn
 
 
 def cell_path(mesh_name: str, arch: str, shape: str, tag: str = "") -> str:

@@ -15,6 +15,24 @@ like RoPE's (``models.rotary``). Under a ``dist.sharding.Placement``
 (sharded training) ``attend_full`` is tensor-parallel over the heads
 where the placement split them.
 
+Serving under a placement with the cache's rows split over ``model`` (a
+``dist.sharding.SeqSplit``: JAX's ``constrain(k, "batch", "kv_seq", ...)``
+on a cache placed by ``CACHE_AXES``) takes design (a): the layer's q, k,
+v and o projections are gathered whole over ``model`` on use, and every
+model rank computes every head of its batch rows. Splitting the heads
+instead would need the new K/V of every head on every rank (its block
+holds every kv head of its rows), an all-gather of q, k and v over the
+heads each step, to save a projection that costs a fraction of a
+layer's weights; and a rank's whole-head output needs no reduction, so
+the residual stream stays replicated over ``model`` bit for bit.
+``attend_prefill`` keeps the rank's rows of the cache it builds;
+``attend_decode`` writes the new K/V only on the rank whose block holds
+the write slot, runs the decode kernel's state-out variant over its
+block (its live rows a prefix of it), and merges the model ranks' states
+in rank order (``kernels.ref.merge_states``: torch ops on every device,
+the arithmetic of the kernel's own cluster merge, which XLA's
+partitioner does in JAX; no TPU kernel does it).
+
 The decode KV cache is preallocated and updated IN PLACE by index
 assignment, where the JAX package returns a new cache from a functional
 ``.at[].set`` (``attention.py:443-444``). The JAX package routes the writes
@@ -37,7 +55,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.dist import comm
 from repro_torch.dist import sharding as SH
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import NEG_INF
+from repro_torch.kernels.ref import NEG_INF, merge_states
 from repro_torch.models import rotary
 from repro_torch.models.params import (Builder, apply_linear,
                                        apply_row_parallel, head_rms_norm)
@@ -216,6 +234,50 @@ def paged_write_index(pos: torch.Tensor, table: torch.Tensor, bk: int
             keep)
 
 
+def local_write_index(index: Tuple[torch.Tensor, ...], split
+                      ) -> Tuple[torch.Tensor, ...]:
+    """``cache_write_index``'s (rows, slots, keep) of the whole cache
+    made a rank's under ``split`` (a ``dist.sharding.SeqSplit``): a row
+    whose slot lies in the rank's block writes at ``slot - offset``; every
+    other row has keep False and points at slot 0, where its write puts
+    back the value already there. No host read."""
+    rows, slot, keep = index
+    mine = (slot >= split.offset) & (slot < split.offset + split.rows)
+    if keep is not None:
+        mine = mine & keep
+    return rows, torch.where(mine, slot - split.offset,
+                             torch.zeros_like(slot)), mine
+
+
+def split_live_rows(pos: torch.Tensor, window: int, split) -> torch.Tensor:
+    """(B,) int32: each slot's live rows in this rank's block of the
+    cache, a prefix of it. A slot's live rows are a prefix of the whole
+    cache in both layouts (``kernels.decode_attention.live_rows``: [0,
+    len) full, [0, min(len, window)) ring), so the block's are
+    ``clamp(live - offset, 0, rows)``."""
+    live = (pos + 1).clamp_min(0)
+    if window:
+        live = live.clamp_max(window)
+    live = live.clamp_max(split.length)
+    return (live - split.offset).clamp(0, split.rows).to(torch.int32)
+
+
+def _split_decode(cfg: ModelConfig, q: torch.Tensor, cache: Dict,
+                  pos: torch.Tensor, window: int, split) -> torch.Tensor:
+    """Decode attention of q (B, H, hd) over a cache whose rows are split
+    over ``model``: the state-out kernel over this rank's block, the
+    states all-gathered over the model group in one tensor and merged in
+    rank order (block order). Returns (B, H, hd) in q's dtype, identical
+    on every model rank."""
+    hd = q.shape[-1]
+    acc, m, l = kops.decode_attention_state(
+        q, cache["k"], cache["v"], split_live_rows(pos, window, split),
+        softcap=cfg.attn_logit_softcap)
+    st = comm.all_gather(torch.cat([acc, m[..., None], l[..., None]],
+                                   dim=-1)[None], 0, split.group)
+    return merge_states(st[..., :hd], st[..., hd], st[..., hd + 1], q.dtype)
+
+
 def _write_rows(leaf: torch.Tensor, index: Tuple[torch.Tensor, ...],
                 new: torch.Tensor) -> None:
     """leaf[i, j] = new for every (i, j) of ``index``'s first two lists;
@@ -232,10 +294,15 @@ def attend_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                   angles: Optional[torch.Tensor], *, window: int = 0,
                   table: Optional[torch.Tensor] = None,
                   write_index: Optional[Tuple[torch.Tensor, ...]] = None,
-                  ) -> Tuple[torch.Tensor, Dict]:
+                  split=None) -> Tuple[torch.Tensor, Dict]:
     """x: (B,1,D); pos: (B,) int per-sequence positions of the new token
     (-1 marks a dead/purged slot: its output row is exact zeros). Writes
     the new K/V into ``cache`` in place and returns (out, cache).
+
+    With ``split`` (a ``dist.sharding.SeqSplit``) ``cache`` is this rank's
+    block of rows of a contiguous cache of ``split.length`` rows a slot,
+    and ``write_index`` (when given) is already the block's
+    (``local_write_index``); see the module's note.
 
     With ``table`` (B, NB) int32 the cache is a paged arena: k/v (P, bk,
     KV, hd), logical block j of row b in arena block table[b, j] (full
@@ -244,7 +311,16 @@ def attend_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     returns, when the caller has it."""
     B = x.shape[0]
     q, k_new, v_new = _qkv(p, cfg, x, angles)
-    if table is not None:
+    if split is not None:
+        if table is not None:
+            raise NotImplementedError("a paged pool on a mesh: JAX places "
+                                      "none")
+        wi = (write_index if write_index is not None else local_write_index(
+            cache_write_index(pos, split.length, window), split))
+        _write_rows(cache["k"], wi, k_new[:, 0])
+        _write_rows(cache["v"], wi, v_new[:, 0])
+        out = _split_decode(cfg, q[:, 0], cache, pos, window, split)
+    elif table is not None:
         if window:
             raise ValueError("the paged cache is full-layout only")
         wi = (write_index if write_index is not None else
@@ -267,14 +343,15 @@ def attend_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _cache_slots(k: torch.Tensor, lengths: torch.Tensor, L: int,
-                 window: int) -> torch.Tensor:
+                 window: int, start: int = 0) -> torch.Tensor:
     """Gather prefill K (or V) into the decode-cache slot layout.
 
     Full cache (window=0): slot s holds position s; live iff s < len.
     Ring: slot s (< window) holds the LATEST position p ≡ s (mod window)
-    with p < len. k: (B, S, K, hd) -> (B, L, K, hd)."""
+    with p < len. k: (B, S, K, hd) -> (B, L, K, hd): slots [start, start
+    + L) (a rank's block of a sequence-split cache)."""
     B, S = k.shape[0], k.shape[1]
-    s = torch.arange(L, device=k.device)[None, :]            # (1, L)
+    s = torch.arange(start, start + L, device=k.device)[None, :]  # (1, L)
     lengths = lengths.to(device=k.device, dtype=torch.int64)
     if window:
         cycles = torch.div(lengths[:, None] - 1 - s, window,
@@ -293,23 +370,30 @@ def attend_prefill(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                    angles: Optional[torch.Tensor], *, causal: bool = True,
                    window: int = 0, max_len: int = 0,
                    lengths: Optional[torch.Tensor] = None,
-                   ) -> Tuple[torch.Tensor, Dict]:
+                   split=None) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence attention that also materializes the decode cache.
 
     Full cache: k/v placed at [0, S) of a (B, max_len, ...) buffer.
     Windowed: ring layout — the last `window` live tokens land at slot
     pos%window. `lengths` (B,) marks per-row live prompt lengths when the
-    batch is right-padded; slots past a row's length are zeroed."""
+    batch is right-padded; slots past a row's length are zeroed. With
+    ``split`` (a ``dist.sharding.SeqSplit`` of the cache's ``window or
+    max_len`` rows) only this rank's block of rows is built."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, cfg, x, angles)
     out = kops.flash_attention(q, k, v, causal, window,
                                cfg.attn_logit_softcap)
     out = apply_linear(p["wo"], out.reshape(B, S, cfg.q_dim))
-    L = window if window else max_len
+    L, start = window if window else max_len, 0
+    if split is not None:
+        if split.length != L:
+            raise ValueError(f"a split of {split.length} rows for a cache "
+                             f"of {L}")
+        L, start = split.rows, split.offset
     if lengths is None:
         lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
-    ck = _cache_slots(k, lengths, L, window)
-    cv = _cache_slots(v, lengths, L, window)
+    ck = _cache_slots(k, lengths, L, window, start)
+    cv = _cache_slots(v, lengths, L, window, start)
     return out, {"k": ck, "v": cv}
 
 

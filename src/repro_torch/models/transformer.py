@@ -46,6 +46,21 @@ model rank. The residual stream stays replicated over ``model``: JAX's
 ``model``, a layout that changes no number (sequence parallelism, not
 ported).
 
+``prefill`` and ``decode_step`` take a placement too (serving with
+sharded parameters, JAX's ``lower_cell`` shardings): a rank's blocks of
+the parameters, its batch rows (its rows' whole prompts) and its block of
+the cache (``dist.sharding.shard_cache``: rows over the batch axes, each
+slot's K/V rows over ``model``). Each layer's blocks are gathered on use,
+one layer at a time; the dense and shared MLPs stay tensor-parallel and
+the expert stacks expert-parallel, the attention is gathered whole and
+reads and writes the rank's block of the cache (``models.attention``'s
+note), a factorized linear is gathered whole, and the logits are the
+rank's rows over the whole vocabulary. Under a placement the
+recurrent kinds (their state leaves placed by ``CACHE_AXES`` as well)
+and encoder-decoder models (``cross_kv`` split over ``model`` on its
+encoder rows) raise ``NotImplementedError``: ROADMAP Queue 1, item 13's
+next part.
+
 Batch dictionary convention (everything optional except one input):
 ``tokens`` (B, S) int (the decoder's, for an encoder-decoder model);
 ``embeds`` (B, S, D) float, precomputed frontend embeddings in place of
@@ -74,6 +89,7 @@ from repro_torch.models.attention import (attend_cross, attend_decode,
                                           attend_prefill_ext,
                                           cache_write_index, cross_kv,
                                           init_attention, init_kv_cache,
+                                          local_write_index,
                                           paged_write_index)
 from repro_torch.models.mlp import apply_mlp, apply_moe, init_mlp, init_moe
 from repro_torch.models.params import (Builder, Params, apply_linear,
@@ -314,6 +330,52 @@ def _tp_keep(cfg: ModelConfig, model_size: int):
             return kv if path[1] in ("wk", "wv") else q
         return path[0] in ("mlp", "moe", "moe_shared")
     return keep
+
+
+def _serve_keep(path) -> bool:
+    """Serving's ``keep_model``: the dense and shared MLPs stay
+    tensor-parallel and the expert stacks expert-parallel; the attention
+    is gathered whole (``models.attention``'s note), as is every leaf
+    ``_tp_keep`` gathers."""
+    return path[0] in ("mlp", "moe", "moe_shared")
+
+
+def check_placed(cfg: ModelConfig) -> None:
+    """Raises for a model that serving under a placement does not take
+    yet: recurrent kinds and encoder-decoder models."""
+    kinds = set(cfg.layer_kinds())
+    if cfg.is_encoder_decoder or kinds & set(RECURRENT):
+        raise NotImplementedError(
+            f"{cfg.name}: prefill and decode under a placement take "
+            f"decoder-only attention stacks; encoder-decoder cross_kv and "
+            f"the recurrent kinds' state leaves on a mesh are ROADMAP "
+            f"Queue 1, item 13's next part")
+
+
+def _serve_layers(params: Params, r: int, n: int,
+                  pl: Optional[SH.Placement]):
+    """Run r's per-layer trees for prefill and decode; under a placement
+    each from this rank's blocks, gathered on use (``_serve_keep``) one
+    layer at a time, as the loop asks for it."""
+    run_p = params["decoder"][f"run{r}"]
+    if pl is None:
+        return _layers(run_p, n)
+    if isinstance(run_p, list):
+        raise NotImplementedError("a placement holds stacked runs only")
+    lspec = _layer_spec(pl.spec_at("decoder", f"run{r}"))
+    return (pl.materialize(tree_index(run_p, i), lspec, _serve_keep)
+            for i in range(n))
+
+
+def _whole_vocab(params: Params, logits: torch.Tensor) -> torch.Tensor:
+    """The logits over the whole vocabulary: a vocab-parallel block
+    (``lm_logits`` under a placement) all-gathered over ``model``."""
+    vocab = SH.share_of(params, "vocab")
+    if vocab is None and "lm_head" in params:
+        vocab = SH.share_of(params["lm_head"], "col")
+    if vocab is None:
+        return logits
+    return comm.all_gather(logits, logits.dim() - 1, vocab.group)
 
 
 def _run_layers(run_p: Any, n: int, x: torch.Tensor, body,
@@ -700,7 +762,7 @@ def _block_decode(kind: str, cfg: ModelConfig, p: Params, cache: Dict,
                   x: torch.Tensor, pos: torch.Tensor,
                   angles: Optional[torch.Tensor],
                   table: Optional[torch.Tensor] = None,
-                  write_index=None) -> torch.Tensor:
+                  write_index=None, split=None) -> torch.Tensor:
     """One layer's decode step. ``cache`` is the layer's view of the pool:
     the attention writes its k/v there in place, and each recurrent state
     leaf is overwritten in place (``copy_``) with its new value, so a
@@ -712,7 +774,7 @@ def _block_decode(kind: str, cfg: ModelConfig, p: Params, cache: Dict,
     if kind in _ATTN:
         a, _ = attend_decode(p["attn"], cfg, h, pos, cache["kv"], angles,
                              window=win, table=table,
-                             write_index=write_index)
+                             write_index=write_index, split=split)
     if kind in ("attn", "swa"):
         x = x + a
     elif kind in ("hymba", "hymba_g"):
@@ -739,7 +801,8 @@ def _block_decode(kind: str, cfg: ModelConfig, p: Params, cache: Dict,
 def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
                 tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
-                table: Optional[torch.Tensor] = None,
+                table: Optional[torch.Tensor] = None, *,
+                placement: Optional[SH.Placement] = None,
                 ) -> Tuple[torch.Tensor, Dict]:
     """One new token per sequence. tokens (B,1) int, or embeds (B,1,D)
     float. Without ``positions`` the rope position is each row's cache
@@ -754,7 +817,20 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
     reads the device on the host, so a step captures into a CUDA graph.
     With ``table`` (B, NB) int32 the cache is a paged arena
     (``init_cache_paged``) and every KV read and write goes through the
-    table; dead slots write nothing. Returns (logits (B,1,V), cache)."""
+    table; dead slots write nothing. Returns (logits (B,1,V), cache).
+
+    Under a ``dist.sharding.Placement`` (``placement``, with its
+    ``cache_len``) ``params`` are this rank's blocks, ``cache`` its block
+    (``dist.sharding.shard_cache``) and ``tokens`` its batch rows; the
+    logits are those rows over the whole vocabulary. Still no host
+    read."""
+    pl = placement
+    if pl is not None:
+        check_placed(cfg)
+        if table is not None:
+            raise NotImplementedError("a paged pool on a mesh: JAX places "
+                                      "none")
+        params = _use_top(pl, params)
     dev = _params_device(params)
     pos = cache["pos"]
     if tokens.is_floating_point():
@@ -774,20 +850,44 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
     for r, (kind, n) in enumerate(cfg.layer_runs()):
         angles = _angles_for(cfg, kind, rp)
         run_c = cache["runs"][f"run{r}"]
-        wi = None
+        wi = split = None
         if kind in _ATTN:
             kv = run_c["kv"]
             win = _kind_window(cfg, kind)
+            if pl is not None:
+                split = _seq_split(pl, win, kv["k"].shape[2])
             # where this step writes: computed once for all layers of the run
-            wi = (paged_write_index(pos, table, kv["k"].shape[2])
-                  if table is not None else
-                  cache_write_index(pos, kv["k"].shape[2], win))
-        for i, pl in enumerate(_layers(params["decoder"][f"run{r}"], n)):
-            x = _block_decode(kind, cfg, pl, tree_index(run_c, i), x, pos,
-                              angles, table, wi)
+            if table is not None:
+                wi = paged_write_index(pos, table, kv["k"].shape[2])
+            elif split is not None:
+                wi = local_write_index(cache_write_index(
+                    pos, split.length, win), split)
+            else:
+                wi = cache_write_index(pos, kv["k"].shape[2], win)
+        for i, lp in enumerate(_serve_layers(params, r, n, pl)):
+            x = _block_decode(kind, cfg, lp, tree_index(run_c, i), x, pos,
+                              angles, table, wi, split)
     logits = lm_logits(params, cfg, x)
+    if pl is not None:
+        logits = _whole_vocab(params, logits)
     pos.copy_(torch.where(pos >= 0, pos + 1, pos))
     return logits, cache
+
+
+def _seq_split(pl: SH.Placement, window: int, rows: int):
+    """The rank's block of a run's decode cache (``window`` rows a slot
+    for a ring, the placement's ``cache_len`` for the full layout), or
+    None where the cache is whole; ``rows`` is what the rank holds."""
+    length = window or pl.cache_len
+    if length is None:
+        raise ValueError("decode under a placement needs its cache_len "
+                         "(the cache's max_len)")
+    split = pl.seq_split(length)
+    held = length if split is None else split.rows
+    if rows != held:
+        raise ValueError(f"the rank holds {rows} cache rows a slot, its "
+                         f"block of {length} is {held}")
+    return split
 
 
 # ---------------------------------------------------------------------------
@@ -796,7 +896,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
 def _block_prefill(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
                    angles: Optional[torch.Tensor], max_len: int,
                    lengths: Optional[torch.Tensor],
-                   enc_out: Optional[torch.Tensor] = None
+                   enc_out: Optional[torch.Tensor] = None, split=None
                    ) -> Tuple[torch.Tensor, Dict]:
     """One layer of the prefill: (x, the layer's cache). A cross block's
     K/V of ``enc_out`` are computed once, attended to and kept as the
@@ -807,7 +907,8 @@ def _block_prefill(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
     if kind in _ATTN:
         a, cache["kv"] = attend_prefill(p["attn"], cfg, h, angles,
                                         causal=True, window=win,
-                                        max_len=max_len, lengths=lengths)
+                                        max_len=max_len, lengths=lengths,
+                                        split=split)
     if kind in ("attn", "swa"):
         x = x + a
     elif kind in ("hymba", "hymba_g"):
@@ -830,7 +931,8 @@ def _block_prefill(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 
 def prefill(params: Params, cfg: ModelConfig, batch: Dict,
-            max_len: int) -> Tuple[torch.Tensor, Dict]:
+            max_len: int, *, placement: Optional[SH.Placement] = None
+            ) -> Tuple[torch.Tensor, Dict]:
     """Process the prompt, build the decode cache. Returns (logits of the
     last live position (B, 1, V), cache).
 
@@ -840,8 +942,19 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict,
     and cache ``pos`` starts at the per-row length. Recurrent kinds carry
     their state through padded steps, so callers pass ``lengths`` for
     pure attention stacks only (the batcher admits recurrent stacks at
-    each prompt's exact length)."""
+    each prompt's exact length).
+
+    Under a ``dist.sharding.Placement`` (``placement``) ``params`` are
+    this rank's blocks and ``batch`` its rows (``dist.sharding.batch_rows``
+    of its blocks); the cache returned is the rank's block under
+    ``CACHE_AXES`` (each slot's rows split over ``model`` where it divides
+    ``window or max_len``) and the logits its rows over the whole
+    vocabulary."""
     check_supported(cfg)
+    pl = placement
+    if pl is not None:
+        check_placed(cfg)
+        params = _use_top(pl, params)
     dev = _params_device(params)
     lengths = batch.get("lengths")
     if lengths is not None:
@@ -853,10 +966,13 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict,
     runs: Dict[str, Any] = {}
     for r, (kind, n) in enumerate(cfg.layer_runs()):
         angles = _angles_for(cfg, kind, positions)
+        split = None
+        if pl is not None and kind in _ATTN:
+            split = pl.seq_split(_kind_window(cfg, kind) or max_len)
         caches = []
-        for pl in _layers(params["decoder"][f"run{r}"], n):
-            x, c = _block_prefill(kind, cfg, pl, x, angles, max_len, lengths,
-                                  enc_out)
+        for lp in _serve_layers(params, r, n, pl):
+            x, c = _block_prefill(kind, cfg, lp, x, angles, max_len, lengths,
+                                  enc_out, split)
             caches.append(c)
         runs[f"run{r}"] = _stack_trees(caches)
     if lengths is None:
@@ -866,6 +982,8 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict,
         x_last = x[torch.arange(B, device=dev), (lengths - 1).long()][:, None]
         pos0 = lengths.clone()     # decode_step advances it in place
     logits = lm_logits(params, cfg, x_last)
+    if pl is not None:
+        logits = _whole_vocab(params, logits)
     return logits, {"runs": runs, "pos": pos0}
 
 

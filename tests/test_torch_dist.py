@@ -132,6 +132,17 @@ def test_comm_refuses_without_a_process_group():
         ("nccl", "nccl")
 
 
+def test_comm_init_defaults_to_the_card(monkeypatch, tmp_path):
+    """``comm.init`` without a device runs on the card, as every entry
+    point of the port does: without one it raises before it joins any
+    group (it took the CPU silently before)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        comm.init(1, 0, init_method="file://" + str(tmp_path / "pg"))
+    assert not comm.is_initialized()
+    assert not torch.distributed.is_initialized()
+
+
 # ---------------------------------------------------------------------------
 # the ranks
 # ---------------------------------------------------------------------------

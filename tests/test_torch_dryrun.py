@@ -18,7 +18,10 @@ counter ``launch.op_analysis``) against the JAX package's dry-run.
   traced, and the resident bytes against a hand count;
 * (6) ``rule_argument_bytes`` on a (2, 2) mesh against the sum of JAX's
   ``NamedSharding(...).shard_shape``, from one subprocess with four host
-  devices (started by the module's first test, read by the last);
+  devices (started by the module's first test, read by the last); a
+  prefill or decode cell places exactly those bytes (the sharded serving
+  step), and on the (16, 16) mesh smollm-360m's and qwen2-vl-72b's
+  serving cells place the rules' bytes (the 72B decode fits a card);
 * (7) the CLI's JSON; and the counts on CPU tensors equal those on
   ``meta``, and the collectives of a data-parallel step and of an
   expert-parallel forward on shapes-only meshes;
@@ -222,6 +225,11 @@ KERNEL_CALLS = {
                                   _m(3, 48, 2, 16),
                                   _m(3, dtype=torch.int32)),
                          ops.decode_attention, ref.decode_attention),
+    "decode_attention_state": (lambda: (_m(3, 4, 16), _m(3, 24, 2, 16),
+                                        _m(3, 24, 2, 16),
+                                        _m(3, dtype=torch.int32)),
+                               lambda *a: ops.decode_attention_state(*a)[0],
+                               lambda *a: ref.decode_attention_state(*a)[0]),
     "decode_attention_paged": (
         lambda: (_m(3, 4, 16), _m(9, 8, 2, 16), _m(9, 8, 2, 16),
                  _m(3, dtype=torch.int32), _m(3, 4, dtype=torch.int64)),
@@ -379,7 +387,12 @@ def test_expert_parallel_decode_counts_its_all_to_alls():
     """Granite at model = 2 holds half the experts a rank. Each MoE layer
     sends its rows and their routing metadata by all_to_all and takes the
     rows back the same way, then broadcasts the output and the aux loss
-    (model rank 0's, as JAX returns device 0's)."""
+    (model rank 0's, as JAX returns device 0's). The sharded decode step
+    around it: each layer's q, k, v and o projections all-gathered whole
+    over ``model`` and the decode attention's float32 states (acc, m, l
+    of every head) all-gathered over the cache's two row blocks; the
+    vocab-parallel embedding's rows summed over ``model`` and the logits
+    all-gathered over it."""
     from repro_torch.models.mlp import capacity
     res = port_cell(GRANITE, "decode", mesh=(1, 2))
     cfg = get_config(GRANITE).replace(**_tiny(GRANITE)[1])
@@ -387,13 +400,51 @@ def test_expert_parallel_decode_counts_its_all_to_alls():
     rows = TINY["tiny_decode"].global_batch              # data = 1
     cap1 = capacity(rows * m.top_k, 2, m.capacity_factor)
     a2a = 2 * cap1 * (2 * D + 2) * es
+    H, hd = cfg.n_heads, cfg.head_dim
+    attn = 2 * D * (cfg.q_dim + cfg.kv_dim) * es         # wq wk wv wo
+    state = 2 * rows * H * (hd + 2) * es
+    assert res["placed"]
     assert res["collectives"]["per_op"] == {
         "all_to_all": cfg.n_layers * a2a,
-        "broadcast": cfg.n_layers * (rows * D * es + es)}
+        "broadcast": cfg.n_layers * (rows * D * es + es),
+        "all_gather": (cfg.n_layers * (attn + state)
+                       + rows * cfg.vocab_size * es),
+        "all_reduce": rows * D * es}
     with comm.counting(2) as cnt:
         mesh = Mesh((1, 2), ("data", "model"), rank=0, build_groups=False)
         assert isinstance(mesh.group("model"), comm.CountedGroup)
     assert cnt.calls == {}
+
+
+# serving cells on the production mesh (16, 16), on meta: what a rank
+# places, the rules' bytes exactly, and whether the cell fits an H100
+SERVE_CELLS = {("smollm-360m", "decode_32k"): (695422784, True),
+               ("smollm-360m", "prefill_32k"): (24350464, True),
+               ("qwen2-vl-72b", "decode_32k"): (6510190656, True)}
+
+
+@pytest.mark.parametrize("arch,shape", list(SERVE_CELLS))
+def test_serving_cells_place_the_rules_bytes(arch, shape):
+    """A prefill or decode cell runs the sharded serving step: the rank's
+    blocks of the parameters, the batch and the cache are the rules'
+    (``argument_bytes == rule_argument_bytes``), to the byte; qwen2-vl-72b's
+    decode, whose parameters alone exceed a card, now fits one."""
+    want, fits = SERVE_CELLS[(arch, shape)]
+    res = DR.account_cell(arch, shape, make_production_mesh())
+    mem = res["memory"]
+    assert res["placed"]
+    assert mem["argument_bytes"] == mem["rule_argument_bytes"] == want
+    assert res["fits"] is fits
+
+
+def test_recurrent_serving_cells_keep_the_whole_path():
+    """A family that serving under a placement does not take yet keeps the
+    parameters whole but the expert stacks, and says so."""
+    cell = DR.account_cell("xlstm-350m", "decode_32k", make_production_mesh(),
+                           overrides={"n_layers": 2})
+    assert cell["placed"] is False
+    assert cell["memory"]["argument_bytes"] > \
+        cell["memory"]["rule_argument_bytes"]
 
 
 # ---------------------------------------------------------------------------
@@ -545,8 +596,9 @@ def test_cli_writes_a_cell_json(tmp_path, monkeypatch):
     assert set(res["roofline"]) == {"compute_s", "memory_s",
                                     "collective_s", "useful_flops_ratio",
                                     "dominant"}
-    assert res["memory"]["rule_argument_bytes"] < \
+    assert res["memory"]["rule_argument_bytes"] == \
         res["memory"]["argument_bytes"]
+    assert res["placed"]
     assert not torch.cuda.is_available() or \
         torch.cuda.memory_allocated() == 0
 
@@ -593,8 +645,13 @@ def test_rule_argument_bytes_match_jax_shard_shapes():
         res = port_cell(arch, mode, mesh=(2, 2))
         assert res["memory"]["rule_argument_bytes"] == \
             want[arch + "/" + mode], (arch, mode)
-        # prefill and decode hold the parameters whole (serving with
-        # sharded parameters is not ported); a train cell holds the rules'
-        # blocks, its batch split over the data axes only
-        assert res["memory"]["argument_bytes"] > \
-            res["memory"]["rule_argument_bytes"]
+        # prefill and decode hold the rules' blocks of the parameters,
+        # the batch and the cache; a train cell holds the rules' blocks of
+        # the state, its batch split over the data axes only
+        if mode == "train":
+            assert res["memory"]["argument_bytes"] > \
+                res["memory"]["rule_argument_bytes"]
+        else:
+            assert res["placed"]
+            assert res["memory"]["argument_bytes"] == \
+                res["memory"]["rule_argument_bytes"], (arch, mode)

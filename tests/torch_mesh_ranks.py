@@ -3,8 +3,9 @@ JOB WORKDIR`` spawns a gloo process group of ``WORLD`` ranks on the CPU,
 each running ``JOB`` on the inputs in ``WORKDIR/inputs.pt`` and writing
 ``WORKDIR/out_rank{r}.pt``. It imports nothing of JAX: the test modules
 (``tests/test_torch_dist.py``, ``tests/test_torch_mesh_calib.py``,
-``tests/test_torch_mesh_train_moe.py``) build the inputs, run this once
-and hold the ranks' outputs against the JAX package.
+``tests/test_torch_mesh_train_moe.py``, ``tests/test_torch_mesh_serve.py``)
+build the inputs, run this once and hold the ranks' outputs against the
+JAX package.
 
 World 4, one intra-op and one BLAS thread a rank, at a lower priority
 (``os.nice``): a spawn of four ranks costs ~4-5 s of the test's budget,
@@ -361,7 +362,51 @@ def _sharded_cases(rank, mesh, inp):
     return out
 
 
-JOBS = {"dist": job_dist, "calib": job_calib, "train_moe": job_train_moe}
+def serve_case(mesh, case, steps: int):
+    """A sharded prefill and ``steps`` greedy decode steps of
+    ``case["cfg"]`` on this rank: its blocks of the whole ``case["params"]``
+    under ``case["specs"]``, its block of the global batch (its rows'
+    prompts gathered over ``model``), its block of the cache. Returns
+    {tokens, logits (its rows, whole vocab, each step), cache (the final
+    blocks), collectives (bytes by family)}."""
+    from repro_torch import pytree
+    from repro_torch.dist import sharding as SH
+    from repro_torch.models import transformer as T
+
+    cfg, max_len = case["cfg"], case["max_len"]
+    blocks, shd = SH.shard_tree(case["params"], case["specs"], mesh)
+    pl = SH.Placement(mesh, pytree.tree_map(lambda s: s.spec, shd),
+                      cache_len=max_len)
+    bblocks, bshd = SH.shard_batch(case["batch"], mesh)
+
+    def run():
+        with torch.no_grad():
+            lg, cache = T.prefill(blocks, cfg, SH.batch_rows(bblocks, bshd),
+                                  max_len, placement=pl)
+            tokens, logits = [lg[:, -1].argmax(-1)], [lg[:, -1]]
+            for _ in range(steps):
+                lg, cache = T.decode_step(
+                    blocks, cfg, cache,
+                    tokens[-1][:, None].to(torch.int32), placement=pl)
+                tokens.append(lg[:, -1].argmax(-1))
+                logits.append(lg[:, -1])
+        return torch.stack(tokens), torch.stack(logits), cache
+    (tokens, logits, cache), moved = _bytes_of(run)
+    return {"tokens": tokens, "logits": logits, "cache": cache,
+            "collectives": moved}
+
+
+def job_serve(rank, inp):
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(data=2, model=2)
+    out = {"coords": (mesh.coord("data"), mesh.coord("model"))}
+    for name, case in inp["cases"].items():
+        out[name] = serve_case(mesh, case, inp["steps"])
+    return out
+
+
+JOBS = {"dist": job_dist, "calib": job_calib, "train_moe": job_train_moe,
+        "serve": job_serve}
 
 
 def _rank_main(rank, job, workdir, init_method):
