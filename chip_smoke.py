@@ -66,7 +66,19 @@ What it does, in order, printing the seconds of each phase:
    its state's bytes must equal ``rule_state_bytes`` exactly, and its
    flash launches must run on its local heads; ms/step, seconds per
    collective family and ``max_memory_allocated`` beside the accounting's
-   peak are printed;
+   peak are printed. Then, in the same job, sharded serving
+   (``serve_run``): a prefill of 8 seeded prompts and greedy decode steps
+   under a ``Placement``, each rank holding its blocks of the parameters,
+   the batch and the cache under ``CACHE_AXES``: SmolLM-360M dense (float32,
+   bf16) and factorized, granite; then the recurrent and encoder-decoder
+   stacks on their ``ssm_inner`` shares (``SV_REC``: hymba-1.5b on 4
+   layers in float32 and bf16, its SSM's heads cut by the split;
+   xlstm-350m on an mLSTM and an sLSTM layer, its heads split; seamless-
+   m4t-medium on 2 + 2 layers, ``cross_kv`` split on its encoder rows).
+   Every rank's float32 tokens must equal one process's, its logits be
+   within 2e-3, its arguments equal the rules' bytes exactly and every
+   recorded kernel call (flash, the state-out decode kernel) hold against
+   its plain version;
 2b. the continuous batcher's path on the same artifact, with the counts
    set to 0 again just before it and read just after:
    ``ContinuousBatcher.from_compressed(verify=True)``, batch 8, max_len
@@ -482,6 +494,25 @@ SH_DIR = ROOT / "build" / "chip_smoke_sharded"
 # granite at SH_MOE_LAYERS layers in float32 (EP, heads 16 / 8 split)
 SV_ROWS, SV_PROMPT, SV_STEPS, SV_MAX_LEN = 8, 32, 8, 64
 SV_RATIO = 0.2
+# the recurrent and encoder-decoder stacks on the mesh (ROADMAP Queue 1,
+# items 13 and 14), after those cases: SV_REC_STEPS greedy decode steps,
+# each rank on its ssm_inner shares; hymba-1.5b at full width on 4 of 32
+# layers (global 0, 2, 3; its SSM's 25 heads cut by model 2: case B, the
+# state whole) in float32 and bf16 (recorded), xlstm-350m on 2 layers with
+# mlstm_every_slstm 2 (an mLSTM and an sLSTM layer; 4 heads, case A: the
+# rank's 2 heads' state), seamless-m4t-medium on 2 encoder and 2 decoder
+# layers with SV_ENC_FRAMES seeded encoder frames a prompt (cross_kv split
+# over model on its rows); name -> (arch, overrides, steps, frames)
+SV_REC_STEPS, SV_ENC_FRAMES = 4, 64
+SV_REC = {"hymba float32": ("hymba-1.5b", dict(n_layers=4, dtype="float32"),
+                            SV_REC_STEPS, 0),
+          "hymba bfloat16": ("hymba-1.5b", dict(n_layers=4), SV_REC_STEPS, 0),
+          "xlstm float32": ("xlstm-350m", dict(n_layers=2, mlstm_every_slstm=2,
+                                             dtype="float32"),
+                            SV_REC_STEPS, 0),
+          "seamless float32": ("seamless-m4t-medium", dict(
+              n_layers=2, n_encoder_layers=2, dtype="float32"),
+              SV_REC_STEPS, SV_ENC_FRAMES)}
 # the launch accounting's full-size cells, counted on meta on a (1, 1) mesh
 ACCOUNT_CELLS = (("qwen2-vl-72b", "prefill_32k"),
                  ("qwen2-vl-72b", "decode_32k"), (ARCH, "train_4k"))
@@ -5735,18 +5766,59 @@ def sharded_run(port, dev, cfg, batches, tcfg, mesh=None, drops=False):
 
 
 def serve_cases(port) -> dict:
-    """The sharded serving cases: name -> (config, factorized ratio)."""
+    """The sharded serving cases: name -> (config, factorized ratio, decode
+    steps, encoder frames a prompt)."""
     import dataclasses
     smol = port.get_config(ARCH).replace(n_layers=TRAIN_PARITY_LAYERS)
     gr = port.get_config(MOE)
     gr = gr.replace(n_layers=SH_MOE_LAYERS, dtype="float32",
                     moe=dataclasses.replace(gr.moe,
                                             capacity_factor=SH_MOE_CAPACITY))
-    return {"smollm float32": (smol.replace(dtype="float32"), 0.0),
-            "smollm bfloat16": (smol, 0.0),
-            "smollm factorized float32": (smol.replace(dtype="float32"),
-                                          SV_RATIO),
-            "granite float32": (gr, 0.0)}
+    cases = {"smollm float32": (smol.replace(dtype="float32"), 0.0),
+             "smollm bfloat16": (smol, 0.0),
+             "smollm factorized float32": (smol.replace(dtype="float32"),
+                                           SV_RATIO),
+             "granite float32": (gr, 0.0)}
+    cases = {k: v + (SV_STEPS, 0) for k, v in cases.items()}
+    for name, (arch, over, steps, frames) in SV_REC.items():
+        cases[name] = (port.get_config(arch).replace(**over), 0.0, steps,
+                       frames)
+    return cases
+
+
+def serve_rule_bytes(port, cfg, params, specs, batch: dict, frames: int,
+                     mesh) -> tuple:
+    """The rules' bytes a rank of a serving case's prefill and decode
+    arguments (``launch.dryrun.rule_argument_bytes`` on meta): the whole
+    parameters, the global batch, and the global cache and tokens."""
+    from repro_torch.dist import sharding as SH
+    torch, D = port.torch, port.dryrun
+    p_axes = D._with_axes(port.pytree.tree_map(lambda t: t.to("meta"),
+                                               params), specs)
+    b_axes = [(v.to("meta"), SH.batch_axes(k, v)) for k, v in batch.items()]
+    cache = port.T.init_cache(cfg, SV_ROWS, SV_MAX_LEN, device="meta",
+                              enc_len=frames)
+    c_axes = [(t, SH.cache_axes(t)) for t in port.pytree.tensors(cache)]
+    tok = torch.empty((SV_ROWS, 1), dtype=torch.int32, device="meta")
+    return (D.rule_argument_bytes(p_axes + b_axes, mesh),
+            D.rule_argument_bytes(p_axes + c_axes + [(tok, ("batch", None))],
+                                  mesh))
+
+
+def state_heads(cache) -> list:
+    """The heads of every recurrent matrix memory (Mamba-2's and the
+    mLSTM's ``S``) a cache holds, and the encoder rows of its
+    ``cross_kv``: [(leaf, size)]."""
+    out = []
+    for r, run in sorted(cache["runs"].items()):
+        for name in ("ssm", "mlstm"):
+            if name in run:
+                out.append((f"{r} {name} S heads",
+                            int(run[name]["state"].S.shape[2])))
+        if "cross_kv" in run:
+            out.append((f"{r} cross_kv rows",
+                        int(run["cross_kv"]["k"].shape[2])))
+    return out
 
 
 def serve_params(port, cfg, ratio: float, dev):
@@ -5778,8 +5850,10 @@ def _held(port, *trees) -> int:
                for t in port.pytree.tensors(list(trees)))
 
 
-def serve_run(port, dev, cfg, ratio: float, mesh=None) -> dict:
-    """A prefill of SV_ROWS seeded prompts and SV_STEPS greedy decode
+def serve_run(port, dev, cfg, ratio: float, mesh=None, steps: int = SV_STEPS,
+              frames: int = 0) -> dict:
+    """A prefill of SV_ROWS seeded prompts (an encoder-decoder model's with
+    ``frames`` seeded encoder frames each) and ``steps`` greedy decode
     steps; on ``mesh`` this rank's blocks of the parameters, of the batch
     (its rows' prompts gathered over ``model``) and of the cache, under a
     placement. Returns the tokens and the logits (its rows, every step),
@@ -5796,13 +5870,19 @@ def serve_run(port, dev, cfg, ratio: float, mesh=None) -> dict:
     tok = torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                        (SV_ROWS, SV_PROMPT), dtype=np.int32),
                           device=dev)
+    whole = {"tokens": tok}
+    if frames:
+        whole["enc_embeds"] = torch.as_tensor(
+            stub_embeds((SV_ROWS, frames, cfg.d_model), 32), device=dev)
     kw, out = {}, {}
     if mesh is not None:
+        out["prefill_rule"], out["decode_rule"] = serve_rule_bytes(
+            port, cfg, params, specs, whole, frames, mesh)
         params, shd = SH.shard_tree(params, specs, mesh)
         kw["placement"] = SH.Placement(
             mesh, port.pytree.tree_map(lambda s: s.spec, shd),
-            cache_len=SV_MAX_LEN)
-        bblocks, bshd = SH.shard_batch({"tokens": tok}, mesh)
+            cache_len=SV_MAX_LEN, enc_len=frames or None)
+        bblocks, bshd = SH.shard_batch(whole, mesh)
         out["prefill_bytes"] = _held(port, params, bblocks)
         torch.cuda.empty_cache()
     c = comm.current() if mesh is not None else None
@@ -5813,14 +5893,14 @@ def serve_run(port, dev, cfg, ratio: float, mesh=None) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         batch = (SH.batch_rows(bblocks, bshd) if mesh is not None
-                 else {"tokens": tok})
+                 else whole)
         lg, cache = T.prefill(params, cfg, batch, SV_MAX_LEN, **kw)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         toks, logits = [lg[:, -1].argmax(-1)], [lg[:, -1].float().cpu()]
         step_tok = toks[-1][:, None].to(torch.int32)
         out["decode_bytes"] = _held(port, params, cache, step_tok)
-        for _ in range(SV_STEPS):
+        for _ in range(steps):
             lg, cache = T.decode_step(params, cfg, cache, step_tok, **kw)
             toks.append(lg[:, -1].argmax(-1))
             logits.append(lg[:, -1].float().cpu())
@@ -5829,9 +5909,11 @@ def serve_run(port, dev, cfg, ratio: float, mesh=None) -> dict:
         t2 = time.perf_counter()
     out.update(tokens=torch.stack(toks).cpu(), logits=torch.stack(logits),
                prefill_ms=(t1 - t0) * 1e3,
-               ms_per_step=(t2 - t1) / SV_STEPS * 1e3,
-               launches=port.counts(),
-               cache_rows=int(cache["runs"]["run0"]["kv"]["k"].shape[2]))
+               ms_per_step=(t2 - t1) / steps * 1e3,
+               launches=port.counts(), state=state_heads(cache),
+               cache_rows=next((int(run["kv"]["k"].shape[2]) for run in
+                                cache["runs"].values() if "kv" in run),
+                               None))
     if c:
         out["seconds"] = {k: v - sec0.get(k, 0.0)
                           for k, v in c.seconds.items()
@@ -5866,7 +5948,9 @@ def serve_accounting(port) -> dict:
     try:
         for sh in shapes.values():
             C.SHAPES[sh.name] = sh
-        for case, (cfg, ratio) in serve_cases(port).items():
+        for case, (cfg, ratio, _, _) in serve_cases(port).items():
+            if case in SV_REC:
+                continue
             arch = MOE if case.startswith("granite") else ARCH
             over = {k: getattr(cfg, k) for k in ("n_layers", "dtype", "moe")}
             out[case] = {mode: port.dryrun.account_cell(
@@ -5908,8 +5992,9 @@ def sharded_rank(rank: int, init_method: str) -> None:
             out[name] = sharded_run(port, c.device, cfg, batches, tcfg,
                                     mesh, drops)
         serve = {}
-        for name, (cfg, ratio) in serve_cases(port).items():
-            serve[name] = serve_run(port, c.device, cfg, ratio, mesh)
+        for name, (cfg, ratio, steps, frames) in serve_cases(port).items():
+            serve[name] = serve_run(port, c.device, cfg, ratio, mesh, steps,
+                                    frames)
         torch.save({k: {"tokens": v.pop("tokens"),
                         "logits": v.pop("logits")}
                     for k, v in serve.items()},
@@ -5968,8 +6053,10 @@ def sharded_phase(port, dev) -> dict:
                for name, (cfg, batches, tcfg, drops) in
                sharded_cases(port).items()}
         acct = sharded_accounting(port)
-        serve_one = {name: serve_run(port, dev, cfg, ratio)
-                     for name, (cfg, ratio) in serve_cases(port).items()}
+        serve_one = {name: serve_run(port, dev, cfg, ratio, steps=steps,
+                                     frames=frames)
+                     for name, (cfg, ratio, steps, frames)
+                     in serve_cases(port).items()}
         serve_acct = serve_accounting(port)
         while not ctx.join():
             pass
@@ -6048,15 +6135,16 @@ def check_serving(port, ranks, serve_out, one, acct) -> dict:
     """Each rank's sharded prefill and decode against one process on the
     card: float32 tokens identical and logits within LOGITS_ATOL (bf16
     recorded), the bytes it held as each step's arguments equal to the
-    accounting's ``rule_argument_bytes`` exactly, its cache rows the
-    rules' block, the state-out kernel launched where the cache splits and
-    every recorded kernel call held to its plain version. Returns {case:
-    per-rank launches, ms, seconds}."""
-    card = card_line()
+    rules' (``rule_argument_bytes``, and the accounting's cell where it has
+    one) exactly, its cache rows and recurrent state the rules' block, the
+    state-out kernel launched where the cache splits and every recorded
+    kernel call held to its plain version. Returns {case: per-rank
+    launches, ms, seconds}."""
+    card, cases = card_line(), serve_cases(port)
     out = {}
     for name, ref in one.items():
         dname = "bfloat16" if "bfloat16" in name else "float32"
-        mem = {mode: a["memory"] for mode, a in acct[name].items()}
+        steps = cases[name][2]
         out[name] = {"launches": [], "ms_per_step": [], "seconds": []}
         for r, res in zip(ranks, serve_out):
             got, tl = r["serve"][name], res[name]
@@ -6069,12 +6157,12 @@ def check_serving(port, ranks, serve_out, one, acct) -> dict:
                              sorted(got["seconds"].items()))
             log(f"  serving {name}, rank {r['rank']} (data, model) "
                 f"{r['coords']}: tokens {'identical to' if same else 'DIFFER from'}"
-                f" one process's over prefill + {SV_STEPS} steps, logits "
+                f" one process's over prefill + {steps} steps, logits "
                 f"max |rank - one| {err:.3e}; bytes held prefill "
                 f"{got['prefill_bytes']} / decode {got['decode_bytes']}, "
-                f"rule_argument_bytes {mem['prefill']['rule_argument_bytes']}"
-                f" / {mem['decode']['rule_argument_bytes']}; cache rows "
-                f"{got['cache_rows']} of {SV_MAX_LEN}; prefill "
+                f"rule_argument_bytes {got['prefill_rule']} / "
+                f"{got['decode_rule']}; cache rows {got['cache_rows']} of "
+                f"{SV_MAX_LEN}; state {got['state']}; prefill "
                 f"{got['prefill_ms']:.1f} ms, {got['ms_per_step']:.2f} "
                 f"ms/step (one process {ref['prefill_ms']:.1f}, "
                 f"{ref['ms_per_step']:.2f}), collective seconds {secs} (four "
@@ -6088,14 +6176,29 @@ def check_serving(port, ranks, serve_out, one, acct) -> dict:
                 assert err <= LOGITS_ATOL, f"serving {name}: rank " \
                     f"{r['rank']}'s logits differ from one process"
             for mode in ("prefill", "decode"):
-                assert got[f"{mode}_bytes"] == \
-                    mem[mode]["rule_argument_bytes"], \
+                want = {got[f"{mode}_rule"]}
+                if name in acct:
+                    want.add(acct[name][mode]["memory"][
+                        "rule_argument_bytes"])
+                assert want == {got[f"{mode}_bytes"]}, \
                     f"serving {name}: rank {r['rank']} holds other " \
-                    f"{mode} arguments than the rules"
-            assert got["cache_rows"] == SV_MAX_LEN // SH_MESH[1]
-            assert got["launches"]["decode_attention_state"] > 0
+                    f"{mode} arguments than the rules ({want})"
             assert got["launches"]["decode_attention"] == 0
-            assert got["held_state"] > 0
+            if name.startswith("xlstm"):            # no attention layer
+                assert got["cache_rows"] is None
+                assert got["launches"]["decode_attention_state"] == 0
+            else:
+                assert got["cache_rows"] == SV_MAX_LEN // SH_MESH[1]
+                assert got["launches"]["decode_attention_state"] > 0
+                assert got["held_state"] > 0
+            # the recurrent state and cross_kv as the rules place them:
+            # hymba's 25 SSM heads cut by model 2 (case B: whole), the
+            # mLSTM's 4 split 2 a rank (case A), cross_kv's rows halved
+            for leaf, n in got["state"]:
+                whole = (SV_REC[name][3] if "cross_kv" in leaf
+                         else cases[name][0].n_heads)
+                assert n == (whole // SH_MESH[1] if whole % SH_MESH[1] == 0
+                             else whole), (name, leaf, n)
             out[name]["launches"].append(got["launches"])
             out[name]["ms_per_step"].append(got["ms_per_step"])
             out[name]["seconds"].append(got["seconds"])
@@ -6144,7 +6247,9 @@ def main() -> int:
                    "(SmolLM-360M float32 and bf16, granite float32), then "
                    "prefill and decode with sharded params and a "
                    "sequence-split cache (SmolLM-360M dense float32 and "
-                   "bf16, factorized float32, granite float32)"):
+                   "bf16, factorized float32, granite float32; hymba-1.5b "
+                   "float32 and bf16, xlstm-350m and seamless-m4t-medium "
+                   "float32 on their ssm_inner shares and split state)"):
             sharded = sharded_phase(port, dev)
         with Phase("batcher path: ContinuousBatcher from the artifact, "
                    "contiguous, paged and prefix pools, fault plans"):

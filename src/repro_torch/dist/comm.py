@@ -30,7 +30,9 @@ gather on use, reduce-scatter backward), ``gather_replicated`` (a gather
 for compute every rank repeats whole, its backward this rank's block of
 the cotangent), ``tp_enter`` / ``tp_exit`` (identity forward with an
 all-reduce backward, all-reduce forward with an identity backward: the
-boundaries of a tensor-parallel region), ``all_to_all`` (the inverse
+boundaries of a tensor-parallel region), ``tp_scatter`` (a
+reduce-scatter out of such a region onto the rank's block, all-gather
+backward: the mLSTM's q and k onto its heads), ``all_to_all`` (the inverse
 exchange) and ``replicated_output`` (group rank 0's value forward; JAX's
 transpose of an output declared replicated, the cotangent divided by the
 group's size, backward).
@@ -574,6 +576,28 @@ def tp_exit(x: torch.Tensor, group) -> torch.Tensor:
     if group is SELF:
         return x
     return _Exit.apply(x, group)
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.dim, ctx.group), None, None
+
+
+def tp_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Out of a tensor-parallel region onto this rank's block: the ranks'
+    partial results summed and split along ``dim`` (a row-parallel product
+    whose output columns the rank then computes on alone), the transpose of
+    :func:`gather`: the backward all-gathers the blocks' cotangents, each
+    rank's the whole gradient of its partial result."""
+    if group is SELF:
+        return x
+    return _Scatter.apply(x, dim, group)
 
 
 class _ReplicatedOutput(torch.autograd.Function):

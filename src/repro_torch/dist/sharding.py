@@ -22,8 +22,10 @@ and reduces their gradients, and the model code computes on the shares
 it keeps, each marked with a :class:`Share` (``models.transformer``).
 Serving reuses it: the prefill and decode step take a rank's blocks of
 the parameters, its batch rows and its block of the cache, placed by
-``CACHE_AXES`` (``shard_cache``; the K/V rows split over ``model``, a
-:class:`SeqSplit`), as JAX's dry-run places them (``lower_cell``).
+``CACHE_AXES`` (``shard_cache``; the K/V rows and ``cross_kv``'s encoder
+rows split over ``model``, a :class:`SeqSplit`; a recurrent matrix
+memory's heads where ``model`` divides them), as JAX's dry-run places
+them (``lower_cell``).
 """
 from __future__ import annotations
 
@@ -395,19 +397,42 @@ class Share:
     ``"_tp"``, on what stays split over ``model`` for the model code to
     compute on its share: ``kind`` is "col" (a linear's output columns:
     column-parallel), "row" (its input rows: row-parallel), "experts" (a
-    layer's expert stacks: expert-parallel) or "vocab" (the embedding's
-    rows, the logits' columns); ``group`` is the model group, ``index``
-    this rank's coordinate in it and ``size`` its size."""
+    layer's expert stacks: expert-parallel), "vocab" (the embedding's
+    rows, the logits' columns), "inner" (a Mamba-2 or mLSTM sub-block
+    whose ``ssm_inner`` leaves, its depthwise ``conv`` among them, stay
+    split) or "whole" (such a sub-block gathered whole because it holds a
+    factorized linear; the mark carries the group its state is split
+    over); ``group`` is the model group, ``index`` this rank's coordinate
+    in it and ``size`` its size."""
     kind: str
     group: Any
     index: int
     size: int
+
+    def splits(self, heads: int) -> bool:
+        """Whether ``heads`` fall on the split: each rank holds whole heads
+        (case A: the rank computes its heads end to end), rather than a
+        split that cuts a head (case B: the head-wise core runs whole on
+        every rank). The cache rules split a state's heads in case A
+        only (``CACHE_AXES``, shape-aware)."""
+        return heads % self.size == 0
+
+    def block(self, n: int) -> slice:
+        """This rank's block of ``n`` entries split evenly over the
+        group."""
+        b = n // self.size
+        return slice(self.index * b, (self.index + 1) * b)
 
 
 def share_of(p: Dict, kind: str) -> Optional[Share]:
     """``p``'s :class:`Share` if it is of ``kind``, else None."""
     s = p.get("_tp")
     return s if s is not None and s.kind == kind else None
+
+
+def _has_factorized(node) -> bool:
+    return isinstance(node, dict) and (("B" in node and "C" in node) or any(
+        _has_factorized(v) for v in node.values()))
 
 
 class Placement:
@@ -417,7 +442,9 @@ class Placement:
     parameter's shape-aware :class:`P` (``shardings_for_tree`` on the
     whole parameters; their blocks are what a rank holds). ``cache_len``
     is the full decode cache's global ``L`` (``max_len``), which a decode
-    step under the placement needs to find its block (``seq_split``).
+    step under the placement needs to find its block (``seq_split``), and
+    ``enc_len`` an encoder-decoder cache's global encoder rows ``T``, whose
+    ``cross_kv`` rows split the same way.
 
     On use (``models.transformer``'s ``placement=``), a block is gathered
     over the axes of the batch (``pod``, ``data``: FSDP) with
@@ -427,8 +454,10 @@ class Placement:
     and is otherwise gathered with ``comm.gather_replicated``. A leaf that no batch axis splits has its
     gradient summed over those axes afterwards (:meth:`reduce_grads`)."""
 
-    def __init__(self, mesh, specs, cache_len: Optional[int] = None):
+    def __init__(self, mesh, specs, cache_len: Optional[int] = None,
+                 enc_len: Optional[int] = None):
         self.mesh, self.specs, self.cache_len = mesh, specs, cache_len
+        self.enc_len = enc_len
         self.batch_axes = tuple(a for a in BATCH_AXES if a in mesh.axis_names)
         self.model_size = mesh.shape.get("model", 1)
         self.model_index = mesh.coord("model") if self.model_size > 1 else 0
@@ -460,7 +489,8 @@ class Placement:
         """This rank's block of a cache of ``length`` rows a slot where
         the rules split it over ``model`` (``CACHE_AXES``' "kv_seq_model",
         shape-aware: None where ``model`` does not divide it, and the
-        cache stays whole)."""
+        cache stays whole): a K/V cache's rows, or ``cross_kv``'s encoder
+        rows."""
         spec = shape_aware_spec((length,), ("kv_seq_model",), self.mesh)
         if self.model_size == 1 or _axes_of(spec[0]) != ("model",):
             return None
@@ -498,11 +528,13 @@ class Placement:
         split over ``model`` is marked for the model code with a
         :class:`Share` under ``"_tp"``: a linear (its ``w``) "col" where its
         output columns split, "row" where its input rows do; a dict of
-        stacks (the experts') "experts". A factorized linear (``B``, ``C``)
+        stacks (the experts') "experts", and a recurrent sub-block (a dict
+        with a split ``conv``) "inner". A factorized linear (``B``, ``C``)
         is always gathered whole: the low-rank kernels round ``x@B`` to C's
         dtype before ``@C``, so a share of B's rows would round partial
         sums that one process rounds whole, and it never reaches the model
-        code as an unmarked share."""
+        code as an unmarked share. A recurrent sub-block that holds one is
+        gathered whole with it and marked "whole"."""
         def model_split(spec) -> list:
             return [d for d, axes in _split_axes(spec) if axes == ("model",)]
 
@@ -512,6 +544,14 @@ class Placement:
                     v, torch.Tensor) and k in spec else v
                     for k, v in node.items()}
             if isinstance(node, dict):
+                stacks = "w" not in node and any(
+                    isinstance(v, torch.Tensor) and k in spec
+                    and keep_model(path + (k,)) and model_split(spec[k])
+                    for k, v in node.items())
+                if stacks and "conv" in node and _has_factorized(node):
+                    out = self.materialize(node, spec)
+                    out["_tp"] = self.share("whole")
+                    return out
                 out = {k: walk(v, spec[k], path + (k,)) if k in spec else v
                        for k, v in node.items()}
                 w = spec.get("w") if "w" in node else None
@@ -520,11 +560,9 @@ class Placement:
                     if split:
                         out["_tp"] = self.share(
                             "col" if split[0] == len(w) - 1 else "row")
-                elif w is None and any(
-                        isinstance(v, torch.Tensor) and k in spec
-                        and keep_model(path + (k,)) and model_split(spec[k])
-                        for k, v in node.items()):
-                    out["_tp"] = self.share("experts")
+                elif stacks:
+                    out["_tp"] = self.share("inner" if "conv" in node
+                                            else "experts")
                 return out
             if isinstance(node, torch.Tensor):
                 return self.use(node, spec, keep_model(path))

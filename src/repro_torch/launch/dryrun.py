@@ -22,15 +22,15 @@ under a placement): the rank holds its block of every parameter, its
 block of the batch (rows over the data axes, the sequence over
 ``model``, all-gathered over ``model`` on use: ``dist.sharding.
 batch_rows``) and its block of the decode cache (``dist.sharding.
-CACHE_AXES``: rows over the data axes, each slot's K/V rows over
-``model``), and the step's gathers and the decode attention's state
-all-gather are counted. A family that serving under a placement does
-not take yet (recurrent kinds, encoder-decoder) keeps the parameters
-whole but a Mixture-of-Experts expert stack and the cache whole over
-``L``, and its cell says ``"placed": false``.
-``memory.rule_argument_bytes`` gives the per-rank bytes of every argument
-under the sharding rules (``dist.sharding.shape_aware_spec``); a placed
-serving cell's ``argument_bytes`` equals it, and in a train cell it
+CACHE_AXES``: rows over the data axes, each slot's K/V rows, a recurrent
+state's heads where ``model`` divides them and ``cross_kv``'s encoder
+rows over ``model``), and the step's gathers, the tensor-parallel and
+recurrent sub-blocks' collectives and the decode attention's state
+all-gathers are counted. Every family serves so (``"placed"`` is
+always true). ``memory.rule_argument_bytes`` gives the per-rank bytes of
+every argument under the sharding rules (``dist.sharding.
+shape_aware_spec``); a serving cell's ``argument_bytes`` equals it, and
+in a train cell it
 differs from ``argument_bytes`` by the batch alone, whose sequence the
 rules also lay over ``model`` (sequence parallelism, not ported).
 
@@ -115,11 +115,17 @@ def batch_specs(cfg: ModelConfig, shape: ShapeConfig, *,
     return b
 
 
+def enc_len(shape: ShapeConfig) -> int:
+    """An encoder-decoder cell's encoder rows in its decode cache, as JAX
+    builds it: ``min(seq_len, 4096)``."""
+    return min(shape.seq_len, 4096)
+
+
 def decode_cache(cfg: ModelConfig, shape: ShapeConfig, batch: int):
     """The decode cache of a cell as JAX builds it: ``seq_len`` slots and,
-    for an encoder-decoder model, ``min(seq_len, 4096)`` encoder rows."""
+    for an encoder-decoder model, ``enc_len`` encoder rows."""
     return T.init_cache(cfg, batch, shape.seq_len, device="meta",
-                        enc_len=min(shape.seq_len, 4096))
+                        enc_len=enc_len(shape))
 
 
 # ---------------------------------------------------------------------------
@@ -243,16 +249,6 @@ def _with_axes(params, specs) -> list:
     return out
 
 
-def local_params(params, specs, mesh):
-    """The rank's parameters when it serves a family that serving under a
-    placement does not take yet: every leaf whole but a Mixture-of-Experts
-    expert stack, which holds E/``model`` experts (expert
-    parallelism)."""
-    return pytree.unflatten(params, [
-        _local(v, axes, mesh, keep=("model",)) if "experts" in axes else v
-        for v, axes in _with_axes(params, specs)])
-
-
 def rule_argument_bytes(args_axes, mesh) -> int:
     """Per-rank bytes of (tensor, logical axes) pairs under the sharding
     rules: what JAX's dry-run places on a device."""
@@ -323,7 +319,6 @@ def account_cell(arch: str, shape_name: str, mesh: Mesh, *,
                 params=params, opt=adamw_init(params)), specs, mesh)
             args = (state, batch)
         else:
-            placed = _placed(cfg)
             if shape.mode == "prefill":
                 args_axes = p_axes + b_axes
             else:
@@ -332,9 +327,7 @@ def account_cell(arch: str, shape_name: str, mesh: Mesh, *,
                     (t, SH.cache_axes(t)) for t in pytree.tensors(
                         decode_cache(cfg, shape, gb))]
                     + [(_meta((gb, 1), torch.int32), ("batch", None))])
-            args, fn = (_serve_step(cfg, shape, params, specs, gbatch, mesh)
-                        if placed else
-                        _serve_whole(cfg, shape, params, specs, batch, mesh))
+            args, fn = _serve_step(cfg, shape, params, specs, gbatch, mesh)
         rule_bytes = rule_argument_bytes(args_axes, mesh)
         res = op_analysis.count(fn, *args, resident=resident,
                                 world=mesh.size)
@@ -365,29 +358,19 @@ def account_cell(arch: str, shape_name: str, mesh: Mesh, *,
         "card": H100_SXM.name,
     }
     if shape.mode != "train":
-        result["placed"] = placed
+        result["placed"] = True
     return result
 
 
-def _placed(cfg: ModelConfig) -> bool:
-    """Whether serving under a placement takes ``cfg``
-    (``models.transformer.check_placed``)."""
-    try:
-        T.check_placed(cfg)
-    except NotImplementedError:
-        return False
-    return True
-
-
 def _serve_step(cfg, shape, params, specs, gbatch, mesh):
-    """(args, fn) of a placed prefill or decode cell: the rank's blocks of
-    the parameters, the batch and the cache under the rules, the step
-    under a placement."""
+    """(args, fn) of a prefill or decode cell: the rank's blocks of the
+    parameters, the batch and the cache under the rules, the step under a
+    placement."""
     blocks, shd = SH.shard_tree(params, specs, mesh)
     max_len = (shape.seq_len + 128 if shape.mode == "prefill"
                else shape.seq_len)
     pl = SH.Placement(mesh, pytree.tree_map(lambda s: s.spec, shd),
-                      cache_len=max_len)
+                      cache_len=max_len, enc_len=enc_len(shape))
     if shape.mode == "prefill":
         bblocks, bshd = SH.shard_batch(gbatch, mesh)
 
@@ -405,25 +388,6 @@ def _serve_step(cfg, shape, params, specs, gbatch, mesh):
         with torch.no_grad():
             return T.decode_step(p, cfg, c, t, placement=pl)
     return (blocks, cblocks, tok), fn
-
-
-def _serve_whole(cfg, shape, params, specs, batch, mesh):
-    """``_serve_step``'s pair for a family left for later: every parameter
-    whole but the expert stacks, the batch's rows, the cache whole over
-    ``L``, one process's step."""
-    lp = local_params(params, specs, mesh)
-    if shape.mode == "prefill":
-        def fn(p, b):
-            with torch.no_grad():
-                return T.prefill(p, cfg, b, max_len=shape.seq_len + 128)
-        return (lp, batch), fn
-    tok = _local(_meta((shape.global_batch, 1), torch.int32),
-                 ("batch", None), mesh, keep=("pod", "data"))
-
-    def fn(p, c, t):
-        with torch.no_grad():
-            return T.decode_step(p, cfg, c, t)
-    return (lp, decode_cache(cfg, shape, tok.shape[0]), tok), fn
 
 
 def cell_path(mesh_name: str, arch: str, shape: str, tag: str = "") -> str:

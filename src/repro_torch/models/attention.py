@@ -13,7 +13,9 @@ are plain torch ops, as the JAX package computes them with ``_sdpa``,
 outside any Pallas kernel. M-RoPE needs nothing here: its angles arrive
 like RoPE's (``models.rotary``). Under a ``dist.sharding.Placement``
 (sharded training) ``attend_full`` is tensor-parallel over the heads
-where the placement split them.
+where the placement split them. In serving under a placement
+``attend_cross`` reads the rank's rows of a ``cross_kv`` split over
+``model`` and merges the ranks' softmax states.
 
 Serving under a placement with the cache's rows split over ``model`` (a
 ``dist.sharding.SeqSplit``: JAX's ``constrain(k, "batch", "kv_seq", ...)``
@@ -114,15 +116,59 @@ def cross_kv(p: Dict, cfg: ModelConfig, enc_out: torch.Tensor
 
 
 def attend_cross(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-                 k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+                 k: torch.Tensor, v: torch.Tensor, split=None
+                 ) -> torch.Tensor:
     """Cross-attention of x (B, S, D) to the encoder's K/V (B, T, KV, hd):
     q from x with no rope and no norm, every encoder position visible (an
     all-true mask), JAX's ``_sdpa``. A dead decode row gets no exact zero
-    here, as in JAX (``attention.py:397-401`` there)."""
+    here, as in JAX (``attention.py:397-401`` there).
+
+    With ``split`` (a ``dist.sharding.SeqSplit``: serving under a
+    placement whose ``cross_kv`` rows split over ``model``) k and v are
+    this rank's rows: each rank forms the float32 softmax state of its
+    rows (``_cross_state``), and the model ranks' states, all-gathered in
+    one tensor, are merged in rank order with ``kernels.ref.
+    merge_states``' arithmetic, as the self-attention's are
+    (``_split_decode``). Plain torch ops, as JAX's cross-attention is
+    plain XLA ops."""
     B, S, _ = x.shape
     q = _split_heads(apply_linear(p["wq"], x), cfg.n_heads, cfg.head_dim)
-    mask = torch.ones((B, S, k.shape[1]), dtype=torch.bool, device=x.device)
-    return apply_linear(p["wo"], _sdpa_masked(cfg, q, k, v, mask))
+    if split is None:
+        mask = torch.ones((B, S, k.shape[1]), dtype=torch.bool,
+                          device=x.device)
+        return apply_linear(p["wo"], _sdpa_masked(cfg, q, k, v, mask))
+    hd = q.shape[-1]
+    acc, m, l = _cross_state(cfg, q, k, v)
+    st = comm.all_gather(torch.cat([acc, m[..., None], l[..., None]],
+                                   dim=-1)[None], 0, split.group)
+    out = merge_states(st[..., :hd], st[..., hd], st[..., hd + 1], v.dtype)
+    return apply_linear(p["wo"], out.reshape(B, S, -1))
+
+
+def _cross_state(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor):
+    """The unnormalised softmax state of ``_sdpa_masked`` with every row
+    visible over a block of the encoder rows: q (B, S, H, hd), k/v (B, T,
+    KV, hd). Returns float32 (acc (B, S, H, hd), m (B, S, H), l (B, S,
+    H)): the sum of p·v with p rounded to v's dtype, the max score and the
+    sum of unrounded p, ``merge_states``' operands."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, S, KV, G, hd).float()
+    s = torch.einsum("bskgh,btkh->bkgst", qg, k.float()) * hd ** -0.5
+    cap = cfg.attn_logit_softcap
+    if cap:
+        s = cap * torch.tanh(s / cap)
+    m = s.amax(dim=-1, keepdim=True)
+    pr = torch.exp(s - m)
+    acc = torch.einsum("bkgst,btkh->bskgh", pr.to(v.dtype).float(),
+                       v.float())
+
+    def rows(t):                                # (B, KV, G, S) -> (B, S, H)
+        return t.permute(0, 3, 1, 2).reshape(B, S, H)
+    return (acc.reshape(B, S, H, hd), rows(m[..., 0]),
+            rows(pr.sum(dim=-1)))
 
 
 def _tp_replicated(p: Dict, group) -> Dict:

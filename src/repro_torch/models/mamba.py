@@ -15,10 +15,19 @@ same normed input; per-branch RMS norm then a learned per-channel convex
 combination. Sliding-window attention on most layers, global on
 {first, middle, last} (see ``ModelConfig.layer_kinds``).
 
-In the sharded train step the rules split the ``ssm_inner`` leaves over
-``model``; they are gathered over it before use and the SSM computes
-whole on every model rank (``models.transformer._tp_keep``). Their
-tensor-parallel compute is queued (ROADMAP, Queue 1, item 14).
+Under a ``dist.sharding.Placement`` (the sharded train step, and
+serving) the rules split the ``ssm_inner`` leaves over ``model`` and the
+sub-block, marked "inner", computes on the rank's shares: ``w_in`` and
+``w_z`` column-parallel, the depthwise conv on the rank's columns,
+``w_bc`` and ``w_dt`` row-parallel with one all-reduce of their
+concatenated partial sums. Where ``model`` divides the heads (case A,
+``dist.sharding.Share.splits``) the rank computes its heads end to end
+(the chunked or step scan and ``d_skip`` on its heads, ``* silu(z)`` on
+its columns); where the split cuts a head (case B) the conv'd branch is
+all-gathered over ``model`` and the head-wise core runs whole on every
+model rank before the rank keeps its columns. ``w_out`` is row-parallel
+in both. The state follows ``CACHE_AXES`` as ``models.ssm``'s mLSTM does
+(``ssm.state_in``, ``state_out``, ``hist_out``).
 """
 from __future__ import annotations
 
@@ -28,7 +37,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.dist import comm
+from repro_torch.dist import sharding as SH
 from repro_torch.models import linear_scan as lscan
+from repro_torch.models import ssm
 from repro_torch.models.params import Builder, apply_linear, rms_norm
 from repro_torch.models.ssm import _causal_conv
 
@@ -69,40 +81,64 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def _ssm_inputs(p: Dict, cfg: ModelConfig, x: torch.Tensor, conv_hist=None):
-    """Shared by the full-sequence and decode paths. x: (B,S,d)."""
+    """Shared by the full-sequence and decode paths. x: (B,S,d). Returns
+    q, k (B,S,Hh,N), v (B,S,Hh,hd), log_f (B,S,Hh) of the heads the rank
+    computes (``ssm.local_heads``), z (B,S, its columns), the conv'd
+    branch c of those heads' columns, its ``ssm_core`` (``d_skip`` on
+    those heads) and the conv history of its columns."""
     B, S, _ = x.shape
     di, H, hd = _dims(cfg)
     N = cfg.ssm_state
+    tp = SH.share_of(p, "inner")
+    heads = ssm.local_heads(tp, H)
+    core = p["ssm_core"]
+    x, a_log, dt_bias, d_skip = ssm.enter(
+        tp, x, core["a_log"], core["dt_bias"], core["d_skip"])
     u = apply_linear(p["w_in"], x)
     z = apply_linear(p["w_z"], x)
     c, hist = _causal_conv(u, p["conv"], conv_hist)
     c = F.silu(c)
-    bc = apply_linear(p["w_bc"], c).reshape(B, S, 2, H, N)
+    bc = apply_linear(p["w_bc"], c)
+    dt_raw = apply_linear(p["w_dt"], c)
+    if tp is not None:
+        # one all-reduce of the concatenated partial sums
+        both = ssm.reduced(tp, torch.cat([bc, dt_raw], dim=-1))
+        bc, dt_raw = both[..., :2 * H * N], both[..., 2 * H * N:]
+        if heads == slice(None):                 # case B: every head
+            c = comm.gather(c, -1, tp.group)
+    bc = bc.reshape(B, S, 2, H, N)[:, :, :, heads]
     k = bc[:, :, 0]                                            # B_t
     q = bc[:, :, 1]                                            # C_t
-    dt_raw = (apply_linear(p["w_dt"], c)
-              + p["ssm_core"]["dt_bias"].to(c.dtype))
-    dt = _softplus(dt_raw.to(torch.float32))                   # (B,S,H)
-    A = -torch.exp(p["ssm_core"]["a_log"].to(torch.float32))   # (H,)
+    dt_raw = (dt_raw + dt_bias.to(c.dtype))[..., heads]
+    dt = _softplus(dt_raw.to(torch.float32))                   # (B,S,Hh)
+    A = -torch.exp(a_log.to(torch.float32))[heads]             # (Hh,)
     log_f = dt * A                                             # <= 0
-    v = c.reshape(B, S, H, hd) * dt[..., None].to(c.dtype)     # Δ_t u_t
-    return q, k, v, log_f, z, c, hist
+    c = c.reshape(B, S, -1, hd)
+    v = c * dt[..., None].to(c.dtype)                          # Δ_t u_t
+    return q, k, v, log_f, z, c, d_skip[heads], hist
+
+
+def _ssm_out(p: Dict, cfg: ModelConfig, y: torch.Tensor, c: torch.Tensor,
+             d_skip: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """y (B,S,Hh,hd) plus the skip, ``* silu(z)`` on the rank's columns,
+    the output projection."""
+    tp = SH.share_of(p, "inner")
+    B, S = y.shape[:2]
+    y = (y + c * d_skip.to(y.dtype)[:, None]).reshape(B, S, -1)
+    return ssm.project_out(p["w_out"], tp, ssm.out_columns(
+        tp, y, cfg.n_heads) * F.silu(z))
 
 
 def apply_ssm(p: Dict, cfg: ModelConfig, x: torch.Tensor,
               *, chunk: int = 128, return_cache: bool = False):
-    B, S, _ = x.shape
-    di, H, hd = _dims(cfg)
-    q, k, v, log_f, z, c, hist = _ssm_inputs(p, cfg, x)
+    q, k, v, log_f, z, c, d_skip, hist = _ssm_inputs(p, cfg, x)
     li = torch.zeros_like(log_f)
     y, st = lscan.chunked_scan(q, k, v, log_f, li, chunk=chunk,
                                normalize=False)
-    d_skip = p["ssm_core"]["d_skip"].to(y.dtype)               # (H,)
-    y = y + c.reshape(B, S, H, hd) * d_skip[:, None]
-    y = y.reshape(B, S, di) * F.silu(z)
-    out = apply_linear(p["w_out"], y)
+    out = _ssm_out(p, cfg, y, c, d_skip, z)
     if return_cache:
-        return out, {"state": st, "conv": hist}
+        return out, {"state": ssm.state_out(p, st, cfg.n_heads),
+                     "conv": ssm.hist_out(SH.share_of(p, "inner"), hist)}
     return out
 
 
@@ -118,17 +154,17 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device=None) -> Dict:
 
 def decode_ssm(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                cache: Dict) -> Tuple[torch.Tensor, Dict]:
-    """x: (B,1,d) single step. Returns (out, new cache)."""
-    B = x.shape[0]
-    di, H, hd = _dims(cfg)
-    q, k, v, log_f, z, c, hist = _ssm_inputs(p, cfg, x, cache["conv"])
+    """x: (B,1,d) single step. Returns (out, new cache); ``cache`` and the
+    new one are the rank's blocks under ``CACHE_AXES`` on a placement."""
+    tp, H = SH.share_of(p, "inner"), cfg.n_heads
+    q, k, v, log_f, z, c, d_skip, hist = _ssm_inputs(
+        p, cfg, x, ssm.conv_in(tp, cache["conv"]))
     li = torch.zeros_like(log_f)
     y, st = lscan.step_scan(q[:, 0], k[:, 0], v[:, 0], log_f[:, 0], li[:, 0],
-                            cache["state"], normalize=False)
-    y = y + c[:, 0].reshape(B, H, hd) * p["ssm_core"]["d_skip"].to(
-        y.dtype)[:, None]
-    y = y.reshape(B, 1, di) * F.silu(z)
-    return apply_linear(p["w_out"], y), {"state": st, "conv": hist}
+                            ssm.state_in(p, cache["state"], H),
+                            normalize=False)
+    return _ssm_out(p, cfg, y[:, None], c, d_skip, z), {
+        "state": ssm.state_out(p, st, H), "conv": ssm.hist_out(tp, hist)}
 
 
 # ---------------------------------------------------------------------------

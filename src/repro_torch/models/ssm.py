@@ -19,11 +19,29 @@ writes it into its cache (``transformer.decode_step`` does so in place).
 The full-sequence sLSTM is a Python loop over time of plain torch ops, as
 the JAX package's ``lax.scan`` is plain XLA ops (no Pallas kernel there).
 
-In the sharded train step the rules split the ``ssm_inner`` leaves and
-the sLSTM FFN's ``mlp`` over ``model``; they are gathered over it before
-use and both blocks compute whole on every model rank
-(``models.transformer._tp_keep``). Their tensor-parallel compute is
-queued (ROADMAP, Queue 1, item 14).
+Under a ``dist.sharding.Placement`` (the sharded train step, and
+serving) the rules split the ``ssm_inner`` leaves and the sLSTM FFN's
+``mlp`` over ``model``, and each rank computes on its shares; no weight
+split over ``model`` is gathered over it. The mLSTM sub-block is marked
+"inner" (``dist.sharding.Share``): ``w_up`` and ``w_gate`` are
+column-parallel and the depthwise conv runs on the rank's columns. Where
+``model`` divides the heads (case A, ``Share.splits``) the rank computes
+its heads end to end: ``wq`` and ``wk`` are row-parallel and their
+partial sums reduce-scattered onto its heads (the columns are
+head-major), ``w_if`` is all-reduced, the scan, the per-head norm and
+``* silu(z)`` run on its heads, and ``w_down`` is row-parallel. Where the
+split cuts a head (case B) the projections stay on shares, ``q``, ``k``
+and the gates are all-reduced, ``v`` is all-gathered, and the head-wise
+core runs whole on every model rank before the rank keeps its columns.
+The cache follows ``CACHE_AXES``: the matrix memory ``C`` holds the
+rank's heads in case A and all of them in case B; the conv history, the
+normalizer ``n`` and the stabilizer ``m`` are whole, all-gathered over
+``model`` after the step. The sLSTM's ``w_in`` is column-parallel (its
+split cuts the ``[z, i, f, o]`` layout, not heads) and its
+pre-activations are all-gathered before the replicated cell; its FFN is
+column- then row-parallel where ``dff`` splits. A sub-block holding a
+factorized linear is gathered whole (marked "whole") and computes whole,
+its matrix memory still held as the rules place it.
 """
 from __future__ import annotations
 
@@ -33,9 +51,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.dist import comm
+from repro_torch.dist import sharding as SH
 from repro_torch.models import linear_scan as lscan
 from repro_torch.models.mlp import _gelu
-from repro_torch.models.params import Builder, apply_linear, head_rms_norm
+from repro_torch.models.params import (Builder, apply_linear,
+                                       apply_row_parallel, head_rms_norm)
 
 
 # ---------------------------------------------------------------------------
@@ -85,36 +106,155 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor,
     return out, full[:, -(K - 1):]
 
 
+# ---------------------------------------------------------------------------
+# A recurrent sub-block on its ``ssm_inner`` shares (Mamba-2 and mLSTM):
+# ``tp`` is its "inner" mark (``dist.sharding.Share``), None off a
+# placement or where the sub-block was gathered whole ("whole")
+# ---------------------------------------------------------------------------
+def local_heads(tp: Optional[SH.Share], heads: int) -> slice:
+    """The heads a rank computes: its block in case A, all of them in case
+    B and off a placement."""
+    if tp is not None and tp.splits(heads):
+        return tp.block(heads)
+    return slice(None)
+
+
+def enter(tp: Optional[SH.Share], *ts):
+    """Tensors every model rank holds whole, used for the rank's own heads
+    or columns (``comm.tp_enter``: their gradients sum over ``model``)."""
+    if tp is None:
+        return ts
+    return tuple(comm.tp_enter(t, tp.group) for t in ts)
+
+
+def reduced(tp: Optional[SH.Share], t: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product's partial sums, summed over ``model`` for
+    compute that keeps a part of the result (its heads; case B's whole
+    core): an all-reduce forward and backward."""
+    if tp is None:
+        return t
+    return comm.tp_enter(comm.tp_exit(t, tp.group), tp.group)
+
+
+def out_columns(tp: Optional[SH.Share], y: torch.Tensor,
+                heads: int) -> torch.Tensor:
+    """Case B: the rank's columns of the whole core's output (B, S, di),
+    for ``* silu(z)`` and the row-parallel output projection."""
+    if tp is None or tp.splits(heads):
+        return y
+    return y[..., tp.block(y.shape[-1])]
+
+
+def project_out(p: Dict, tp: Optional[SH.Share], y: torch.Tensor
+                ) -> torch.Tensor:
+    """The output projection: row-parallel on the rank's columns."""
+    if tp is None:
+        return apply_linear(p, y)
+    return apply_row_parallel(p, y, tp.group)
+
+
+def conv_in(tp: Optional[SH.Share], hist: torch.Tensor) -> torch.Tensor:
+    """The rank's columns of a whole conv history (the cache's)."""
+    if tp is None:
+        return hist
+    return hist[..., tp.block(hist.shape[-1])]
+
+
+def state_split(p: Dict, heads: int) -> Optional[SH.Share]:
+    """The mark whose group splits the sub-block's matrix memory on heads
+    under the cache rules (case A, or a "whole" sub-block whose heads
+    divide), else None."""
+    s = p.get("_tp")
+    if s is not None and s.kind in ("inner", "whole") and s.splits(heads):
+        return s
+    return None
+
+
+def state_in(p: Dict, st: lscan.ScanState, heads: int) -> lscan.ScanState:
+    """A cache's state (``CACHE_AXES``' block: S on the rank's heads in
+    case A, n and m whole) as the step computes with it."""
+    s = state_split(p, heads)
+    if s is None:
+        return st
+    if s.kind == "inner":
+        return lscan.ScanState(st.S, st.n[:, s.block(heads)],
+                               st.m[:, s.block(heads)])
+    return lscan.ScanState(comm.all_gather(st.S, 1, s.group), st.n, st.m)
+
+
+def state_out(p: Dict, st: lscan.ScanState, heads: int) -> lscan.ScanState:
+    """The step's state as the cache holds it (``state_in``'s inverse)."""
+    s = state_split(p, heads)
+    if s is None:
+        return st
+    if s.kind == "inner":
+        return lscan.ScanState(st.S, comm.all_gather(st.n, 1, s.group),
+                               comm.all_gather(st.m, 1, s.group))
+    return lscan.ScanState(st.S[:, s.block(heads)], st.n, st.m)
+
+
+def hist_out(tp: Optional[SH.Share], hist: torch.Tensor) -> torch.Tensor:
+    """The conv history whole, as the cache holds it: the ranks' columns
+    all-gathered over ``model``."""
+    if tp is None:
+        return hist
+    return comm.all_gather(hist, hist.dim() - 1, tp.group)
+
+
 def _mlstm_qkvif(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                  conv_hist=None):
+    """q, k, v (B, S, Hh, hd) of the heads the rank computes, the gates
+    li, lf (B, S, Hh), z (B, S, its columns), the conv history of its
+    columns."""
     B, S, _ = x.shape
     H = cfg.n_heads
     di, hd = _inner(cfg)
+    tp = SH.share_of(p, "inner")
+    heads = local_heads(tp, H)
+    x, b_if = enter(tp, x, p["gate_bias"]["b_if"])
     u = apply_linear(p["w_up"], x)
     z = apply_linear(p["w_gate"], x)
     c, hist = _causal_conv(u, p["conv"], conv_hist)
     c = F.silu(c)
-    q = apply_linear(p["wq"], c).reshape(B, S, H, hd)
-    k = apply_linear(p["wk"], c).reshape(B, S, H, hd) * (hd ** -0.5)
-    v = u.reshape(B, S, H, hd)
-    gif = (apply_linear(p["w_if"], c)
-           + p["gate_bias"]["b_if"].to(c.dtype)).to(torch.float32)
-    li = gif[..., :H]                       # raw input gate (exp)
-    lf = F.logsigmoid(gif[..., H:])         # sigmoid forget gate, log space
+    q = apply_linear(p["wq"], c)
+    k = apply_linear(p["wk"], c)
+    if tp is not None and heads != slice(None):     # case A: its heads
+        q = comm.tp_scatter(q, -1, tp.group)
+        k = comm.tp_scatter(k, -1, tp.group)
+    elif tp is not None:                            # case B: every head
+        q, k = reduced(tp, q), reduced(tp, k)
+        u = comm.gather(u, -1, tp.group)
+    Hh = q.shape[-1] // hd
+    q = q.reshape(B, S, Hh, hd)
+    k = k.reshape(B, S, Hh, hd) * (hd ** -0.5)
+    v = u.reshape(B, S, Hh, hd)
+    gif = (reduced(tp, apply_linear(p["w_if"], c))
+           + b_if.to(c.dtype)).to(torch.float32)
+    li = gif[..., :H][..., heads]           # raw input gate (exp)
+    lf = F.logsigmoid(gif[..., H:][..., heads])  # sigmoid forget, log space
     return q, k, v, li, lf, z, hist
+
+
+def _mlstm_out(p: Dict, cfg: ModelConfig, y: torch.Tensor,
+               z: torch.Tensor) -> torch.Tensor:
+    """The per-head norm of the scan's output (B, S, Hh, hd), ``*
+    silu(z)`` on the rank's columns and the down projection."""
+    tp = SH.share_of(p, "inner")
+    B, S = y.shape[:2]
+    norm, = enter(tp, p["head_norm"])
+    y = head_rms_norm(norm, y, cfg.norm_eps).reshape(B, S, -1)
+    return project_out(p["w_down"], tp,
+                       out_columns(tp, y, cfg.n_heads) * F.silu(z))
 
 
 def apply_mlstm(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                 *, chunk: int = 128, return_cache: bool = False):
-    B, S, _ = x.shape
-    di, hd = _inner(cfg)
     q, k, v, li, lf, z, hist = _mlstm_qkvif(p, cfg, x)
     y, st = lscan.chunked_scan(q, k, v, lf, li, chunk=chunk, normalize=True)
-    y = head_rms_norm(p["head_norm"], y, cfg.norm_eps)
-    y = y.reshape(B, S, di) * F.silu(z)
-    out = apply_linear(p["w_down"], y)
+    out = _mlstm_out(p, cfg, y, z)
     if return_cache:
-        return out, {"state": st, "conv": hist}
+        return out, {"state": state_out(p, st, cfg.n_heads),
+                     "conv": hist_out(SH.share_of(p, "inner"), hist)}
     return out
 
 
@@ -130,15 +270,15 @@ def init_mlstm_cache(cfg: ModelConfig, batch: int, dtype,
 
 def decode_mlstm(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                  cache: Dict) -> Tuple[torch.Tensor, Dict]:
-    """x: (B,1,D) single step. Returns (out, new cache)."""
-    B = x.shape[0]
-    di, hd = _inner(cfg)
-    q, k, v, li, lf, z, hist = _mlstm_qkvif(p, cfg, x, cache["conv"])
+    """x: (B,1,D) single step. Returns (out, new cache); ``cache`` and the
+    new one are the rank's blocks under ``CACHE_AXES`` on a placement."""
+    tp, H = SH.share_of(p, "inner"), cfg.n_heads
+    q, k, v, li, lf, z, hist = _mlstm_qkvif(p, cfg, x,
+                                            conv_in(tp, cache["conv"]))
     y, st = lscan.step_scan(q[:, 0], k[:, 0], v[:, 0], lf[:, 0], li[:, 0],
-                            cache["state"], normalize=True)
-    y = head_rms_norm(p["head_norm"], y, cfg.norm_eps)
-    y = y.reshape(B, 1, di) * F.silu(z)
-    return apply_linear(p["w_down"], y), {"state": st, "conv": hist}
+                            state_in(p, cache["state"], H), normalize=True)
+    return _mlstm_out(p, cfg, y[:, None], z), {
+        "state": state_out(p, st, H), "conv": hist_out(tp, hist)}
 
 
 # ---------------------------------------------------------------------------
@@ -209,15 +349,37 @@ def init_slstm_cache(cfg: ModelConfig, batch: int, dtype,
 
 
 def _slstm_ffn(p: Dict, x: torch.Tensor) -> torch.Tensor:
-    g = _gelu(apply_linear(p["ff_gate"], x))
-    return apply_linear(p["ff_down"], g * apply_linear(p["ff_up"], x))
+    """The GeGLU FFN; column- then row-parallel where a placement left
+    ``ff_down`` row-parallel (JAX's ``constrain(h, "batch", None,
+    "mlp")``)."""
+    tp = SH.share_of(p["ff_down"], "row")
+    if tp is not None:
+        x = comm.tp_enter(x, tp.group)
+    h = _gelu(apply_linear(p["ff_gate"], x)) * apply_linear(p["ff_up"], x)
+    if tp is None:
+        return apply_linear(p["ff_down"], h)
+    return apply_row_parallel(p["ff_down"], h, tp.group)
+
+
+def _slstm_pre(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """The cell's input pre-activations (..., 4d): where ``w_in`` is
+    column-parallel, the rank's columns all-gathered over ``model`` for
+    the replicated cell."""
+    tp = SH.share_of(p["w_in"], "col")
+    if tp is None:
+        pre = apply_linear(p["w_in"], x)
+    else:
+        pre = comm.gather_replicated(apply_linear(
+            p["w_in"], comm.tp_enter(x, tp.group)), x.dim() - 1, tp.group,
+            tp.index)
+    return pre + p["bias"]["b"].to(x.dtype)
 
 
 def apply_slstm(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                 *, return_cache: bool = False):
     """Full-sequence sLSTM: a Python loop over time."""
     B, S, d = x.shape
-    pre = apply_linear(p["w_in"], x) + p["bias"]["b"].to(x.dtype)
+    pre = _slstm_pre(p, x)
     st = init_slstm_cache(cfg, B, x.dtype, x.device)
     hs = []
     for t in range(S):
@@ -234,7 +396,6 @@ def apply_slstm(p: Dict, cfg: ModelConfig, x: torch.Tensor,
 def decode_slstm(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                  cache: Dict) -> Tuple[torch.Tensor, Dict]:
     B, _, d = x.shape
-    pre = apply_linear(p["w_in"], x[:, 0]) + p["bias"]["b"].to(x.dtype)
-    h, st = _slstm_cell(p, cfg, pre, cache)
+    h, st = _slstm_cell(p, cfg, _slstm_pre(p, x[:, 0]), cache)
     y = head_rms_norm(p["head_norm"], h, cfg.norm_eps).reshape(B, 1, d)
     return _slstm_ffn(p, y), st

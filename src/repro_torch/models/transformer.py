@@ -35,31 +35,34 @@ Under a ``dist.sharding.Placement`` (``placement=``; the sharded train
 step) ``forward`` and ``lm_loss`` take a rank's blocks of the parameters:
 a stacked run gathers one layer's at a time on use, the embedding, the
 logits and the loss are vocab-parallel where the vocab splits over
-``model``, the attention, MLP and experts compute on the rank's share
-(``_tp_keep``; each share marked with a ``dist.sharding.Share``, which
-carries the model group), and the leaves the rules split over ``model``
-that have no
-tensor-parallel compute here (the Mamba-2 and xLSTM ``ssm_inner`` dims,
-the sLSTM FFN, cross-attention) are gathered and computed whole on every
-model rank. The residual stream stays replicated over ``model``: JAX's
-``constrain(x, "batch", "seq", None)`` also lays its sequence over
-``model``, a layout that changes no number (sequence parallelism, not
-ported).
+``model``, and the attention, MLP, experts and the recurrent sub-blocks
+(Mamba-2, mLSTM, sLSTM: ``models.mamba``, ``models.ssm``) compute on the
+rank's share (``_tp_keep``; each share marked with a
+``dist.sharding.Share``, which carries the model group); no weight split
+over ``model`` is gathered over it but cross-attention's, which is
+computed whole on every model rank. The residual stream stays replicated
+over ``model``: JAX's ``constrain(x, "batch", "seq", None)`` also lays
+its sequence over ``model``, a layout that changes no number (sequence
+parallelism, not ported).
 
 ``prefill`` and ``decode_step`` take a placement too (serving with
-sharded parameters, JAX's ``lower_cell`` shardings): a rank's blocks of
-the parameters, its batch rows (its rows' whole prompts) and its block of
-the cache (``dist.sharding.shard_cache``: rows over the batch axes, each
-slot's K/V rows over ``model``). Each layer's blocks are gathered on use,
-one layer at a time; the dense and shared MLPs stay tensor-parallel and
-the expert stacks expert-parallel, the attention is gathered whole and
-reads and writes the rank's block of the cache (``models.attention``'s
-note), a factorized linear is gathered whole, and the logits are the
-rank's rows over the whole vocabulary. Under a placement the
-recurrent kinds (their state leaves placed by ``CACHE_AXES`` as well)
-and encoder-decoder models (``cross_kv`` split over ``model`` on its
-encoder rows) raise ``NotImplementedError``: ROADMAP Queue 1, item 13's
-next part.
+sharded parameters, JAX's ``lower_cell`` shardings), for every family: a
+rank's blocks of the parameters, its batch rows (its rows' whole
+prompts) and its block of the cache (``dist.sharding.shard_cache`` under
+``CACHE_AXES``: rows over the batch axes, each slot's K/V rows over
+``model``, a recurrent state's heads over ``model`` where they divide,
+``cross_kv``'s encoder rows over ``model``). Each layer's blocks are
+gathered on use, one layer at a time; the dense and shared MLPs stay
+tensor-parallel, the expert stacks expert-parallel and the recurrent
+sub-blocks on their shares, each writing its block of the state; the
+attention is gathered whole and reads and writes the rank's block of the
+cache (``models.attention``'s note), a factorized linear is gathered
+whole, and the logits are the rank's rows over the whole vocabulary. An
+encoder-decoder prefill runs the encoder under the placement and keeps
+the rank's rows of each layer's ``cross_kv``; decode's cross-attention
+reads them and merges the model ranks' softmax states
+(``attention.attend_cross``). A paged pool has no placement, in JAX as
+here.
 
 Batch dictionary convention (everything optional except one input):
 ``tokens`` (B, S) int (the decoder's, for an encoder-decoder model);
@@ -265,11 +268,14 @@ def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor
 
 
 def _cross(p: Params, cfg: ModelConfig, x: torch.Tensor,
-           kv: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+           kv: Tuple[torch.Tensor, torch.Tensor], split=None
+           ) -> torch.Tensor:
     """x plus the layer's cross-attention of ``ln_cross(x)`` to the
-    encoder's (k, v), (B, T_enc, KV, hd) each."""
+    encoder's (k, v), (B, T_enc, KV, hd) each (with ``split``, a
+    ``dist.sharding.SeqSplit``: this rank's rows of them)."""
     return x + attend_cross(p["cross"], cfg,
-                            rms_norm(p["ln_cross"], x, cfg.norm_eps), *kv)
+                            rms_norm(p["ln_cross"], x, cfg.norm_eps), *kv,
+                            split=split)
 
 
 def _block_fwd(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -313,14 +319,20 @@ def _layer_spec(spec):
     return type(spec)(*spec[1:])
 
 
+# the sub-blocks the model code computes on shares over ``model`` in
+# training and in serving: the dense and shared MLPs (column- and
+# row-parallel), the expert stacks (expert parallelism), the Mamba-2 and
+# mLSTM ``ssm_inner`` leaves and the sLSTM's ``w_in`` and FFN
+# (``models.mamba``, ``models.ssm``)
+_TP_BLOCKS = ("mlp", "moe", "moe_shared", "ssm", "mlstm", "slstm")
+
+
 def _tp_keep(cfg: ModelConfig, model_size: int):
     """Which of a layer's leaves the model code computes on in shares over
-    ``model`` (``dist.sharding.Placement.materialize``'s ``keep_model``):
-    the attention's q heads and wo where the heads split evenly, k and v
-    where the kv heads do too (tensor parallelism); the dense and shared
-    MLPs (column- and row-parallel); the expert stacks (expert
-    parallelism). Every other leaf the rules split over ``model`` (the
-    Mamba-2 and xLSTM ``ssm_inner`` dims, the sLSTM FFN, cross-attention)
+    ``model`` in the sharded train step (``dist.sharding.Placement.
+    materialize``'s ``keep_model``): the attention's q heads and wo where
+    the heads split evenly, k and v where the kv heads do too (tensor
+    parallelism), and every sub-block of ``_TP_BLOCKS``. Cross-attention
     is gathered and computed whole on every model rank."""
     q = cfg.n_heads % model_size == 0
     kv = q and cfg.n_kv_heads % model_size == 0
@@ -328,28 +340,15 @@ def _tp_keep(cfg: ModelConfig, model_size: int):
     def keep(path) -> bool:
         if path[0] == "attn":
             return kv if path[1] in ("wk", "wv") else q
-        return path[0] in ("mlp", "moe", "moe_shared")
+        return path[0] in _TP_BLOCKS
     return keep
 
 
 def _serve_keep(path) -> bool:
-    """Serving's ``keep_model``: the dense and shared MLPs stay
-    tensor-parallel and the expert stacks expert-parallel; the attention
-    is gathered whole (``models.attention``'s note), as is every leaf
-    ``_tp_keep`` gathers."""
-    return path[0] in ("mlp", "moe", "moe_shared")
-
-
-def check_placed(cfg: ModelConfig) -> None:
-    """Raises for a model that serving under a placement does not take
-    yet: recurrent kinds and encoder-decoder models."""
-    kinds = set(cfg.layer_kinds())
-    if cfg.is_encoder_decoder or kinds & set(RECURRENT):
-        raise NotImplementedError(
-            f"{cfg.name}: prefill and decode under a placement take "
-            f"decoder-only attention stacks; encoder-decoder cross_kv and "
-            f"the recurrent kinds' state leaves on a mesh are ROADMAP "
-            f"Queue 1, item 13's next part")
+    """Serving's ``keep_model``: the sub-blocks of ``_TP_BLOCKS`` stay on
+    their shares; the attention, self and cross, is gathered whole
+    (``models.attention``'s note)."""
+    return path[0] in _TP_BLOCKS
 
 
 def _serve_layers(params: Params, r: int, n: int,
@@ -762,12 +761,15 @@ def _block_decode(kind: str, cfg: ModelConfig, p: Params, cache: Dict,
                   x: torch.Tensor, pos: torch.Tensor,
                   angles: Optional[torch.Tensor],
                   table: Optional[torch.Tensor] = None,
-                  write_index=None, split=None) -> torch.Tensor:
+                  write_index=None, split=None, cross_split=None
+                  ) -> torch.Tensor:
     """One layer's decode step. ``cache`` is the layer's view of the pool:
     the attention writes its k/v there in place, and each recurrent state
     leaf is overwritten in place (``copy_``) with its new value, so a
     captured graph that binds the pool reads and writes the pool's own
-    tensors."""
+    tensors. Under a placement ``cache`` is the rank's block and the new
+    state is too; ``split`` and ``cross_split`` say which rows of the K/V
+    and of ``cross_kv`` it holds."""
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
     win = _kind_window(cfg, kind)
     new: Dict[str, Any] = {}
@@ -790,7 +792,7 @@ def _block_decode(kind: str, cfg: ModelConfig, p: Params, cache: Dict,
         x = x + out
     if "ln_cross" in p and "cross_kv" in cache:     # read-only in decode
         x = _cross(p, cfg, x, (cache["cross_kv"]["k"],
-                               cache["cross_kv"]["v"]))
+                               cache["cross_kv"]["v"]), cross_split)
     for name, tree in new.items():
         for dst, src in zip(pytree.tensors(cache[name]),
                             pytree.tensors(tree)):
@@ -822,11 +824,11 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
     Under a ``dist.sharding.Placement`` (``placement``, with its
     ``cache_len``) ``params`` are this rank's blocks, ``cache`` its block
     (``dist.sharding.shard_cache``) and ``tokens`` its batch rows; the
-    logits are those rows over the whole vocabulary. Still no host
-    read."""
+    logits are those rows over the whole vocabulary; an encoder-decoder
+    model's placement also needs its ``enc_len``. Still no host read."""
     pl = placement
+    cross_split = None
     if pl is not None:
-        check_placed(cfg)
         if table is not None:
             raise NotImplementedError("a paged pool on a mesh: JAX places "
                                       "none")
@@ -851,11 +853,15 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
         angles = _angles_for(cfg, kind, rp)
         run_c = cache["runs"][f"run{r}"]
         wi = split = None
+        if pl is not None and "cross_kv" in run_c:
+            cross_split = _seq_split(pl.enc_len, run_c["cross_kv"]["k"],
+                                     pl, "enc_len")
         if kind in _ATTN:
             kv = run_c["kv"]
             win = _kind_window(cfg, kind)
             if pl is not None:
-                split = _seq_split(pl, win, kv["k"].shape[2])
+                split = _seq_split(win or pl.cache_len, kv["k"], pl,
+                                   "cache_len")
             # where this step writes: computed once for all layers of the run
             if table is not None:
                 wi = paged_write_index(pos, table, kv["k"].shape[2])
@@ -866,7 +872,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
                 wi = cache_write_index(pos, kv["k"].shape[2], win)
         for i, lp in enumerate(_serve_layers(params, r, n, pl)):
             x = _block_decode(kind, cfg, lp, tree_index(run_c, i), x, pos,
-                              angles, table, wi, split)
+                              angles, table, wi, split, cross_split)
     logits = lm_logits(params, cfg, x)
     if pl is not None:
         logits = _whole_vocab(params, logits)
@@ -874,19 +880,20 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
     return logits, cache
 
 
-def _seq_split(pl: SH.Placement, window: int, rows: int):
-    """The rank's block of a run's decode cache (``window`` rows a slot
-    for a ring, the placement's ``cache_len`` for the full layout), or
-    None where the cache is whole; ``rows`` is what the rank holds."""
-    length = window or pl.cache_len
+def _seq_split(length: Optional[int], leaf: torch.Tensor,
+               pl: SH.Placement, what: str):
+    """The rank's block of a run's cache rows (``length`` rows a slot:
+    the window of a ring, the placement's ``cache_len`` for the full
+    layout, its ``enc_len`` for ``cross_kv``), or None where they are
+    whole; ``leaf`` (n, B, rows, ...) is what the rank holds."""
     if length is None:
-        raise ValueError("decode under a placement needs its cache_len "
-                         "(the cache's max_len)")
+        raise ValueError(f"decode under a placement needs its {what} (the "
+                         f"cache's global rows)")
     split = pl.seq_split(length)
     held = length if split is None else split.rows
-    if rows != held:
-        raise ValueError(f"the rank holds {rows} cache rows a slot, its "
-                         f"block of {length} is {held}")
+    if leaf.shape[2] != held:
+        raise ValueError(f"the rank holds {leaf.shape[2]} cache rows a "
+                         f"slot, its block of {length} is {held}")
     return split
 
 
@@ -896,11 +903,13 @@ def _seq_split(pl: SH.Placement, window: int, rows: int):
 def _block_prefill(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
                    angles: Optional[torch.Tensor], max_len: int,
                    lengths: Optional[torch.Tensor],
-                   enc_out: Optional[torch.Tensor] = None, split=None
-                   ) -> Tuple[torch.Tensor, Dict]:
+                   enc_out: Optional[torch.Tensor] = None, split=None,
+                   cross_split=None) -> Tuple[torch.Tensor, Dict]:
     """One layer of the prefill: (x, the layer's cache). A cross block's
     K/V of ``enc_out`` are computed once, attended to and kept as the
-    layer's ``cross_kv`` (JAX applies wk/wv twice, to the same numbers)."""
+    layer's ``cross_kv`` (JAX applies wk/wv twice, to the same numbers);
+    with ``cross_split`` the cache keeps the rank's rows of them. Under a
+    placement every leaf of the layer's cache is the rank's block."""
     cache: Dict[str, Any] = {}
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
     win = _kind_window(cfg, kind)
@@ -926,6 +935,10 @@ def _block_prefill(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
     if "ln_cross" in p and enc_out is not None:
         k, v = cross_kv(p["cross"], cfg, enc_out)
         x = _cross(p, cfg, x, (k, v))
+        if cross_split is not None:
+            rows = slice(cross_split.offset,
+                         cross_split.offset + cross_split.rows)
+            k, v = k[:, rows], v[:, rows]
         cache["cross_kv"] = {"k": k, "v": v}
     return _ffn(p, cfg, x)[0], cache
 
@@ -948,18 +961,21 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict,
     this rank's blocks and ``batch`` its rows (``dist.sharding.batch_rows``
     of its blocks); the cache returned is the rank's block under
     ``CACHE_AXES`` (each slot's rows split over ``model`` where it divides
-    ``window or max_len``) and the logits its rows over the whole
-    vocabulary."""
+    ``window or max_len``), its recurrent state and ``cross_kv`` its
+    blocks too, and the logits its rows over the whole vocabulary."""
     check_supported(cfg)
     pl = placement
     if pl is not None:
-        check_placed(cfg)
         params = _use_top(pl, params)
     dev = _params_device(params)
     lengths = batch.get("lengths")
     if lengths is not None:
         lengths = torch.as_tensor(lengths, device=dev).to(torch.int32)
-    enc_out = encode(params, cfg, batch) if cfg.is_encoder_decoder else None
+    enc_out = cross_split = None
+    if cfg.is_encoder_decoder:
+        enc_out = encode(params, cfg, batch, placement=pl)
+        if pl is not None:
+            cross_split = pl.seq_split(enc_out.shape[1])
     x = _embed_input(params, cfg, batch, dev)
     B, S, _ = x.shape
     positions = _default_positions(cfg, batch, dev)
@@ -972,7 +988,7 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict,
         caches = []
         for lp in _serve_layers(params, r, n, pl):
             x, c = _block_prefill(kind, cfg, lp, x, angles, max_len, lengths,
-                                  enc_out, split)
+                                  enc_out, split, cross_split)
             caches.append(c)
         runs[f"run{r}"] = _stack_trees(caches)
     if lengths is None:

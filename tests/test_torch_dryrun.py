@@ -21,7 +21,8 @@ counter ``launch.op_analysis``) against the JAX package's dry-run.
   devices (started by the module's first test, read by the last); a
   prefill or decode cell places exactly those bytes (the sharded serving
   step), and on the (16, 16) mesh smollm-360m's and qwen2-vl-72b's
-  serving cells place the rules' bytes (the 72B decode fits a card);
+  serving cells place the rules' bytes (the 72B decode fits a card), as
+  do hymba-1.5b's, xlstm-350m's and seamless-m4t-medium's at 2 layers;
 * (7) the CLI's JSON; and the counts on CPU tensors equal those on
   ``meta``, and the collectives of a data-parallel step and of an
   expert-parallel forward on shapes-only meshes;
@@ -437,14 +438,26 @@ def test_serving_cells_place_the_rules_bytes(arch, shape):
     assert res["fits"] is fits
 
 
-def test_recurrent_serving_cells_keep_the_whole_path():
-    """A family that serving under a placement does not take yet keeps the
-    parameters whole but the expert stacks, and says so."""
-    cell = DR.account_cell("xlstm-350m", "decode_32k", make_production_mesh(),
+# the recurrent and encoder-decoder families' serving cells at 2 layers
+RECURRENT_CELLS = [(a, s) for a in ("hymba-1.5b", "xlstm-350m",
+                                    "seamless-m4t-medium")
+                   for s, sh in TC.SHAPES.items() if sh.mode != "train"
+                   and TC.shape_applicable(get_config(a), sh)[0]]
+
+
+@pytest.mark.parametrize("arch,shape", RECURRENT_CELLS)
+def test_recurrent_serving_cells_place_the_rules_bytes(arch, shape):
+    """The recurrent and encoder-decoder families serve under a placement
+    too: the rank's blocks of the parameters (the ``ssm_inner`` leaves
+    split over ``model``), the batch and the cache (a state's heads split
+    where ``model`` divides them, ``cross_kv``'s encoder rows split) are
+    the rules', to the byte."""
+    cell = DR.account_cell(arch, shape, make_production_mesh(),
                            overrides={"n_layers": 2})
-    assert cell["placed"] is False
-    assert cell["memory"]["argument_bytes"] > \
-        cell["memory"]["rule_argument_bytes"]
+    mem = cell["memory"]
+    assert cell["placed"]
+    assert mem["argument_bytes"] == mem["rule_argument_bytes"], \
+        (arch, shape)
 
 
 # ---------------------------------------------------------------------------

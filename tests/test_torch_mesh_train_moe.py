@@ -33,7 +33,9 @@ and the JAX package.
   ``all_to_all``s and model rank 0's broadcast taking JAX's transpose of
   its replicated outputs, and an MoE train step at vocab 257 (which does
   not split over ``model``) against one process; (d) one
-  ``hymba-1.5b.reduced()`` step (``ssm_inner`` leaves); (e) a checkpoint of
+  ``hymba-1.5b.reduced()`` step (the Mamba-2 sub-block on its
+  ``ssm_inner`` shares; ``tests/test_torch_mesh_recurrent.py`` holds the
+  recurrent stacks' grads and cases further); (e) a checkpoint of
   the sharded state saved at (2, 2) and restored onto (4, 1) and onto one
   process, every block equal. JAX's mesh gradients and its single-device
   steps of (a) and (b) come from the same subprocess as its EP forward.
@@ -666,8 +668,8 @@ def test_sharded_moe_step_matches_one_process(ranks):
 
 
 def test_sharded_hymba_step_matches_one_process(ranks):
-    """(d) One step of ``hymba-1.5b.reduced()``: its ``ssm_inner`` leaves
-    gathered over ``model`` and computed whole."""
+    """(d) One step of ``hymba-1.5b.reduced()``: its Mamba-2 sub-block
+    computes on its ``ssm_inner`` shares (4 heads, 2 a model rank)."""
     _, outs = ranks
     _check_sharded(outs, "hymba", None)
 

@@ -3,8 +3,8 @@ JOB WORKDIR`` spawns a gloo process group of ``WORLD`` ranks on the CPU,
 each running ``JOB`` on the inputs in ``WORKDIR/inputs.pt`` and writing
 ``WORKDIR/out_rank{r}.pt``. It imports nothing of JAX: the test modules
 (``tests/test_torch_dist.py``, ``tests/test_torch_mesh_calib.py``,
-``tests/test_torch_mesh_train_moe.py``, ``tests/test_torch_mesh_serve.py``)
-build the inputs, run this once and hold the ranks' outputs against the
+``tests/test_torch_mesh_train_moe.py``, ``tests/test_torch_mesh_serve.py``,
+``tests/test_torch_mesh_recurrent.py``) build the inputs, run this once and hold the ranks' outputs against the
 JAX package.
 
 World 4, one intra-op and one BLAS thread a rank, at a lower priority
@@ -366,7 +366,8 @@ def serve_case(mesh, case, steps: int):
     """A sharded prefill and ``steps`` greedy decode steps of
     ``case["cfg"]`` on this rank: its blocks of the whole ``case["params"]``
     under ``case["specs"]``, its block of the global batch (its rows'
-    prompts gathered over ``model``), its block of the cache. Returns
+    prompts gathered over ``model``), its block of the cache (an
+    encoder-decoder case's ``enc_len`` rows of ``cross_kv`` too). Returns
     {tokens, logits (its rows, whole vocab, each step), cache (the final
     blocks), collectives (bytes by family)}."""
     from repro_torch import pytree
@@ -376,7 +377,7 @@ def serve_case(mesh, case, steps: int):
     cfg, max_len = case["cfg"], case["max_len"]
     blocks, shd = SH.shard_tree(case["params"], case["specs"], mesh)
     pl = SH.Placement(mesh, pytree.tree_map(lambda s: s.spec, shd),
-                      cache_len=max_len)
+                      cache_len=max_len, enc_len=case.get("enc_len"))
     bblocks, bshd = SH.shard_batch(case["batch"], mesh)
 
     def run():
@@ -405,8 +406,83 @@ def job_serve(rank, inp):
     return out
 
 
+def _spied(SH, gathered, grads):
+    """Context: every parameter block that ``Placement.use`` gathers over
+    ``model`` (not kept as a share) appended to ``gathered`` as (shape,
+    spec), and every ``Placement.reduce_grads`` result to ``grads``."""
+    import contextlib
+
+    use, reduce = SH.Placement.use, SH.Placement.reduce_grads
+
+    def spy_use(self, t, spec, keep_model=False):
+        if not keep_model and any(axes == ("model",)
+                                  for _, axes in SH._split_axes(spec)):
+            gathered.append((tuple(t.shape), tuple(spec)))
+        return use(self, t, spec, keep_model)
+
+    def spy_reduce(self, g):
+        out = reduce(self, g)
+        grads.append(out)
+        return out
+
+    @contextlib.contextmanager
+    def ctx():
+        SH.Placement.use, SH.Placement.reduce_grads = spy_use, spy_reduce
+        try:
+            yield
+        finally:
+            SH.Placement.use, SH.Placement.reduce_grads = use, reduce
+    return ctx()
+
+
+def train_case(mesh, case):
+    """Sharded train steps of ``case["cfg"]`` from the whole
+    ``case["params"]``, one for each global batch of ``case["batches"]``
+    (the rank's data shard of it). Returns {losses, grads (the first
+    step's reduced gradient blocks), gathered (the parameter blocks
+    gathered over ``model``), collectives (bytes by family)}."""
+    from repro_torch.dist import sharding as SH
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import step as TS
+
+    cfg = case["cfg"]
+    _, specs = T.init_model(cfg, device="meta")
+    blocks, _ = TS.shard_state(TS.TrainState(
+        params=case["params"], opt=adamw_init(case["params"])), specs, mesh)
+    step = TS.make_train_step(cfg, TS.TrainConfig(**case["tcfg"]),
+                              mesh=mesh)
+    n, d = mesh.shape["data"], mesh.coord("data")
+    gathered, grads, losses = [], [], []
+
+    def run(blocks):
+        for b in case["batches"]:
+            rows = b["tokens"].shape[0] // n
+            blocks, m = step(blocks, {k: v[d * rows:(d + 1) * rows]
+                                      for k, v in b.items()})
+            losses.append(float(m["loss"]))
+    with _spied(SH, gathered, grads):
+        _, moved = _bytes_of(lambda: run(blocks))
+    return {"losses": losses, "grads": grads[0], "gathered": gathered,
+            "collectives": moved}
+
+
+def job_recurrent(rank, inp):
+    """``tests/test_torch_mesh_recurrent.py``: every serving case
+    (``serve_case``) and every train case (``train_case``) on (data 2,
+    model 2)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(data=2, model=2)
+    out = {"coords": (mesh.coord("data"), mesh.coord("model"))}
+    for name, case in inp["serve"].items():
+        out[name] = serve_case(mesh, case, inp["steps"])
+    for name, case in inp["train"].items():
+        out[f"train/{name}"] = train_case(mesh, case)
+    return out
+
+
 JOBS = {"dist": job_dist, "calib": job_calib, "train_moe": job_train_moe,
-        "serve": job_serve}
+        "serve": job_serve, "recurrent": job_recurrent}
 
 
 def _rank_main(rank, job, workdir, init_method):
