@@ -58,7 +58,13 @@ What it does, in order, printing the seconds of each phase:
    8 / 4 a rank, 32 experts 16 a rank with a backward through the
    ``all_to_all``s, vocab 49155 replicated by the fallback), 2 float32
    steps at lr 1e-4 and a capacity factor of 8 at which no assignment may
-   drop. Meanwhile this process runs the same steps on one process
+   drop; SmolLM-360M at the accounting's uniform-20% factorized shapes,
+   2 float32 steps (placed by its own specs: every B and C gathered
+   whole). Each rank takes its block of every global batch under the
+   rules (``shard_batch``: its rows, its half of each sequence), and its
+   residual stream must hold 64 of the 128 rows of each sequence at every
+   layer's entry (sequence parallelism; 16 of 32 in every serving case's
+   prefill below). Meanwhile this process runs the same steps on one process
    (granite's with one microbatch a data shard: its aux statistic is each
    shard's, as under JAX's EP body) and counts each step on meta
    (``account_cell``). Every rank's losses and first-step grad norm must
@@ -153,7 +159,13 @@ What it does, in order, printing the seconds of each phase:
    autograd at the training path's shapes, through ``ops``: flash at (8,
    256, 15, 64) and the 2-D product over 2048 rows, from non-contiguous
    views that require grad, outputs and input grads against autograd
-   through the plain versions;
+   through the plain versions; then the attention's tiled backward
+   (``flash_tiled``): one SmolLM-360M attention layer at B 1, S 4096,
+   causal, in bfloat16 and float32, the flash kernel's LSE flag against
+   the plain version's lse and the grads through ``ops.flash_attention``
+   (the kernel with LSE, then ``ref.flash_bwd_rule``) against the dense
+   plain version's autograd at the same tiers, its LSE launches counted
+   from 0 (2) and each backward's own peak and device ms recorded;
 6. each kernel's device time for the work it does in one prefill, one
    decode step or one calibration batch of the main path (the paged decode
    kernel: one decode step of the batcher's path, at its live lengths; the
@@ -406,10 +418,21 @@ KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
     # same kernel): the sharded serving path's decode attention
     "decode_attention_state": ("src/repro_torch/csrc/decode_attention.cu",
                                "src/repro/kernels/decode_attention.py:94"),
+    # the flash kernel with its LSE flag (a template flag of the same
+    # kernel): the forward of the tiled FlashAttention-2 backward
+    "flash_attention_lse": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:74"),
 }
 # kernels that only the sharded serving path launches (a cache whose rows
 # split over model ranks); the one-process paths never do
 SERVE_ONLY = ("decode_attention_state",)
+# kernels that only a training step at a long sequence launches (S·T at
+# JAX's FLASH_THRESHOLD: the tiled backward), none of the other paths
+TILED_ONLY = ("flash_attention_lse",)
+# one SmolLM-360M attention layer (15 q / 5 kv heads, hd 64), causal, at B 1
+# and S 4096: the flash kernel with its LSE flag and the tiled backward
+# (kernels/ref.flash_bwd_rule) against the dense plain version's autograd
+TILED_B, TILED_S = 1, 4096
 # kernels with a tensor-core ("wgmma") and a CUDA-core ("simt") variant; the
 # main path's bf16 work must take the first
 TC_KERNELS = ("lowrank_matmul_2d", "gram_blocked", "flash_attention")
@@ -476,6 +499,10 @@ EP_LAYERS, EP_BATCH, EP_PROMPT, EP_NEW, EP_PARITY_STEPS = 2, 4, 32, 8, 4
 # bar), 5e-3 in bf16 (tests/test_dist.py's)
 SH_MESH = (2, 2)
 SH_MOE_LAYERS, SH_MOE_STEPS, SH_MOE_CAPACITY = 2, 2, 8.0
+# SmolLM at the accounting's uniform-20% factorized shapes (seeded factors,
+# SV_RATIO), float32: a D-Rank-compressed model's sharded step (every B
+# and C gathered whole on use)
+SH_FACT_STEPS = 2
 # granite's learning rate: Adam's first step moves an entry by ~lr whatever
 # the size of its grad, so the sharded step's last-bit differences in
 # reduction order (first-step grads within 1.8e-6 of each leaf's largest
@@ -665,7 +692,8 @@ class Port:
                          "decode_attention_paged":
                              da.decode_attention_paged_bkgh,
                          "decode_attention_state":
-                             da.decode_attention_state_bkgh}
+                             da.decode_attention_state_bkgh,
+                         "flash_attention_lse": LseLaunches(fa)}
 
     def reset_counts(self) -> None:
         for w in self.wrappers.values():
@@ -681,6 +709,23 @@ class Port:
         return {n: dict(w.launches_by_variant)
                 for n, w in self.wrappers.items()
                 if hasattr(w, "launches_by_variant")}
+
+
+class LseLaunches:
+    """The flash wrapper's launches with the LSE flag set
+    (``flash_attention_bshd.launches_lse``), read and reset as a wrapper's
+    ``launches``."""
+
+    def __init__(self, fa):
+        self.fa = fa
+
+    @property
+    def launches(self) -> int:
+        return self.fa.flash_attention_bshd.launches_lse
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.fa.flash_attention_bshd.launches_lse = n
 
 
 def linears(params):
@@ -993,7 +1038,7 @@ def main_path(port, dev):
         f"{k} {v:.2f}" for k, v in secs.items()))
     missing = [n for n, c in counts.items()
                if c <= 0 and n != "decode_attention_paged"
-               and n not in SERVE_ONLY]
+               and n not in SERVE_ONLY + TILED_ONLY]
     assert not missing, f"kernels not launched on the main path: {missing}"
     assert toks.shape == (GEN_BATCH, GEN_NEW), toks.shape
     assert ((toks >= 0) & (toks < cfg.vocab_size)).all(), "token out of range"
@@ -2463,6 +2508,9 @@ def hold_recorded(port, calls, dname: str,
             elif name == "flash_attention":
                 q, k, v = args
                 want = ref.flash_attention(q, k, v, **kw)
+                if kw.get("return_lse"):      # o and lse, one vector
+                    want = torch.cat([want[0].float().flatten(),
+                                      want[1].flatten()])
                 sig = f"q {tuple(q.shape)} k {tuple(k.shape)} {kw}"
                 variants = port.fa._allowed(q.dtype, q.shape[-1], all(
                     t.data_ptr() % 16 == 0 for t in args))
@@ -2502,6 +2550,9 @@ def hold_recorded(port, calls, dname: str,
                 extra = {} if var is None else {"variant": var}
                 got = w[name](*args, **kw, **extra)
                 torch.cuda.synchronize()
+                if name == "flash_attention" and kw.get("return_lse"):
+                    got = torch.cat([got[0].float().flatten(),
+                                     got[1].flatten()])
                 if name == "decode_attention_state":
                     got, want = state_output(port, got, want, q.dtype)
                 e = rel_err(got, want)
@@ -2678,6 +2729,106 @@ def state_variant(port, dev) -> dict:
         f" SDPA over the block {t['library_ms']:.4f}, bound "
         f"{t['bound'][0]:.4f} ({t['bound'][1]}) -- {t['work']}")
     return {"err": err, "time": t}
+
+
+def flash_tiled(port, dev) -> dict:
+    """The attention's tiled FlashAttention-2 backward at one SmolLM-360M
+    attention layer (TILED_B x TILED_S, causal), in bfloat16 (the flash
+    kernel's ``wgmma`` variant) and float32 (``simt``): the kernel's LSE
+    flag against the plain version's lse, and the grads through
+    ``ops.flash_attention`` (the kernel with LSE forward, ``ref.
+    flash_bwd_rule`` backward) against the dense plain version's autograd,
+    at the kernel tiers; the launches with LSE counted from 0 over the two
+    gradient runs; each backward's own peak (``max_memory_allocated`` less
+    what was allocated before it); device ms of the LSE forward, of the
+    kernel without it, of the plain version, of SDPA (``library_ms``) and
+    of the two backwards."""
+    torch, ops, ref, fa = port.torch, port.ops, port.ref, port.fa
+    import torch.nn.functional as F
+    cfg = port.get_config(ARCH)
+    B, S, H, KV, hd = TILED_B, TILED_S, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.head_dim
+    assert ops.flash_tiled(S, S, 0.0), "S 4096 is below JAX's threshold"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+    out, launches, card = {}, 0, card_line()
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dt)
+        q, k, v, g = rnd(B, S, H, hd), rnd(B, S, KV, hd), rnd(B, S, KV, hd), \
+            rnd(B, S, H, hd)
+        with torch.no_grad():
+            o_k, lse_k = fa.flash_attention_bshd(q, k, v, causal=True,
+                                                 return_lse=True)
+            o_p, lse_p = ref.flash_attention(q, k, v, causal=True,
+                                             return_lse=True)
+        torch.cuda.synchronize()
+
+        def grads(fn):
+            ins = [t.clone().requires_grad_() for t in (q, k, v)]
+            o = fn(*ins)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            o.backward(g)
+            torch.cuda.synchronize()
+            return ([t.grad for t in ins],
+                    torch.cuda.max_memory_allocated() - base)
+        n0 = port.counts()["flash_attention_lse"]
+        tiled, tiled_peak = grads(lambda *a: ops.flash_attention(*a, True))
+        launches += port.counts()["flash_attention_lse"] - n0
+        dense, dense_peak = grads(
+            lambda *a: ref.flash_attention(*a, causal=True))
+        errs = {"o": rel_err(o_k, o_p), "lse": rel_err(lse_k, lse_p)}
+        errs.update({n: rel_err(a, b) for n, a, b in
+                     zip(("dq", "dk", "dv"), tiled, dense)})
+        del tiled, dense
+        ms = device_ms(torch, lambda: fa.flash_attention_bshd(
+            q, k, v, causal=True, return_lse=True))
+        ms_no_lse = device_ms(torch, lambda: fa.flash_attention_bshd(
+            q, k, v, causal=True))
+        plain_ms = device_ms(torch, lambda: ref.flash_attention(
+            q, k, v, causal=True, return_lse=True))
+        library_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True))
+        bwd_ms = device_ms(torch, lambda: ops._flash_bwd_tiled(
+            g, q, k, v, o_k, lse_k, True, 0))
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        o_d = ref.flash_attention(*ins, causal=True)
+        dense_ms = device_ms(torch, lambda: torch.autograd.grad(
+            o_d, ins, g, retain_graph=True))
+        del ins, o_d
+        es = q.element_size()
+        nbytes = (q.numel() * 2 + k.numel() * 2) * es + B * H * S * 4
+        flops = 4.0 * B * H * ops._pairs(S, S, True, 0) * hd
+        bound = bound_ms(nbytes, flops, dname)
+        out[dname] = dict(errs=errs, ms=ms, ms_no_lse=ms_no_lse,
+                          plain_ms=plain_ms, library_ms=library_ms,
+                          bwd_ms=bwd_ms, dense_bwd_ms=dense_ms,
+                          bwd_peak=tiled_peak, dense_bwd_peak=dense_peak,
+                          bound=bound, max_abs_err=abs_err(lse_k, lse_p))
+        log(f"  {dname}, B {B} S {S} heads {H} / {KV} hd {hd}, causal: "
+            f"max-relative error o {errs['o']:.2e}, lse {errs['lse']:.2e}; "
+            f"tiled backward against the dense plain version's dq "
+            f"{errs['dq']:.2e}, dk {errs['dk']:.2e}, dv {errs['dv']:.2e} "
+            f"(tolerance {TOL[dname]:.0e}); the backward's own peak "
+            f"{tiled_peak} bytes tiled, {dense_peak} dense; device ms: "
+            f"flash with LSE {ms:.4f} (without {ms_no_lse:.4f}), plain "
+            f"{plain_ms:.4f}, SDPA {library_ms:.4f}, bound {bound[0]:.4f} "
+            f"({bound[1]}); tiled backward {bwd_ms:.3f}, dense {dense_ms:.3f}"
+            f"; {card}")
+        for n, e in errs.items():
+            assert e <= TOL[dname], \
+                f"the tiled path's {n} disagrees in {dname} ({e:.2e})"
+        assert tiled_peak < dense_peak, "the tiled backward held more"
+        del q, k, v, g, o_k, o_p, lse_k, lse_p
+        torch.cuda.empty_cache()
+    assert launches == 2, f"{launches} flash launches with LSE, not 2"
+    out["launches"] = launches
+    return out
 
 
 def gemma_path(port, dev):
@@ -3852,7 +4003,7 @@ def moe_path(port, dev):
     assert_gemv(variants["lowrank_gemv"], "bfloat16", "the MoE path")
     missing = [n for n, c in counts.items()
                if c <= 0 and n != "decode_attention_paged"
-               and n not in SERVE_ONLY]
+               and n not in SERVE_ONLY + TILED_ONLY]
     assert not missing, f"kernels not launched on the MoE path: {missing}"
     assert toks.shape == (GEN_BATCH, GEN_NEW)
     assert ((toks >= 0) & (toks < cfg.vocab_size)).all(), "token out of range"
@@ -4060,7 +4211,7 @@ def moe_phases(port, dev) -> dict:
     log(f"  launches on the MoE path: {out['launches']}; by variant "
         f"{out['variants']}")
     missing = [n for n, c in out["launches"].items()
-               if c <= 0 and n not in SERVE_ONLY]
+               if c <= 0 and n not in SERVE_ONLY + TILED_ONLY]
     assert not missing, f"kernels not launched on the MoE path: {missing}"
     with Phase("MoE path's kernel calls against the plain versions, every "
                "variant, the first call of each operand signature"):
@@ -4068,7 +4219,8 @@ def moe_phases(port, dev) -> dict:
             f"generate; the batcher's eager runs)")
         hold_recorded(port, calls + cb_calls, "bfloat16", "the MoE path")
         done = {n for n, _, _ in calls + cb_calls}
-        assert done == set(port.wrappers) - set(SERVE_ONLY), done
+        assert done == set(port.wrappers) - set(SERVE_ONLY + TILED_ONLY), \
+            done
     del calls, cb_calls, comp
     torch.cuda.empty_cache()
     with Phase(f"MoE float32, card against CPU, {MOE_PARITY_LAYERS} "
@@ -5687,42 +5839,60 @@ def sharded_cases(port) -> dict:
     gr_tcfg = dataclasses.replace(tcfg, optimizer=dataclasses.replace(
         tcfg.optimizer, lr=SH_MOE_LR))
     return {"smollm float32": (smol.replace(dtype="float32"),
-                               batches(smol, DP_STEPS, 21), tcfg, False),
+                               batches(smol, DP_STEPS, 21), tcfg, False, 0.0),
             "smollm bfloat16": (smol, batches(smol, DP_STEPS, 21), tcfg,
-                                False),
+                                False, 0.0),
+            # a D-Rank-compressed model's step under a placement (fault E)
+            "smollm factorized float32": (
+                smol.replace(dtype="float32"), batches(smol, SH_FACT_STEPS,
+                                                       23), tcfg, False,
+                SV_RATIO),
             "granite float32": (gr, batches(gr, SH_MOE_STEPS, 22), gr_tcfg,
-                                True)}
+                                True, 0.0)}
 
 
-def sharded_run(port, dev, cfg, batches, tcfg, mesh=None, drops=False):
-    """``len(batches)`` train steps from seed 0: on ``mesh`` each rank
-    holds its blocks (``TS.shard_state``) and takes its data shard of each
-    global batch; without, one process on the whole state. Returns the
+def sharded_run(port, dev, cfg, batches, tcfg, mesh=None, drops=False,
+                ratio: float = 0.0):
+    """``len(batches)`` train steps from seed 0 (with ``ratio``, the
+    factorized parameters of ``serve_params``): on ``mesh`` each rank
+    holds its blocks (``TS.shard_state``) and takes its block of each
+    global batch under the rules (``shard_batch``: its rows, its half of
+    each sequence); without, one process on the whole state. Returns the
     losses, ms/step, collective seconds, the state's bytes as held, the
-    allocator's peak, the launches and the (q, kv) heads of every flash
-    call. On ``mesh`` every kernel call of the steps, the first of each
-    operand signature, is then held again through every variant against
-    the plain version on the same operands (``hold_recorded``)."""
+    allocator's peak, the launches, the (q, kv) heads of every flash call
+    and the residual's rows a sequence at each layer's entry (sequence
+    parallelism). On ``mesh`` every kernel call of the steps, the first of
+    each operand signature, is then held again through every variant
+    against the plain version on the same operands (``hold_recorded``)."""
     from repro_torch.dist import comm
+    from repro_torch.dist import sharding as SH
     torch, TS = port.torch, port.TS
-    state, specs = TS.init_train_state(cfg, seed=0, device=dev)
+    params, specs = serve_params(port, cfg, ratio, dev)
+    # the whole parameters' shapes: a factorized model is placed by them
+    whole = port.pytree.tree_map(lambda t: t.to("meta"), params)
+    state = TS.TrainState(params=params, opt=port.adamw.adamw_init(params))
+    del params
     if mesh is not None:
         state, _ = TS.shard_state(state, specs, mesh)
         torch.cuda.empty_cache()
     held = sum(t.numel() * t.element_size()
                for t in port.pytree.tensors(state))
-    step = TS.make_train_step(cfg, tcfg, mesh=mesh)
-    n = mesh.shape["data"] if mesh is not None else 1
-    d = mesh.coord("data") if mesh is not None else 0
-    rows = DP_ROWS // n
+    step = TS.make_train_step(cfg, tcfg, mesh=mesh, params=whole,
+                              specs=specs)
     heads, inner = set(), port.ops.flash_attention
+    rows, block = set(), port.T._block_fwd
 
     def spy(q, k, v, *a, **kw):
         heads.add((int(q.shape[2]), int(k.shape[2])))    # (q, kv) heads
         return inner(q, k, v, *a, **kw)
+
+    def rows_spy(kind, c_, p, x, *a, **kw):
+        rows.add(int(x.shape[1]))
+        return block(kind, c_, p, x, *a, **kw)
     c = comm.current() if mesh is not None else None
     sec0 = dict(c.seconds) if c else {}
     port.ops.flash_attention = spy
+    port.T._block_fwd = rows_spy
     port.reset_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -5734,18 +5904,23 @@ def sharded_run(port, dev, cfg, batches, tcfg, mesh=None, drops=False):
             losses, norms = [], []
             t0 = time.perf_counter()
             for b in batches:
-                tok = torch.as_tensor(b[d * rows:(d + 1) * rows], device=dev)
-                state, m = step(state, {"tokens": tok})
+                tok = {"tokens": torch.as_tensor(b, device=dev)}
+                if mesh is None:
+                    state, m = step(state, tok)
+                else:
+                    blk, shd = SH.shard_batch(tok, mesh)
+                    state, m = step(state, blk, shd)
                 losses.append(float(m["loss"]))
                 norms.append(float(m["grad_norm"]))
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
     finally:
         port.ops.flash_attention = inner
+        port.T._block_fwd = block
     out.update(losses=losses, grad_norms=norms,
                ms_per_step=dt / len(batches) * 1e3,
                peak=torch.cuda.max_memory_allocated(),
-               launches=port.counts(),
+               launches=port.counts(), rows=sorted(rows),
                flash_heads=[list(h) for h in sorted(heads)])
     if c:
         out["seconds"] = {k: v - sec0.get(k, 0.0)
@@ -5887,6 +6062,11 @@ def serve_run(port, dev, cfg, ratio: float, mesh=None, steps: int = SV_STEPS,
         torch.cuda.empty_cache()
     c = comm.current() if mesh is not None else None
     sec0 = dict(c.seconds) if c else {}
+    rows, block = set(), T._block_prefill
+
+    def rows_spy(kind, c_, p, x, *a, **k):    # the residual's rows
+        rows.add(int(x.shape[1]))
+        return block(kind, c_, p, x, *a, **k)
     port.reset_counts()
     with torch.no_grad(), (recording(port) if mesh is not None
                            else contextlib.nullcontext([])) as calls:
@@ -5894,7 +6074,11 @@ def serve_run(port, dev, cfg, ratio: float, mesh=None, steps: int = SV_STEPS,
         t0 = time.perf_counter()
         batch = (SH.batch_rows(bblocks, bshd) if mesh is not None
                  else whole)
-        lg, cache = T.prefill(params, cfg, batch, SV_MAX_LEN, **kw)
+        T._block_prefill = rows_spy
+        try:
+            lg, cache = T.prefill(params, cfg, batch, SV_MAX_LEN, **kw)
+        finally:
+            T._block_prefill = block
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         toks, logits = [lg[:, -1].argmax(-1)], [lg[:, -1].float().cpu()]
@@ -5911,6 +6095,7 @@ def serve_run(port, dev, cfg, ratio: float, mesh=None, steps: int = SV_STEPS,
                prefill_ms=(t1 - t0) * 1e3,
                ms_per_step=(t2 - t1) / steps * 1e3,
                launches=port.counts(), state=state_heads(cache),
+               prefill_rows=sorted(rows),
                cache_rows=next((int(run["kv"]["k"].shape[2]) for run in
                                 cache["runs"].values() if "kv" in run),
                                None))
@@ -5988,9 +6173,10 @@ def sharded_rank(rank: int, init_method: str) -> None:
         mesh = make_host_mesh(*SH_MESH)
         out = {"rank": rank, "coords": [mesh.coord("data"),
                                         mesh.coord("model")]}
-        for name, (cfg, batches, tcfg, drops) in sharded_cases(port).items():
+        for name, (cfg, batches, tcfg, drops, ratio) in \
+                sharded_cases(port).items():
             out[name] = sharded_run(port, c.device, cfg, batches, tcfg,
-                                    mesh, drops)
+                                    mesh, drops, ratio)
         serve = {}
         for name, (cfg, ratio, steps, frames) in serve_cases(port).items():
             serve[name] = serve_run(port, c.device, cfg, ratio, mesh, steps,
@@ -6017,11 +6203,12 @@ def sharded_accounting(port) -> dict:
     mesh = Mesh(SH_MESH, ("data", "model"), rank=0, build_groups=False)
     out = {}
     try:
-        for case, (cfg, _, _, _) in sharded_cases(port).items():
+        for case, (cfg, _, _, _, ratio) in sharded_cases(port).items():
             arch = MOE if case.startswith("granite") else ARCH
             over = {k: getattr(cfg, k) for k in ("n_layers", "dtype", "moe")}
             out[case] = port.dryrun.account_cell(arch, name, mesh,
-                                                 overrides=over)
+                                                 overrides=over,
+                                                 compressed=ratio)
     finally:
         del C.SHAPES[name]
     return out
@@ -6049,8 +6236,9 @@ def sharded_phase(port, dev) -> dict:
         # granite's one process takes one microbatch a data shard: its aux
         # statistic is then each data shard's, as under the EP body
         one = {name: sharded_run(port, dev, cfg, batches, dataclasses.replace(
-                   tcfg, microbatches=SH_MESH[0] if drops else 1))
-               for name, (cfg, batches, tcfg, drops) in
+                   tcfg, microbatches=SH_MESH[0] if drops else 1),
+                   ratio=ratio)
+               for name, (cfg, batches, tcfg, drops, ratio) in
                sharded_cases(port).items()}
         acct = sharded_accounting(port)
         serve_one = {name: serve_run(port, dev, cfg, ratio, steps=steps,
@@ -6093,6 +6281,7 @@ def sharded_phase(port, dev) -> dict:
                 f"{mem['rule_state_bytes']} (whole {ref['state_bytes']}); "
                 f"{got['ms_per_step']:.1f} ms/step (one process "
                 f"{ref['ms_per_step']:.1f}), collective seconds {secs}; "
+                f"residual rows a sequence {got['rows']} of {DP_SEQ}; "
                 f"max_memory_allocated {got['peak']} (of it before the "
                 f"steps {got['base']}) against the accounting's peak "
                 f"{mem['peak_bytes']}; flash (q, kv) heads "
@@ -6109,6 +6298,9 @@ def sharded_phase(port, dev) -> dict:
                 f"{name}: rank {r['rank']} holds other bytes than the rules"
             assert got["launches"]["flash_attention"] > 0
             assert got["held"] > 0, f"{name}: rank {r['rank']} held no call"
+            # sequence parallelism: the rank's half of every sequence
+            assert got["rows"] == [DP_SEQ // SH_MESH[1]], \
+                f"{name}: rank {r['rank']}'s residual rows {got['rows']}"
             if name.startswith("granite"):
                 cfg = sharded_cases(port)[name][0]
                 assert got["flash_heads"] == [
@@ -6162,7 +6354,8 @@ def check_serving(port, ranks, serve_out, one, acct) -> dict:
                 f"{got['prefill_bytes']} / decode {got['decode_bytes']}, "
                 f"rule_argument_bytes {got['prefill_rule']} / "
                 f"{got['decode_rule']}; cache rows {got['cache_rows']} of "
-                f"{SV_MAX_LEN}; state {got['state']}; prefill "
+                f"{SV_MAX_LEN}; prefill residual rows {got['prefill_rows']}"
+                f" of {SV_PROMPT}; state {got['state']}; prefill "
                 f"{got['prefill_ms']:.1f} ms, {got['ms_per_step']:.2f} "
                 f"ms/step (one process {ref['prefill_ms']:.1f}, "
                 f"{ref['ms_per_step']:.2f}), collective seconds {secs} (four "
@@ -6184,6 +6377,9 @@ def check_serving(port, ranks, serve_out, one, acct) -> dict:
                     f"serving {name}: rank {r['rank']} holds other " \
                     f"{mode} arguments than the rules ({want})"
             assert got["launches"]["decode_attention"] == 0
+            # sequence parallelism: the rank's half of every prompt
+            assert got["prefill_rows"] == [SV_PROMPT // SH_MESH[1]], \
+                f"serving {name}: rank {r['rank']}'s residual rows"
             if name.startswith("xlstm"):            # no attention layer
                 assert got["cache_rows"] is None
                 assert got["launches"]["decode_attention_state"] == 0
@@ -6295,9 +6491,21 @@ def main() -> int:
                "plain version and the whole-cache kernel; timed"):
         state = state_variant(port, dev)
         errs["decode_attention_state"] = state["err"]
+    with Phase(f"the attention's tiled backward: one SmolLM-360M layer at "
+               f"B {TILED_B}, S {TILED_S}, the flash kernel's LSE flag and "
+               f"the FlashAttention-2 backward against the dense plain "
+               f"version, bf16 and float32; timed"):
+        tiled = flash_tiled(port, dev)
+        errs["flash_attention_lse"] = tiled["bfloat16"]["max_abs_err"]
     with Phase("kernel times (bfloat16, main-path shapes)"):
         times = time_kernels(port, dev, cfg, comp, snap)
         times["decode_attention_state"] = state["time"]
+        tb = tiled["bfloat16"]
+        times["flash_attention_lse"] = dict(
+            ms=tb["ms"], plain_ms=tb["plain_ms"], bound=tb["bound"],
+            library_ms=tb["library_ms"],
+            work=f"one SmolLM-360M attention layer, B {TILED_B}, S "
+                 f"{TILED_S}, causal, bf16, o and lse")
     with Phase("kernel times (bfloat16, the dense configs' shapes)"):
         large = time_large_shapes(port, dev)
     with Phase("kernel times (float32 2-D product, simt against split)"):
@@ -6391,6 +6599,8 @@ def main() -> int:
         if name in SERVE_ONLY:
             launches = sum(c[name] for v in sharded["serve"].values()
                            for c in v["launches"])
+        if name in TILED_ONLY:
+            launches = tiled["launches"]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -6437,6 +6647,9 @@ def main() -> int:
     by_name["decode_attention"]["long_cache"] = large["decode_long"]
     by_name["decode_attention_state"]["whole_kernel_ms"] = \
         times["decode_attention_state"]["whole_kernel_ms"]
+    by_name["flash_attention_lse"]["tiled"] = {
+        d: {k: v for k, v in t.items() if k != "max_abs_err"}
+        for d, t in tiled.items() if d != "launches"}
     for name, v in sharded["serve"].items():
         log(f"sharded serving {name}: {', '.join(f'{x:.2f}' for x in v['ms_per_step'])}"
             f" ms/step by rank (one process {v['one_ms_per_step']:.2f}); four "

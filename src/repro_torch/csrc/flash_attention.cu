@@ -45,6 +45,14 @@
 //   float32 (172 KB at hd 256), four threads a query row: each scores 16
 //   keys, the row max and sum are reduced with warp shuffles, and each owns
 //   a quarter of the output dims.
+//
+// LSE (a template flag of both variants; the C entry points take it as a
+// non-null lse pointer): each query row also writes its float32
+// log-sum-exp, m + log(max(l, 1e-30)), to lse (B, H, S), what JAX's
+// _flash_fwd_pass keeps for the tiled FlashAttention-2 backward of its
+// model (repro/models/attention.py, _flash_bwd_rule), which recomputes the
+// probabilities from (q, k, lse). The wrapper asks for it only where that
+// backward runs.
 #include "common.cuh"
 #include "hopper_mma.cuh"
 
@@ -62,11 +70,12 @@ constexpr size_t flash_smem_bytes() {
                           FA_BQ * (FA_BK + 1));
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool LSE>
 __global__ void __launch_bounds__(FA_THREADS) flash_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, int S, int Tk, int H,
-    int KV, float scale, int causal, int window, float softcap) {
+    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+    int S, int Tk, int H, int KV, float scale, int causal, int window,
+    float softcap) {
   extern __shared__ float smem[];
   float* qs = smem;                              // [FA_BQ][HD + 1]
   float* ks = qs + FA_BQ * (HD + 1);             // [FA_BK][HD + 1]
@@ -163,45 +172,61 @@ __global__ void __launch_bounds__(FA_THREADS) flash_kernel(
     T* orow = o + (((size_t)b * S + qpos) * H + h) * HD;
 #pragma unroll
     for (int i = 0; i < HD / 4; ++i) orow[sub + 4 * i] = cvt<T>(acc[i] / lf);
+    if (LSE && sub == 0) lse[((size_t)b * H + h) * S + qpos] = m + logf(lf);
   }
 }
 
-template <typename T, int HD>
-int launch_flash(const void* q, const void* k, const void* v, void* o, int B,
-                 int S, int Tk, int H, int KV, float scale, int causal,
-                 int window, float softcap, cudaStream_t st) {
+template <typename T, int HD, bool LSE>
+int launch_flash_as(const void* q, const void* k, const void* v, void* o,
+                    float* lse, int B, int S, int Tk, int H, int KV,
+                    float scale, int causal, int window, float softcap,
+                    cudaStream_t st) {
   constexpr size_t smem = flash_smem_bytes<HD>();
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_kernel<T, HD, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid(cdiv(S, FA_BQ), B * H);
-  flash_kernel<T, HD><<<grid, FA_THREADS, smem, st>>>(
+  flash_kernel<T, HD, LSE><<<grid, FA_THREADS, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, Tk, H, KV, scale,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, Tk, H, KV, scale,
       causal, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the LSE flag's instantiation by whether lse is given
+template <typename T, int HD>
+int launch_flash(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B, int S, int Tk, int H, int KV, float scale,
+                 int causal, int window, float softcap, cudaStream_t st) {
+  return lse ? launch_flash_as<T, HD, true>(q, k, v, o, lse, B, S, Tk, H, KV,
+                                            scale, causal, window, softcap,
+                                            st)
+             : launch_flash_as<T, HD, false>(q, k, v, o, lse, B, S, Tk, H,
+                                             KV, scale, causal, window,
+                                             softcap, st);
+}
+
 template <typename T>
-int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B,
-                int S, int Tk, int H, int KV, int hd, float scale, int causal,
-                int window, float softcap, cudaStream_t st) {
+int dispatch_hd(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int S, int Tk, int H, int KV, int hd,
+                float scale, int causal, int window, float softcap,
+                cudaStream_t st) {
   switch (hd) {
-    case 16: return launch_flash<T, 16>(q, k, v, o, B, S, Tk, H, KV, scale,
-                                        causal, window, softcap, st);
-    case 32: return launch_flash<T, 32>(q, k, v, o, B, S, Tk, H, KV, scale,
-                                        causal, window, softcap, st);
-    case 64: return launch_flash<T, 64>(q, k, v, o, B, S, Tk, H, KV, scale,
-                                        causal, window, softcap, st);
-    case 128: return launch_flash<T, 128>(q, k, v, o, B, S, Tk, H, KV, scale,
-                                          causal, window, softcap, st);
-    case 256: return launch_flash<T, 256>(q, k, v, o, B, S, Tk, H, KV, scale,
-                                          causal, window, softcap, st);
+    case 16: return launch_flash<T, 16>(q, k, v, o, lse, B, S, Tk, H, KV,
+                                        scale, causal, window, softcap, st);
+    case 32: return launch_flash<T, 32>(q, k, v, o, lse, B, S, Tk, H, KV,
+                                        scale, causal, window, softcap, st);
+    case 64: return launch_flash<T, 64>(q, k, v, o, lse, B, S, Tk, H, KV,
+                                        scale, causal, window, softcap, st);
+    case 128: return launch_flash<T, 128>(q, k, v, o, lse, B, S, Tk, H, KV,
+                                          scale, causal, window, softcap, st);
+    case 256: return launch_flash<T, 256>(q, k, v, o, lse, B, S, Tk, H, KV,
+                                          scale, causal, window, softcap, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -223,9 +248,10 @@ struct FlashWg {
   static constexpr int SMEM = 1024 + NSUB * mma::TILE_BYTES + STAGES * SLOT;
 };
 
-template <int HD>
+template <int HD, bool LSE>
 __global__ void __launch_bounds__(FW_THREADS, 1) flash_wgmma_kernel(
-    bf16* __restrict__ o, int S, int Tk, int H, int KV, float scale,
+    bf16* __restrict__ o, float* __restrict__ lse, int S, int Tk, int H,
+    int KV, float scale,
     int causal, int window, float softcap,
     const __grid_constant__ CUtensorMap tmq,
     const __grid_constant__ CUtensorMap tmk,
@@ -382,17 +408,23 @@ __global__ void __launch_bounds__(FW_THREADS, 1) flash_wgmma_kernel(
             __floats2bfloat162_rn(oacc[c][i] / den[(i / 2) % 2],
                                   oacc[c][i + 1] / den[(i / 2) % 2]);
     }
+  // a row's m and l are its quad's (the four threads of acc_row)
+  if (LSE && wt % 4 == 0)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (qp0 + 8 * r < S)
+        lse[((size_t)b * H + h) * S + qp0 + 8 * r] = m[r] + logf(den[r]);
 }
 
-template <int HD>
-int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
-                       int B, int S, int Tk, int H, int KV, float scale,
-                       int causal, int window, float softcap,
-                       cudaStream_t st) {
+template <int HD, bool LSE>
+int launch_flash_wgmma_as(const void* q, const void* k, const void* v,
+                          void* o, float* lse, int B, int S, int Tk, int H,
+                          int KV, float scale, int causal, int window,
+                          float softcap, cudaStream_t st) {
   using F = FlashWg<HD>;
   static const cudaError_t configured = cudaFuncSetAttribute(
-      flash_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      F::SMEM);
+      flash_wgmma_kernel<HD, LSE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, F::SMEM);
   if (configured != cudaSuccess) return static_cast<int>(configured);
   CUtensorMap tmq, tmk, tmv;
   cudaError_t e = mma::make_tmap_bshd(&tmq, q, HD, H, S, B);
@@ -402,31 +434,46 @@ int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
   if (e == cudaSuccess) e = mma::make_tmap_bshd(&tmv, v, HD, KV, rows, B);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(cdiv(S, FW_T), B * H);
-  flash_wgmma_kernel<HD><<<grid, FW_THREADS, F::SMEM, st>>>(
-      static_cast<bf16*>(o), S, Tk, H, KV, scale, causal, window, softcap,
-      tmq, tmk, tmv);
+  flash_wgmma_kernel<HD, LSE><<<grid, FW_THREADS, F::SMEM, st>>>(
+      static_cast<bf16*>(o), lse, S, Tk, H, KV, scale, causal, window,
+      softcap, tmq, tmk, tmv);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the LSE flag's instantiation by whether lse is given
+template <int HD>
+int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
+                       float* lse, int B, int S, int Tk, int H, int KV,
+                       float scale, int causal, int window, float softcap,
+                       cudaStream_t st) {
+  return lse ? launch_flash_wgmma_as<HD, true>(q, k, v, o, lse, B, S, Tk, H,
+                                               KV, scale, causal, window,
+                                               softcap, st)
+             : launch_flash_wgmma_as<HD, false>(q, k, v, o, lse, B, S, Tk, H,
+                                                KV, scale, causal, window,
+                                                softcap, st);
+}
+
 int dispatch_wgmma(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int Tk, int H, int KV, int hd, float scale,
-                   int causal, int window, float softcap, cudaStream_t st) {
+                   float* lse, int B, int S, int Tk, int H, int KV, int hd,
+                   float scale, int causal, int window, float softcap,
+                   cudaStream_t st) {
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
-    case 16: return launch_flash_wgmma<16>(q, k, v, o, B, S, Tk, H, KV, scale,
-                                           causal, window, softcap, st);
-    case 32: return launch_flash_wgmma<32>(q, k, v, o, B, S, Tk, H, KV, scale,
-                                           causal, window, softcap, st);
-    case 64: return launch_flash_wgmma<64>(q, k, v, o, B, S, Tk, H, KV, scale,
-                                           causal, window, softcap, st);
-    case 128: return launch_flash_wgmma<128>(q, k, v, o, B, S, Tk, H, KV,
-                                             scale, causal, window, softcap,
-                                             st);
-    case 256: return launch_flash_wgmma<256>(q, k, v, o, B, S, Tk, H, KV,
-                                             scale, causal, window, softcap,
-                                             st);
+    case 16: return launch_flash_wgmma<16>(q, k, v, o, lse, B, S, Tk, H, KV,
+                                           scale, causal, window, softcap, st);
+    case 32: return launch_flash_wgmma<32>(q, k, v, o, lse, B, S, Tk, H, KV,
+                                           scale, causal, window, softcap, st);
+    case 64: return launch_flash_wgmma<64>(q, k, v, o, lse, B, S, Tk, H, KV,
+                                           scale, causal, window, softcap, st);
+    case 128: return launch_flash_wgmma<128>(q, k, v, o, lse, B, S, Tk, H,
+                                             KV, scale, causal, window,
+                                             softcap, st);
+    case 256: return launch_flash_wgmma<256>(q, k, v, o, lse, B, S, Tk, H,
+                                             KV, scale, causal, window,
+                                             softcap, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -436,19 +483,21 @@ int dispatch_wgmma(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// q (B, S, H, hd); k/v (B, T, KV, hd); o (B, S, H, hd); one dtype.
+// q (B, S, H, hd); k/v (B, T, KV, hd); o (B, S, H, hd); one dtype; lse
+// (B, H, S) float32 or null (not written).
 int drt_flash_attention(const void* q, const void* k, const void* v, void* o,
-                        int B, int S, int T, int H, int KV, int hd,
+                        void* lse, int B, int S, int T, int H, int KV, int hd,
                         float scale, int causal, int window, float softcap,
                         int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
+  auto ls = static_cast<float*>(lse);
   if (dtype == drt::kFloat32)
-    return drt::dispatch_hd<float>(q, k, v, o, B, S, T, H, KV, hd, scale,
+    return drt::dispatch_hd<float>(q, k, v, o, ls, B, S, T, H, KV, hd, scale,
                                    causal, window, softcap, st);
   if (dtype == drt::kBFloat16)
-    return drt::dispatch_hd<__nv_bfloat16>(q, k, v, o, B, S, T, H, KV, hd,
-                                           scale, causal, window, softcap,
-                                           st);
+    return drt::dispatch_hd<__nv_bfloat16>(q, k, v, o, ls, B, S, T, H, KV,
+                                           hd, scale, causal, window,
+                                           softcap, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -456,11 +505,11 @@ int drt_flash_attention(const void* q, const void* k, const void* v, void* o,
 // bfloat16 q, k, v, o as drt_flash_attention, 16-byte aligned, on the
 // tensor cores.
 int drt_flash_attention_wgmma(const void* q, const void* k, const void* v,
-                              void* o, int B, int S, int T, int H, int KV,
-                              int hd, float scale, int causal, int window,
-                              float softcap, void* stream) {
-  return drt::dispatch_wgmma(q, k, v, o, B, S, T, H, KV, hd, scale, causal,
-                             window, softcap,
+                              void* o, void* lse, int B, int S, int T, int H,
+                              int KV, int hd, float scale, int causal,
+                              int window, float softcap, void* stream) {
+  return drt::dispatch_wgmma(q, k, v, o, static_cast<float*>(lse), B, S, T,
+                             H, KV, hd, scale, causal, window, softcap,
                              static_cast<cudaStream_t>(stream));
 }
 

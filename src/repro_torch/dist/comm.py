@@ -32,9 +32,11 @@ the cotangent), ``tp_enter`` / ``tp_exit`` (identity forward with an
 all-reduce backward, all-reduce forward with an identity backward: the
 boundaries of a tensor-parallel region), ``tp_scatter`` (a
 reduce-scatter out of such a region onto the rank's block, all-gather
-backward: the mLSTM's q and k onto its heads), ``all_to_all`` (the inverse
-exchange) and ``replicated_output`` (group rank 0's value forward; JAX's
-transpose of an output declared replicated, the cotangent divided by the
+backward: the mLSTM's q and k onto its heads, a row-parallel product onto
+the rank's rows of the sequence), ``keep_block`` (the rank's block of a
+value every rank computed whole, all-gather backward), ``all_to_all`` (the
+inverse exchange) and ``replicated_output`` (group rank 0's value forward;
+JAX's transpose of an output declared replicated, the cotangent divided by the
 group's size, backward).
 
 Each takes the process group of a mesh axis (``launch.mesh.Mesh.group``);
@@ -598,6 +600,32 @@ def tp_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     if group is SELF:
         return x
     return _Scatter.apply(x, dim, group)
+
+
+class _Keep(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, index):
+        ctx.dim, ctx.group = dim, group
+        n = x.shape[dim] // _size(group)
+        return x.narrow(dim, index * n, n).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.dim, ctx.group), None, None, \
+            None
+
+
+def keep_block(x: torch.Tensor, dim: int, group, index: int) -> torch.Tensor:
+    """Block ``index`` (this rank's position in the group) along ``dim``
+    of a value that every rank of the group computed whole: the transpose
+    of :func:`gather_replicated`. The backward all-gathers the blocks'
+    cotangents, so every rank holds the whole cotangent of the whole value,
+    as every rank held it before the value was split (a sub-block computed
+    whole on every model rank, leaving onto the rank's rows of the
+    sequence)."""
+    if group is SELF:
+        return x
+    return _Keep.apply(x, dim, group, index)
 
 
 class _ReplicatedOutput(torch.autograd.Function):

@@ -19,8 +19,10 @@ it only annotates an array for XLA's partitioner and changes no value.
 What JAX's partitioner derives from ``jit`` shardings for a train step,
 the port writes out: :class:`Placement` gathers a rank's blocks on use
 and reduces their gradients, and the model code computes on the shares
-it keeps, each marked with a :class:`Share` (``models.transformer``).
-Serving reuses it: the prefill and decode step take a rank's blocks of
+it keeps, each marked with a :class:`Share` (``models.transformer``);
+where the rules lay "seq" over ``model`` the residual stream keeps the
+rank's rows of each sequence (``Placement.seq_share``: sequence
+parallelism). Serving reuses it: the prefill and decode step take a rank's blocks of
 the parameters, its batch rows and its block of the cache, placed by
 ``CACHE_AXES`` (``shard_cache``; the K/V rows and ``cross_kv``'s encoder
 rows split over ``model``, a :class:`SeqSplit`; a recurrent matrix
@@ -322,10 +324,12 @@ def shard_batch(batch: Dict, mesh):
 
 
 def batch_rows(blocks: Dict, shardings: Dict) -> Dict:
-    """The batch rows a rank serves from its blocks (``shard_batch``):
+    """The batch rows a rank computes from its blocks (``shard_batch``):
     every dim split over ``model`` (the sequence) all-gathered over the
-    model group, so each rank holds its rows' whole prompts (sequence
-    parallelism is not ported)."""
+    model group, so each rank holds its rows' whole sequences, which the
+    model's vocab-parallel embedding, rope angles and loss read (the
+    residual stream then keeps the rank's rows: ``Placement.
+    seq_share``)."""
     out = {}
     for k, t in blocks.items():
         sh = shardings[k]
@@ -395,7 +399,8 @@ def _split_axes(spec) -> Tuple[Tuple[int, Tuple[str, ...]], ...]:
 class Share:
     """The mark :meth:`Placement.materialize` leaves, under the key
     ``"_tp"``, on what stays split over ``model`` for the model code to
-    compute on its share: ``kind`` is "col" (a linear's output columns:
+    compute on its share (and, as "seq", a residual stream's rows of the
+    sequence: ``Placement.seq_share``): ``kind`` is "col" (a linear's output columns:
     column-parallel), "row" (its input rows: row-parallel), "experts" (a
     layer's expert stacks: expert-parallel), "vocab" (the embedding's
     rows, the logits' columns), "inner" (a Mamba-2 or mLSTM sub-block
@@ -498,6 +503,20 @@ class Placement:
         return SeqSplit(self.model_group, self.model_index * rows, rows,
                         length)
 
+    def seq_share(self, length: int) -> Optional[Share]:
+        """The "seq" :class:`Share` of a residual stream of ``length``
+        rows a sequence where the rules lay the sequence over ``model``
+        (JAX's ``constrain(x, "batch", "seq", None)``, shape-aware: None
+        where ``model`` does not divide it, at ``model`` 1, or under
+        ``use_rules({"seq": ()})``): each rank then holds rows
+        ``block(length)`` of every sequence between sub-blocks (sequence
+        parallelism, ``models.transformer``). Read in the caller's thread:
+        the rules are thread-local."""
+        spec = shape_aware_spec((length,), ("seq",), self.mesh)
+        if self.model_size == 1 or _axes_of(spec[0]) != ("model",):
+            return None
+        return self.share("seq")
+
     def spec_at(self, *keys):
         node = self.specs
         for k in keys:
@@ -539,10 +558,17 @@ class Placement:
             return [d for d, axes in _split_axes(spec) if axes == ("model",)]
 
         def walk(node, spec, path):
+            if isinstance(node, dict):
+                held = [k for k, v in node.items()
+                        if isinstance(v, (torch.Tensor, dict))]
+                if any(k not in spec for k in held):
+                    raise KeyError(
+                        f"{'/'.join(path) or 'the tree'}: no spec for "
+                        f"{[k for k in held if k not in spec]} (place a "
+                        f"factorized model by its own specs)")
             if isinstance(node, dict) and "B" in node and "C" in node:
                 return {k: self.use(v, spec[k]) if isinstance(
-                    v, torch.Tensor) and k in spec else v
-                    for k, v in node.items()}
+                    v, torch.Tensor) else v for k, v in node.items()}
             if isinstance(node, dict):
                 stacks = "w" not in node and any(
                     isinstance(v, torch.Tensor) and k in spec

@@ -29,8 +29,10 @@ SOURCES = ("lowrank_matmul", "flash_attention", "decode_attention", "gram")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # a source's own flags: the decode source's 50 kernel instantiations build
-# in parallel (49.7 s in one thread on the card's machine, 22.4 s split)
-SOURCE_FLAGS = {"decode_attention": ("-split-compile", "0")}
+# in parallel (49.7 s in one thread on the card's machine, 22.4 s split),
+# and so do the flash source's 30 (LSE doubled them: 40.0 s in one thread)
+SOURCE_FLAGS = {"decode_attention": ("-split-compile", "0"),
+                "flash_attention": ("-split-compile", "0")}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

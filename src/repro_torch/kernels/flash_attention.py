@@ -13,6 +13,11 @@ tensor-core kernel's TMA copies need (a tensor PyTorch allocates does):
 ``"wgmma"`` (bfloat16 on the tensor cores) and ``"simt"`` (float32 FMA on
 the CUDA cores; float32 operands and the operands the tensor-core kernel
 does not take). ``.launches_by_variant`` counts each.
+
+``return_lse`` sets the kernel's LSE flag: each query row's float32
+log-sum-exp (``m + log(max(l, 1e-30))``, (B, H, S)) is written beside o,
+for the tiled backward (``kernels.ref.flash_bwd_rule``);
+``.launches_lse`` counts those launches.
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ VARIANTS = ("wgmma", "simt")
 def _fn(name: str = "drt_flash_attention"):
     fn = getattr(_build.lib("flash_attention"), name)
     if fn.argtypes is None:
-        fn.argtypes = [P] * 4 + [I] * 6 + [F, I, I, F]
+        fn.argtypes = [P] * 5 + [I] * 6 + [F, I, I, F]
         fn.argtypes += [I, P] if name == "drt_flash_attention" else [P]
         fn.restype = I
     return fn
@@ -66,11 +71,13 @@ def _variant(dtype: torch.dtype, hd: int, aligned: bool = True,
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          softcap: float = 0.0,
-                         variant: Optional[str] = None) -> torch.Tensor:
+                         variant: Optional[str] = None,
+                         return_lse: bool = False):
     """q (B, S, H, hd); k/v (B, T, KV, hd) on the card, one dtype, with
-    H a multiple of KV and hd in HEAD_DIMS -> o (B, S, H, hd). ``variant``
-    ("wgmma" or "simt") forces one that takes these operands, for comparing
-    the two; by default ``_variant`` picks."""
+    H a multiple of KV and hd in HEAD_DIMS -> o (B, S, H, hd), and with
+    ``return_lse`` (o, lse (B, H, S) float32). ``variant`` ("wgmma" or
+    "simt") forces one that takes these operands, for comparing the two;
+    by default ``_variant`` picks."""
     code = _build.check_operands("flash_attention", q, k, v)
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
@@ -82,10 +89,13 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
     variant = _variant(q.dtype, hd, aligned, variant)
     o = torch.empty_like(q)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if q.numel() == 0:
-        return o
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, T,
-            H, KV, hd, hd ** -0.5, int(causal), int(window), float(softcap))
+        return (o, lse) if return_lse else o
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, S, T, H, KV, hd,
+            hd ** -0.5, int(causal), int(window), float(softcap))
     if variant == "wgmma":
         rc = _fn("drt_flash_attention_wgmma")(*args, _build.stream_of(q))
     else:
@@ -93,8 +103,12 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check_rc(rc, f"flash_attention ({variant})")
     flash_attention_bshd.launches += 1
     flash_attention_bshd.launches_by_variant[variant] += 1
+    if return_lse:
+        flash_attention_bshd.launches_lse += 1
+        return o, lse
     return o
 
 
 flash_attention_bshd.launches = 0
 flash_attention_bshd.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+flash_attention_bshd.launches_lse = 0

@@ -13,7 +13,11 @@ read the model's layouts in place.
 ``lowrank_matmul`` and ``flash_attention`` are differentiable through
 ``torch.autograd.Function``s whose backward is the reference formulation of
 ``ops._lowrank_bwd`` / ``ops._flash_bwd`` in the JAX package; the kernels
-stay forward-only. ``decode_attention`` and ``gram`` are inference-only;
+stay forward-only. Where JAX's model takes its tiled attention
+(``_sdpa_flash_jnp``: ``flash_tiled``), the flash forward also keeps each
+row's log-sum-exp (the kernel's LSE flag) and the backward is JAX's tiled
+FlashAttention-2 rule (``ref.flash_bwd_rule``), which never holds an S x T
+tensor. ``decode_attention`` and ``gram`` are inference-only;
 ``gram`` runs the ``gram_blocked`` kernel for the streaming calibrator.
 
 A meta tensor (shapes only, no data) takes the plain version: that is how
@@ -89,12 +93,14 @@ def _pairs(S: int, T: int, causal: bool, window: int) -> int:
 
 
 def flash_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               causal: bool, window: int) -> dict:
+               causal: bool, window: int, lse: bool = False) -> dict:
     """QKᵀ and PV over the full (S, T) tile of every head; the plain
-    version's float32 score tile is written once and read once."""
+    version's float32 score tile is written once and read once; with
+    ``lse`` a float32 row statistic is written too."""
     Bb, S, H, hd = q.shape
     T = k.shape[1]
-    resident = _nb(q, k, v) + q.numel() * q.element_size()
+    resident = (_nb(q, k, v) + q.numel() * q.element_size()
+                + (4 * Bb * H * S if lse else 0))
     return {"flops": 4.0 * Bb * H * S * T * hd,
             "flops_needed": 4.0 * Bb * H * _pairs(S, T, causal, window) * hd,
             "resident": resident, "plain": resident + 2 * Bb * H * S * T * 4}
@@ -233,35 +239,78 @@ def lowrank_matmul(x: torch.Tensor, B: torch.Tensor,
 # ---------------------------------------------------------------------------
 # flash attention
 # ---------------------------------------------------------------------------
-def _flash_fwd_impl(q, k, v, causal, window, softcap):
-    with _kernel_call("flash_attention", q,
-                      lambda: flash_cost(q, k, v, causal, window)) as skip:
+def _flash_fwd_impl(q, k, v, causal, window, softcap, lse=False):
+    """o, or (o, lse) with ``lse`` (the kernel's float32 row statistic,
+    written only when asked for)."""
+    with _kernel_call("flash_attention", q, lambda: flash_cost(
+            q, k, v, causal, window, lse)) as skip:
         if skip:
-            return q.new_empty(q.shape)
+            out = q.new_empty(q.shape)
+            Bb, S, H, _ = q.shape
+            return (out, q.new_empty((Bb, H, S), dtype=torch.float32)
+                    ) if lse else out
         if not _route(q, "flash_attention"):
             return ref.flash_attention(q, k, v, causal=causal,
-                                       window=window, softcap=softcap)
+                                       window=window, softcap=softcap,
+                                       return_lse=lse)
         return flash_attention_bshd(q.contiguous(), k.contiguous(),
                                     v.contiguous(), causal=causal,
-                                    window=window, softcap=softcap)
+                                    window=window, softcap=softcap,
+                                    return_lse=lse)
+
+
+def flash_tiled(S: int, T: int, softcap: float) -> bool:
+    """Whether the backward takes the tiled FlashAttention-2 formulation
+    (``ref.flash_bwd_rule``, and the forward keeps ``lse``): where JAX's
+    model takes ``_sdpa_flash_jnp`` (``ref.use_flash_jnp``, no softcap);
+    elsewhere it recomputes the dense plain version, as JAX's ``_sdpa``
+    differentiates its dense scores."""
+    return not softcap and ref.use_flash_jnp(S, T)
 
 
 class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap):
-        ctx.save_for_backward(q, k, v)
         ctx.opts = (causal, window, softcap)
-        return _flash_fwd_impl(q, k, v, causal, window, softcap)
+        ctx.tiled = flash_tiled(q.shape[1], k.shape[1], softcap)
+        if not ctx.tiled:
+            ctx.save_for_backward(q, k, v)
+            return _flash_fwd_impl(q, k, v, causal, window, softcap)
+        out, lse = _flash_fwd_impl(q, k, v, causal, window, softcap, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, g):
         causal, window, softcap = ctx.opts
+        if ctx.tiled:
+            return (*_flash_bwd_tiled(g, *ctx.saved_tensors, causal,
+                                      window), None, None, None)
         with torch.enable_grad():
             ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
             out = ref.flash_attention(*ins, causal=causal, window=window,
                                       softcap=softcap)
             dq, dk, dv = torch.autograd.grad(out, ins, g)
         return dq, dk, dv, None, None, None
+
+
+def _flash_bwd_tiled(g, q, k, v, out, lse, causal: bool, window: int):
+    """(dq, dk, dv) by ``ref.flash_bwd_rule`` in float32 at JAX's tiles
+    (``_sdpa_flash_jnp``: bq 512, bk 1024, cut to S and T), q pre-scaled
+    as JAX scales it."""
+    Bb, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = hd ** -0.5
+
+    def grouped(t):
+        return t.float().reshape(Bb, S, KV, G, hd)
+    dqg, dk, dv = ref.flash_bwd_rule(
+        causal, window, min(ref.FLASH_BQ, S), min(ref.FLASH_BK, T),
+        grouped(q) * scale, k.float(), v.float(), grouped(out),
+        lse.reshape(Bb, KV, G, S), grouped(g))
+    return ((dqg * scale).reshape(q.shape).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

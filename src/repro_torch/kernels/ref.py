@@ -45,9 +45,12 @@ def _softmax_pv(s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, softcap: float = 0.0,
-                    ) -> torch.Tensor:
+                    return_lse: bool = False):
     """q: (B, S, H, hd); k/v: (B, T, KV, hd); GQA via H = KV*G.
-    Returns (B, S, H, hd)."""
+    Returns (B, S, H, hd); with ``return_lse`` also each row's float32
+    log-sum-exp of its masked scores, ``m + log(max(l, 1e-30))`` as JAX's
+    ``_flash_fwd_pass`` keeps it (its ``(B, KV, G, S)`` as (B, H, S)): what
+    ``flash_bwd_rule`` recomputes the probabilities from."""
     Bb, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -66,7 +69,115 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     vv = v.permute(0, 2, 1, 3)[:, :, None]                    # (B,KV,1,T,hd)
     out = _softmax_pv(s, vv)                                  # (B,KV,G,S,hd)
-    return out.permute(0, 3, 1, 2, 4).reshape(Bb, S, H, hd).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(Bb, S, H, hd).to(q.dtype)
+    if not return_lse:
+        return out
+    m = s.amax(dim=-1)
+    l = torch.exp(s - m[..., None]).sum(dim=-1)
+    return out, (m + torch.log(l.clamp_min(1e-30))).reshape(Bb, H, S)
+
+
+# ---------------------------------------------------------------------------
+# The tiled FlashAttention-2 backward of JAX's model (``repro/models/
+# attention.py``: ``_use_flash_jnp``, ``_tile_mask``, ``_tile_pairs``,
+# ``_flash_bwd_rule``): plain torch ops, as JAX computes it with XLA ops
+# outside any Pallas kernel. Nothing S x T materializes: each (bq, bk) tile
+# of probabilities is recomputed from (q, k, lse).
+# ---------------------------------------------------------------------------
+# JAX's model takes its tiled attention at or above this many scores a
+# (batch, head), in tiles of FLASH_BQ query rows and FLASH_BK keys
+FLASH_THRESHOLD = 1024 * 2048
+FLASH_BQ, FLASH_BK = 512, 1024
+
+
+def use_flash_jnp(S: int, T: int, bq: int = FLASH_BQ,
+                  bk: int = FLASH_BK) -> bool:
+    """JAX's ``_use_flash_jnp``: the tiled path where the score matrix
+    reaches ``FLASH_THRESHOLD`` and the tiles divide S and T."""
+    return (S * T >= FLASH_THRESHOLD
+            and S % min(bq, S) == 0 and T % min(bk, T) == 0)
+
+
+def tile_mask(qi: int, ki: int, bq: int, bk: int, causal: bool,
+              window: int, device=None) -> torch.Tensor:
+    """(bq, bk) bool: which (query, key) pairs of tile (qi, ki) the mask
+    keeps (JAX's ``_tile_mask``)."""
+    qpos = qi * bq + torch.arange(bq, device=device)[:, None]
+    kpos = ki * bk + torch.arange(bk, device=device)[None, :]
+    msk = torch.ones((bq, bk), dtype=torch.bool, device=device)
+    if causal:
+        msk &= kpos <= qpos
+    if window:
+        msk &= kpos > qpos - window
+    return msk
+
+
+def tile_pairs(nq: int, nk: int, bq: int, bk: int, causal: bool,
+               window: int) -> list:
+    """The (q tile, k tile) pairs with a live entry, q-major (JAX's
+    ``_tile_pairs``): a tile that the mask empties is never visited."""
+    pairs = []
+    for qi in range(nq):
+        q_lo, q_hi = qi * bq, qi * bq + bq - 1
+        for ki in range(nk):
+            k_lo, k_hi = ki * bk, ki * bk + bk - 1
+            if causal and k_lo > q_hi:
+                continue
+            if window and k_hi < q_lo - window + 1:
+                continue
+            pairs.append((qi, ki))
+    return pairs
+
+
+def flash_bwd_rule(causal: bool, window: int, bq: int, bk: int,
+                   qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor):
+    """JAX's ``_flash_bwd_rule`` in float32: qg (B, S, KV, G, hd)
+    pre-scaled, k/v (B, T, KV, hd), out and dout (B, S, KV, G, hd), lse
+    (B, KV, G, S). Two passes over the live tiles: k-outer for dk and dv,
+    q-outer for dq, with ``D = Σ dout·out`` a row. Returns (dqg, dk, dv) in
+    qg's, k's and v's dtypes."""
+    B, S, K, G, hd = qg.shape
+    T = k.shape[1]
+    nq, nk = S // bq, T // bk
+    dev = qg.device
+    D = (dout * out).sum(-1).permute(0, 2, 3, 1)              # (B,K,G,S)
+    do_r = dout.permute(0, 2, 3, 1, 4)                        # (B,K,G,S,hd)
+
+    def p_tile(qi, ki):
+        qb = qg[:, qi * bq:(qi + 1) * bq]
+        kb = k[:, ki * bk:(ki + 1) * bk]
+        s = torch.einsum("bqkgh,btkh->bkgqt", qb, kb)
+        msk = tile_mask(qi, ki, bq, bk, causal, window, dev)
+        s = torch.where(msk, s, torch.full_like(s, NEG_INF))
+        return qb, kb, torch.exp(
+            s - lse[..., qi * bq:(qi + 1) * bq, None])     # (B,K,G,bq,bk)
+
+    def ds_tile(p, qi, ki):
+        do_b = do_r[..., qi * bq:(qi + 1) * bq, :]
+        dp = torch.einsum("bkgqh,btkh->bkgqt", do_b,
+                          v[:, ki * bk:(ki + 1) * bk])
+        return do_b, p * (dp - D[..., qi * bq:(qi + 1) * bq, None])
+
+    pairs = tile_pairs(nq, nk, bq, bk, causal, window)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=dev)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=dev)
+    for qi, ki in sorted(pairs, key=lambda p: (p[1], p[0])):  # k-outer
+        qb, _, p = p_tile(qi, ki)
+        do_b, ds = ds_tile(p, qi, ki)
+        dv[:, ki * bk:(ki + 1) * bk] += torch.einsum("bkgqt,bkgqh->btkh",
+                                                     p, do_b)
+        dk[:, ki * bk:(ki + 1) * bk] += torch.einsum("bkgqt,bqkgh->btkh",
+                                                     ds, qb)
+        del p, ds
+    dq = torch.zeros(qg.shape, dtype=torch.float32, device=dev)
+    for qi, ki in pairs:                                      # q-outer
+        _, kb, p = p_tile(qi, ki)
+        _, ds = ds_tile(p, qi, ki)
+        dq[:, qi * bq:(qi + 1) * bq] += torch.einsum("bkgqt,btkh->bqkgh",
+                                                     ds, kb)
+        del p, ds
+    return dq.to(qg.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -14,9 +14,11 @@ The rank holds what the port places on it. A train cell runs the sharded
 step (``train.step.sharded_train_step``): the rank holds its block of every
 parameter and of AdamW's moments under the rules (FSDP over ``pod`` ×
 ``data``, tensor, vocab and expert parallelism over ``model``: what JAX's
-dry-run places, ``memory.rule_state_bytes``), its block of the batch over
-the data axes, and the step's gathers on use, reduce-scatters and
-all-reduces are counted. A prefill or decode cell runs the sharded
+dry-run places, ``memory.rule_state_bytes``), its block of the batch
+(rows over the data axes, the sequence over ``model``, gathered in the
+step: ``dist.sharding.batch_rows``; the residual stream keeps the rank's
+rows of it, sequence parallelism), and the step's gathers on use,
+reduce-scatters and all-reduces are counted. A prefill or decode cell runs the sharded
 serving step (``models.transformer``'s ``prefill`` and ``decode_step``
 under a placement): the rank holds its block of every parameter, its
 block of the batch (rows over the data axes, the sequence over
@@ -29,10 +31,7 @@ recurrent sub-blocks' collectives and the decode attention's state
 all-gathers are counted. Every family serves so (``"placed"`` is
 always true). ``memory.rule_argument_bytes`` gives the per-rank bytes of
 every argument under the sharding rules (``dist.sharding.
-shape_aware_spec``); a serving cell's ``argument_bytes`` equals it, and
-in a train cell it
-differs from ``argument_bytes`` by the batch alone, whose sequence the
-rules also lay over ``model`` (sequence parallelism, not ported).
+shape_aware_spec``); every cell's ``argument_bytes`` equals it.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh single \\
@@ -295,13 +294,10 @@ def account_cell(arch: str, shape_name: str, mesh: Mesh, *,
     if compressed > 0:
         params, specs = factorized_shapes(params, specs, compressed)
     mf = model_flops(cfg, shape, params)
-    dp = ("pod", "data")
     with SH.use_rules(rules or {}, mesh=mesh):
         p_axes = _with_axes(params, specs)
         gbatch = batch_specs(cfg, shape, with_labels=shape.mode == "train")
         b_axes = [(v, SH.batch_axes(k, v)) for k, v in gbatch.items()]
-        batch = {k: _local(v, SH.batch_axes(k, v), mesh, keep=dp)
-                 for k, v in gbatch.items()}
         if shape.mode == "train":
             # the state: params, AdamW's step and float32 mu, nu (sharded
             # as the params), each rank holding its blocks
@@ -313,10 +309,15 @@ def account_cell(arch: str, shape_name: str, mesh: Mesh, *,
             tcfg = TS.TrainConfig(microbatches=microbatches,
                                   optimizer=OptimizerConfig(
                                       total_steps=10 ** 5))
-            fn = TS.make_train_step(cfg, tcfg, mesh=mesh)
-            # the step's own placement of the state, on meta
+            step = TS.make_train_step(cfg, tcfg, mesh=mesh, params=params,
+                                      specs=specs)
+            # the step's own placement of the state and the batch, on meta
             state, _ = TS.shard_state(TS.TrainState(
                 params=params, opt=adamw_init(params)), specs, mesh)
+            batch, bshd = SH.shard_batch(gbatch, mesh)
+
+            def fn(s, b):
+                return step(s, b, bshd)
             args = (state, batch)
         else:
             if shape.mode == "prefill":

@@ -13,8 +13,13 @@ are plain torch ops, as the JAX package computes them with ``_sdpa``,
 outside any Pallas kernel. M-RoPE needs nothing here: its angles arrive
 like RoPE's (``models.rotary``). Under a ``dist.sharding.Placement``
 (sharded training) ``attend_full`` is tensor-parallel over the heads
-where the placement split them. In serving under a placement
-``attend_cross`` reads the rank's rows of a ``cross_kv`` split over
+where the placement split them. Under sequence parallelism (``sp``, the
+residual's "seq" share) ``attend_full``, ``attend_prefill`` and
+``attend_cross`` take and return the rank's rows of the sequence: the
+input all-gathered along it on entry, the output reduce-scattered (heads
+split) or cut to the rank's rows (computed whole) on exit
+(``models.params.enter_region``, ``leave_region``). In serving under a
+placement ``attend_cross`` reads the rank's rows of a ``cross_kv`` split over
 ``model`` and merges the ranks' softmax states.
 
 Serving under a placement with the cache's rows split over ``model`` (a
@@ -60,7 +65,8 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import NEG_INF, merge_states
 from repro_torch.models import rotary
 from repro_torch.models.params import (Builder, apply_linear,
-                                       apply_row_parallel, head_rms_norm)
+                                       apply_row_parallel, enter_region,
+                                       head_rms_norm, leave_region)
 
 
 def init_attention(b: Builder, cfg: ModelConfig,
@@ -116,7 +122,7 @@ def cross_kv(p: Dict, cfg: ModelConfig, enc_out: torch.Tensor
 
 
 def attend_cross(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-                 k: torch.Tensor, v: torch.Tensor, split=None
+                 k: torch.Tensor, v: torch.Tensor, split=None, sp=None
                  ) -> torch.Tensor:
     """Cross-attention of x (B, S, D) to the encoder's K/V (B, T, KV, hd):
     q from x with no rope and no norm, every encoder position visible (an
@@ -130,13 +136,16 @@ def attend_cross(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     one tensor, are merged in rank order with ``kernels.ref.
     merge_states``' arithmetic, as the self-attention's are
     (``_split_decode``). Plain torch ops, as JAX's cross-attention is
-    plain XLA ops."""
+    plain XLA ops. Under ``sp`` x is the rank's rows of the decoder's
+    sequence, and so is the output: the block is computed whole."""
+    x = enter_region(x, None, sp)
     B, S, _ = x.shape
     q = _split_heads(apply_linear(p["wq"], x), cfg.n_heads, cfg.head_dim)
     if split is None:
         mask = torch.ones((B, S, k.shape[1]), dtype=torch.bool,
                           device=x.device)
-        return apply_linear(p["wo"], _sdpa_masked(cfg, q, k, v, mask))
+        return leave_region(apply_linear(
+            p["wo"], _sdpa_masked(cfg, q, k, v, mask)), None, sp)
     hd = q.shape[-1]
     acc, m, l = _cross_state(cfg, q, k, v)
     st = comm.all_gather(torch.cat([acc, m[..., None], l[..., None]],
@@ -203,17 +212,19 @@ def _kv_of_local_heads(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
 
 def attend_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                 angles: Optional[torch.Tensor], *, causal: bool = True,
-                window: int = 0) -> torch.Tensor:
+                window: int = 0, sp=None) -> torch.Tensor:
     """Train/prefill self-attention over the full sequence. Under a
     placement that splits the heads over ``model`` (``wq`` marked
     column-parallel, ``wo`` row-parallel: JAX's ``constrain`` of q, k, v
     and the output over "heads" / "kv_heads"), each rank runs the flash
     kernel on its own heads and the output is summed over ``model``; where
-    the kv heads stay whole, a rank's q heads read their own group's."""
-    B, S, _ = x.shape
+    the kv heads stay whole, a rank's q heads read their own group's.
+    Under ``sp`` (sequence parallelism) x and the output are the rank's
+    rows (``enter_region``, ``leave_region``)."""
     tp = SH.share_of(p["wq"], "col")
+    x = enter_region(x, None if tp is None else tp.group, sp)
+    B, S, _ = x.shape
     if tp is not None:
-        x = comm.tp_enter(x, tp.group)
         p = _tp_replicated(p, tp.group)
     q, k, v = _qkv(p, cfg, x, angles)
     if tp is not None and SH.share_of(p["wk"], "col") is None:
@@ -223,8 +234,8 @@ def attend_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                                cfg.attn_logit_softcap)
     out = out.reshape(B, S, q.shape[2] * cfg.head_dim)
     if tp is not None:
-        return apply_row_parallel(p["wo"], out, tp.group)
-    return apply_linear(p["wo"], out)
+        return apply_row_parallel(p["wo"], out, tp.group, sp)
+    return leave_region(apply_linear(p["wo"], out), None, sp)
 
 
 # ---------------------------------------------------------------------------
@@ -416,7 +427,7 @@ def attend_prefill(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                    angles: Optional[torch.Tensor], *, causal: bool = True,
                    window: int = 0, max_len: int = 0,
                    lengths: Optional[torch.Tensor] = None,
-                   split=None) -> Tuple[torch.Tensor, Dict]:
+                   split=None, sp=None) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence attention that also materializes the decode cache.
 
     Full cache: k/v placed at [0, S) of a (B, max_len, ...) buffer.
@@ -424,12 +435,16 @@ def attend_prefill(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     pos%window. `lengths` (B,) marks per-row live prompt lengths when the
     batch is right-padded; slots past a row's length are zeroed. With
     ``split`` (a ``dist.sharding.SeqSplit`` of the cache's ``window or
-    max_len`` rows) only this rank's block of rows is built."""
+    max_len`` rows) only this rank's block of rows is built. Under ``sp``
+    x and the output are the rank's rows of the prompts; the K/V are
+    every row's, gathered."""
+    x = enter_region(x, None, sp)
     B, S, _ = x.shape
     q, k, v = _qkv(p, cfg, x, angles)
     out = kops.flash_attention(q, k, v, causal, window,
                                cfg.attn_logit_softcap)
-    out = apply_linear(p["wo"], out.reshape(B, S, cfg.q_dim))
+    out = leave_region(apply_linear(p["wo"], out.reshape(B, S, cfg.q_dim)),
+                       None, sp)
     L, start = window if window else max_len, 0
     if split is not None:
         if split.length != L:

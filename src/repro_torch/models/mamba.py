@@ -41,7 +41,8 @@ from repro_torch.dist import comm
 from repro_torch.dist import sharding as SH
 from repro_torch.models import linear_scan as lscan
 from repro_torch.models import ssm
-from repro_torch.models.params import Builder, apply_linear, rms_norm
+from repro_torch.models.params import (Builder, apply_linear,
+                                       enter_region, rms_norm, row_local)
 from repro_torch.models.ssm import _causal_conv
 
 
@@ -80,20 +81,22 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _ssm_inputs(p: Dict, cfg: ModelConfig, x: torch.Tensor, conv_hist=None):
+def _ssm_inputs(p: Dict, cfg: ModelConfig, x: torch.Tensor, conv_hist=None,
+                sp=None):
     """Shared by the full-sequence and decode paths. x: (B,S,d). Returns
     q, k (B,S,Hh,N), v (B,S,Hh,hd), log_f (B,S,Hh) of the heads the rank
     computes (``ssm.local_heads``), z (B,S, its columns), the conv'd
     branch c of those heads' columns, its ``ssm_core`` (``d_skip`` on
     those heads) and the conv history of its columns."""
-    B, S, _ = x.shape
     di, H, hd = _dims(cfg)
     N = cfg.ssm_state
     tp = SH.share_of(p, "inner")
     heads = ssm.local_heads(tp, H)
     core = p["ssm_core"]
-    x, a_log, dt_bias, d_skip = ssm.enter(
-        tp, x, core["a_log"], core["dt_bias"], core["d_skip"])
+    x = enter_region(x, None if tp is None else tp.group, sp)
+    B, S, _ = x.shape
+    a_log, dt_bias, d_skip = ssm.enter(
+        tp, core["a_log"], core["dt_bias"], core["d_skip"])
     u = apply_linear(p["w_in"], x)
     z = apply_linear(p["w_z"], x)
     c, hist = _causal_conv(u, p["conv"], conv_hist)
@@ -119,23 +122,25 @@ def _ssm_inputs(p: Dict, cfg: ModelConfig, x: torch.Tensor, conv_hist=None):
 
 
 def _ssm_out(p: Dict, cfg: ModelConfig, y: torch.Tensor, c: torch.Tensor,
-             d_skip: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+             d_skip: torch.Tensor, z: torch.Tensor, sp=None) -> torch.Tensor:
     """y (B,S,Hh,hd) plus the skip, ``* silu(z)`` on the rank's columns,
     the output projection."""
     tp = SH.share_of(p, "inner")
     B, S = y.shape[:2]
     y = (y + c * d_skip.to(y.dtype)[:, None]).reshape(B, S, -1)
     return ssm.project_out(p["w_out"], tp, ssm.out_columns(
-        tp, y, cfg.n_heads) * F.silu(z))
+        tp, y, cfg.n_heads) * F.silu(z), sp)
 
 
 def apply_ssm(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-              *, chunk: int = 128, return_cache: bool = False):
-    q, k, v, log_f, z, c, d_skip, hist = _ssm_inputs(p, cfg, x)
+              *, chunk: int = 128, return_cache: bool = False, sp=None):
+    """Under ``sp`` x and the output are the rank's rows of the sequence;
+    the scan runs over every row, so the state is the whole run's."""
+    q, k, v, log_f, z, c, d_skip, hist = _ssm_inputs(p, cfg, x, sp=sp)
     li = torch.zeros_like(log_f)
     y, st = lscan.chunked_scan(q, k, v, log_f, li, chunk=chunk,
                                normalize=False)
-    out = _ssm_out(p, cfg, y, c, d_skip, z)
+    out = _ssm_out(p, cfg, y, c, d_skip, z, sp)
     if return_cache:
         return out, {"state": ssm.state_out(p, st, cfg.n_heads),
                      "conv": ssm.hist_out(SH.share_of(p, "inner"), hist)}
@@ -179,8 +184,10 @@ def init_hymba_combine(b: Builder, cfg: ModelConfig,
 
 
 def hymba_combine(p: Dict, cfg: ModelConfig, attn_out: torch.Tensor,
-                  ssm_out: torch.Tensor) -> torch.Tensor:
-    c = p["combine"]
+                  ssm_out: torch.Tensor, sp=None) -> torch.Tensor:
+    """The two heads' outputs normed, gated and averaged, row by row (the
+    rank's rows under ``sp``: its leaves ``row_local``)."""
+    c = row_local(p["combine"], sp)
     a = rms_norm({"scale": c["norm_attn"]}, attn_out, cfg.norm_eps)
     s = rms_norm({"scale": c["norm_ssm"]}, ssm_out, cfg.norm_eps)
     return 0.5 * (c["g_attn"].to(a.dtype) * a + c["g_ssm"].to(s.dtype) * s)

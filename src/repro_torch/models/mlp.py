@@ -61,6 +61,11 @@ MLP and the shared experts are tensor-parallel where the placement left
 ``w_gate``/``w_up`` column- and ``w_down`` row-parallel (JAX's
 ``constrain(h, "batch", None, "mlp")``): each rank computes its columns
 of the hidden layer and its partial output, summed over ``model``.
+Under sequence parallelism (``sp``, the residual's "seq" share) x and the
+output are the rank's rows of the sequence: x all-gathered along it on
+entry, the partial output reduce-scattered onto the rank's rows, and the
+EP body's replicated output cut to them (``models.params.enter_region``,
+``leave_region``).
 """
 from __future__ import annotations
 
@@ -75,7 +80,8 @@ from repro_torch.dist import comm
 from repro_torch.dist import sharding as SH
 from repro_torch.dist.sharding import current_mesh
 from repro_torch.models.params import (Builder, apply_linear,
-                                       apply_row_parallel, get_capture)
+                                       apply_row_parallel, enter_region,
+                                       get_capture, leave_region, row_local)
 
 
 # ---------------------------------------------------------------------------
@@ -108,21 +114,21 @@ def _tp_group(p: Dict):
     return None if s is None else s.group
 
 
-def apply_mlp(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+              sp=None) -> torch.Tensor:
     """The dense FFN. Under tensor parallelism each rank computes its
     columns of the hidden layer and its partial output, summed over
-    ``model``."""
+    ``model`` (under ``sp`` onto the rank's rows)."""
     group = _tp_group(p)
-    if group is not None:
-        x = comm.tp_enter(x, group)
+    x = enter_region(x, group, sp)
     if "w_gate" in p:
         act = _gelu if cfg.mlp_kind == "geglu" else F.silu
         h = act(apply_linear(p["w_gate"], x)) * apply_linear(p["w_up"], x)
     else:
         h = _gelu(apply_linear(p["w_up"], x))
     if group is not None:
-        return apply_row_parallel(p["w_down"], h, group)
-    return apply_linear(p["w_down"], h)
+        return apply_row_parallel(p["w_down"], h, group, sp)
+    return leave_region(apply_linear(p["w_down"], h), None, sp)
 
 
 # ---------------------------------------------------------------------------
@@ -290,12 +296,14 @@ def _moe_local(p: Dict, m: MoEConfig, x: torch.Tensor, ep: int = 1,
     return out, aux
 
 
-def apply_moe(p: Dict, cfg: ModelConfig,
-              x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def apply_moe(p: Dict, cfg: ModelConfig, x: torch.Tensor, sp=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out, aux_loss). ``p`` is a layer's tree holding
-    ``moe`` (and ``moe_shared`` when the config has shared experts)."""
+    ``moe`` (and ``moe_shared`` when the config has shared experts).
+    Under ``sp`` x and out are the rank's rows of the sequence; the
+    router and the experts see every row."""
     m = cfg.moe
-    B, S, D = x.shape
+    D = x.shape[-1]
     moe_p = p["moe"]
     pp = {"router": moe_p["router"]["w"],
           **{k: moe_p[k] for k in ("w_gate", "w_up", "w_down")}}
@@ -312,26 +320,29 @@ def apply_moe(p: Dict, cfg: ModelConfig,
         # JAX's body is a shard_map with x and the router replicated over
         # ``model`` (their gradients summed over it) and no capture tag
         pp["router"] = comm.tp_enter(pp["router"], group)
-        out, aux = _moe_local(pp, m, comm.tp_enter(x, group).reshape(-1, D),
-                              ep, group)
+        xe = enter_region(x, group, sp)
+        out, aux = _moe_local(pp, m, xe.reshape(-1, D), ep, group)
         # the output is replicated over ``model``, and the model ranks'
         # copies differ where their duplicate rows lost capacity: JAX
         # returns device 0's, so every model rank takes model rank 0's
         out = comm.replicated_output(out, group)
         aux = comm.replicated_output(aux, group)
     else:
-        out, aux = _moe_local(pp, m, x.reshape(-1, D),
+        xe = enter_region(x, None, sp)
+        out, aux = _moe_local(pp, m, xe.reshape(-1, D),
                               tag=moe_p.get("_tag"))
-    out = out.reshape(B, S, D)
+    out = leave_region(out.reshape(xe.shape), None, sp)
     if m.num_shared:
         sh = p["moe_shared"]
         group = _tp_group(sh)
-        xs = x if group is None else comm.tp_enter(x, group)
+        xs = enter_region(x, group, sp)
         g = (F.silu(apply_linear(sh["w_gate"], xs))
              * apply_linear(sh["w_up"], xs))
-        shared_out = (apply_linear(sh["w_down"], g) if group is None
-                      else apply_row_parallel(sh["w_down"], g, group))
-        sgate = torch.sigmoid(apply_linear(sh["shared_gate"], x))
+        shared_out = (leave_region(apply_linear(sh["w_down"], g), None, sp)
+                      if group is None
+                      else apply_row_parallel(sh["w_down"], g, group, sp))
+        sgate = torch.sigmoid(apply_linear(row_local(sh["shared_gate"], sp),
+                                           x))
         out = out + sgate * shared_out
     return out, aux
 

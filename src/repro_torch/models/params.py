@@ -136,15 +136,68 @@ def apply_linear(p: Params, x: torch.Tensor, dtype=None) -> torch.Tensor:
     return y
 
 
-def apply_row_parallel(p: Params, x: torch.Tensor, group) -> torch.Tensor:
+def enter_region(x: torch.Tensor, group, sp=None) -> torch.Tensor:
+    """A sub-block's input x (B, S, D) under a placement. ``group``: the
+    model group of a tensor-parallel sub-block (each rank computes its
+    share, its cotangent of x is partial), None for one computed whole;
+    ``sp``: the residual's "seq" share (``dist.sharding.Placement.
+    seq_share``), x then the rank's rows. Without ``sp``, ``comm.
+    tp_enter`` (TP) or x itself; with it, x all-gathered along the
+    sequence, with a reduce-scatter backward for TP (``comm.gather``:
+    the ranks' partial cotangents summed onto each rank's rows) and a
+    narrowing one for a whole sub-block (``comm.gather_replicated``:
+    every rank holds the whole cotangent, ``leave_region``)."""
+    if sp is None:
+        return x if group is None else comm.tp_enter(x, group)
+    if group is None:
+        return comm.gather_replicated(x, 1, sp.group, sp.index)
+    return comm.gather(x, 1, sp.group)
+
+
+def leave_region(y: torch.Tensor, group, sp=None) -> torch.Tensor:
+    """A sub-block's output onto the residual (``enter_region``'s
+    counterpart): a TP sub-block's partial sums over ``group`` all-reduced
+    (``comm.tp_exit``), or with ``sp`` reduce-scattered onto the rank's
+    rows (``comm.tp_scatter``, all-gather backward); a whole sub-block's
+    output as it is, or with ``sp`` the rank's rows of it
+    (``comm.keep_block``, all-gather backward)."""
+    if sp is None:
+        return y if group is None else comm.tp_exit(y, group)
+    if group is None:
+        return comm.keep_block(y, 1, sp.group, sp.index)
+    return comm.tp_scatter(y, 1, sp.group)
+
+
+def row_local(t, sp=None):
+    """A leaf that every model rank holds whole and applies to its own
+    rows of the sequence alone (a norm's scale, a bias added after a
+    reduce-scatter; a tree of them): with ``sp`` through ``comm.tp_enter``,
+    so its gradient, each rank's rows' part, is summed over ``model``."""
+    if sp is None:
+        return t
+    if isinstance(t, dict):
+        return {k: row_local(v, sp) for k, v in t.items()}
+    if isinstance(t, torch.Tensor):
+        return comm.tp_enter(t, sp.group)
+    return t
+
+
+def apply_row_parallel(p: Params, x: torch.Tensor, group,
+                       sp=None) -> torch.Tensor:
     """A row-parallel linear (its input rows split over ``group``, x this
     rank's share of the features): the partial products summed over the
-    group (``comm.tp_exit``), the bias added once after the sum."""
-    y = comm.tp_exit(apply_linear({k: v for k, v in p.items() if k != "b"},
-                                  x), group)
+    group (``leave_region``: all-reduced, or reduce-scattered onto the
+    rank's rows under ``sp``), the bias added once after the sum."""
+    y = leave_region(apply_linear({k: v for k, v in p.items() if k != "b"},
+                                  x), group, sp)
     if "b" in p:
-        y = y + p["b"].to(y.dtype)
+        y = y + row_local(p["b"], sp).to(y.dtype)
     return y
+
+
+def norm(p: Params, x: torch.Tensor, eps: float, sp=None) -> torch.Tensor:
+    """``rms_norm`` of the residual's rows, the scale ``row_local``."""
+    return rms_norm(row_local(p, sp), x, eps)
 
 
 def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -56,7 +56,8 @@ from repro_torch.dist import sharding as SH
 from repro_torch.models import linear_scan as lscan
 from repro_torch.models.mlp import _gelu
 from repro_torch.models.params import (Builder, apply_linear,
-                                       apply_row_parallel, head_rms_norm)
+                                       apply_row_parallel, enter_region,
+                                       head_rms_norm, leave_region)
 
 
 # ---------------------------------------------------------------------------
@@ -145,12 +146,13 @@ def out_columns(tp: Optional[SH.Share], y: torch.Tensor,
     return y[..., tp.block(y.shape[-1])]
 
 
-def project_out(p: Dict, tp: Optional[SH.Share], y: torch.Tensor
-                ) -> torch.Tensor:
-    """The output projection: row-parallel on the rank's columns."""
+def project_out(p: Dict, tp: Optional[SH.Share], y: torch.Tensor,
+                sp=None) -> torch.Tensor:
+    """The output projection: row-parallel on the rank's columns; under
+    ``sp`` onto the rank's rows of the sequence."""
     if tp is None:
-        return apply_linear(p, y)
-    return apply_row_parallel(p, y, tp.group)
+        return leave_region(apply_linear(p, y), None, sp)
+    return apply_row_parallel(p, y, tp.group, sp)
 
 
 def conv_in(tp: Optional[SH.Share], hist: torch.Tensor) -> torch.Tensor:
@@ -202,16 +204,17 @@ def hist_out(tp: Optional[SH.Share], hist: torch.Tensor) -> torch.Tensor:
 
 
 def _mlstm_qkvif(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-                 conv_hist=None):
+                 conv_hist=None, sp=None):
     """q, k, v (B, S, Hh, hd) of the heads the rank computes, the gates
     li, lf (B, S, Hh), z (B, S, its columns), the conv history of its
     columns."""
-    B, S, _ = x.shape
     H = cfg.n_heads
     di, hd = _inner(cfg)
     tp = SH.share_of(p, "inner")
     heads = local_heads(tp, H)
-    x, b_if = enter(tp, x, p["gate_bias"]["b_if"])
+    x = enter_region(x, None if tp is None else tp.group, sp)
+    B, S, _ = x.shape
+    b_if, = enter(tp, p["gate_bias"]["b_if"])
     u = apply_linear(p["w_up"], x)
     z = apply_linear(p["w_gate"], x)
     c, hist = _causal_conv(u, p["conv"], conv_hist)
@@ -236,7 +239,7 @@ def _mlstm_qkvif(p: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _mlstm_out(p: Dict, cfg: ModelConfig, y: torch.Tensor,
-               z: torch.Tensor) -> torch.Tensor:
+               z: torch.Tensor, sp=None) -> torch.Tensor:
     """The per-head norm of the scan's output (B, S, Hh, hd), ``*
     silu(z)`` on the rank's columns and the down projection."""
     tp = SH.share_of(p, "inner")
@@ -244,14 +247,16 @@ def _mlstm_out(p: Dict, cfg: ModelConfig, y: torch.Tensor,
     norm, = enter(tp, p["head_norm"])
     y = head_rms_norm(norm, y, cfg.norm_eps).reshape(B, S, -1)
     return project_out(p["w_down"], tp,
-                       out_columns(tp, y, cfg.n_heads) * F.silu(z))
+                       out_columns(tp, y, cfg.n_heads) * F.silu(z), sp)
 
 
 def apply_mlstm(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-                *, chunk: int = 128, return_cache: bool = False):
-    q, k, v, li, lf, z, hist = _mlstm_qkvif(p, cfg, x)
+                *, chunk: int = 128, return_cache: bool = False, sp=None):
+    """Under ``sp`` x and the output are the rank's rows of the sequence;
+    the scan runs over every row, so the state is the whole run's."""
+    q, k, v, li, lf, z, hist = _mlstm_qkvif(p, cfg, x, sp=sp)
     y, st = lscan.chunked_scan(q, k, v, lf, li, chunk=chunk, normalize=True)
-    out = _mlstm_out(p, cfg, y, z)
+    out = _mlstm_out(p, cfg, y, z, sp)
     if return_cache:
         return out, {"state": state_out(p, st, cfg.n_heads),
                      "conv": hist_out(SH.share_of(p, "inner"), hist)}
@@ -348,38 +353,41 @@ def init_slstm_cache(cfg: ModelConfig, batch: int, dtype,
             "m": z(torch.float32)}
 
 
-def _slstm_ffn(p: Dict, x: torch.Tensor) -> torch.Tensor:
+def _slstm_ffn(p: Dict, x: torch.Tensor, sp=None) -> torch.Tensor:
     """The GeGLU FFN; column- then row-parallel where a placement left
     ``ff_down`` row-parallel (JAX's ``constrain(h, "batch", None,
-    "mlp")``)."""
+    "mlp")``). x is whole (the cell's output); under ``sp`` the output is
+    the rank's rows of the sequence."""
     tp = SH.share_of(p["ff_down"], "row")
     if tp is not None:
         x = comm.tp_enter(x, tp.group)
     h = _gelu(apply_linear(p["ff_gate"], x)) * apply_linear(p["ff_up"], x)
     if tp is None:
-        return apply_linear(p["ff_down"], h)
-    return apply_row_parallel(p["ff_down"], h, tp.group)
+        return leave_region(apply_linear(p["ff_down"], h), None, sp)
+    return apply_row_parallel(p["ff_down"], h, tp.group, sp)
 
 
-def _slstm_pre(p: Dict, x: torch.Tensor) -> torch.Tensor:
+def _slstm_pre(p: Dict, x: torch.Tensor, sp=None) -> torch.Tensor:
     """The cell's input pre-activations (..., 4d): where ``w_in`` is
     column-parallel, the rank's columns all-gathered over ``model`` for
-    the replicated cell."""
+    the replicated cell. Under ``sp`` x is the rank's rows of the
+    sequence, and the pre-activations are every row's."""
     tp = SH.share_of(p["w_in"], "col")
     if tp is None:
-        pre = apply_linear(p["w_in"], x)
+        pre = apply_linear(p["w_in"], enter_region(x, None, sp))
     else:
         pre = comm.gather_replicated(apply_linear(
-            p["w_in"], comm.tp_enter(x, tp.group)), x.dim() - 1, tp.group,
-            tp.index)
+            p["w_in"], enter_region(x, tp.group, sp)), x.dim() - 1,
+            tp.group, tp.index)
     return pre + p["bias"]["b"].to(x.dtype)
 
 
 def apply_slstm(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-                *, return_cache: bool = False):
-    """Full-sequence sLSTM: a Python loop over time."""
-    B, S, d = x.shape
-    pre = _slstm_pre(p, x)
+                *, return_cache: bool = False, sp=None):
+    """Full-sequence sLSTM: a Python loop over time (under ``sp`` over
+    every row of the sequence; x and the output are the rank's rows)."""
+    pre = _slstm_pre(p, x, sp)
+    B, S, d = pre.shape[0], pre.shape[1], x.shape[-1]
     st = init_slstm_cache(cfg, B, x.dtype, x.device)
     hs = []
     for t in range(S):
@@ -387,7 +395,7 @@ def apply_slstm(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         hs.append(h)
     y = torch.stack(hs, dim=1)                            # (B,S,H,hd)
     y = head_rms_norm(p["head_norm"], y, cfg.norm_eps).reshape(B, S, d)
-    out = _slstm_ffn(p, y)
+    out = _slstm_ffn(p, y, sp)
     if return_cache:
         return out, st
     return out

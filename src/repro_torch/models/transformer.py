@@ -40,10 +40,27 @@ logits and the loss are vocab-parallel where the vocab splits over
 rank's share (``_tp_keep``; each share marked with a
 ``dist.sharding.Share``, which carries the model group); no weight split
 over ``model`` is gathered over it but cross-attention's, which is
-computed whole on every model rank. The residual stream stays replicated
-over ``model``: JAX's ``constrain(x, "batch", "seq", None)`` also lays
-its sequence over ``model``, a layout that changes no number (sequence
-parallelism, not ported).
+computed whole on every model rank. The residual stream lays its
+sequence over ``model`` as JAX's ``constrain(x, "batch", "seq", None)``
+does (sequence parallelism, where the rules resolve "seq" to ``model``
+and it divides S: ``dist.sharding.Placement.seq_share``; under
+``use_rules({"seq": ()})`` the stream stays replicated, the same
+numbers): between sub-blocks each rank holds its rows of every sequence,
+and the residual adds and the norms run on them (a norm's scale through
+``models.params.row_local``: its gradient summed over ``model``). Each
+sub-block all-gathers its normed input along the sequence on entry and
+leaves onto the rank's rows (``models.params.enter_region``,
+``leave_region``): Megatron's pairing, an all-gather in and a
+reduce-scatter out, where the sub-block computes on shares (TP MLPs and
+attention, the recurrent sub-blocks' row-parallel output projections;
+EP's input); an all-gather in and the rank's rows of the output, whose
+cotangent is all-gathered back, where it is computed whole on every model
+rank (attention whose heads do not split, cross-attention, a factorized
+sub-block, EP's replicated output). The embedding's vocab-parallel sum is
+reduce-scattered onto the rank's rows; the final rows are all-gathered
+again for the vocab-parallel logits and loss, which read every row of the
+batch (``dist.sharding.batch_rows``). The prefill takes the same path and
+its last live rows come from the ranks that hold them.
 
 ``prefill`` and ``decode_step`` take a placement too (serving with
 sharded parameters, JAX's ``lower_cell`` shardings), for every family: a
@@ -96,7 +113,8 @@ from repro_torch.models.attention import (attend_cross, attend_decode,
                                           paged_write_index)
 from repro_torch.models.mlp import apply_mlp, apply_moe, init_mlp, init_moe
 from repro_torch.models.params import (Builder, Params, apply_linear,
-                                       rms_norm, softcap)
+                                       enter_region, leave_region, norm,
+                                       rms_norm, row_local, softcap)
 
 KINDS = ("attn", "swa", "hymba", "hymba_g", "mlstm", "slstm")
 # kinds whose layers carry recurrent state: prompts cannot be right-padded
@@ -254,51 +272,56 @@ def _kind_window(cfg: ModelConfig, kind: str) -> int:
 # ---------------------------------------------------------------------------
 # Full-sequence block application (train / eval)
 # ---------------------------------------------------------------------------
-def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor
+def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, sp=None
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x plus the layer's FFN (MoE or dense) of ``ln2(x)``; x itself for a
     layer without one (the xLSTM kinds). Returns (x, the MoE aux loss, or
-    None for a layer without MoE)."""
+    None for a layer without MoE). ``sp``: x is the rank's rows of the
+    sequence (sequence parallelism)."""
     if "moe" in p:
-        out, aux = apply_moe(p, cfg, rms_norm(p["ln2"], x, cfg.norm_eps))
+        out, aux = apply_moe(p, cfg, norm(p["ln2"], x, cfg.norm_eps, sp),
+                             sp)
         return x + out, aux
     if "mlp" in p:
-        x = x + apply_mlp(p["mlp"], cfg, rms_norm(p["ln2"], x, cfg.norm_eps))
+        x = x + apply_mlp(p["mlp"], cfg,
+                          norm(p["ln2"], x, cfg.norm_eps, sp), sp)
     return x, None
 
 
 def _cross(p: Params, cfg: ModelConfig, x: torch.Tensor,
-           kv: Tuple[torch.Tensor, torch.Tensor], split=None
+           kv: Tuple[torch.Tensor, torch.Tensor], split=None, sp=None
            ) -> torch.Tensor:
     """x plus the layer's cross-attention of ``ln_cross(x)`` to the
     encoder's (k, v), (B, T_enc, KV, hd) each (with ``split``, a
     ``dist.sharding.SeqSplit``: this rank's rows of them)."""
     return x + attend_cross(p["cross"], cfg,
-                            rms_norm(p["ln_cross"], x, cfg.norm_eps), *kv,
-                            split=split)
+                            norm(p["ln_cross"], x, cfg.norm_eps, sp), *kv,
+                            split=split, sp=sp)
 
 
 def _block_fwd(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
                angles: Optional[torch.Tensor], causal: bool,
-               enc_out: Optional[torch.Tensor] = None
+               enc_out: Optional[torch.Tensor] = None, sp=None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Returns (x, moe_aux or None)."""
-    h = rms_norm(p["ln1"], x, cfg.norm_eps)
+    """Returns (x, moe_aux or None). ``sp``: x is the rank's rows of the
+    sequence, and so is the result (sequence parallelism)."""
+    h = norm(p["ln1"], x, cfg.norm_eps, sp)
     win = _kind_window(cfg, kind)
     if kind in ("attn", "swa"):
         x = x + attend_full(p["attn"], cfg, h, angles, causal=causal,
-                            window=win)
+                            window=win, sp=sp)
     elif kind in ("hymba", "hymba_g"):
-        a = attend_full(p["attn"], cfg, h, angles, causal=causal, window=win)
-        s = mamba.apply_ssm(p["ssm"], cfg, h)
-        x = x + mamba.hymba_combine(p, cfg, a, s)
+        a = attend_full(p["attn"], cfg, h, angles, causal=causal, window=win,
+                        sp=sp)
+        s = mamba.apply_ssm(p["ssm"], cfg, h, sp=sp)
+        x = x + mamba.hymba_combine(p, cfg, a, s, sp)
     elif kind == "mlstm":
-        x = x + ssm.apply_mlstm(p["mlstm"], cfg, h)
+        x = x + ssm.apply_mlstm(p["mlstm"], cfg, h, sp=sp)
     elif kind == "slstm":
-        x = x + ssm.apply_slstm(p["slstm"], cfg, h)
+        x = x + ssm.apply_slstm(p["slstm"], cfg, h, sp=sp)
     if "ln_cross" in p and enc_out is not None:
-        x = _cross(p, cfg, x, cross_kv(p["cross"], cfg, enc_out))
-    return _ffn(p, cfg, x)
+        x = _cross(p, cfg, x, cross_kv(p["cross"], cfg, enc_out), sp=sp)
+    return _ffn(p, cfg, x, sp)
 
 
 # "dots": keep the matmul outputs through the rematerialized block (JAX's
@@ -426,11 +449,13 @@ def _run_layers(run_p: Any, n: int, x: torch.Tensor, body,
 # Embedding / head
 # ---------------------------------------------------------------------------
 def embed_tokens(params: Params, cfg: ModelConfig,
-                 tokens: torch.Tensor) -> torch.Tensor:
+                 tokens: torch.Tensor, sp=None) -> torch.Tensor:
     """The token rows of ``embed``. Under a placement that splits the
     vocab over ``model`` (``params`` marked "vocab"; ``embed`` is this
     rank's block of rows), each rank looks up the tokens it owns, zeros
-    elsewhere, and the rows are summed over ``model``."""
+    elsewhere, and the rows are summed over ``model``: all-reduced, or
+    under ``sp`` (sequence parallelism) reduce-scattered onto the rank's
+    rows of the sequence, which is what ``sp`` returns otherwise too."""
     emb = params["embed"].to(dtype_of(cfg.dtype))
     tokens = tokens.to(device=emb.device, dtype=torch.long)
     vocab = SH.share_of(params, "vocab")
@@ -438,30 +463,32 @@ def embed_tokens(params: Params, cfg: ModelConfig,
         vl = emb.shape[0]
         t = tokens - vocab.index * vl
         x = emb[t.clamp(0, vl - 1)]
-        x = comm.tp_exit(torch.where(((t >= 0) & (t < vl))[..., None], x,
-                                     torch.zeros_like(x)), vocab.group)
+        x = leave_region(torch.where(((t >= 0) & (t < vl))[..., None], x,
+                                     torch.zeros_like(x)), vocab.group, sp)
     else:
-        x = emb[tokens]
+        if sp is not None:
+            tokens = tokens[:, sp.block(tokens.shape[1])]
+        x = row_local(emb, sp)[tokens]
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
 
 
 def lm_logits(params: Params, cfg: ModelConfig,
-              x: torch.Tensor) -> torch.Tensor:
+              x: torch.Tensor, sp=None) -> torch.Tensor:
     """The logits of the last hidden rows; under a placement that splits
     the vocab over ``model``, this rank's block of the vocab (the tied
-    ``embed``'s rows or ``lm_head``'s columns)."""
-    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    ``embed``'s rows or ``lm_head``'s columns). Under ``sp`` x is the
+    rank's rows of the sequence, normed there and all-gathered: the
+    logits are every row's (``models.params.enter_region``)."""
+    x = norm(params["final_norm"], x, cfg.norm_eps, sp)
     if cfg.tie_embeddings:
         vocab = SH.share_of(params, "vocab")
-        if vocab is not None:
-            x = comm.tp_enter(x, vocab.group)
+        x = enter_region(x, None if vocab is None else vocab.group, sp)
         logits = x @ params["embed"].to(x.dtype).T
     else:
         vocab = SH.share_of(params["lm_head"], "col")
-        if vocab is not None:
-            x = comm.tp_enter(x, vocab.group)
+        x = enter_region(x, None if vocab is None else vocab.group, sp)
         logits = apply_linear(params["lm_head"], x)
     return softcap(logits, cfg.logit_softcap)
 
@@ -482,18 +509,34 @@ def _tokens(batch: Dict, device: torch.device) -> torch.Tensor:
 
 
 def _embed_input(params: Params, cfg: ModelConfig, batch: Dict,
-                 device: torch.device) -> torch.Tensor:
+                 device: torch.device, sp=None) -> torch.Tensor:
     """The decoder's input rows: ``embeds`` in the compute dtype when the
     batch has them (the frontend stub), else the token embedding; an
-    encoder-decoder model adds the sinusoidal positions."""
+    encoder-decoder model adds the sinusoidal positions. Under ``sp`` the
+    rank's rows of the sequence."""
     if "embeds" in batch:
         x = torch.as_tensor(batch["embeds"], device=device).to(
             dtype_of(cfg.dtype))
+        if sp is not None:
+            x = x[:, sp.block(x.shape[1])]
     else:
-        x = embed_tokens(params, cfg, _tokens(batch, device))
+        x = embed_tokens(params, cfg, _tokens(batch, device), sp)
     if cfg.is_encoder_decoder:
-        x = _add_sinusoidal(cfg, x)
+        x = _add_sinusoidal(cfg, x, None if sp is None else _rows_pos(x, sp))
     return x
+
+
+def _seq_len(batch: Dict) -> int:
+    """The decoder's sequence length of a batch."""
+    return (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[1]
+
+
+def _rows_pos(x: torch.Tensor, sp) -> torch.Tensor:
+    """(B, S_local) positions of the rank's rows x (B, S_local, ...) of
+    sequences of ``S_local · sp.size`` rows."""
+    B, S = x.shape[0], x.shape[1]
+    return (torch.arange(S, device=x.device)
+            + sp.index * S)[None].expand(B, S)
 
 
 def _add_sinusoidal(cfg: ModelConfig, x: torch.Tensor,
@@ -509,17 +552,19 @@ def _add_sinusoidal(cfg: ModelConfig, x: torch.Tensor,
 def _stack_forward(stack_p: Params, cfg: ModelConfig, x: torch.Tensor,
                    positions: Optional[torch.Tensor],
                    enc_out: Optional[torch.Tensor], causal: bool,
-                   placement: Optional[SH.Placement] = None, spec=None
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   placement: Optional[SH.Placement] = None, spec=None,
+                   sp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every run of ``cfg``'s stack over x (``spec``: the stack's spec tree
-    under a ``placement``). Returns (x, the MoE aux sum)."""
+    under a ``placement``; ``sp``: x is the rank's rows of the sequence).
+    Returns (x, the MoE aux sum)."""
     aux = torch.zeros((), device=x.device)
     for r, (kind, n) in enumerate(cfg.layer_runs()):
         angles = _angles_for(cfg, kind, positions)
         x, aux = _run_layers(
             stack_p[f"run{r}"], n, x,
             lambda pl, xx, kind=kind, angles=angles: _block_fwd(
-                kind, cfg, pl, xx, angles, causal=causal, enc_out=enc_out),
+                kind, cfg, pl, xx, angles, causal=causal, enc_out=enc_out,
+                sp=sp),
             cfg, aux, placement, None if spec is None else spec[f"run{r}"])
     return x, aux
 
@@ -535,17 +580,24 @@ def encode(params: Params, cfg: ModelConfig, batch: Dict, *,
     sinusoidal positions, non-causal self-attention (the flash kernel),
     ``enc_norm``. Returns (B, T, D). ``placement``: as ``forward``'s."""
     dev = _params_device(params)
+    src = batch["enc_embeds"] if "enc_embeds" in batch else batch[
+        "enc_tokens"]
+    sp = None if placement is None else placement.seq_share(src.shape[1])
     if "enc_embeds" in batch:
         x = torch.as_tensor(batch["enc_embeds"], device=dev).to(
             dtype_of(cfg.dtype))
+        if sp is not None:
+            x = x[:, sp.block(x.shape[1])]
     else:
         x = embed_tokens(params, cfg, torch.as_tensor(batch["enc_tokens"],
-                                                      device=dev))
-    x = _add_sinusoidal(cfg, x)
+                                                      device=dev), sp)
+    x = _add_sinusoidal(cfg, x, None if sp is None else _rows_pos(x, sp))
     x, _ = _stack_forward(params["encoder"], encoder_config(cfg), x, None,
                           None, causal=False, placement=placement,
-                          spec=_stack_spec(placement, "encoder"))
-    return rms_norm(params["encoder"]["enc_norm"], x, cfg.norm_eps)
+                          spec=_stack_spec(placement, "encoder"), sp=sp)
+    x = norm(params["encoder"]["enc_norm"], x, cfg.norm_eps, sp)
+    # every row, to every decoder layer's cross block (computed whole)
+    return x if sp is None else enter_region(x, None, sp)
 
 
 # ---------------------------------------------------------------------------
@@ -577,21 +629,25 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict, *,
             ) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence forward. Returns (logits (B,S,V), aux). Under a
     ``dist.sharding.Placement`` (``placement``) ``params`` are this rank's
-    blocks and the logits this rank's block of the vocab where the vocab
-    splits over ``model``."""
+    blocks, ``batch`` its rows (whole sequences), and the logits this
+    rank's block of the vocab where the vocab splits over ``model``; the
+    residual stream between sub-blocks holds the rank's rows of each
+    sequence where the rules lay it over ``model`` (the module's note)."""
     check_supported(cfg)
     pl = placement
+    sp = None
     if pl is not None:
         params = _use_top(pl, params)
+        sp = pl.seq_share(_seq_len(batch))
     dev = _params_device(params)
     enc_out = (encode(params, cfg, batch, placement=pl)
                if cfg.is_encoder_decoder else None)
-    x = _embed_input(params, cfg, batch, dev)
+    x = _embed_input(params, cfg, batch, dev, sp)
     positions = _default_positions(cfg, batch, dev)
     x, aux = _stack_forward(params["decoder"], cfg, x, positions, enc_out,
                             causal=True, placement=pl,
-                            spec=_stack_spec(pl, "decoder"))
-    logits = lm_logits(params, cfg, x)
+                            spec=_stack_spec(pl, "decoder"), sp=sp)
+    logits = lm_logits(params, cfg, x, sp)
     return logits, {"moe_aux": aux}
 
 
@@ -904,43 +960,46 @@ def _block_prefill(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
                    angles: Optional[torch.Tensor], max_len: int,
                    lengths: Optional[torch.Tensor],
                    enc_out: Optional[torch.Tensor] = None, split=None,
-                   cross_split=None) -> Tuple[torch.Tensor, Dict]:
+                   cross_split=None, sp=None) -> Tuple[torch.Tensor, Dict]:
     """One layer of the prefill: (x, the layer's cache). A cross block's
     K/V of ``enc_out`` are computed once, attended to and kept as the
     layer's ``cross_kv`` (JAX applies wk/wv twice, to the same numbers);
     with ``cross_split`` the cache keeps the rank's rows of them. Under a
-    placement every leaf of the layer's cache is the rank's block."""
+    placement every leaf of the layer's cache is the rank's block; under
+    ``sp`` x is the rank's rows of the prompts, and each sub-block
+    gathers every row (the K/V and a recurrent state are the whole
+    prompt's)."""
     cache: Dict[str, Any] = {}
-    h = rms_norm(p["ln1"], x, cfg.norm_eps)
+    h = norm(p["ln1"], x, cfg.norm_eps, sp)
     win = _kind_window(cfg, kind)
     if kind in _ATTN:
         a, cache["kv"] = attend_prefill(p["attn"], cfg, h, angles,
                                         causal=True, window=win,
                                         max_len=max_len, lengths=lengths,
-                                        split=split)
+                                        split=split, sp=sp)
     if kind in ("attn", "swa"):
         x = x + a
     elif kind in ("hymba", "hymba_g"):
         s, cache["ssm"] = mamba.apply_ssm(p["ssm"], cfg, h,
-                                          return_cache=True)
-        x = x + mamba.hymba_combine(p, cfg, a, s)
+                                          return_cache=True, sp=sp)
+        x = x + mamba.hymba_combine(p, cfg, a, s, sp)
     elif kind == "mlstm":
         out, cache["mlstm"] = ssm.apply_mlstm(p["mlstm"], cfg, h,
-                                              return_cache=True)
+                                              return_cache=True, sp=sp)
         x = x + out
     elif kind == "slstm":
         out, cache["slstm"] = ssm.apply_slstm(p["slstm"], cfg, h,
-                                              return_cache=True)
+                                              return_cache=True, sp=sp)
         x = x + out
     if "ln_cross" in p and enc_out is not None:
         k, v = cross_kv(p["cross"], cfg, enc_out)
-        x = _cross(p, cfg, x, (k, v))
+        x = _cross(p, cfg, x, (k, v), sp=sp)
         if cross_split is not None:
             rows = slice(cross_split.offset,
                          cross_split.offset + cross_split.rows)
             k, v = k[:, rows], v[:, rows]
         cache["cross_kv"] = {"k": k, "v": v}
-    return _ffn(p, cfg, x)[0], cache
+    return _ffn(p, cfg, x, sp)[0], cache
 
 
 def prefill(params: Params, cfg: ModelConfig, batch: Dict,
@@ -962,11 +1021,16 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict,
     of its blocks); the cache returned is the rank's block under
     ``CACHE_AXES`` (each slot's rows split over ``model`` where it divides
     ``window or max_len``), its recurrent state and ``cross_kv`` its
-    blocks too, and the logits its rows over the whole vocabulary."""
+    blocks too, and the logits its rows over the whole vocabulary. The
+    residual runs on the rank's rows of the prompts where the rules lay
+    the sequence over ``model`` (``Placement.seq_share``), and each row's
+    last live position comes from the rank that holds it."""
     check_supported(cfg)
     pl = placement
+    sp = None
     if pl is not None:
         params = _use_top(pl, params)
+        sp = pl.seq_share(_seq_len(batch))
     dev = _params_device(params)
     lengths = batch.get("lengths")
     if lengths is not None:
@@ -976,8 +1040,8 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict,
         enc_out = encode(params, cfg, batch, placement=pl)
         if pl is not None:
             cross_split = pl.seq_split(enc_out.shape[1])
-    x = _embed_input(params, cfg, batch, dev)
-    B, S, _ = x.shape
+    x = _embed_input(params, cfg, batch, dev, sp)
+    B, S = x.shape[0], _seq_len(batch)
     positions = _default_positions(cfg, batch, dev)
     runs: Dict[str, Any] = {}
     for r, (kind, n) in enumerate(cfg.layer_runs()):
@@ -988,15 +1052,26 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict,
         caches = []
         for lp in _serve_layers(params, r, n, pl):
             x, c = _block_prefill(kind, cfg, lp, x, angles, max_len, lengths,
-                                  enc_out, split, cross_split)
+                                  enc_out, split, cross_split, sp)
             caches.append(c)
         runs[f"run{r}"] = _stack_trees(caches)
     if lengths is None:
-        x_last = x[:, -1:]
+        last = torch.full((B,), S - 1, dtype=torch.long, device=dev)
         pos0 = torch.full((B,), S, dtype=torch.int32, device=dev)
     else:
-        x_last = x[torch.arange(B, device=dev), (lengths - 1).long()][:, None]
+        last = (lengths - 1).long()
         pos0 = lengths.clone()     # decode_step advances it in place
+    if sp is None:
+        x_last = x[torch.arange(B, device=dev), last][:, None]
+    else:
+        # the rank that holds a row's last live position sends it: the
+        # others add exact zeros
+        rows = x.shape[1]
+        at = last - sp.index * rows
+        mine = (at >= 0) & (at < rows)
+        xl = x[torch.arange(B, device=dev), at.clamp(0, rows - 1)]
+        x_last = comm.all_reduce_sum(torch.where(
+            mine[:, None], xl, torch.zeros_like(xl)), sp.group)[:, None]
     logits = lm_logits(params, cfg, x_last)
     if pl is not None:
         logits = _whole_vocab(params, logits)

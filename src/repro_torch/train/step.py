@@ -20,9 +20,11 @@ Sharded training (``make_train_step(..., mesh=...)``,
 AdamW moment under the sharding rules (``shard_state``: FSDP over the
 data axes, heads, MLP, vocab and experts over ``model``), gathers each on
 use and reduce-scatters its gradient (``dist.sharding.Placement``), and
-computes the heads, MLP columns, vocab block and experts it holds. JAX
-gets both from ``jit`` shardings on one process (``tests/test_dist.py``),
-with the same numbers.
+computes the heads, MLP columns, vocab block and experts it holds; the
+residual stream holds the rank's rows of each sequence where the rules
+lay it over ``model`` (sequence parallelism, ``models.transformer``).
+JAX gets all three from ``jit`` shardings on one process
+(``tests/test_dist.py``), with the same numbers.
 """
 from __future__ import annotations
 
@@ -182,10 +184,14 @@ def state_specs(specs) -> TrainState:
                       opt=AdamWState(step=(), mu=specs, nu=specs))
 
 
-def placement(cfg: ModelConfig, mesh) -> SH.Placement:
-    """The parameters' shape-aware specs on ``mesh`` (from a ``meta``
-    init: shapes only)."""
-    params, specs = T.init_model(cfg, device="meta")
+def placement(cfg: ModelConfig, mesh, params=None,
+              specs=None) -> SH.Placement:
+    """The parameters' shape-aware specs on ``mesh``: of ``params`` (whole
+    or ``meta``: their shapes) under their logical ``specs`` where given
+    (a D-Rank-compressed model's factorized linears), else of a ``meta``
+    init of ``cfg``."""
+    if params is None:
+        params, specs = T.init_model(cfg, device="meta")
     shardings = SH.shardings_for_tree(params, specs, mesh)
     return SH.Placement(mesh, pytree.tree_map(lambda s: s.spec, shardings))
 
@@ -196,12 +202,17 @@ def shard_state(state: TrainState, specs, mesh):
     return SH.shard_tree(state, state_specs(specs), mesh)
 
 
-def sharded_train_step(state: TrainState, batch: Dict, *, cfg: ModelConfig,
-                       tcfg: TrainConfig, placement: SH.Placement
-                       ) -> Tuple[TrainState, Dict]:
+def sharded_train_step(state: TrainState, batch: Dict, shardings=None, *,
+                       cfg: ModelConfig, tcfg: TrainConfig,
+                       placement: SH.Placement) -> Tuple[TrainState, Dict]:
     """One step on this rank's blocks of the state (``shard_state``) and
-    its data shard of the batch (replicated over ``model``), the numbers of
-    JAX's step under ``jit`` shardings. The rank's loss is scaled by
+    its block of the batch, the numbers of JAX's step under ``jit``
+    shardings. With ``shardings`` (``dist.sharding.shard_batch``'s) the
+    batch is the rank's block under the rules (rows over the batch axes,
+    the sequence over ``model``), whose sequence is all-gathered over
+    ``model`` first (``batch_rows``: the labels of a block's last position
+    are the next block's first tokens); without, the rank's data shard of
+    the batch, replicated over ``model``. The rank's loss is scaled by
     ``n_r / N`` (its token count over the batch's, all-reduced over the
     batch axes first), so the gradients the FSDP gathers reduce-scatter
     are the global batch's, weighted as ``reduce_data_parallel`` weighs
@@ -212,6 +223,8 @@ def sharded_train_step(state: TrainState, batch: Dict, *, cfg: ModelConfig,
     (an MoE model's ``moe_aux``: data shard 0's, as JAX returns device
     0's), with the global norm over every rank's blocks."""
     pl = placement
+    if shardings is not None:
+        batch = SH.batch_rows(batch, shardings)
     nmb = max(1, tcfg.microbatches)
     _, mask = T.loss_labels(cfg, batch, state.opt.step.device)
     n = mask.sum()
@@ -257,16 +270,19 @@ def sharded_train_step(state: TrainState, batch: Dict, *, cfg: ModelConfig,
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, group=None,
-                    mesh=None):
+                    mesh=None, params=None, specs=None):
     """The step function; with ``group`` (a data-parallel process group)
     the grads are reduced over it before AdamW; with ``mesh`` the state is
     sharded over it (``sharded_train_step``: pass ``shard_state``'s
-    blocks and the rank's data shard of the batch)."""
+    blocks and the rank's block of the batch). ``params`` and ``specs``
+    (shapes suffice) place a model that ``init_model`` does not build, a
+    factorized one (``placement``)."""
     if mesh is not None:
         if group is not None:
             raise ValueError("make_train_step: group or mesh, not both")
         return functools.partial(sharded_train_step, cfg=cfg, tcfg=tcfg,
-                                 placement=placement(cfg, mesh))
+                                 placement=placement(cfg, mesh, params,
+                                                     specs))
     return functools.partial(train_step, cfg=cfg, tcfg=tcfg, group=group)
 
 

@@ -335,9 +335,9 @@ def test_train_cells_place_the_state_as_the_rules(arch):
     moment under the rules: the state's bytes as placed equal
     ``rule_state_bytes`` exactly (smollm's 15 heads and granite's vocab
     49155 replicated over ``model`` by the fallback, qwen3-4b's 8 kv heads
-    replicated while its 32 q heads split), and the arguments differ from
-    the rules' by the batch alone, whose sequence the rules also lay over
-    ``model``."""
+    replicated while its 32 q heads split), and the arguments equal the
+    rules', the batch's sequence split over ``model`` too (sequence
+    parallelism)."""
     mesh = make_production_mesh()
     res = DR.account_cell(arch, "train_4k", mesh,
                           overrides={"n_layers": 2})
@@ -347,13 +347,47 @@ def test_train_cells_place_the_state_as_the_rules(arch):
     rows = s.global_batch // mesh.shape["data"]
     seq = s.seq_len
     per_row = seq * 4                                     # tokens, int32
-    assert mem["argument_bytes"] - mem["rule_argument_bytes"] == \
-        rows * per_row - rows * per_row // mesh.shape["model"]
-    assert mem["argument_bytes"] - mem["state_bytes"] == rows * per_row
+    assert mem["argument_bytes"] == mem["rule_argument_bytes"]
+    assert mem["argument_bytes"] - mem["state_bytes"] == \
+        rows * per_row // mesh.shape["model"]
     # params, mu and nu in float32: a rank holds under 1/16 of them
     n = sum(t.numel() for t in pytree.tensors(T.init_model(
         get_config(arch).replace(n_layers=2), device="meta")[0]))
     assert 16 * mem["state_bytes"] < 12 * n
+
+
+def test_train_4k_temporaries_under_sequence_parallelism():
+    """SmolLM-360M's ``train_4k`` on (16, 16) at 2 layers: a rank's
+    temporaries stay under 10e9 bytes (the attention's tiled backward
+    holds (bq x bk) float32 tiles, never (S x T)), and replicating the
+    sequence over ``model`` (``{"seq": ()}``) holds at least each layer
+    boundary's residual rows again, the 15/16 of a (16, 4096, 960) bf16
+    block that sequence parallelism leaves on the other ranks."""
+    mesh = make_production_mesh()
+    on = DR.account_cell("smollm-360m", "train_4k", mesh,
+                         overrides={"n_layers": 2})["memory"]
+    off = DR.account_cell("smollm-360m", "train_4k", mesh,
+                          overrides={"n_layers": 2},
+                          rules={"seq": ()})["memory"]
+    cfg = get_config("smollm-360m")
+    s = TC.SHAPES["train_4k"]
+    rows = s.global_batch // mesh.shape["data"]
+    boundary = rows * s.seq_len * cfg.d_model * 2         # bf16 residual
+    assert on["temp_bytes"] < 10e9
+    assert off["temp_bytes"] - on["temp_bytes"] >= \
+        2 * boundary * (mesh.shape["model"] - 1) // mesh.shape["model"]
+
+
+def test_a_factorized_train_cell_is_placed_by_its_own_specs():
+    """A D-Rank-compressed model's train cell at (2, 2): the step's
+    placement takes the factorized leaves' own specs (every B and C
+    gathered whole on use), so the attention reads whole projections."""
+    mesh = Mesh((2, 2), ("data", "model"), build_groups=False)
+    res = DR.account_cell("smollm-360m", "train_4k", mesh,
+                          overrides={"n_layers": 2}, compressed=0.2)
+    mem = res["memory"]
+    assert mem["state_bytes"] == mem["rule_state_bytes"]
+    assert mem["argument_bytes"] == mem["rule_argument_bytes"]
 
 
 def test_sharded_step_gathers_and_reduce_scatters_by_formula():
@@ -361,7 +395,16 @@ def test_sharded_step_gathers_and_reduce_scatters_by_formula():
     data-split leaves gathered twice (the forward and the remat'd
     recompute), the leaves outside the runs once, and the loss's argmax
     across the vocab blocks (a float32 and an int64 (2, B, S)); each
-    data-split leaf's gradient reduce-scattered once, to its block."""
+    data-split leaf's gradient reduce-scattered once, to its block.
+    Sequence parallelism adds the batch's tokens gathered over ``model``
+    and, in place of each sub-block's all-reduce, an all-gather of its
+    input A = (B, S, D) and a reduce-scatter of its output onto the rank's
+    (B, S/2, D) rows: a layer's two sub-blocks gather twice forward
+    (forward and recompute) and once backward (the exit's transpose), and
+    reduce-scatter twice forward and once backward, but for the last
+    exit, which the recompute does not reach (torch's checkpoint stops at
+    the last tensor the backward needs); the embedding leaves and the
+    logits enter the same way, once each."""
     res = port_cell("llama-mini", "train", mesh=(2, 2))
     cfg = get_config("llama-mini").replace(**LLAMA)
     params, specs = T.init_model(cfg, device="meta")
@@ -379,6 +422,9 @@ def test_sharded_step_gathers_and_reduce_scatters_by_formula():
         gathered += whole * (2 if keys[0] == "decoder" else 1)
     s = TINY["tiny_train"]
     gathered += 2 * (s.global_batch // 2) * s.seq_len * (4 + 8)
+    L, A = cfg.n_layers, (s.global_batch // 2) * s.seq_len * cfg.d_model * 4
+    gathered += (s.global_batch // 2) * s.seq_len * 4 + (6 * L + 2) * A
+    scattered += (5 * L + 2) * A // 2
     per_op = res["collectives"]["per_op"]
     assert per_op["all_gather"] == gathered
     assert per_op["reduce_scatter"] == scattered
@@ -659,12 +705,9 @@ def test_rule_argument_bytes_match_jax_shard_shapes():
         assert res["memory"]["rule_argument_bytes"] == \
             want[arch + "/" + mode], (arch, mode)
         # prefill and decode hold the rules' blocks of the parameters,
-        # the batch and the cache; a train cell holds the rules' blocks of
-        # the state, its batch split over the data axes only
-        if mode == "train":
-            assert res["memory"]["argument_bytes"] > \
-                res["memory"]["rule_argument_bytes"]
-        else:
+        # the batch and the cache; a train cell the rules' blocks of the
+        # state and of the batch (its sequence over model too)
+        if mode != "train":
             assert res["placed"]
-            assert res["memory"]["argument_bytes"] == \
-                res["memory"]["rule_argument_bytes"], (arch, mode)
+        assert res["memory"]["argument_bytes"] == \
+            res["memory"]["rule_argument_bytes"], (arch, mode)

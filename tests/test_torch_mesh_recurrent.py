@@ -26,12 +26,23 @@ of one process's cache, of the rules' shape, and as many leaves split
 over ``model`` as JAX's placement splits.
 
 Train cases: the sharded step (``train.step.make_train_step(...,
-mesh=)``) on both hymba and both xlstm configs, ``TRAIN_STEPS`` steps at
+mesh=)``) on both hymba and both xlstm configs and seamless (8 encoder
+rows: its encoder's residual split too, its output gathered whole for
+the cross blocks), ``TRAIN_STEPS`` steps at
 lr 1e-4 (``tests/test_torch_mesh_train_moe.py``'s reason), against one
 process on the same global batches: losses within 1e-5 relative, the
 first step's reduced gradient blocks within 1e-4 of each leaf's largest
 entry, and no parameter block gathered over ``model`` (a spy on
 ``Placement.use``: the ``ssm_inner`` and ``mlp`` weights stay shares).
+Each rank takes its block of the batch under the rules (the sequence
+split over ``model``) and the residual stream holds its half of each
+sequence at every layer's entry (sequence parallelism; a spy on
+``_block_fwd``). SmolLM reduced to 3 q heads over 1 kv head (its
+attention computed whole on every model rank, the tied embedding
+vocab-parallel) trains so too, and again under ``use_rules({"seq": ()})``
+(every row at every layer, the same numbers), and factorized at 20%
+(``launch.dryrun.factorized_shapes`` filled from a seed: every B and C
+gathered whole, the step placed by the factorized specs).
 """
 import dataclasses
 import os
@@ -69,7 +80,11 @@ SERVE = {"hymba": ("hymba-1.5b", {}, 16, 0),
          "xlstm_cut": ("xlstm-350m", CUT_XLSTM, 16, 0),
          "seamless": ("seamless-m4t-medium", {}, 16, 8),
          "seamless_whole": ("seamless-m4t-medium", {}, 16, 7)}
-TRAIN = ("hymba", "hymba_cut", "xlstm", "xlstm_cut")
+TRAIN = ("hymba", "hymba_cut", "xlstm", "xlstm_cut", "seamless")
+# train-only cases on SmolLM: name -> (use_rules overrides, factorized)
+SMOLLM = dict(n_heads=3, n_kv_heads=1)
+TRAIN_SMOLLM = {"smollm": (None, False), "smollm_noseq": ({"seq": ()}, False),
+                "smollm_drank": (None, True)}
 TRAIN_STEPS, TRAIN_ROWS, TRAIN_SEQ = 2, 8, 8
 TRAIN_OPT = dict(lr=1e-4, warmup_steps=2, total_steps=10)
 
@@ -98,15 +113,40 @@ def _serve_case(name):
     return cfg, over, params, specs, batch, max_len
 
 
+def _factorized(params, specs, seed: int):
+    """``params`` with every compressible linear of the layer runs
+    factorized at 20% (``factorized_shapes``), B and C drawn from
+    ``seed``."""
+    from repro_torch.launch.dryrun import factorized_shapes
+    shapes, fspecs = factorized_shapes(params, specs, 0.2, multiple=4)
+    gen = torch.Generator().manual_seed(seed)
+    return pytree.tree_map(lambda t: torch.randn(
+        t.shape, generator=gen) * 0.1 if t.is_meta else t, shapes), fspecs
+
+
 def _train_case(name):
-    arch, reduced, _, _ = SERVE[name]
-    cfg = get_config(arch).reduced(**reduced)
-    params, _ = T.init_model(cfg, seed=0, device="cpu")
-    rng = np.random.default_rng(11 + TRAIN.index(name))
-    batches = tuple({"tokens": torch.as_tensor(rng.integers(
-        0, cfg.vocab_size, (TRAIN_ROWS, TRAIN_SEQ), dtype=np.int32))}
+    if name in TRAIN_SMOLLM:
+        rules, drank = TRAIN_SMOLLM[name]
+        cfg = get_config("smollm-360m").reduced(**SMOLLM)
+        seed = 20
+    else:
+        rules, drank = None, False
+        arch, reduced, _, _ = SERVE[name]
+        cfg = get_config(arch).reduced(**reduced)
+        seed = 11 + TRAIN.index(name)
+    params, specs = T.init_model(cfg, seed=0, device="cpu")
+    if drank:
+        params, specs = _factorized(params, specs, seed)
+    rng = np.random.default_rng(seed)
+    enc = 0 if name in TRAIN_SMOLLM else SERVE[name][3]
+    batches = tuple(dict({"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (TRAIN_ROWS, TRAIN_SEQ), dtype=np.int32))},
+        **({"enc_embeds": torch.as_tensor(rng.standard_normal(
+            (TRAIN_ROWS, enc, cfg.d_model)).astype(np.float32))}
+           if enc else {}))
         for _ in range(TRAIN_STEPS))
-    return dict(cfg=cfg, params=params, batches=batches,
+    return dict(cfg=cfg, params=params, batches=batches, rules=rules,
+                specs=specs if drank else None,
                 tcfg=dict(optimizer=TS.OptimizerConfig(**TRAIN_OPT)))
 
 
@@ -145,7 +185,7 @@ def runs(tmp_path_factory):
     process in the test process meanwhile."""
     work = tmp_path_factory.mktemp("mesh_recurrent")
     serve = {name: _serve_case(name) for name in SERVE}
-    train = {name: _train_case(name) for name in TRAIN}
+    train = {name: _train_case(name) for name in TRAIN + tuple(TRAIN_SMOLLM)}
     started = R.start("recurrent", str(work), {
         "steps": STEPS, "train": train,
         "serve": {name: {"cfg": cfg, "params": params, "specs": specs,
@@ -201,6 +241,7 @@ def test_serving_matches_jax_mesh_and_one_process(runs, name):
         rows = slice(d * (B // 2), (d + 1) * (B // 2))
         assert torch.equal(got["tokens"], otok[:, rows]), (name, r)
         assert np.array_equal(got["tokens"].numpy(), jtok[:, rows]), (name, r)
+        assert got["rows"] == [S // 2], (name, got["rows"])   # SP
         assert float((got["logits"] - olog[:, rows]).abs().max()) <= ATOL
         assert float(np.abs(got["logits"].numpy() - jlog[:, rows]).max()) \
             <= ATOL
@@ -230,11 +271,12 @@ def test_serving_matches_jax_mesh_and_one_process(runs, name):
         assert torch.equal(got["logits"], twin[name]["logits"])
 
 
-@pytest.mark.parametrize("name", TRAIN)
+@pytest.mark.parametrize("name", TRAIN + tuple(TRAIN_SMOLLM))
 def test_sharded_train_step_matches_one_process(runs, name):
     _, train, ranks, _, one_train, _ = runs
     want_losses, want_grads = one_train[name]
-    _, specs = T.init_model(train[name]["cfg"], device="meta")
+    specs = (train[name]["specs"]
+             or T.init_model(train[name]["cfg"], device="meta")[1])
     for r, out in enumerate(ranks):
         got = out[f"train/{name}"]
         rel = max(abs(a - b) / abs(b)
@@ -250,6 +292,38 @@ def test_sharded_train_step_matches_one_process(runs, name):
             top = max(float(w.abs().max()), 1e-30)
             assert float((g - blk).abs().max()) <= 1e-4 * top, \
                 (name, r, pytree.keystr(p))
+        # the residual's rows a sequence between sub-blocks: its half
+        # under sequence parallelism, every row under {"seq": ()}
+        assert got["rows"] == [TRAIN_SEQ if name == "smollm_noseq"
+                               else TRAIN_SEQ // 2], (name, got["rows"])
         # no ssm_inner or mlp weight gathered over model: every block the
-        # step gathers over it is none of those layers'
-        assert got["gathered"] == [], (name, got["gathered"])
+        # step gathers over it is none of those layers' (SmolLM's
+        # attention is computed whole, its weights replicated: none). A
+        # decoder layer's cross-attention is gathered, and a factorized
+        # linear: each layer's three MLP C factors (their columns split
+        # over model); both in the forward and the remat'd recompute
+        n = train[name]["cfg"].n_layers
+        if name == "smollm_drank":
+            assert len(got["gathered"]) == n * 3 * 2 * TRAIN_STEPS
+        elif name == "seamless":        # cross-attention's four, whole
+            assert len(got["gathered"]) == n * 4 * 2 * TRAIN_STEPS
+        else:
+            assert got["gathered"] == [], (name, got["gathered"])
+
+
+def test_sequence_parallelism_changes_no_number(runs):
+    """SmolLM's sharded step with the sequence over ``model`` against the
+    same step under ``{"seq": ()}``, rank by rank: losses 1e-5, every
+    gradient block 1e-4 of its largest entry."""
+    _, _, ranks, _, _, _ = runs
+    for out in ranks:
+        on, off = out["train/smollm"], out["train/smollm_noseq"]
+        assert max(abs(a - b) / abs(b) for a, b in
+                   zip(on["losses"], off["losses"])) <= 1e-5
+        for a, b in zip(pytree.leaves(on["grads"]),
+                        pytree.leaves(off["grads"])):
+            top = max(float(b.abs().max()), 1e-30)
+            assert float((a - b).abs().max()) <= 1e-4 * top
+        # the pairing: reduce-scatters of the residual appear with it
+        assert on["collectives"].get("reduce_scatter", 0) > \
+            off["collectives"].get("reduce_scatter", 0)

@@ -20,14 +20,17 @@ split over ``model``), granite ``.reduced()`` (expert parallelism),
 gemma3-12b ``.reduced()`` (windowed layers: a ring of 8 rows, split 4 and
 4, wrapped by the last steps), a uniform factorized llama-mini (ratio
 0.2, ranks 24 of widths 64), llama-mini at ``max_len`` 15, which
-``model`` does not divide (the cache stays whole on every rank), and
+``model`` does not divide (the cache stays whole on every rank),
 qwen2-vl-72b ``.reduced()`` (M-RoPE, a vision-stub prefill with (3, B, S)
-positions). Bars: every step's greedy tokens identical to JAX's mesh run
+positions) and llama-mini on right-padded prompts (``lengths``: each
+row's last live position on one model rank's half of the sequence, which
+sends it to the others). Bars: every step's greedy tokens identical to JAX's mesh run
 and to one process; logits within 2e-3 (``tests/test_kernels.py:141``) of
 both; each rank's final cache block within the same bar of its block of
 one process's cache (``shard_cache``), of the rules' shape; the model
-ranks of a data shard bit-identical in their logits (the residual stream
-is replicated over ``model``).
+ranks of a data shard bit-identical in their logits (the prefill's last
+rows are summed over ``model`` from the rank that holds each, exact
+zeros from the others).
 """
 import os
 import pickle
@@ -64,7 +67,11 @@ CASES = {"llama": ("llama-mini", LLAMA, 16, 0.0),
          "gemma": ("gemma3-12b", None, 16, 0.0),
          "factorized": ("llama-mini", LLAMA, 16, 0.2),
          "replicated": ("llama-mini", LLAMA, 15, 0.0),
-         "mrope": ("qwen2-vl-72b", None, 16, 0.0)}
+         "mrope": ("qwen2-vl-72b", None, 16, 0.0),
+         "uneven": ("llama-mini", LLAMA, 16, 0.0)}
+# the uneven case's live prompt lengths: the last live positions 5, 1, 4,
+# 2 fall on both model ranks' halves (3 positions each)
+UNEVEN = (6, 2, 5, 3)
 
 
 def _cfg(arch, over):
@@ -110,6 +117,8 @@ def _case(name):
     else:
         batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S),
                                         dtype=np.int32)}
+    if name == "uneven":
+        batch["lengths"] = np.array(UNEVEN, dtype=np.int32)
     return cfg, params, specs, batch, max_len
 
 
@@ -145,6 +154,8 @@ NS = jax.sharding.NamedSharding
 def batch_axes(k, v):                  # launch/dryrun.py batch_shardings
     if k == "positions" and v.ndim == 3:
         return (None, "batch", "seq")
+    if v.ndim == 1:                    # lengths (B,)
+        return ("batch",)
     return ("batch", "seq") + (None,) * (v.ndim - 2)
 
 def cache_axes(v):                     # launch/dryrun.py cache_shardings
@@ -240,6 +251,9 @@ def test_sharded_serving_matches_jax_mesh_and_one_process(runs, name):
         rows = slice(d * (B // 2), (d + 1) * (B // 2))
         assert torch.equal(got["tokens"], otok[:, rows]), (name, r)
         assert np.array_equal(got["tokens"].numpy(), jtok[:, rows]), (name, r)
+        # sequence parallelism: the prefill's residual holds the rank's
+        # half of every prompt
+        assert got["rows"] == [S // 2], (name, got["rows"])
         assert float((got["logits"] - olog[:, rows]).abs().max()) <= ATOL
         assert float(np.abs(got["logits"].numpy() - jlog[:, rows]).max()) \
             <= ATOL

@@ -602,6 +602,16 @@ def test_sharded_smollm_matches_one_process_and_jax(ranks):
                    [m["grad_norm"] for m in want]) <= 1e-6
 
 
+def test_sharded_cases_split_the_sequence_over_model(ranks):
+    """Sequence parallelism in every sharded case: given its data shard's
+    whole rows, each rank's residual stream holds its half of every
+    sequence at each layer's entry."""
+    _, outs = ranks
+    for out in outs:
+        for name in sharded_cases():
+            assert out[f"sh_{name}"]["rows"] == [DCFG["seq_len"] // 2], name
+
+
 def test_each_rank_holds_only_its_blocks(ranks):
     """Every leaf of every rank's params and AdamW moments is its
     ``local_block`` under ``shape_aware_spec`` over (data, model): heads,

@@ -264,11 +264,18 @@ def _sharded_run(rank, mesh, case):
     step = TS.make_train_step(cfg, TS.TrainConfig(**case["tcfg"]),
                               mesh=mesh)
     n, d = mesh.shape["data"], mesh.coord("data")
-    for b in case["batches"]:
-        rows = next(iter(b.values())).shape[0] // n
-        blocks, m = step(blocks, {k: v[d * rows:(d + 1) * rows]
-                                  for k, v in b.items()})
-        res["metrics"].append({k: float(v) for k, v in m.items()})
+    seen, block = [], T._block_fwd
+    T._block_fwd = lambda kind, c, p, x, *a, **k: (
+        seen.append(x.shape[1]) or block(kind, c, p, x, *a, **k))
+    try:
+        for b in case["batches"]:
+            rows = next(iter(b.values())).shape[0] // n
+            blocks, m = step(blocks, {k: v[d * rows:(d + 1) * rows]
+                                      for k, v in b.items()})
+            res["metrics"].append({k: float(v) for k, v in m.items()})
+    finally:
+        T._block_fwd = block
+    res["rows"] = sorted(set(seen))
     whole = SH.gather_tree(blocks.params, shd.params)
     if rank == 0:
         res["params"] = whole
@@ -369,7 +376,8 @@ def serve_case(mesh, case, steps: int):
     prompts gathered over ``model``), its block of the cache (an
     encoder-decoder case's ``enc_len`` rows of ``cross_kv`` too). Returns
     {tokens, logits (its rows, whole vocab, each step), cache (the final
-    blocks), collectives (bytes by family)}."""
+    blocks), collectives (bytes by family), rows (the residual's rows a
+    prompt at each prefill layer's entry)}."""
     from repro_torch import pytree
     from repro_torch.dist import sharding as SH
     from repro_torch.models import transformer as T
@@ -379,11 +387,20 @@ def serve_case(mesh, case, steps: int):
     pl = SH.Placement(mesh, pytree.tree_map(lambda s: s.spec, shd),
                       cache_len=max_len, enc_len=case.get("enc_len"))
     bblocks, bshd = SH.shard_batch(case["batch"], mesh)
+    rows, block = set(), T._block_prefill
+
+    def spy(kind, c, p, x, *a, **k):
+        rows.add(x.shape[1])
+        return block(kind, c, p, x, *a, **k)
 
     def run():
         with torch.no_grad():
-            lg, cache = T.prefill(blocks, cfg, SH.batch_rows(bblocks, bshd),
-                                  max_len, placement=pl)
+            T._block_prefill = spy
+            try:
+                lg, cache = T.prefill(blocks, cfg, SH.batch_rows(
+                    bblocks, bshd), max_len, placement=pl)
+            finally:
+                T._block_prefill = block
             tokens, logits = [lg[:, -1].argmax(-1)], [lg[:, -1]]
             for _ in range(steps):
                 lg, cache = T.decode_step(
@@ -394,7 +411,7 @@ def serve_case(mesh, case, steps: int):
         return torch.stack(tokens), torch.stack(logits), cache
     (tokens, logits, cache), moved = _bytes_of(run)
     return {"tokens": tokens, "logits": logits, "cache": cache,
-            "collectives": moved}
+            "collectives": moved, "rows": sorted(rows)}
 
 
 def job_serve(rank, inp):
@@ -437,34 +454,47 @@ def _spied(SH, gathered, grads):
 
 def train_case(mesh, case):
     """Sharded train steps of ``case["cfg"]`` from the whole
-    ``case["params"]``, one for each global batch of ``case["batches"]``
-    (the rank's data shard of it). Returns {losses, grads (the first
-    step's reduced gradient blocks), gathered (the parameter blocks
-    gathered over ``model``), collectives (bytes by family)}."""
+    ``case["params"]`` (placed by ``case["specs"]`` where given: a
+    factorized model's), one for each global batch of ``case["batches"]``
+    (the rank's block of it under the rules, ``shard_batch``), under
+    ``use_rules(case["rules"])``. Returns {losses, grads (the first step's
+    reduced gradient blocks), gathered (the parameter blocks gathered over
+    ``model``), collectives (bytes by family), rows (the residual's rows a
+    sequence at each layer's entry)}."""
     from repro_torch.dist import sharding as SH
     from repro_torch.models import transformer as T
     from repro_torch.optim.adamw import adamw_init
     from repro_torch.train import step as TS
 
     cfg = case["cfg"]
-    _, specs = T.init_model(cfg, device="meta")
-    blocks, _ = TS.shard_state(TS.TrainState(
-        params=case["params"], opt=adamw_init(case["params"])), specs, mesh)
-    step = TS.make_train_step(cfg, TS.TrainConfig(**case["tcfg"]),
-                              mesh=mesh)
-    n, d = mesh.shape["data"], mesh.coord("data")
-    gathered, grads, losses = [], [], []
+    specs = case.get("specs") or T.init_model(cfg, device="meta")[1]
+    gathered, grads, losses, rows = [], [], [], []
+    block = T._block_fwd
 
-    def run(blocks):
+    def spy(kind, cfg_, p, x, *a, **k):
+        rows.append(x.shape[1])
+        return block(kind, cfg_, p, x, *a, **k)
+
+    def run(blocks, step):
         for b in case["batches"]:
-            rows = b["tokens"].shape[0] // n
-            blocks, m = step(blocks, {k: v[d * rows:(d + 1) * rows]
-                                      for k, v in b.items()})
+            bb, bshd = SH.shard_batch(b, mesh)
+            blocks, m = step(blocks, bb, bshd)
             losses.append(float(m["loss"]))
-    with _spied(SH, gathered, grads):
-        _, moved = _bytes_of(lambda: run(blocks))
+    with SH.use_rules(case.get("rules")):
+        blocks, _ = TS.shard_state(TS.TrainState(
+            params=case["params"], opt=adamw_init(case["params"])), specs,
+            mesh)
+        step = TS.make_train_step(cfg, TS.TrainConfig(**case["tcfg"]),
+                                  mesh=mesh, params=case["params"],
+                                  specs=specs)
+        T._block_fwd = spy
+        try:
+            with _spied(SH, gathered, grads):
+                _, moved = _bytes_of(lambda: run(blocks, step))
+        finally:
+            T._block_fwd = block
     return {"losses": losses, "grads": grads[0], "gathered": gathered,
-            "collectives": moved}
+            "collectives": moved, "rows": sorted(set(rows))}
 
 
 def job_recurrent(rank, inp):
