@@ -164,8 +164,8 @@ What it does, in order, printing the seconds of each phase:
    causal, in bfloat16 and float32, the flash kernel's LSE flag against
    the plain version's lse and the grads through ``ops.flash_attention``
    (the kernel with LSE, then ``ref.flash_bwd_rule``) against the dense
-   plain version's autograd at the same tiers, its LSE launches counted
-   from 0 (2) and each backward's own peak and device ms recorded;
+   plain version's autograd at the same tiers, each backward's own peak
+   and device ms recorded (the launches are 9a's);
 6. each kernel's device time for the work it does in one prefill, one
    decode step or one calibration batch of the main path (the paged decode
    kernel: one decode step of the batcher's path, at its live lengths; the
@@ -224,6 +224,18 @@ What it does, in order, printing the seconds of each phase:
    checkpoint as subprocesses, whose tokens must equal an in-process
    ``serve(ServeOptions(ckpt=...))``. Flash, the 2-D product and the Gram
    must have launched.
+9a. long-sequence training (``long_train``): SmolLM-360M at full width,
+   2 of its 32 layers (float32 params, remat "block", seeded), one step
+   on 1 x 4096 tokens in bf16 and in float32 compute, where the attention
+   takes the tiled backward (the flash kernel with its LSE flag, then
+   ``ref.flash_bwd_rule``): the counts set to 0 just before the two
+   gradient runs (``TS.value_and_grad``) and read just after, the LSE
+   launches 2 a layer a run (the forward and the remat recompute) and
+   every flash launch with the flag, the recorded flash calls held to
+   the plain version (o and lse); then the same step through the dense
+   backward: loss within 1e-5 relative, every leaf's grad within 1e-4
+   (float32) or 2e-2 (bf16) of its largest, the tiled run's peak under
+   the dense one's; ``train_step``'s host ms, tiled and dense alternated.
 10. the MoE path, after the earlier paths' memory is freed, with the
    counts set to 0 just before granite's calibration and read after its
    graph runs: granite-moe-1b-a400m at full width (d_model 1024, 32
@@ -333,7 +345,8 @@ JSON object ``{"kernels": [...]}`` (the kernels with variants also carry
 the variant the main path ran and the earlier variant's time, ``simt_ms``
 or, for the gemv, ``splitk_ms`` and its 64-row times, ``rows_64``; the 2-D
 product also its two-launch variant's, ``split_ms``; every kernel its
-launches on the training path, ``train_launches``, and on the MoE path,
+launches on the training path, ``train_launches``, and on the
+long-sequence step, ``long_train_launches``, and on the MoE path,
 ``moe_launches``, and on the recurrent paths, ``hymba_launches`` and
 ``xlstm_launches``, and on the encoder-decoder and M-RoPE paths,
 ``seamless_launches`` and ``qwen2vl_launches``, and by rank on the mesh
@@ -427,12 +440,18 @@ KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
 # split over model ranks); the one-process paths never do
 SERVE_ONLY = ("decode_attention_state",)
 # kernels that only a training step at a long sequence launches (S·T at
-# JAX's FLASH_THRESHOLD: the tiled backward), none of the other paths
+# JAX's FLASH_THRESHOLD: the tiled backward; ``long_train``), none of the
+# other paths
 TILED_ONLY = ("flash_attention_lse",)
 # one SmolLM-360M attention layer (15 q / 5 kv heads, hd 64), causal, at B 1
 # and S 4096: the flash kernel with its LSE flag and the tiled backward
 # (kernels/ref.flash_bwd_rule) against the dense plain version's autograd
 TILED_B, TILED_S = 1, 4096
+# SmolLM-360M's train step on one 4096-token sequence at 2 of its 32
+# layers, bf16 and float32 compute: the model path that takes the tiled
+# backward (S·T at JAX's FLASH_THRESHOLD), against the same step through
+# the dense backward
+LONG_B, LONG_S, LONG_LAYERS = 1, 4096, 2
 # kernels with a tensor-core ("wgmma") and a CUDA-core ("simt") variant; the
 # main path's bf16 work must take the first
 TC_KERNELS = ("lowrank_matmul_2d", "gram_blocked", "flash_attention")
@@ -2508,9 +2527,6 @@ def hold_recorded(port, calls, dname: str,
             elif name == "flash_attention":
                 q, k, v = args
                 want = ref.flash_attention(q, k, v, **kw)
-                if kw.get("return_lse"):      # o and lse, one vector
-                    want = torch.cat([want[0].float().flatten(),
-                                      want[1].flatten()])
                 sig = f"q {tuple(q.shape)} k {tuple(k.shape)} {kw}"
                 variants = port.fa._allowed(q.dtype, q.shape[-1], all(
                     t.data_ptr() % 16 == 0 for t in args))
@@ -2550,12 +2566,13 @@ def hold_recorded(port, calls, dname: str,
                 extra = {} if var is None else {"variant": var}
                 got = w[name](*args, **kw, **extra)
                 torch.cuda.synchronize()
-                if name == "flash_attention" and kw.get("return_lse"):
-                    got = torch.cat([got[0].float().flatten(),
-                                     got[1].flatten()])
                 if name == "decode_attention_state":
                     got, want = state_output(port, got, want, q.dtype)
-                e = rel_err(got, want)
+                if isinstance(got, tuple):    # flash's (o, lse), each held
+                    e = max(rel_err(a, b) for a, b in zip(got, want))
+                    got, want = got[0], want[0]
+                else:
+                    e = rel_err(got, want)
                 key = f"{name}[{var}]" if var else name
                 worst[key] = max(worst.get(key, 0.0), e)
                 log(f"  {key} {dname} at {sig}: max-relative error {e:.2e} "
@@ -2738,8 +2755,7 @@ def flash_tiled(port, dev) -> dict:
     flag against the plain version's lse, and the grads through
     ``ops.flash_attention`` (the kernel with LSE forward, ``ref.
     flash_bwd_rule`` backward) against the dense plain version's autograd,
-    at the kernel tiers; the launches with LSE counted from 0 over the two
-    gradient runs; each backward's own peak (``max_memory_allocated`` less
+    at the kernel tiers; each backward's own peak (``max_memory_allocated`` less
     what was allocated before it); device ms of the LSE forward, of the
     kernel without it, of the plain version, of SDPA (``library_ms``) and
     of the two backwards."""
@@ -2751,7 +2767,7 @@ def flash_tiled(port, dev) -> dict:
     assert ops.flash_tiled(S, S, 0.0), "S 4096 is below JAX's threshold"
     gen = torch.Generator(device=dev)
     gen.manual_seed(41)
-    out, launches, card = {}, 0, card_line()
+    out, card = {}, card_line()
     for dname in ("bfloat16", "float32"):
         dt = getattr(torch, dname)
 
@@ -2776,9 +2792,7 @@ def flash_tiled(port, dev) -> dict:
             torch.cuda.synchronize()
             return ([t.grad for t in ins],
                     torch.cuda.max_memory_allocated() - base)
-        n0 = port.counts()["flash_attention_lse"]
         tiled, tiled_peak = grads(lambda *a: ops.flash_attention(*a, True))
-        launches += port.counts()["flash_attention_lse"] - n0
         dense, dense_peak = grads(
             lambda *a: ref.flash_attention(*a, causal=True))
         errs = {"o": rel_err(o_k, o_p), "lse": rel_err(lse_k, lse_p)}
@@ -2826,8 +2840,104 @@ def flash_tiled(port, dev) -> dict:
         assert tiled_peak < dense_peak, "the tiled backward held more"
         del q, k, v, g, o_k, o_p, lse_k, lse_p
         torch.cuda.empty_cache()
-    assert launches == 2, f"{launches} flash launches with LSE, not 2"
-    out["launches"] = launches
+    return out
+
+
+def long_train(port, dev) -> dict:
+    """SmolLM-360M at full width, LONG_LAYERS of its layers, seeded weights
+    (float32 params, remat "block"), one train step on LONG_B x LONG_S
+    tokens in bfloat16 and in float32 compute: the step's loss and grads
+    (``TS.value_and_grad``, what ``train_step`` differentiates) through
+    the tiled backward, with every launch count set to 0 just before those
+    two runs and read just after (the flash kernel with its LSE flag: 2 a
+    layer, the forward and the remat recompute), their recorded flash
+    calls held against the plain version; then the same step through the
+    dense backward (``ref.FLASH_THRESHOLD`` raised, so ``ops.flash_tiled``
+    fails): the loss within 1e-5 relative, every leaf's grad within 1e-4
+    (float32) or 2e-2 (bf16) of its largest; each backward's peak
+    (``max_memory_allocated`` over the gradient run, less what was
+    allocated before it) and ``train_step``'s host ms, tiled and dense
+    alternated. Returns {"launches": {kernel: n}, dtype: {metrics}}."""
+    torch, TS, ref = port.torch, port.TS, port.ref
+    base_cfg = port.get_config(ARCH).replace(n_layers=LONG_LAYERS)
+    assert base_cfg.remat == "block" and port.ops.flash_tiled(
+        LONG_S, LONG_S, 0.0), "S 4096 is below JAX's threshold"
+    tokens = port.synthetic.ShardedLoader(port.synthetic.DataConfig(
+        vocab_size=base_cfg.vocab_size, seq_len=LONG_S,
+        global_batch=LONG_B)).batch(0)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in tokens.items()}
+    tcfg = TS.TrainConfig()
+    threshold, states, runs = ref.FLASH_THRESHOLD, {}, {}
+
+    def grads(cfg, state):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _, g = TS.value_and_grad(state.params, cfg, batch)
+        torch.cuda.synchronize()
+        return (float(loss), port.pytree.leaves(g),
+                torch.cuda.max_memory_allocated() - base)
+
+    def dense(fn):
+        ref.FLASH_THRESHOLD = 1 << 62
+        try:
+            return fn()
+        finally:
+            ref.FLASH_THRESHOLD = threshold
+    for dname in ("bfloat16", "float32"):
+        cfg = base_cfg.replace(dtype=dname)
+        states[dname] = (cfg, TS.init_train_state(cfg, seed=5,
+                                                  device=dev)[0])
+    port.reset_counts()
+    with recording(port) as calls:
+        for dname, (cfg, state) in states.items():
+            runs[dname] = grads(cfg, state)
+    launches = port.counts()
+    assert launches["flash_attention_lse"] == 2 * LONG_LAYERS * len(states), \
+        f"{launches['flash_attention_lse']} flash launches with LSE, not " \
+        f"2 a layer a run"
+    assert launches["flash_attention"] == launches["flash_attention_lse"], \
+        "a flash launch of the tiled step went without its LSE flag"
+    for dname in states:
+        log(f"  the {dname} step's recorded kernel calls against the plain "
+            f"versions:")
+        hold_recorded(port, [c for c in calls if c[1][0].dtype ==
+                             getattr(torch, dname)], dname,
+                      f"the S {LONG_S} {dname} train step")
+    del calls
+    out, card = {"launches": launches}, card_line()
+    for dname, (cfg, state) in states.items():
+        loss, tiled, tiled_peak = runs.pop(dname)
+        d_loss, d_grads, dense_peak = dense(lambda: grads(cfg, state))
+        loss_err = abs(loss - d_loss) / abs(d_loss)
+        errs = [rel_err(a, b) for a, b in zip(tiled, d_grads)]
+        del tiled, d_grads
+        def step():
+            return TS.train_step(state, batch, cfg=cfg, tcfg=tcfg)
+        ms = {"tiled": [], "dense": []}
+        for _ in range(2):
+            ms["tiled"].append(host_ms(torch, step))
+            ms["dense"].append(dense(lambda: host_ms(torch, step)))
+        grad_tol = 1e-4 if dname == "float32" else TOL[dname]
+        out[dname] = dict(loss=loss, loss_err=loss_err,
+                          grad_err=max(errs), step_ms=ms["tiled"],
+                          dense_step_ms=ms["dense"], peak=tiled_peak,
+                          dense_peak=dense_peak)
+        log(f"  {dname}, B {LONG_B} S {LONG_S}, {LONG_LAYERS} layers: loss "
+            f"{loss:.6f} tiled against {d_loss:.6f} dense (rel "
+            f"{loss_err:.2e}, tolerance 1e-5); grads max-relative "
+            f"{max(errs):.2e} over {len(errs)} leaves (tolerance "
+            f"{grad_tol:.0e}); the gradient run's own peak {tiled_peak} "
+            f"bytes tiled, {dense_peak} dense; train_step host ms tiled "
+            + " / ".join(f"{x:.2f}" for x in ms["tiled"]) + ", dense "
+            + " / ".join(f"{x:.2f}" for x in ms["dense"]) + f"; {card}")
+        assert np.isfinite(loss) and loss_err <= 1e-5, (loss, d_loss)
+        assert max(errs) <= grad_tol, \
+            f"the tiled step's grads disagree in {dname} ({max(errs):.2e})"
+        assert tiled_peak < dense_peak, "the tiled step held more"
+        torch.cuda.empty_cache()
+    del states
+    torch.cuda.empty_cache()
     return out
 
 
@@ -6535,6 +6645,11 @@ def main() -> int:
         shutil.rmtree(TRAIN_DIR, ignore_errors=True)
         shutil.rmtree(CLI_TRAIN_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
+    with Phase(f"long-sequence training: SmolLM-360M at {LONG_LAYERS} layers, "
+               f"B {LONG_B}, S {LONG_S}, bf16 and float32, the step through "
+               f"the tiled backward (the flash kernel's LSE flag) against "
+               f"the dense one"):
+        long = long_train(port, dev)
     moe = moe_phases(port, dev)
     torch.cuda.empty_cache()
     rec = {}
@@ -6600,7 +6715,7 @@ def main() -> int:
             launches = sum(c[name] for v in sharded["serve"].values()
                            for c in v["launches"])
         if name in TILED_ONLY:
-            launches = tiled["launches"]
+            launches = long["launches"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -6608,6 +6723,7 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
             "work": t["work"], "train_launches": train_counts[name],
+            "long_train_launches": long["launches"][name],
             "moe_launches": moe["launches"][name],
             "hymba_launches": rec[HYMBA]["launches"][name],
             "xlstm_launches": rec[XLSTM]["launches"][name],
@@ -6649,7 +6765,9 @@ def main() -> int:
         times["decode_attention_state"]["whole_kernel_ms"]
     by_name["flash_attention_lse"]["tiled"] = {
         d: {k: v for k, v in t.items() if k != "max_abs_err"}
-        for d, t in tiled.items() if d != "launches"}
+        for d, t in tiled.items()}
+    by_name["flash_attention_lse"]["long_train"] = {
+        d: t for d, t in long.items() if d != "launches"}
     for name, v in sharded["serve"].items():
         log(f"sharded serving {name}: {', '.join(f'{x:.2f}' for x in v['ms_per_step'])}"
             f" ms/step by rank (one process {v['one_ms_per_step']:.2f}); four "

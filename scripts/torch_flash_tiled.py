@@ -3,8 +3,11 @@
 SmolLM-360M attention layer at B 1, S 4096, causal, bf16 and float32: the
 flash kernel's LSE flag against the plain version's lse, the tiled
 backward's grads against the dense plain version's, both backwards' own
-peaks, and device ms of each). About a minute on an H100, most of it the
-build.
+peaks, and device ms of each), then ``chip_smoke.long_train`` (SmolLM-360M
+at 2 layers, one train step on 1 x 4096 tokens in bf16 and float32: the
+LSE launches, loss and every grad against the dense backward's, peaks and
+``train_step``'s host ms, tiled and dense). About two minutes on an H100,
+most of it the build.
 
     python3 scripts/torch_flash_tiled.py
 """
@@ -25,13 +28,17 @@ def main() -> int:
         print("torch_flash_tiled: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     CS.log(CS.card_line())
     port = CS.Port()
     t0 = time.perf_counter()
     port.build.lib("flash_attention")
     CS.log(f"flash_attention build: {time.perf_counter() - t0:.1f} s")
-    out = CS.flash_tiled(port, torch.device("cuda"))
-    CS.log(f"launches with LSE: {out['launches']}")
+    dev = torch.device("cuda")
+    CS.flash_tiled(port, dev)
+    out = CS.long_train(port, dev)
+    CS.log("launches of the long-sequence step: " + ", ".join(
+        f"{k} {v}" for k, v in out["launches"].items()))
     CS.log(CS.card_line())
     return 0
 

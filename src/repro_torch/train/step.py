@@ -202,17 +202,16 @@ def shard_state(state: TrainState, specs, mesh):
     return SH.shard_tree(state, state_specs(specs), mesh)
 
 
-def sharded_train_step(state: TrainState, batch: Dict, shardings=None, *,
+def sharded_train_step(state: TrainState, batch: Dict, shardings: Dict, *,
                        cfg: ModelConfig, tcfg: TrainConfig,
                        placement: SH.Placement) -> Tuple[TrainState, Dict]:
     """One step on this rank's blocks of the state (``shard_state``) and
     its block of the batch, the numbers of JAX's step under ``jit``
-    shardings. With ``shardings`` (``dist.sharding.shard_batch``'s) the
-    batch is the rank's block under the rules (rows over the batch axes,
-    the sequence over ``model``), whose sequence is all-gathered over
+    shardings. ``batch`` and ``shardings`` are ``dist.sharding.
+    shard_batch``'s: the rank's block under the rules (rows over the batch
+    axes, the sequence over ``model``), whose sequence is all-gathered over
     ``model`` first (``batch_rows``: the labels of a block's last position
-    are the next block's first tokens); without, the rank's data shard of
-    the batch, replicated over ``model``. The rank's loss is scaled by
+    are the next block's first tokens). The rank's loss is scaled by
     ``n_r / N`` (its token count over the batch's, all-reduced over the
     batch axes first), so the gradients the FSDP gathers reduce-scatter
     are the global batch's, weighted as ``reduce_data_parallel`` weighs
@@ -223,8 +222,7 @@ def sharded_train_step(state: TrainState, batch: Dict, shardings=None, *,
     (an MoE model's ``moe_aux``: data shard 0's, as JAX returns device
     0's), with the global norm over every rank's blocks."""
     pl = placement
-    if shardings is not None:
-        batch = SH.batch_rows(batch, shardings)
+    batch = SH.batch_rows(batch, shardings)
     nmb = max(1, tcfg.microbatches)
     _, mask = T.loss_labels(cfg, batch, state.opt.step.device)
     n = mask.sum()
@@ -274,9 +272,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, group=None,
     """The step function; with ``group`` (a data-parallel process group)
     the grads are reduced over it before AdamW; with ``mesh`` the state is
     sharded over it (``sharded_train_step``: pass ``shard_state``'s
-    blocks and the rank's block of the batch). ``params`` and ``specs``
-    (shapes suffice) place a model that ``init_model`` does not build, a
-    factorized one (``placement``)."""
+    blocks, then ``shard_batch``'s block of the batch and its shardings).
+    ``params`` and ``specs`` (shapes suffice) place a model that
+    ``init_model`` does not build, a factorized one (``placement``)."""
     if mesh is not None:
         if group is not None:
             raise ValueError("make_train_step: group or mesh, not both")

@@ -244,7 +244,8 @@ def job_train_moe(rank, inp):
 
 def _sharded_run(rank, mesh, case):
     """A sharded train step of ``case["cfg"]`` for each global batch of
-    ``case["batches"]`` (each rank taking its data shard), from the whole
+    ``case["batches"]`` (each rank taking its block under the rules,
+    ``shard_batch``), from the whole
     initial ``case["params"]``. Returns (what the test reads, the final
     blocks, their shardings)."""
     from repro_torch import pytree
@@ -263,15 +264,12 @@ def _sharded_run(rank, mesh, case):
            "metrics": []}
     step = TS.make_train_step(cfg, TS.TrainConfig(**case["tcfg"]),
                               mesh=mesh)
-    n, d = mesh.shape["data"], mesh.coord("data")
     seen, block = [], T._block_fwd
     T._block_fwd = lambda kind, c, p, x, *a, **k: (
         seen.append(x.shape[1]) or block(kind, c, p, x, *a, **k))
     try:
         for b in case["batches"]:
-            rows = next(iter(b.values())).shape[0] // n
-            blocks, m = step(blocks, {k: v[d * rows:(d + 1) * rows]
-                                      for k, v in b.items()})
+            blocks, m = step(blocks, *SH.shard_batch(b, mesh))
             res["metrics"].append({k: float(v) for k, v in m.items()})
     finally:
         T._block_fwd = block
